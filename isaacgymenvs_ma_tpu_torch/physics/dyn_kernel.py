@@ -1,0 +1,668 @@
+"""Batch-last dynamics chain: plain PyTorch twins and CUDA kernels B1-B3.
+
+Port of isaacgymenvs_ma_tpu/physics/dyn_kernel.py.  Every array at the
+kernel boundary is laid out ``(..., N)`` with the env batch minor, so on the
+card one thread owns one env and neighbouring threads read neighbouring
+addresses.  The static kinematic tree is baked into the kernels: the JAX
+code unrolls it in Python while tracing, the CUDA sources unroll it at
+compile time against a per-scene header of ``constexpr`` tables generated
+here from :class:`DynPlan` (:func:`scene_header`).
+
+Three kernels, each with a plain twin in this module and a dispatching
+wrapper that runs the twin for CPU tensors and launches the kernel for CUDA
+tensors (there is no fallback from one to the other):
+
+==========  ==============================  ==============================
+wrapper     CUDA source (csrc/)             replaces (TPU Pallas kernel)
+==========  ==============================  ==============================
+fk_motion   fk_motion.cu                    dyn_kernel.py:657 fk_motion_pallas
+dyn_forward dyn_forward.cu                  dyn_kernel.py:404 dyn_forward_pallas
+dyn_cached  dyn_cached.cu                   dyn_kernel.py:475 dyn_cached_pallas
+==========  ==============================  ==============================
+
+Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+import isaacgymenvs_ma_tpu.models.model as md
+
+from . import _build
+
+
+# ---------------------------------------------------------------------------
+# static tree plan
+
+
+class DynPlan:
+    """Static (numpy, build-time) model constants for the batch-last chain.
+
+    Built once per PhysicsEngine; holds everything the kernels bake in, so
+    the only runtime inputs are the per-env arrays."""
+
+    def __init__(self, engine):
+        m = engine.model
+        self.nb = int(m.nb)
+        self.nv = int(m.nv)
+        self.nq = int(m.nq)
+        self.parent = np.asarray(m.parent, np.int64)
+        # children-before-parents order for subtree (bottom-up) sums, derived
+        # from depth exactly as the JAX plan does (same float summation order)
+        self.bottom_up = sorted(range(self.nb), key=lambda b: -self._depth(b))
+        self.mass = np.asarray(m.mass, np.float32)                 # (nb,)
+        self.com = np.asarray(m.com, np.float32)                   # (nb, 3)
+        self.inertia = np.asarray(m.inertia, np.float32)           # (nb, 3, 3)
+        self.gravity = np.asarray(engine.params.gravity, np.float32)
+        self.grav_mask = np.asarray(engine.grav_mask_np, np.float32)
+        self.dof_body = np.asarray(m.dof_body, np.int64)           # (nv,)
+        self.body_dofs = [
+            [int(v) for v in range(self.nv) if self.dof_body[v] == b]
+            for b in range(self.nb)
+        ]
+        # CRBA pair mask (strict-ancestor + same-body upper triangle)
+        self.dof_anc = np.asarray(engine.dof_anc_np, bool)
+        self.fk = [self._fk_body(engine, b) for b in range(self.nb)]
+        self._consts = {}
+        self.libs = {}          # kernel name -> loaded ctypes library
+        self.build_log = {}     # kernel name -> nvcc/ptxas report
+
+    def _depth(self, b):
+        d = 0
+        while self.parent[b] != -1:
+            b = int(self.parent[b])
+            d += 1
+        return d
+
+    @staticmethod
+    def _fk_body(engine, b):
+        """Per-body FK constants, computed in float32 numpy exactly as
+        ``_fk_motion_bl`` of the JAX package does."""
+        m = engine.model
+        bp = np.asarray(m.body_pos[b], np.float32)
+        bq = np.asarray(m.body_quat[b], np.float32)
+        axis = np.asarray(m.jnt_axis[b], np.float32)
+        nrm = np.linalg.norm(axis)
+        axis_n = axis / nrm if nrm > 0 else axis
+        anchor = np.asarray(m.jnt_pos[b], np.float32)
+        return dict(
+            type=int(m.jnt_type[b]), qa=int(m.q_adr[b]), va=int(m.v_adr[b]),
+            parent=int(m.parent[b]), bp=bp, bq=bq, axis=axis_n, anchor=anchor,
+            tl0=(bp + _np_qapply(bq, anchor)).astype(np.float32),
+            awb=_np_qapply(bq, axis_n).astype(np.float32),
+            pitch=float(engine.jnt_pitch_np[b]) / (2.0 * np.pi))
+
+    def consts(self, device):
+        """Model-constant tensors of the twins, cached per device."""
+        key = str(device)
+        if key not in self._consts:
+            a0 = np.concatenate(
+                [np.zeros(3, np.float32), -self.gravity]).astype(np.float32)
+            c = {
+                "inertia": self.inertia,                              # (nb,3,3)
+                "mass": self.mass[:, None],                           # (nb, 1)
+                "com": self.com,                                      # (nb, 3)
+                "a0": a0[None, :] * self.grav_mask[:, None],          # (nb, 6)
+                "anc": self.dof_anc.astype(np.float32),               # (nv,nv)
+                "anc_t": self.dof_anc.T.astype(np.float32),
+            }
+            self._consts[key] = {
+                k: torch.as_tensor(np.ascontiguousarray(v, np.float32),
+                                   device=device)
+                for k, v in c.items()}
+        return self._consts[key]
+
+
+def get_plan(engine) -> DynPlan:
+    """Per-engine kernel plan, stored on the engine."""
+    plan = getattr(engine, "_dyn_plan", None)
+    if plan is None:
+        plan = DynPlan(engine)
+        engine._dyn_plan = plan
+    return plan
+
+
+def _np_qapply(q, v):
+    """numpy xyzw quat rotate (build-time constants)."""
+    q = np.asarray(q, np.float32)
+    v = np.asarray(v, np.float32)
+    t = 2.0 * np.cross(q[:3], v)
+    return v + q[3] * t + np.cross(q[:3], t)
+
+
+# ---------------------------------------------------------------------------
+# batch-last math helpers (arrays are (..., B); components unrolled)
+
+
+def _cross_bl(a, b):
+    """Cross product of (..., 3, B) stacks along axis -2."""
+    a0, a1, a2 = a[..., 0, :], a[..., 1, :], a[..., 2, :]
+    b0, b1, b2 = b[..., 0, :], b[..., 1, :], b[..., 2, :]
+    return torch.stack(
+        [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], dim=-2)
+
+
+def _cross_motion_bl(a, b):
+    """Spatial motion cross product on (..., 6, B) [ang, lin] stacks."""
+    aw, av = a[..., :3, :], a[..., 3:, :]
+    bw, bv = b[..., :3, :], b[..., 3:, :]
+    return torch.cat(
+        [_cross_bl(aw, bw), _cross_bl(aw, bv) + _cross_bl(av, bw)], dim=-2)
+
+
+def _cross_force_bl(v, f):
+    """Spatial force cross product v x* f on (..., 6, B) stacks."""
+    w, vl = v[..., :3, :], v[..., 3:, :]
+    n, fl = f[..., :3, :], f[..., 3:, :]
+    return torch.cat(
+        [_cross_bl(w, n) + _cross_bl(vl, fl), _cross_bl(w, fl)], dim=-2)
+
+
+def _quat_rotmat_bl(q):
+    """(nb, 4, B) xyzw quaternions -> (nb, 3, 3, B) rotation matrices."""
+    x, y, z, w = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    one = torch.ones_like(x)
+    rows = [
+        [one - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)],
+        [2 * (xy + wz), one - 2 * (xx + zz), 2 * (yz - wx)],
+        [2 * (xz - wy), 2 * (yz + wx), one - 2 * (xx + yy)],
+    ]
+    return torch.stack([torch.stack(r, dim=1) for r in rows], dim=1)
+
+
+def _mm3_bl(A, B):
+    """(..., 3, 3, B) @ (..., 3, 3, B) with a size-3 contraction."""
+    return (A[..., :, 0:1, :] * B[..., 0:1, :, :]
+            + A[..., :, 1:2, :] * B[..., 1:2, :, :]
+            + A[..., :, 2:3, :] * B[..., 2:3, :, :])
+
+
+def _mm3_nt_bl(A, B):
+    """A @ B^T on (..., 3, 3, B) stacks."""
+    return torch.sum(A[..., :, None, :, :] * B[..., None, :, :, :], dim=-2)
+
+
+def _matvec_bl(A, x):
+    """(..., m, n, B) @ (..., n, B) -> (..., m, B)."""
+    return torch.sum(A * x[..., None, :, :], dim=-2)
+
+
+def _skew_bl(v):
+    """(..., 3, B) -> (..., 3, 3, B) skew matrices."""
+    z = torch.zeros_like(v[..., 0, :])
+    v0, v1, v2 = v[..., 0, :], v[..., 1, :], v[..., 2, :]
+    return torch.stack([
+        torch.stack([z, -v2, v1], dim=-2),
+        torch.stack([v2, z, -v0], dim=-2),
+        torch.stack([-v1, v0, z], dim=-2),
+    ], dim=-3)
+
+
+def _eye_bl(n, like):
+    """(n, n, 1) identity."""
+    return torch.eye(n, dtype=like.dtype, device=like.device)[..., None]
+
+
+def _subtree_sum(plan: DynPlan, per_body):
+    """Bottom-up subtree sums of a list of per-body arrays."""
+    acc = list(per_body)
+    for b in plan.bottom_up:
+        p = int(plan.parent[b])
+        if p >= 0:
+            acc[p] = acc[p] + acc[b]
+    return acc
+
+
+def _path_sum(plan: DynPlan, per_body):
+    """Top-down root-to-body path sums of a list of per-body arrays."""
+    acc = list(per_body)
+    for b in reversed(plan.bottom_up):          # parents before children
+        p = int(plan.parent[b])
+        if p >= 0:
+            acc[b] = acc[b] + acc[p]
+    return acc
+
+
+def sweep_inverse_bl(M: torch.Tensor) -> torch.Tensor:
+    """Gauss-Jordan sweep inverse on a batch-last stack ``M (n, n, B)``
+    (port of engine.py:212-234 ``_sweep_inverse_batchlast``).
+
+    No pivoting: mass matrices are SPD, so diagonal pivots never vanish."""
+    n = M.shape[0]
+    idx = torch.arange(n, device=M.device)
+    i_n1 = idx[:, None]
+    i_1n1 = idx[None, :, None]
+    i_n11 = idx[:, None, None]
+    for k in range(n):
+        mk = i_n1 == k
+        inv_d = 1.0 / M[k, k]
+        row = M[k] * inv_d                              # (n, B)
+        col = torch.where(mk, 0.0, M[:, k])             # (n, B), row k zeroed
+        M = M - col[:, None, :] * row[None, :, :]
+        new_col = torch.where(mk, inv_d, -col * inv_d)
+        new_row = torch.where(mk, inv_d, row)
+        M = torch.where(i_1n1 == k, new_col[:, None, :], M)
+        M = torch.where(i_n11 == k, new_row[None, :, :], M)
+    return M
+
+
+# ---------------------------------------------------------------------------
+# chain pieces (twins of the B2/B3 kernel bodies)
+
+
+def spatial_inertia_bl(plan: DynPlan, consts, body_x, body_q,
+                       mass_scale=None, shape_scale=None):
+    """World spatial inertia about the origin: (nb, 6, 6, B) batch-last,
+    with optional per-env mass (nb, B) and shape (nb, 3, B) scales."""
+    B = body_x.shape[-1]
+    R = _quat_rotmat_bl(body_q)                                 # (nb, 3, 3, B)
+    I_loc = consts["inertia"][..., None].expand(plan.nb, 3, 3, B)
+    m = consts["mass"].expand(plan.nb, B)
+    com = consts["com"][..., None].expand(plan.nb, 3, B)
+    eye3 = _eye_bl(3, body_x)[None]                             # (1, 3, 3, 1)
+    if shape_scale is not None:                                 # (nb, 3, B)
+        s = shape_scale
+        svol = (s[:, 0] * s[:, 1] * s[:, 2])[:, None, None, :]  # (nb,1,1,B)
+        tr = (I_loc[:, 0, 0] + I_loc[:, 1, 1] + I_loc[:, 2, 2])[:, None, None, :]
+        Cm = 0.5 * tr * eye3 - I_loc
+        Cm = svol * (s[:, :, None, :] * Cm * s[:, None, :, :])
+        trc = (Cm[:, 0, 0] + Cm[:, 1, 1] + Cm[:, 2, 2])[:, None, None, :]
+        I_loc = trc * eye3 - Cm
+        m = m * svol[:, 0, 0, :]
+        com = com * s
+    Ic = _mm3_nt_bl(_mm3_bl(R, I_loc), R)
+    c = body_x + _matvec_bl(R, com)                             # world com
+    if mass_scale is not None:                                  # (nb, B)
+        m = m * mass_scale
+        Ic = Ic * mass_scale[:, None, None, :]
+    cx = _skew_bl(c)
+    m4 = m[:, None, None, :]
+    mcx = m4 * cx
+    top_left = Ic - m4 * _mm3_bl(cx, cx)
+    return torch.cat([
+        torch.cat([top_left, mcx], dim=2),
+        torch.cat([-mcx, m4 * eye3.expand(cx.shape)], dim=2),
+    ], dim=1)                                                   # (nb, 6, 6, B)
+
+
+def mass_matrix_bl(plan: DynPlan, consts, S, I_O):
+    """CRBA on batch-last arrays: S (nv, 6, B), I_O (nb, 6, 6, B) -> (nv,nv,B).
+
+    The composite inertia is the subtree sum at the descendant dof's body;
+    the pair mask counts each (ancestor, descendant) pair once."""
+    Icomp = _subtree_sum(plan, [I_O[b] for b in range(plan.nb)])
+    F = torch.stack(
+        [_matvec_bl(Icomp[int(plan.dof_body[v])], S[v])
+         for v in range(plan.nv)], dim=0)                       # (nv, 6, B)
+    G = sum(S[:, k, :][:, None, :] * F[:, k, :][None, :, :] for k in range(6))
+    Gt = sum(F[:, k, :][:, None, :] * S[:, k, :][None, :, :] for k in range(6))
+    upper = G * consts["anc"][:, :, None]
+    lower = Gt * consts["anc_t"][:, :, None]
+    eye = _eye_bl(plan.nv, S)
+    diag = torch.sum(upper * eye, dim=1, keepdim=True)          # (nv, 1, B)
+    return upper + lower - eye * diag
+
+
+def body_velocities_bl(plan: DynPlan, S, qd):
+    """Per-body spatial velocity (list of (6, B)) via root-to-body path sums."""
+    Sqd = S * qd[:, None, :]                                    # (nv, 6, B)
+    zero = torch.zeros_like(S[0])
+    own = [sum((Sqd[v] for v in plan.body_dofs[b]), zero)
+           for b in range(plan.nb)]
+    return _path_sum(plan, own), Sqd
+
+
+def bias_force_bl(plan: DynPlan, consts, S, qd, I_O, fg=None):
+    """RNEA bias force C (nv, B).
+
+    ``fg``: fresh per-body gravity wrench (nb, 6, B) — given on the cached
+    (mass-matrix reuse) path, where gravity through the stale I_O would
+    torque every translating floating base by |g|*h*v per substep."""
+    V_body, Sqd = body_velocities_bl(plan, S, qd)
+    a0 = consts["a0"][..., None]                                # (nb, 6, 1)
+    xi_dof = [_cross_motion_bl(V_body[int(plan.dof_body[v])], Sqd[v])
+              for v in range(plan.nv)]
+    zero = torch.zeros_like(S[0])
+    xi_body = [sum((xi_dof[v] for v in plan.body_dofs[b]), zero)
+               for b in range(plan.nb)]
+    a_cum = _path_sum(plan, xi_body)
+    fb = []
+    for b in range(plan.nb):
+        a_b = a_cum[b] if fg is not None else a0[b] + a_cum[b]
+        Iv = _matvec_bl(I_O[b], V_body[b])
+        f_b = _matvec_bl(I_O[b], a_b) + _cross_force_bl(V_body[b], Iv)
+        if fg is not None:
+            f_b = f_b + fg[b]
+        fb.append(f_b)
+    f_comp = _subtree_sum(plan, fb)
+    return torch.stack(
+        [torch.sum(S[v] * f_comp[int(plan.dof_body[v])], dim=0)
+         for v in range(plan.nv)], dim=0)                       # (nv, B)
+
+
+def dyn_full_bl(plan: DynPlan, consts, body_x, body_q, S, qd, rhs, diag,
+                mass_scale=None, shape_scale=None):
+    """Full chain (twin of B2): returns (qdd, Hinv, I_O) batch-last.
+
+    rhs is the generalized force *without* the bias term; diag is the
+    implicit-drive diagonal."""
+    I_O = spatial_inertia_bl(plan, consts, body_x, body_q,
+                             mass_scale, shape_scale)
+    M = mass_matrix_bl(plan, consts, S, I_O)
+    H = M + _eye_bl(plan.nv, S) * diag[:, None, :]
+    Hinv = sweep_inverse_bl(H)
+    C = bias_force_bl(plan, consts, S, qd, I_O)
+    qdd = _matvec_bl(Hinv, rhs - C)
+    return qdd, Hinv, I_O
+
+
+def dyn_cached_bl(plan: DynPlan, consts, S, qd, rhs, I_O, Hinv, fg):
+    """Cached chain (twin of B3): reuse (I_O, Hinv) from an earlier substep;
+    the velocity-dependent bias refreshes and gravity comes through the
+    fresh wrench ``fg``."""
+    C = bias_force_bl(plan, consts, S, qd, I_O, fg=fg)
+    return _matvec_bl(Hinv, rhs - C)
+
+
+# ---------------------------------------------------------------------------
+# FK + motion subspace (twin of B1)
+
+
+def _qmul_cf(a, b):
+    """Hamilton product, xyzw, components-first layout (4, B)."""
+    ax, ay, az, aw = a[0], a[1], a[2], a[3]
+    bx, by, bz, bw = b[0], b[1], b[2], b[3]
+    return torch.stack([
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+        aw * bw - ax * bx - ay * by - az * bz])
+
+
+def _qapply_cf(q, v):
+    """Rotate (3, B) vectors by (4, B) quats."""
+    qx, qy, qz, qw = q[0], q[1], q[2], q[3]
+    vx, vy, vz = v[0], v[1], v[2]
+    tx = 2.0 * (qy * vz - qz * vy)
+    ty = 2.0 * (qz * vx - qx * vz)
+    tz = 2.0 * (qx * vy - qy * vx)
+    return torch.stack([
+        vx + qw * tx + qy * tz - qz * ty,
+        vy + qw * ty + qz * tx - qx * tz,
+        vz + qw * tz + qx * ty - qy * tx])
+
+
+def _cross_cf(a, b):
+    return torch.stack([
+        a[1] * b[2] - a[2] * b[1],
+        a[2] * b[0] - a[0] * b[2],
+        a[0] * b[1] - a[1] * b[0]])
+
+
+def _fk_motion_bl(plan: DynPlan, qv):
+    """FK + S on batch-last (nq, B) coords -> ((nb,3,B), (nb,4,B), (nv,6,B))."""
+    B = qv.shape[-1]
+    cst = lambda v: torch.as_tensor(  # noqa: E731
+        np.asarray(v, np.float32), device=qv.device)[:, None].expand(len(v), B)
+    zero3 = torch.zeros((3, B), dtype=qv.dtype, device=qv.device)
+    xs, qs, cols = [], [], []
+    for b in range(plan.nb):
+        c = plan.fk[b]
+        t, qa = c["type"], c["qa"]
+        if c["parent"] == -1:
+            xp, qp = zero3, cst([0.0, 0.0, 0.0, 1.0])
+        else:
+            xp, qp = xs[c["parent"]], qs[c["parent"]]
+        if t == md.FREE:
+            xb = qv[qa: qa + 3]
+            qb = qv[qa + 3: qa + 7]
+        elif t in (md.HINGE, md.SCREW):
+            half = 0.5 * qv[qa]
+            s, co = torch.sin(half), torch.cos(half)
+            ax = c["axis"]
+            qj = torch.stack([float(ax[0]) * s, float(ax[1]) * s,
+                              float(ax[2]) * s, co])
+            ql = _qmul_cf(cst(c["bq"]), qj)
+            tl = cst(c["tl0"]) - _qapply_cf(ql, cst(c["anchor"]))
+            if t == md.SCREW:
+                tl = tl + cst(c["awb"]) * (c["pitch"] * qv[qa])[None]
+            xb = xp + _qapply_cf(qp, tl)
+            qb = _qmul_cf(qp, ql)
+        elif t == md.SLIDE:
+            tl = cst(c["bp"]) + cst(c["awb"]) * qv[qa][None]
+            xb = xp + _qapply_cf(qp, tl)
+            qb = _qmul_cf(qp, cst(c["bq"]))
+        else:  # FIXED
+            xb = xp + _qapply_cf(qp, cst(c["bp"]))
+            qb = _qmul_cf(qp, cst(c["bq"]))
+        xs.append(xb)
+        qs.append(qb)
+        # motion-subspace columns (about the world origin, [ang; lin])
+        if t == md.FREE:
+            e = np.eye(3, dtype=np.float32)
+            for i in range(3):
+                cols.append(torch.cat([zero3, cst(e[i])]))
+            for i in range(3):
+                ei = cst(e[i])
+                cols.append(torch.cat([ei, _cross_cf(xb, ei)]))
+        elif t in (md.HINGE, md.SCREW, md.SLIDE):
+            a_w = _qapply_cf(qb, cst(c["axis"]))
+            if t == md.SLIDE:
+                cols.append(torch.cat([zero3, a_w]))
+            else:
+                anch_w = xb + _qapply_cf(qb, cst(c["anchor"]))
+                lin = _cross_cf(anch_w, a_w)
+                if t == md.SCREW:
+                    lin = lin + c["pitch"] * a_w
+                cols.append(torch.cat([a_w, lin]))
+    return torch.stack(xs), torch.stack(qs), torch.stack(cols)
+
+
+# ---------------------------------------------------------------------------
+# per-scene CUDA header
+
+
+def _c_list(values, fmt):
+    return "{" + ", ".join(fmt(v) for v in values) + "}"
+
+
+def _c_float(x) -> str:
+    return "%.9ef" % float(np.float32(x))
+
+
+def scene_header(plan: DynPlan) -> str:
+    """C++ header baking the static tree into the CUDA kernels.
+
+    Each table is a ``constexpr`` array local to a ``__device__`` accessor
+    (nvcc does not let device code index namespace-scope constexpr arrays);
+    the kernels call the accessors inside fully unrolled loops, so every
+    index is a compile-time constant and each lookup folds to an
+    immediate."""
+    nb, nv = plan.nb, plan.nv
+    fk = plan.fk
+    a0 = np.concatenate([np.zeros(3, np.float32), -plan.gravity])
+    a0 = (a0[None, :] * plan.grav_mask[:, None]).astype(np.float32)
+    ndof = [len(plan.body_dofs[b]) for b in range(nb)]
+    ints = {
+        "parent": [c["parent"] for c in fk],
+        "jtype": [c["type"] for c in fk],
+        "qadr": [c["qa"] for c in fk],
+        "vadr": [c["va"] for c in fk],
+        "ndof": ndof,
+        "bottom_up": list(plan.bottom_up),
+    }
+    floats = {
+        "pitch": [c["pitch"] for c in fk],
+        "mass": list(plan.mass),
+    }
+    vecs = {  # name -> (nb, k) table, accessed as name(b, k)
+        "body_pos": np.stack([c["bp"] for c in fk]),
+        "body_quat": np.stack([c["bq"] for c in fk]),
+        "axis": np.stack([c["axis"] for c in fk]),
+        "anchor": np.stack([c["anchor"] for c in fk]),
+        "tl0": np.stack([c["tl0"] for c in fk]),
+        "awb": np.stack([c["awb"] for c in fk]),
+        "com": plan.com,
+        "inertia": plan.inertia.reshape(nb, 9),
+        "a0": a0,
+    }
+    lines = [
+        "// Generated by isaacgymenvs_ma_tpu_torch.physics.dyn_kernel."
+        "scene_header: do not edit.",
+        "#pragma once",
+        "namespace scene {",
+        f"constexpr int NB = {nb};",
+        f"constexpr int NV = {nv};",
+        f"constexpr int NQ = {plan.nq};",
+        f"constexpr int FREE = {md.FREE}, HINGE = {md.HINGE}, "
+        f"SLIDE = {md.SLIDE}, FIXED = {md.FIXED}, SCREW = {md.SCREW};",
+    ]
+    for name, vals in ints.items():
+        lines.append(
+            f"__device__ __forceinline__ int {name}(int i) {{ "
+            f"constexpr int t[{len(vals)}] = {_c_list(vals, str)}; "
+            "return t[i]; }")
+    lines.append(
+        "__device__ __forceinline__ int dof_body(int v) { "
+        f"constexpr int t[{nv}] = {_c_list(plan.dof_body.tolist(), str)}; "
+        "return t[v]; }")
+    anc = plan.dof_anc.astype(int).reshape(-1).tolist()
+    lines.append(
+        "__device__ __forceinline__ bool anc(int i, int j) { "
+        f"constexpr bool t[{nv * nv}] = "
+        f"{_c_list(anc, lambda v: 'true' if v else 'false')}; "
+        f"return t[i * {nv} + j]; }}")
+    for name, vals in floats.items():
+        lines.append(
+            f"__device__ __forceinline__ float {name}(int i) {{ "
+            f"constexpr float t[{len(vals)}] = {_c_list(vals, _c_float)}; "
+            "return t[i]; }")
+    for name, tab in vecs.items():
+        k = tab.shape[1]
+        lines.append(
+            f"__device__ __forceinline__ float {name}(int b, int k) {{ "
+            f"constexpr float t[{nb * k}] = "
+            f"{_c_list(np.asarray(tab, np.float32).reshape(-1), _c_float)}; "
+            f"return t[b * {k} + k]; }}")
+    lines += ["}  // namespace scene", ""]
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# dispatching wrappers
+
+
+def _on_cpu(*tensors) -> bool:
+    """True when every tensor lies on the CPU, False when every one lies on
+    a CUDA device; anything else raises (no silent fallback)."""
+    types = {t.device.type for t in tensors if t is not None}
+    if types == {"cpu"}:
+        return True
+    if types == {"cuda"}:
+        return False
+    raise ValueError(f"tensors on unsupported/mixed devices: {sorted(types)}")
+
+
+def _check_kernel_input(name, t, shape):
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def _ptr(t):
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _launch(plan, name, device, *args):
+    """Launch on ``device``'s current PyTorch stream; raise on a CUDA error."""
+    lib = _build.load(plan, name)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    err = getattr(lib, name + "_launch")(ctypes.c_int(device.index), *args,
+                                         stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def fk_motion(plan: DynPlan, q_bl: torch.Tensor):
+    """B1. q (nq, N) -> body_x (nb, 3, N), body_q (nb, 4, N), S (nv, 6, N),
+    all batch-last.  CPU: plain twin; CUDA: ``csrc/fk_motion.cu``."""
+    if _on_cpu(q_bl):
+        return _fk_motion_bl(plan, q_bl)
+    N = q_bl.shape[-1]
+    _check_kernel_input("q", q_bl, (plan.nq, N))
+    kw = dict(dtype=torch.float32, device=q_bl.device)
+    bx = torch.empty((plan.nb, 3, N), **kw)
+    bq = torch.empty((plan.nb, 4, N), **kw)
+    S = torch.empty((plan.nv, 6, N), **kw)
+    _launch(plan, "fk_motion", q_bl.device, _ptr(q_bl), _ptr(bx), _ptr(bq), _ptr(S),
+            ctypes.c_int(N))
+    fk_motion.launches += 1
+    return bx, bq, S
+
+
+def dyn_forward(plan: DynPlan, body_x, body_q, S, qd, rhs, diag,
+                mass_scale=None, shape_scale=None):
+    """B2. Batch-last inputs body_x (nb,3,N), body_q (nb,4,N), S (nv,6,N),
+    qd/rhs/diag (nv,N), optional mass_scale (nb,N) and shape_scale (nb,3,N)
+    -> (qdd (nv,N), Hinv (nv,nv,N), I_O (nb,6,6,N)).
+    CPU: plain twin; CUDA: ``csrc/dyn_forward.cu``."""
+    if _on_cpu(body_x, body_q, S, qd, rhs, diag, mass_scale, shape_scale):
+        return dyn_full_bl(plan, plan.consts(qd.device), body_x, body_q, S,
+                           qd, rhs, diag, mass_scale, shape_scale)
+    N = qd.shape[-1]
+    nb, nv = plan.nb, plan.nv
+    for name, t, shape in (("body_x", body_x, (nb, 3, N)),
+                           ("body_q", body_q, (nb, 4, N)),
+                           ("S", S, (nv, 6, N)), ("qd", qd, (nv, N)),
+                           ("rhs", rhs, (nv, N)), ("diag", diag, (nv, N)),
+                           ("mass_scale", mass_scale, (nb, N)),
+                           ("shape_scale", shape_scale, (nb, 3, N))):
+        if t is not None:
+            _check_kernel_input(name, t, shape)
+    kw = dict(dtype=torch.float32, device=qd.device)
+    qdd = torch.empty((nv, N), **kw)
+    hinv = torch.empty((nv, nv, N), **kw)
+    io = torch.empty((nb, 6, 6, N), **kw)
+    _launch(plan, "dyn_forward", qd.device, _ptr(body_x), _ptr(body_q), _ptr(S),
+            _ptr(qd), _ptr(rhs), _ptr(diag), _ptr(mass_scale),
+            _ptr(shape_scale), _ptr(qdd), _ptr(hinv), _ptr(io),
+            ctypes.c_int(N))
+    dyn_forward.launches += 1
+    return qdd, hinv, io
+
+
+def dyn_cached(plan: DynPlan, S, qd, rhs, I_O, Hinv, fg):
+    """B3. Batch-last S (nv,6,N), qd/rhs (nv,N), cached I_O (nb,6,6,N) and
+    Hinv (nv,nv,N), fresh gravity wrench fg (nb,6,N) -> qdd (nv,N).
+    CPU: plain twin; CUDA: ``csrc/dyn_cached.cu``."""
+    if _on_cpu(S, qd, rhs, I_O, Hinv, fg):
+        return dyn_cached_bl(plan, plan.consts(qd.device), S, qd, rhs, I_O,
+                             Hinv, fg)
+    N = qd.shape[-1]
+    nb, nv = plan.nb, plan.nv
+    for name, t, shape in (("S", S, (nv, 6, N)), ("qd", qd, (nv, N)),
+                           ("rhs", rhs, (nv, N)), ("I_O", I_O, (nb, 6, 6, N)),
+                           ("Hinv", Hinv, (nv, nv, N)), ("fg", fg, (nb, 6, N))):
+        _check_kernel_input(name, t, shape)
+    qdd = torch.empty((nv, N), dtype=torch.float32, device=qd.device)
+    _launch(plan, "dyn_cached", qd.device, _ptr(S), _ptr(qd), _ptr(rhs), _ptr(I_O),
+            _ptr(Hinv), _ptr(fg), _ptr(qdd), ctypes.c_int(N))
+    dyn_cached.launches += 1
+    return qdd
+
+
+fk_motion.launches = 0
+dyn_forward.launches = 0
+dyn_cached.launches = 0
+
+KERNEL_WRAPPERS = (fk_motion, dyn_forward, dyn_cached)

@@ -1,0 +1,830 @@
+"""Batched reduced-coordinate rigid-body engine (port of
+isaacgymenvs_ma_tpu/physics/engine.py).
+
+Same model as the JAX engine: world-frame joint-space dynamics, implicit
+drives folded into the mass-matrix diagonal, a velocity-level projected-
+Jacobi contact solve over a static candidate set.  The per-substep
+kinematics and dynamics chain run through the dispatching wrappers of
+:mod:`.dyn_kernel` — CUDA kernels B1-B3 for CUDA tensors, their plain twins
+for CPU tensors — exactly where the JAX engine runs its Pallas kernels
+(engine.py:802-803, :938-949).
+
+Ported so far: what the Ant step runs (ground contact rows, joint limits,
+effort and PD actuation, mass-matrix reuse).  Every feature the JAX engine
+has beyond that raises ``NotImplementedError`` when a model or config asks
+for it, instead of computing something else.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from isaacgymenvs_ma_tpu.models import model as md
+
+from ..device import DTYPE, apply_precision_policy, resolve_device
+from ..ops import maths
+from . import dyn_kernel as dk
+
+
+class SimParams(NamedTuple):
+    """Mirror of the JAX engine's SimParams (engine.py:69-163); see there
+    for what each field means."""
+
+    dt: float = 1.0 / 60.0
+    substeps: int = 2
+    gravity: tuple = (0.0, 0.0, -9.81)
+    num_iterations: int = 8
+    relaxation: float = 0.35
+    baumgarte: float = 0.2
+    contact_slop: float = 0.001
+    max_depenetration_velocity: float = 10.0
+    contact_margin: float = 0.0
+    terrain_normal_frames: bool = False
+    plane_friction: float = 1.0
+    plane_restitution: float = 0.0
+    bounce_threshold_velocity: float = 0.2
+    reuse_mass_matrix: bool = True
+    use_contact_kernel: bool = False
+    mass_splitting: bool = False
+    solver_rows_bf16: Optional[bool] = None
+    contact_capacity: Optional[int] = None
+    reuse_contact_rows: bool = False
+    contact_continuation: bool = True
+    warm_start: float = 0.0
+
+
+class Control(NamedTuple):
+    """Per-step actuation inputs: ``tau`` (N, nv) dof effort.  PD targets,
+    ``f_ext`` and ``grab_active`` are not ported yet (they raise)."""
+
+    tau: torch.Tensor
+    pos_target: Optional[torch.Tensor] = None
+    vel_target: Optional[torch.Tensor] = None
+    f_ext: Optional[torch.Tensor] = None
+    grab_active: Optional[torch.Tensor] = None
+
+
+class SimState(NamedTuple):
+    q: torch.Tensor    # (N, nq)
+    qd: torch.Tensor   # (N, nv)
+    lam: Any = None    # warm-start impulses (not ported: always None)
+
+
+class SimOutput(NamedTuple):
+    """Derived per-step readouts (the refresh_* tensor family)."""
+
+    body_pos: torch.Tensor        # (N, nb, 3)
+    body_quat: torch.Tensor       # (N, nb, 4)
+    body_vel: torch.Tensor        # (N, nb, 6) [linvel at body origin, angvel]
+    root_states: torch.Tensor     # (N, num_actors, 13)
+    contact_force: torch.Tensor   # (N, nb, 3) net contact force (world)
+    sensor_forces: torch.Tensor   # (N, n_sensors, 6) [force, torque] body frame
+    qdd: torch.Tensor             # (N, nv) smooth accelerations (pre-contact)
+    dof_force: torch.Tensor       # (N, nv) applied + constraint force
+
+
+def _cross(a, b):
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def _unsupported(what: str):
+    raise NotImplementedError(
+        f"{what} is not ported to isaacgymenvs_ma_tpu_torch yet "
+        "(see ROADMAP.md)")
+
+
+def _check_supported(model, params: SimParams, ground, pair_specs, attractors,
+                     grabs, n_rows: int):
+    """Reject every engine feature the port does not implement yet."""
+    if pair_specs:
+        _unsupported("body-pair contact rows (pair_specs)")
+    if attractors:
+        _unsupported("rigid-body attractors")
+    if grabs:
+        _unsupported("grab constraints")
+    if not (ground and n_rows):
+        _unsupported("a scene without ground contact rows (_limit_solve)")
+    if params.use_contact_kernel:
+        _unsupported("the fused contact kernel (use_contact_kernel, B4)")
+    if params.warm_start > 0:
+        _unsupported("contact warm start (warm_start > 0)")
+    if params.contact_capacity is not None:
+        _unsupported("active-set compaction (contact_capacity)")
+    if params.reuse_contact_rows:
+        _unsupported("contact-row reuse (reuse_contact_rows)")
+    if params.mass_splitting:
+        _unsupported("Jacobi mass splitting (mass_splitting)")
+    if params.plane_restitution != 0.0:
+        _unsupported("restitution")
+    rows_bf16 = params.solver_rows_bf16
+    if rows_bf16 is None:
+        rows_bf16 = n_rows * int(model.nv) >= 1024
+    if rows_bf16:
+        _unsupported("bfloat16 solver rows (solver_rows_bf16)")
+    for name in ("body_lin_damping", "body_ang_damping", "dof_friction"):
+        v = np.asarray(getattr(model, name, np.zeros(0)))
+        if v.size and v.any():
+            _unsupported(f"model field {name}")
+    for b in range(model.nb):
+        if int(model.jnt_type[b]) in (md.HINGE, md.SLIDE, md.SCREW):
+            nrm = float(np.linalg.norm(np.asarray(model.jnt_axis[b])))
+            if abs(nrm - 1.0) > 1e-5:
+                # the two JAX FK paths agree only for unit axes (ROADMAP C2)
+                raise ValueError(
+                    f"joint axis of body {b} has norm {nrm}: unit axes "
+                    "are required")
+
+
+class PhysicsEngine:
+    """Physics stepper for one scene replicated over N envs on ``device``."""
+
+    def __init__(self, model: md.SceneModel, params: SimParams,
+                 ground: bool = True, pair_specs=None, attractors=None,
+                 grabs=None, device="cpu"):
+        apply_precision_policy()
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = params
+        self.ground = ground
+        m = model
+        dev = self.device
+        f32 = lambda x: torch.as_tensor(  # noqa: E731
+            np.asarray(x, np.float32), device=dev)
+
+        self.nb, self.nq, self.nv = int(m.nb), int(m.nq), int(m.nv)
+        self.parent = np.asarray(m.parent)
+        self.jnt_type_np = np.asarray(m.jnt_type)
+        self.q_adr = np.asarray(m.q_adr)
+        self.v_adr = np.asarray(m.v_adr)
+        self.jnt_pitch_np = (np.asarray(m.jnt_pitch)
+                             if len(m.jnt_pitch) == m.nb else np.zeros(m.nb))
+        self.grav_mask_np = (np.asarray(m.body_gravity, np.float32)
+                             if len(getattr(m, "body_gravity", [])) == m.nb
+                             else np.ones(m.nb, np.float32))
+
+        self.body_pos = f32(m.body_pos)
+        self.body_quat = f32(m.body_quat)
+        self.jnt_axis = f32(m.jnt_axis)
+        self.jnt_pos = f32(m.jnt_pos)
+        self.grav_mask = f32(self.grav_mask_np)
+        self.mass = f32(m.mass)
+        self.com = f32(m.com)
+        self.inertia = f32(m.inertia)
+        self.dof_damping = f32(m.dof_damping)
+        self.dof_spring = f32(m.dof_spring)
+        self.dof_armature = f32(m.dof_armature)
+        self.dof_lower = f32(m.dof_lower)
+        self.dof_upper = f32(m.dof_upper)
+        self.dof_has_limit = torch.as_tensor(
+            np.asarray(m.dof_has_limit, bool), device=dev)
+        self.dof_effort_limit = f32(m.dof_effort_limit)
+        self.dof_velocity_limit = f32(m.dof_velocity_limit)
+        drive_mode = np.asarray(m.dof_drive_mode)
+        self.kp_drive = f32(np.where(drive_mode == md.DRIVE_POS,
+                                     m.dof_stiffness, 0.0))
+        self.kd_drive = f32(np.where(drive_mode != md.DRIVE_NONE,
+                                     m.dof_drive_damping, 0.0))
+
+        # structure masks
+        self.dof_body_mask_f = f32(m.dof_body_mask)       # (nv, nb)
+        dof_body_np = np.asarray(m.dof_body)
+        same_body = dof_body_np[:, None] == dof_body_np[None, :]
+        iu = np.arange(m.nv)
+        upper_tri = iu[:, None] <= iu[None, :]
+        anc = np.asarray(m.dof_ancestor)
+        # CRBA mask: each (i, j) pair once (strict ancestor, or same body
+        # with i <= j)
+        self.dof_anc_np = (anc & ~same_body) | (same_body & upper_tri)
+        self.dof_anc = torch.as_tensor(self.dof_anc_np, device=dev)
+        eye_nb = np.eye(m.nb, dtype=np.float32)
+        self.oh_dof_body = f32(eye_nb[dof_body_np])       # (nv, nb)
+        self.dof_comp = f32(eye_nb[dof_body_np] @ np.asarray(
+            m.body_ancestor, np.float32))                # (nv, nb)
+
+        # scalar joint coordinates (hinge/slide/screw)
+        dof_qid = np.full(m.nv, -1, np.int64)
+        for b in range(m.nb):
+            if int(m.jnt_type[b]) in (md.HINGE, md.SLIDE, md.SCREW):
+                dof_qid[m.v_adr[b]] = m.q_adr[b]
+        self.scalar_dofs = np.nonzero(dof_qid >= 0)[0]
+        self.scalar_qids = dof_qid[self.scalar_dofs]
+        q2d = np.zeros((m.nv, m.nq), np.float32)
+        for d, qid in zip(self.scalar_dofs, self.scalar_qids):
+            q2d[d, qid] = 1.0
+        self.q_to_dof = f32(q2d)                          # (nv, nq)
+
+        self._build_contact_set(m, ground)
+        _check_supported(m, params, ground, pair_specs, attractors, grabs,
+                         self.n_ground if ground else 0)
+        self.gravity = f32(params.gravity)
+        self.h = params.dt / params.substeps
+        self.plan = dk.get_plan(self)
+
+    def _build_contact_set(self, m, ground):
+        """Ground contact candidates (engine.py:415-470) and the static
+        row/sensor attribution the readouts use (engine.py:504-513)."""
+        dev = self.device
+        pts_body, pts_off, pts_rad, pts_mu = [], [], [], []
+        for g in m.geoms:
+            if not g.contact:
+                continue
+            Rg = md._quat_to_mat_np(g.quat)
+            if getattr(g, "contact_points", None) is not None:
+                cands = [np.asarray(c, np.float64) for c in g.contact_points]
+                r = float(g.size[0]) if g.gtype == md.GEOM_SPHERE else 0.0
+            elif g.gtype == md.GEOM_SPHERE:
+                cands = [np.zeros(3)]
+                r = g.size[0]
+            elif g.gtype == md.GEOM_CAPSULE:
+                hl = g.size[1]
+                cands = [np.array([0, 0, -hl]), np.array([0, 0, hl])]
+                r = g.size[0]
+            elif g.gtype == md.GEOM_BOX:
+                hx, hy, hz = g.size
+                cands = [np.array([sx * hx, sy * hy, sz * hz])
+                         for sx in (-1, 1) for sy in (-1, 1) for sz in (-1, 1)]
+                r = 0.0
+            else:
+                continue
+            for c in cands:
+                pts_body.append(g.body)
+                pts_off.append(g.pos + Rg @ c)
+                pts_rad.append(r)
+                pts_mu.append(g.friction)
+        self.n_ground = 0
+        if pts_body:
+            pts_body = np.array(pts_body, np.int64)
+            pts_off = np.stack(pts_off).astype(np.float32)
+            pts_rad = np.array(pts_rad, np.float32)
+            keep = np.nonzero(
+                _ground_reachable(m, pts_body, pts_off, pts_rad))[0]
+            self.n_ground = len(keep)
+            self.gnd_body = pts_body[keep]
+            self.gnd_off = torch.as_tensor(pts_off[keep], device=dev)
+            self.gnd_rad = torch.as_tensor(pts_rad[keep], device=dev)
+            self.gnd_mu = torch.as_tensor(
+                np.array(pts_mu, np.float32)[keep], device=dev)
+            # (rows, nv) ancestor-dof mask of each ground row
+            self.gnd_row_mask = torch.as_tensor(np.ascontiguousarray(
+                np.asarray(m.dof_body_mask, np.float32)[:, self.gnd_body].T),
+                device=dev)
+        # row attribution (+f on body a; ground rows have no body b) and
+        # sensor readout selections
+        ra = self.gnd_body.tolist() if ground and self.n_ground else []
+        self.row_body_a = np.asarray(ra, np.int64)
+        eye = np.eye(m.nb, dtype=np.float32)
+        self.seg_a = torch.as_tensor(eye[self.row_body_a], device=dev)
+        self.sensor_body = np.asarray(m.sensor_body, np.int64)
+        sp = np.asarray(m.sensor_pos)
+        if sp.shape != (len(self.sensor_body), 3):
+            sp = np.zeros((len(self.sensor_body), 3))
+        self.sensor_pos = torch.as_tensor(sp.astype(np.float32), device=dev)
+        self.sens_a = torch.as_tensor(
+            eye[self.row_body_a][:, self.sensor_body], device=dev)
+        self.actor_root_body = np.asarray(m.actor_root_body, np.int64)
+
+    # ------------------------------------------------------------------
+    # kinematics
+    def kinematics(self, q: torch.Tensor):
+        """Kernel B1 on standard-layout q (N, nq): body_x (N, nb, 3),
+        body_q (N, nb, 4), S (N, nv, 6) as views of the batch-last outputs,
+        plus the batch-last tensors themselves for B2/B3."""
+        bx_bl, bq_bl, S_bl = dk.fk_motion(self.plan, q.t().contiguous())
+        return (bx_bl.permute(2, 0, 1), bq_bl.permute(2, 0, 1),
+                S_bl.permute(2, 0, 1), (bx_bl, bq_bl, S_bl))
+
+    def fk(self, q: torch.Tensor):
+        """Forward kinematics in the reference layout (engine.py:561-599)."""
+        xs, qs = [], []
+        for b in range(self.nb):
+            t = int(self.jnt_type_np[b])
+            qa = int(self.q_adr[b])
+            if self.parent[b] == -1:
+                xp = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype,
+                                 device=q.device)
+                qp = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=q.dtype,
+                                  device=q.device).expand(q.shape[:-1] + (4,))
+            else:
+                xp, qp = xs[self.parent[b]], qs[self.parent[b]]
+            if t == md.FREE:
+                xb = q[..., qa: qa + 3]
+                qb = q[..., qa + 3: qa + 7]
+            else:
+                bp, bq = self.body_pos[b], self.body_quat[b]
+                if t in (md.HINGE, md.SCREW):
+                    qj = maths.quat_from_angle_axis(q[..., qa], self.jnt_axis[b])
+                    ql = maths.quat_mul(bq.expand(qj.shape), qj)
+                    anchor = self.jnt_pos[b]
+                    tl = (bp + maths.quat_apply(bq, anchor)
+                          - maths.quat_apply(ql, anchor))
+                    if t == md.SCREW:
+                        pitch = float(self.jnt_pitch_np[b]) / (2.0 * np.pi)
+                        tl = tl + maths.quat_apply(bq, self.jnt_axis[b]) \
+                            * (pitch * q[..., qa: qa + 1])
+                elif t == md.SLIDE:
+                    ql = bq.expand(qp.shape)
+                    tl = bp + maths.quat_apply(bq, self.jnt_axis[b]) \
+                        * q[..., qa: qa + 1]
+                else:  # FIXED
+                    ql = bq.expand(qp.shape)
+                    tl = bp.expand(xp.shape)
+                xb = xp + maths.quat_apply(qp, tl)
+                qb = maths.quat_mul(qp, ql)
+            xs.append(xb)
+            qs.append(qb)
+        return torch.stack(xs, dim=-2), torch.stack(qs, dim=-2)
+
+    def dof_motion(self, body_x, body_q):
+        """Motion subspace S (N, nv, 6) about the world origin: [ang, lin]
+        (engine.py:601-634)."""
+        N = body_x.shape[0]
+        zero3 = torch.zeros((N, 3), dtype=body_x.dtype, device=body_x.device)
+        eye = torch.eye(3, dtype=body_x.dtype, device=body_x.device)
+        cols = []
+        for b in range(self.nb):
+            t = int(self.jnt_type_np[b])
+            if t == md.FREE:
+                p = body_x[:, b]
+                for i in range(3):
+                    cols.append(torch.cat([zero3, eye[i].expand(N, 3)], -1))
+                for i in range(3):
+                    ei = eye[i].expand(N, 3)
+                    cols.append(torch.cat([ei, _cross(p, ei)], -1))
+            elif t in (md.HINGE, md.SCREW):
+                a_w = maths.quat_apply(body_q[:, b], self.jnt_axis[b])
+                anchor = body_x[:, b] + maths.quat_apply(body_q[:, b],
+                                                         self.jnt_pos[b])
+                lin = _cross(anchor, a_w)
+                if t == md.SCREW:
+                    lin = lin + float(self.jnt_pitch_np[b]) / (2.0 * np.pi) * a_w
+                cols.append(torch.cat([a_w, lin], -1))
+            elif t == md.SLIDE:
+                a_w = maths.quat_apply(body_q[:, b], self.jnt_axis[b])
+                cols.append(torch.cat([zero3, a_w], -1))
+        return torch.stack(cols, dim=1)
+
+    def body_velocities(self, S, qd):
+        """Spatial velocity [ang, lin@origin] per body: V (N, nb, 6)."""
+        return torch.matmul(self.dof_body_mask_f.T, S * qd[..., None])
+
+    # ------------------------------------------------------------------
+    # dynamics pieces in the reference layout (the plain chain the batch-
+    # last twins are held against)
+    def spatial_inertia(self, body_x, body_q, mass_scale=None,
+                        shape_scale=None):
+        """World spatial inertia about the origin (N, nb, 6, 6) and world
+        com (engine.py:643-686)."""
+        R = maths.quat_to_rotmat(body_q)                       # (N, nb, 3, 3)
+        I_loc = self.inertia.expand(R.shape)
+        com = self.com
+        m = self.mass[None, :, None, None]
+        eye3 = torch.eye(3, dtype=body_x.dtype, device=body_x.device)
+        if shape_scale is not None:
+            s = shape_scale                                    # (N, nb, 3)
+            svol = torch.prod(s, dim=-1)[..., None, None]
+            tr = torch.diagonal(I_loc, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+            Cm = 0.5 * tr * eye3 - I_loc
+            Cm = svol * (s[..., :, None] * Cm * s[..., None, :])
+            trc = torch.diagonal(Cm, dim1=-2, dim2=-1).sum(-1)[..., None, None]
+            I_loc = trc * eye3 - Cm
+            m = m * svol
+            com = com * s
+        Ic = torch.matmul(torch.matmul(R, I_loc), R.transpose(-1, -2))
+        c = body_x + maths.quat_apply(body_q, com)
+        if mass_scale is not None:
+            m = m * mass_scale[:, :, None, None]
+            Ic = Ic * mass_scale[:, :, None, None]
+        cx = self._skew(c)
+        mcx = m * cx
+        top_left = Ic - m * torch.matmul(cx, cx)
+        I = torch.cat([torch.cat([top_left, mcx], dim=-1),
+                       torch.cat([-mcx, m * eye3.expand(cx.shape)], dim=-1)],
+                      dim=-2)
+        return I, c
+
+    @staticmethod
+    def _skew(v):
+        z = torch.zeros_like(v[..., 0])
+        return torch.stack([
+            torch.stack([z, -v[..., 2], v[..., 1]], dim=-1),
+            torch.stack([v[..., 2], z, -v[..., 0]], dim=-1),
+            torch.stack([-v[..., 1], v[..., 0], z], dim=-1),
+        ], dim=-2)
+
+    @staticmethod
+    def _cross_motion(a, b):
+        """Spatial motion cross product a x b for [ang, lin] vectors."""
+        aw, av = a[..., :3], a[..., 3:]
+        bw, bv = b[..., :3], b[..., 3:]
+        return torch.cat([_cross(aw, bw), _cross(aw, bv) + _cross(av, bw)], -1)
+
+    @staticmethod
+    def _cross_force(v, f):
+        """Spatial force cross product v x* f."""
+        w, vl = v[..., :3], v[..., 3:]
+        n, fl = f[..., :3], f[..., 3:]
+        return torch.cat([_cross(w, n) + _cross(vl, fl), _cross(w, fl)], -1)
+
+    def mass_matrix(self, S, I_O):
+        """CRBA in world coordinates via ancestor masks: (N, nv, nv)."""
+        N = I_O.shape[0]
+        comb = torch.matmul(self.dof_comp, I_O.reshape(N, self.nb, 36))
+        F = torch.matmul(comb.reshape(N, self.nv, 6, 6), S[..., None])[..., 0]
+        G = torch.matmul(S, F.transpose(-1, -2))
+        upper = torch.where(self.dof_anc, G, 0.0)
+        diag = torch.diagonal(upper, dim1=-2, dim2=-1)
+        return upper + upper.transpose(-1, -2) - torch.diag_embed(diag)
+
+    def gravity_wrench(self, body_x, body_q, mass_scale=None,
+                       shape_scale=None):
+        """Per-body gravity spatial force about the world origin from fresh
+        kinematics, in the RNEA a0 = -g sign convention (N, nb, 6)."""
+        m = self.mass[None, :].expand(body_x.shape[:2])
+        com = self.com
+        if shape_scale is not None:
+            m = m * torch.prod(shape_scale, dim=-1)
+            com = com[None] * shape_scale
+        c = body_x + maths.quat_apply(body_q, com.expand(body_x.shape))
+        if mass_scale is not None:
+            m = m * mass_scale
+        f_lin = (m * self.grav_mask[None, :])[..., None] \
+            * (-self.gravity)[None, None, :]
+        return torch.cat([_cross(c, f_lin), f_lin], -1)
+
+    def bias_force(self, S, qd, V, I_O, f_grav=None):
+        """RNEA with qdd = 0 and a0 = -g: C (N, nv)."""
+        V_dof = torch.matmul(self.oh_dof_body, V)
+        xi = self._cross_motion(V_dof, S * qd[..., None])
+        a = torch.matmul(self.dof_body_mask_f.T, xi)
+        if f_grav is None:
+            a0 = torch.cat([torch.zeros(3, dtype=S.dtype, device=S.device),
+                            -self.gravity])
+            a = a + a0 * self.grav_mask[:, None]
+        Iv = torch.matmul(I_O, V[..., None])[..., 0]
+        f = torch.matmul(I_O, a[..., None])[..., 0] + self._cross_force(V, Iv)
+        if f_grav is not None:
+            f = f + f_grav
+        return torch.sum(S * torch.matmul(self.dof_comp, f), dim=-1)
+
+    # ------------------------------------------------------------------
+    # substep
+    def substep(self, q, qd, ctrl: Control, terrain=None, phys=None,
+                dyn_cache=None):
+        """One physics substep (engine.py:785-987, kernel branch).
+
+        ``dyn_cache``: batch-last ``(I_O, Hinv)`` from the first substep of
+        the control step (SimParams.reuse_mass_matrix); given, the cached
+        chain B3 runs instead of the full chain B2.  ``terrain`` and
+        ``phys`` (domain-randomization scales) are not ported yet."""
+        if terrain is not None:
+            _unsupported("terrain heightfields")
+        if phys is not None:
+            _unsupported("per-env physics scales (domain randomization)")
+        if ctrl.f_ext is not None or ctrl.grab_active is not None:
+            _unsupported("external wrenches / grab activation in Control")
+        if ctrl.pos_target is not None or ctrl.vel_target is not None:
+            _unsupported("PD drive targets in Control")
+        h = self.h
+        N = q.shape[0]
+        body_x, body_q, S, (bx_bl, bq_bl, S_bl) = self.kinematics(q)
+
+        qpos_dof = q @ self.q_to_dof.T
+        eff_lim = self.dof_effort_limit
+        tau = torch.clamp(ctrl.tau, -eff_lim, eff_lim)
+        rhs = tau - self.dof_spring * (qpos_dof + h * qd) - self.dof_damping * qd
+        # drive damping with PhysX's drive-force limit; a saturated drive
+        # drops its implicit stiffening from the diagonal (engine.py:886-904)
+        drive = -self.kd_drive * qd
+        drive_sat = torch.abs(drive) > eff_lim
+        rhs = rhs + torch.clamp(drive, -eff_lim, eff_lim)
+        imp = torch.where(drive_sat, 0.0, 1.0)
+        diag = (self.dof_armature + h * self.dof_damping + h * h * self.dof_spring
+                + imp * (h * self.kd_drive + h * h * self.kp_drive))
+
+        rhs_bl = rhs.t().contiguous()
+        qd_bl = qd.t().contiguous()
+        if dyn_cache is None:
+            diag_bl = diag.t().contiguous()
+            qdd_bl, hinv_bl, io_bl = dk.dyn_forward(
+                self.plan, bx_bl, bq_bl, S_bl, qd_bl, rhs_bl, diag_bl)
+            cache_out = (io_bl, hinv_bl)
+        else:
+            io_bl, hinv_bl = dyn_cache
+            fg = self.gravity_wrench(body_x, body_q)
+            qdd_bl = dk.dyn_cached(self.plan, S_bl, qd_bl, rhs_bl, io_bl,
+                                   hinv_bl, fg.permute(1, 2, 0).contiguous())
+            cache_out = dyn_cache
+        Hinv = hinv_bl.permute(2, 0, 1)
+        qdd = qdd_bl.t()
+        qd_new = qd + h * qdd
+
+        qd_new, impulse_pts, p_w, imp_dof = self._contact_solve(
+            qd_new, body_x, body_q, S, Hinv, qpos_dof)
+        qd_new = torch.clamp(qd_new, -self.dof_velocity_limit,
+                             self.dof_velocity_limit)
+        q_new = self._integrate(q, qd_new)
+        return q_new, qd_new, (body_x, body_q, qdd, impulse_pts, p_w,
+                               imp_dof, cache_out)
+
+    def _contact_points(self, body_x, body_q):
+        """World ground-candidate positions p (N, n_ground, 3)."""
+        return (body_x[:, self.gnd_body]
+                + maths.quat_apply(body_q[:, self.gnd_body], self.gnd_off))
+
+    @staticmethod
+    def _w_diag(J_flat, HinvJ_flat, N, R_rows):
+        """Per-axis Delassus diagonal (N, R, 3): w_l = J_l . (Hinv J_l)."""
+        return torch.clamp(
+            torch.sum(J_flat * HinvJ_flat, dim=-1).reshape(N, R_rows, 3),
+            min=1e-8)
+
+    def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof):
+        """Projected-Jacobi impulse solve for flat-ground contacts + joint
+        limits: the ground-row branch of engine.py:1248-1925.
+
+        Rows are speculative (active at phi < contact_margin, approach speed
+        capped at phi/h).  The iteration is a Python loop of batched
+        products, as the JAX package leaves this loop to XLA
+        (engine.py:1858-1896); its Pallas kernel (B4) is opt-in there and
+        not ported yet.  Returns (qd, world impulses (N, P, 3), contact
+        points (N, P, 3), J^T lambda (N, nv))."""
+        pr = self.params
+        h = self.h
+        N, nv = qd.shape[0], self.nv
+        p = self._contact_points(body_x, body_q)                # (N, P, 3)
+        phi = p[..., 2] - self.gnd_rad                          # flat z = 0
+        mu = self.gnd_mu * pr.plane_friction
+        active = phi < pr.contact_margin
+        b_n = -pr.baumgarte / h * torch.clamp(phi + pr.contact_slop, max=0.0)
+        if pr.contact_margin > 0.0:
+            b_n = torch.where(phi >= 0.0, -phi / h, b_n)
+        b_n = torch.clamp(b_n, max=pr.max_depenetration_velocity)
+
+        lo_gap = qpos_dof - self.dof_lower
+        hi_gap = self.dof_upper - qpos_dof
+        b_lo = -pr.baumgarte / h * torch.clamp(lo_gap, max=0.0)
+        b_hi = -pr.baumgarte / h * torch.clamp(hi_gap, max=0.0)
+        act_lo = self.dof_has_limit & (lo_gap < 0.0)
+        act_hi = self.dof_has_limit & (hi_gap < 0.0)
+        hinv_diag = torch.clamp(torch.diagonal(Hinv, dim1=-2, dim2=-1),
+                                min=1e-8)
+
+        # contact Jacobian in the flat (N, 3P, nv) layout: per world axis,
+        # S_lin + S_ang x p, masked to the row's ancestor dofs
+        mk = self.gnd_row_mask[None]                            # (1, P, nv)
+        Sa, Sl = S[:, :, 0:3], S[:, :, 3:6]
+        px, py, pz = (p[..., k][:, :, None] for k in range(3))  # (N, P, 1)
+        sax, say, saz = (Sa[..., k][:, None, :] for k in range(3))
+        Jx = (Sl[..., 0][:, None, :] + say * pz - saz * py) * mk
+        Jy = (Sl[..., 1][:, None, :] + saz * px - sax * pz) * mk
+        Jz = (Sl[..., 2][:, None, :] + sax * py - say * px) * mk
+        P = p.shape[1]
+        J_flat = torch.stack([Jx, Jy, Jz], dim=2).reshape(N, 3 * P, nv)
+        HinvJ_flat = torch.bmm(J_flat, Hinv)                    # (N, 3P, nv)
+        w_diag = self._w_diag(J_flat, HinvJ_flat, N, P)
+
+        lam = torch.zeros((N, P, 3), dtype=qd.dtype, device=qd.device)
+        lam_lo = torch.zeros_like(qd)
+        lam_hi = torch.zeros_like(qd)
+        relax = pr.relaxation
+        for _ in range(pr.num_iterations):
+            v_c = torch.bmm(J_flat, qd[..., None])[..., 0].reshape(N, P, 3)
+            # normal rows, then the friction box against the new normal
+            dv_n = b_n - v_c[..., 2]
+            lam_n = torch.clamp(lam[..., 2] + relax * dv_n / w_diag[..., 2],
+                                min=0.0)
+            lam_n = torch.where(active, lam_n, 0.0)
+            max_f = mu * lam_n
+            lam_t1 = torch.clamp(
+                lam[..., 0] + relax * (-v_c[..., 0]) / w_diag[..., 0],
+                -max_f, max_f)
+            lam_t2 = torch.clamp(
+                lam[..., 1] + relax * (-v_c[..., 1]) / w_diag[..., 1],
+                -max_f, max_f)
+            lam_new = torch.stack([lam_t1, lam_t2, lam_n], dim=-1)
+            lam_new = torch.where(active[..., None], lam_new, 0.0)
+            dlam = lam_new - lam
+            qd2 = qd + torch.bmm(dlam.reshape(N, 1, 3 * P), HinvJ_flat)[:, 0]
+            # joint limits (J = e_i): lower pushes +, upper pushes -
+            lam_lo_new = torch.where(act_lo, torch.clamp(
+                lam_lo + relax * (b_lo - qd2) / hinv_diag, min=0.0), 0.0)
+            lam_hi_new = torch.where(act_hi, torch.clamp(
+                lam_hi + relax * (b_hi + qd2) / hinv_diag, min=0.0), 0.0)
+            dlim = (lam_lo_new - lam_lo) - (lam_hi_new - lam_hi)
+            qd = qd2 + torch.bmm(Hinv, dlim[..., None])[..., 0]
+            lam, lam_lo, lam_hi = lam_new, lam_lo_new, lam_hi_new
+        imp_dof = (torch.bmm(lam.reshape(N, 1, 3 * P), J_flat)[:, 0]
+                   + (lam_lo - lam_hi))
+        return qd, lam, p, imp_dof
+
+    def _integrate(self, q, qd):
+        """Semi-implicit Euler; free-joint quaternions by the exponential
+        map (engine.py:1961-1981)."""
+        h = self.h
+        segs = []
+        up = torch.tensor([0.0, 0.0, 1.0], dtype=q.dtype, device=q.device)
+        for b in range(self.nb):
+            t = int(self.jnt_type_np[b])
+            qa, va = int(self.q_adr[b]), int(self.v_adr[b])
+            if t == md.FREE:
+                pos = q[:, qa: qa + 3] + h * qd[:, va: va + 3]
+                quat = q[:, qa + 3: qa + 7]
+                w = qd[:, va + 3: va + 6]
+                wn = torch.linalg.vector_norm(w, dim=-1, keepdim=True)
+                angle = wn[..., 0] * h
+                axis = torch.where(wn > 1e-9, w / torch.clamp(wn, min=1e-9), up)
+                dq = maths.quat_from_angle_axis(angle, axis)
+                segs.append(pos)
+                segs.append(maths.normalize(maths.quat_mul(dq, quat)))
+            elif t in (md.HINGE, md.SLIDE, md.SCREW):
+                segs.append(q[:, qa: qa + 1] + h * qd[:, va: va + 1])
+        return torch.cat(segs, dim=-1) if segs else q
+
+    # ------------------------------------------------------------------
+    # full control step
+    def step(self, state: SimState, ctrl: Control, terrain=None, phys=None):
+        """Advance one control step (= ``substeps`` physics substeps) with
+        actuation held across substeps (engine.py:1985-2021)."""
+        q, qd = state.q, state.qd
+        impulse_accum = None
+        imp_dof_accum = torch.zeros_like(qd)
+        cache = None
+        aux = None
+        for _ in range(self.params.substeps):
+            q, qd, aux = self.substep(q, qd, ctrl, terrain, phys,
+                                      dyn_cache=cache)
+            if self.params.reuse_mass_matrix:
+                cache = aux[6]
+            impulse_accum = (aux[3] if impulse_accum is None
+                             else impulse_accum + aux[3])
+            imp_dof_accum = imp_dof_accum + aux[5]
+        qdd, p_w = aux[2], aux[4]
+        # refresh kinematic outputs at the new state (kernel B1)
+        body_x, body_q, S, _ = self.kinematics(q)
+        V = self.body_velocities(S, qd)
+        dof_force = ctrl.tau + imp_dof_accum / self.params.dt
+        out = self._outputs(body_x, body_q, V, qdd, impulse_accum, p_w,
+                            dof_force)
+        return SimState(q, qd, state.lam), out
+
+    def _outputs(self, body_x, body_q, V, qdd, impulses, p_w, dof_force):
+        """Readouts incl. contact forces and the foot force sensors
+        (engine.py:2023-2080; Ant's obs[28:52])."""
+        w = V[..., 0:3]
+        v_lin = V[..., 3:6] + _cross(w, body_x)
+        force_rows = impulses / self.params.dt                  # world frame
+        contact_force = torch.einsum("npk,pb->nbk", force_rows, self.seg_a)
+        N = body_x.shape[0]
+        if len(self.sensor_body):
+            # wrench about each sensor point, rotated into the body frame
+            xa = body_x[:, self.row_body_a]
+            tq_a = _cross(p_w - xa, force_rows)
+            f_b = torch.einsum("npk,ps->nsk", force_rows, self.sens_a)
+            n_o = torch.einsum("npk,ps->nsk", tq_a, self.sens_a)
+            qs = body_q[:, self.sensor_body]
+            r_s = maths.quat_apply(qs, self.sensor_pos)
+            n_b = n_o - _cross(r_s, f_b)
+            sensor_forces = torch.cat([maths.quat_rotate_inverse(qs, f_b),
+                                       maths.quat_rotate_inverse(qs, n_b)], -1)
+        else:
+            sensor_forces = torch.zeros((N, 0, 6), dtype=DTYPE,
+                                        device=body_x.device)
+        return SimOutput(
+            body_pos=body_x, body_quat=body_q,
+            body_vel=torch.cat([v_lin, w], dim=-1),
+            root_states=self._root_states(body_x, body_q, v_lin, w),
+            contact_force=contact_force, sensor_forces=sensor_forces,
+            qdd=qdd, dof_force=dof_force)
+
+    def _root_states(self, body_x, body_q, v_lin, w):
+        rb = self.actor_root_body
+        return torch.cat([body_x[:, rb], body_q[:, rb], v_lin[:, rb],
+                          w[:, rb]], dim=-1)
+
+    def forward(self, state: SimState,
+                prev_out: Optional[SimOutput] = None) -> SimOutput:
+        """Kinematics-only readout refresh (engine.py:2109-2138); contact
+        and sensor readouts carry over from ``prev_out``."""
+        q, qd = state.q, state.qd
+        body_x, body_q, S, _ = self.kinematics(q)
+        V = self.body_velocities(S, qd)
+        N = q.shape[0]
+        w = V[..., 0:3]
+        v_lin = V[..., 3:6] + _cross(w, body_x)
+        kw = dict(dtype=q.dtype, device=q.device)
+        return SimOutput(
+            body_pos=body_x, body_quat=body_q,
+            body_vel=torch.cat([v_lin, w], dim=-1),
+            root_states=self._root_states(body_x, body_q, v_lin, w),
+            contact_force=(prev_out.contact_force if prev_out is not None
+                           else torch.zeros((N, self.nb, 3), **kw)),
+            sensor_forces=(prev_out.sensor_forces if prev_out is not None
+                           else torch.zeros((N, len(self.sensor_body), 6),
+                                            **kw)),
+            qdd=(prev_out.qdd if prev_out is not None
+                 else torch.zeros((N, self.nv), **kw)),
+            dof_force=(prev_out.dof_force if prev_out is not None
+                       else torch.zeros((N, self.nv), **kw)))
+
+    # ------------------------------------------------------------------
+    # state helpers (the set_*_tensor family)
+    def default_state(self, num_envs: int) -> SimState:
+        q0 = torch.as_tensor(md.default_qpos(self.model).astype(np.float32),
+                             device=self.device)
+        q = q0[None].repeat(num_envs, 1)
+        qd = torch.zeros((num_envs, self.nv), dtype=DTYPE, device=self.device)
+        return SimState(q, qd)
+
+    def dof_pos(self, state: SimState):
+        """Scalar-dof positions (N, n_scalar_dofs)."""
+        return state.q[:, self.scalar_qids]
+
+    def dof_vel(self, state: SimState):
+        return state.qd[:, self.scalar_dofs]
+
+    def set_dof_pos(self, state: SimState, pos):
+        q = state.q.clone()
+        q[:, self.scalar_qids] = pos
+        return state._replace(q=q)
+
+    def set_dof_vel(self, state: SimState, vel):
+        qd = state.qd.clone()
+        qd[:, self.scalar_dofs] = vel
+        return state._replace(qd=qd)
+
+
+def _ground_reachable(m, pts_body, pts_off, pts_rad) -> np.ndarray:
+    """Static reachability of the ground plane per candidate point
+    (numpy port of engine.py:1116-1217): candidates on fixed-base trees that
+    provably never reach z = 0 are pruned; floating trees always reach."""
+    parent = np.asarray(m.parent)
+    jnt = np.asarray(m.jnt_type)
+    body_pos = np.asarray(m.body_pos, np.float64)
+    body_quat = np.asarray(m.body_quat, np.float64)
+    jnt_pos = np.asarray(m.jnt_pos, np.float64)
+    v_adr = np.asarray(m.v_adr)
+    lo = np.asarray(m.dof_lower, np.float64)
+    hi = np.asarray(m.dof_upper, np.float64)
+    has_lim = np.asarray(m.dof_has_limit, bool)
+
+    def joint_trans(link):
+        t = int(jnt[link])
+        d = 0.0
+        if t in (md.HINGE, md.SCREW):
+            d += 2.0 * float(np.linalg.norm(jnt_pos[link]))
+        if t in (md.SLIDE, md.SCREW):
+            v = int(v_adr[link])
+            if not has_lim[v]:
+                return None
+            d += max(abs(lo[v]), abs(hi[v]))
+        return d
+
+    min_z = np.full(m.nb, -np.inf)
+    for b in range(m.nb):
+        path = []
+        a = b
+        while a != -1:
+            path.append(a)
+            a = int(parent[a])
+        path.reverse()
+        pos = np.zeros(3)
+        R = np.eye(3)
+        i = 0
+        while i < len(path) and jnt[path[i]] == md.FIXED:
+            link = path[i]
+            pos = pos + R @ body_pos[link]
+            R = R @ md._quat_to_mat_np(body_quat[link])
+            i += 1
+        if i == len(path):
+            min_z[b] = float(pos[2])
+            continue
+        L = path[i]
+        if jnt[L] == md.FREE:
+            continue
+        anchor = pos + R @ body_pos[L] + \
+            R @ md._quat_to_mat_np(body_quat[L]) @ jnt_pos[L]
+        bound = float(anchor[2]) - float(np.linalg.norm(jnt_pos[L]))
+        ok = True
+        if jnt[L] in (md.SLIDE, md.SCREW):
+            v = int(v_adr[L])
+            if not has_lim[v]:
+                ok = False
+            else:
+                bound -= max(abs(lo[v]), abs(hi[v]))
+        for link in (path[i + 1:] if ok else ()):
+            if jnt[link] == md.FREE:
+                ok = False
+                break
+            d = joint_trans(link)
+            if d is None:
+                ok = False
+                break
+            bound -= float(np.linalg.norm(body_pos[link])) + d
+        if ok:
+            min_z[b] = bound
+    pt_term = 2.0 * (np.linalg.norm(np.asarray(pts_off, np.float64), axis=-1)
+                     + np.asarray(pts_rad, np.float64))
+    return min_z[pts_body] - pt_term - 0.1 <= 0.0

@@ -1,0 +1,206 @@
+"""Vectorized env runtime (port of isaacgymenvs_ma_tpu/tasks/base.py).
+
+``VecTaskBase.step`` keeps the JAX package's ordering exactly: clip actions
+-> pre_physics -> ``control_freq_inv x`` engine.step -> sim-health net ->
+progress += 1 -> masked ``reset_idx`` of the envs flagged on the *previous*
+step -> readout refresh -> obs/reward -> timeouts -> clip obs.  ``reset_buf``
+starts at 1, so the first step resets every env after physics.
+
+The JAX version threads a PRNG key through ``EnvState``; here each task
+owns a ``torch.Generator`` (``task.generator``) for its reset draws, and
+``step`` also accepts explicit ``reset_draws`` so tests can inject the
+reference's draws.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ..device import DTYPE, resolve_device
+from ..ops.rng import make_generator
+from ..physics.engine import (Control, PhysicsEngine, SimOutput, SimParams,
+                              SimState)
+
+
+class EnvState(NamedTuple):
+    sim: SimState
+    progress: torch.Tensor        # (N,) int32
+    reset_buf: torch.Tensor       # (N,) int32 — starts at 1
+    task: Any = None              # task-specific state (potentials, ...)
+    phys: Any = None              # domain-randomization scales (not ported)
+
+
+class StepResult(NamedTuple):
+    obs: torch.Tensor             # (B, num_obs) clipped
+    states: Optional[torch.Tensor]
+    rew: torch.Tensor             # (B,)
+    reset: torch.Tensor           # (B,) int32
+    extras: Dict[str, Any]
+
+
+def parse_sim_params(sim_cfg: dict) -> SimParams:
+    """Map the reference sim-config schema (vec_task.py:516-564) to
+    SimParams, exactly as the JAX package does (base.py:54-103)."""
+    import os
+    physx = sim_cfg.get("physx", {})
+    n_iter = int(physx.get("num_position_iterations", 4)) + int(
+        physx.get("num_velocity_iterations", 0))
+    return SimParams(
+        dt=float(sim_cfg.get("dt", 1.0 / 60.0)),
+        substeps=int(sim_cfg.get("substeps", 2)),
+        gravity=tuple(sim_cfg.get("gravity", (0.0, 0.0, -9.81))),
+        num_iterations=(int(physx["num_iterations"])
+                        if "num_iterations" in physx
+                        else max(2 * n_iter, 8)),
+        warm_start=float(physx.get("warm_start", 0.0)),
+        max_depenetration_velocity=float(
+            physx.get("max_depenetration_velocity", 10.0)),
+        contact_margin=float(physx.get("contact_offset", 0.0)),
+        bounce_threshold_velocity=float(
+            physx.get("bounce_threshold_velocity", 0.2)),
+        reuse_mass_matrix=bool(physx.get(
+            "reuse_mass_matrix",
+            os.environ.get("IGMA_MM_REUSE", "1") == "1")),
+        contact_capacity=(int(physx["contact_capacity"])
+                          if physx.get("contact_capacity") is not None
+                          else None),
+        reuse_contact_rows=bool(physx.get(
+            "reuse_contact_rows",
+            os.environ.get("IGMA_ROW_REUSE", "0") == "1")),
+        contact_continuation=bool(physx.get("contact_continuation", True)),
+        mass_splitting=bool(physx.get("mass_splitting", False)),
+    )
+
+
+class VecTaskBase:
+    """Static config + engine; the step is a function of (state, actions)."""
+
+    def __init__(self, cfg: dict, device="cpu", seed: int = 0):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        eng = str(cfg.get("physics_engine", "physx"))
+        if eng not in ("physx", ""):
+            raise NotImplementedError(
+                f"physics_engine={eng!r} is not supported: only the "
+                "PhysX-equivalent rigid-body path exists")
+        env_cfg = cfg["env"]
+        self.num_envs = int(env_cfg["numEnvs"])
+        self.num_obs = int(env_cfg["numObservations"])
+        self.num_actions = int(env_cfg["numActions"])
+        self.num_states = int(env_cfg.get("numStates", 0))
+        self.num_agents = int(env_cfg.get("numAgents", 1))
+        self.clip_obs = float(env_cfg.get("clipObservations", math.inf))
+        self.clip_actions = float(env_cfg.get("clipActions", math.inf))
+        self.control_freq_inv = int(env_cfg.get("controlFrequencyInv", 1))
+        self.max_episode_length = int(env_cfg.get("episodeLength", 500))
+        self.sim_params = parse_sim_params(cfg.get("sim", {}))
+        self.dt = self.sim_params.dt
+        self.terrain = None            # set by terrain tasks (not ported)
+        if (cfg.get("task", {}) or {}).get("randomize"):
+            raise NotImplementedError(
+                "domain randomization is not ported yet (see ROADMAP.md)")
+        if self.num_agents != 1:
+            raise NotImplementedError(
+                "multi-agent tasks are not ported yet (see ROADMAP.md)")
+        self.generator = make_generator(seed, self.device)
+        model, ground = self.create_model()
+        self.model = model
+        self.engine = self.build_engine(model, ground)
+
+    # ------------------------------------------------------------------
+    # hooks for concrete tasks
+    def create_model(self):
+        """Return (SceneModel, ground: bool)."""
+        raise NotImplementedError
+
+    def build_engine(self, model, ground: bool) -> PhysicsEngine:
+        return PhysicsEngine(model, self.sim_params, ground=ground,
+                             device=self.device)
+
+    def initial_task_state(self) -> Any:
+        return None
+
+    def pre_physics(self, state: EnvState, actions) -> Control:
+        raise NotImplementedError
+
+    def post_physics(self, state: EnvState, out: SimOutput, actions):
+        """Return (obs, states, rew, reset, task_state, extras)."""
+        raise NotImplementedError
+
+    def reset_idx(self, sim: SimState, task: Any, mask, draws=None):
+        """Masked per-env reset: return (sim', task').  ``draws`` are the
+        task's random reset draws; None draws them from ``self.generator``."""
+        raise NotImplementedError
+
+    # ------------------------------------------------------------------
+    def initial_state(self) -> EnvState:
+        n = self.num_envs
+        return EnvState(
+            sim=self.engine.default_state(n),
+            progress=torch.zeros(n, dtype=torch.int32, device=self.device),
+            reset_buf=torch.ones(n, dtype=torch.int32, device=self.device),
+            task=self.initial_task_state())
+
+    def reset(self, state: EnvState):
+        """Initial obs (vec_task.py:428-440: no recompute, just zeros)."""
+        return state, torch.zeros((self.num_envs, self.num_obs), dtype=DTYPE,
+                                  device=self.device)
+
+    def step(self, state: EnvState, actions: torch.Tensor,
+             reset_draws=None) -> Tuple[EnvState, StepResult]:
+        actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
+        reset_mask = state.reset_buf > 0
+        ctrl = self.pre_physics(state, actions)
+        sim = state.sim
+        out = None
+        for _ in range(self.control_freq_inv):
+            sim, out = self.engine.step(sim, ctrl, terrain=self.terrain,
+                                        phys=state.phys)
+
+        # ---- sim-health safety net (base.py:254-267): sanitize exploded
+        # envs and force-reset them next step
+        unhealthy = (~torch.isfinite(sim.q).all(dim=-1)
+                     | ~torch.isfinite(sim.qd).all(dim=-1)
+                     | (torch.abs(sim.qd).amax(dim=-1) > 500.0))
+        sim = sim._replace(
+            q=torch.where(unhealthy[:, None], torch.nan_to_num(sim.q), sim.q),
+            qd=torch.where(unhealthy[:, None],
+                           torch.clamp(torch.nan_to_num(sim.qd), -500.0, 500.0),
+                           sim.qd))
+
+        # ---- post physics (base.py:269-283 ordering)
+        progress = state.progress + 1
+        sim, task = self.reset_idx(sim, state.task, reset_mask, reset_draws)
+        progress = torch.where(reset_mask, 0, progress).to(torch.int32)
+        out = self.engine.forward(sim, prev_out=out)
+
+        mid = state._replace(sim=sim, progress=progress, task=task)
+        obs, states, rew, reset, task, extras = self.post_physics(
+            mid, out, actions)
+
+        timeout = (progress >= self.max_episode_length - 1) & (reset != 0)
+        extras = dict(extras)
+        extras["time_outs"] = timeout
+        obs = torch.nan_to_num(torch.clamp(obs, -self.clip_obs, self.clip_obs))
+        if states is not None:
+            states = torch.nan_to_num(
+                torch.clamp(states, -self.clip_obs, self.clip_obs))
+        rew = torch.nan_to_num(rew)
+        reset = torch.where(unhealthy, 1, reset).to(torch.int32)
+
+        new_state = EnvState(sim=sim, progress=progress, reset_buf=reset,
+                             task=task, phys=state.phys)
+        return new_state, StepResult(obs=obs, states=states, rew=rew,
+                                     reset=reset, extras=extras)
+
+    def zero_actions(self) -> torch.Tensor:
+        return torch.zeros((self.num_envs, self.num_actions), dtype=DTYPE,
+                           device=self.device)
+
+
+def masked_update(mask, new, old):
+    """Apply ``new`` where mask (broadcast over trailing dims)."""
+    m = mask.reshape(mask.shape + (1,) * (old.dim() - mask.dim()))
+    return torch.where(m, new, old)

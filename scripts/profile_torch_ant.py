@@ -1,0 +1,88 @@
+"""Where the time goes in the PyTorch port's Ant step on one GPU.
+
+    python3 scripts/profile_torch_ant.py [--envs 4096] [--steps 20]
+                                         [--table PATH]
+
+Runs the port's Ant step (tanh(obs @ W) actions, as chip_smoke.py) under
+torch.profiler after a warm-up and prints: host wall time per step, device
+kernel time per step (the sum over CUDA kernels), the device busy share
+(kernel time / wall time), kernel launches per step, and the top kernels by
+device time.  ``--table`` writes torch.profiler's full table to PATH.
+"""
+import argparse
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--envs", type=int, default=4096)
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--table", default=None,
+                    help="write the profiler's full table to this file")
+    args = ap.parse_args()
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from isaacgymenvs_ma_tpu.utils.config import deep_merge
+    from isaacgymenvs_ma_tpu_torch.tasks.ant import Ant, TASK_CFG
+
+    dev = torch.device("cuda", 0)
+    task = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": args.envs}}),
+               device=dev, seed=1)
+    W = torch.randn((task.num_obs, task.num_actions), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0)) * 0.1
+    state = task.initial_state()
+    obs = torch.zeros((args.envs, task.num_obs), device=dev)
+    for _ in range(20):
+        state, res = task.step(state, torch.tanh(obs @ W))
+        obs = res.obs
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            state, res = task.step(state, torch.tanh(obs @ W))
+            obs = res.obs
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.device_time_total for e in events)
+    if args.table:
+        os.makedirs(os.path.dirname(os.path.abspath(args.table)),
+                    exist_ok=True)
+        with open(args.table, "w") as f:
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=100))
+    print(f"envs={args.envs} steps={args.steps} "
+          f"wall_ms_per_step={wall / args.steps * 1e3:.3f} "
+          f"device_kernel_ms_per_step={dev_us / args.steps / 1e3:.3f} "
+          f"device_busy_share={dev_us / 1e6 / wall:.4f} "
+          f"kernels_per_step={len(events) / args.steps:.1f}")
+    by_name = {}
+    for e in events:
+        t, c = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.device_time_total, c + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    for name, (t, c) in top:
+        print(f"  {t / args.steps / 1e3:8.4f} ms/step {c / args.steps:6.1f} "
+              f"launches/step  {name[:90]}")
+    # the port's own kernels (B1-B3): device time per launch
+    for kname in ("fk_motion_kernel", "dyn_forward_kernel",
+                  "dyn_cached_kernel"):
+        hits = [(t, c) for n, (t, c) in by_name.items() if kname in n]
+        t = sum(h[0] for h in hits)
+        c = sum(h[1] for h in hits)
+        print(f"  port kernel {kname}: launches/step={c / args.steps:.1f} "
+              f"us/launch={t / max(c, 1):.2f}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
