@@ -3,8 +3,8 @@
 The JAX package ``isaacgymenvs_ma_tpu`` is the reference; this package mirrors
 its module paths (``physics/engine.py``, ``physics/dyn_kernel.py``,
 ``tasks/ant.py`` ...) so each counterpart is easy to find.  It imports
-``torch`` and never ``jax``.  The jax-free host modules of the JAX package
-(``models.*``, ``utils.config``) are shared by import, not copied.
+``torch`` and never ``jax``, and nothing of the JAX package: it keeps its own
+copies of the numpy-only modules it needs (``models``, ``utils.config``).
 
 Every Pallas TPU kernel on a ported path has a hand-written CUDA kernel here
 (``physics/csrc``) beside a plain PyTorch twin; a wrapper runs the twin only

@@ -5,8 +5,10 @@ Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 (``extern "C" int <name>_launch(int device, ..., int N, void* stream)``
 returning the CUDA error code).  The library links its own CUDA runtime,
 so each launch selects the tensors' device itself.
-The per-scene header from ``dyn_kernel.scene_header`` is force-included
-(``-include``), so the static tree is compiled into the kernels.
+Each plan's header (``DynPlan.header``: the static tree for B1-B3;
+``ContactPlan.header``: the row masks and loop constants for B4) is
+force-included (``-include``), so the static scene is compiled into the
+kernels.
 
 Libraries go to ``build/torch_kernels/<hash>/`` next to the package (a
 directory git ignores), keyed by a hash of the sources, the header and the
@@ -24,7 +26,6 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNELS = ("fk_motion", "dyn_forward", "dyn_cached")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -33,7 +34,7 @@ _ARGTYPES = {
     name: [ctypes.c_int] + [ctypes.c_void_p] * n_ptr
     + [ctypes.c_int, ctypes.c_void_p]
     for name, n_ptr in (("fk_motion", 4), ("dyn_forward", 11),
-                        ("dyn_cached", 7))
+                        ("dyn_cached", 7), ("contact_solve", 23))
 }
 
 
@@ -80,13 +81,17 @@ def _load(name: str, so: Path) -> ctypes.CDLL:
     return lib
 
 
-def build(plan, names=KERNELS) -> dict:
-    """Build (where not yet built) and load the named kernels for ``plan``,
-    one nvcc process per source, all started together.  Stores the loaded
-    libraries in ``plan.libs`` and the compiler reports in
-    ``plan.build_log``; returns ``plan.libs``."""
-    from .dyn_kernel import scene_header
-    header = scene_header(plan)
+def build(plan, names=None, wait=True):
+    """Build (where not yet built) and load the named kernels of ``plan``
+    (default: all of ``plan.kernel_names``), one nvcc process per source,
+    all started together.  Stores the loaded libraries in ``plan.libs`` and
+    the compiler reports in ``plan.build_log``; returns ``plan.libs``.
+
+    ``wait=False`` only starts the compilers and returns a callable that
+    waits for them and loads the libraries, so that the builds of several
+    plans run side by side."""
+    header = plan.header()
+    names = plan.kernel_names if names is None else names
     procs = {}
     for name in names:
         if name in plan.libs:
@@ -108,20 +113,24 @@ def build(plan, names=KERNELS) -> dict:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        d, tmp, so)
-    errors = []
-    for name, (proc, d, tmp, so) in procs.items():
-        out, _ = proc.communicate()
-        (d / "nvcc.log").write_text(out)
-        plan.build_log[name] = out
-        if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name} (rc {proc.returncode}):\n"
-                          f"{out}")
-            continue
-        os.replace(tmp, so)   # atomic: a reader never sees a partial .so
-        plan.libs[name] = _load(name, so)
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return plan.libs
+
+    def finish():
+        errors = []
+        for name, (proc, d, tmp, so) in procs.items():
+            out, _ = proc.communicate()
+            (d / "nvcc.log").write_text(out)
+            plan.build_log[name] = out
+            if proc.returncode != 0:
+                errors.append(f"nvcc failed for {name} "
+                              f"(rc {proc.returncode}):\n{out}")
+                continue
+            os.replace(tmp, so)   # atomic: a reader never sees a partial .so
+            plan.libs[name] = _load(name, so)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        return plan.libs
+
+    return finish() if wait else finish
 
 
 def load(plan, name: str) -> ctypes.CDLL:

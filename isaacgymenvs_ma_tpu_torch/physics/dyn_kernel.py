@@ -29,7 +29,7 @@ import ctypes
 import numpy as np
 import torch
 
-import isaacgymenvs_ma_tpu.models.model as md
+from ..models import model as md
 
 from . import _build
 
@@ -43,6 +43,8 @@ class DynPlan:
 
     Built once per PhysicsEngine; holds everything the kernels bake in, so
     the only runtime inputs are the per-env arrays."""
+
+    kernel_names = ("fk_motion", "dyn_forward", "dyn_cached")
 
     def __init__(self, engine):
         m = engine.model
@@ -69,6 +71,9 @@ class DynPlan:
         self._consts = {}
         self.libs = {}          # kernel name -> loaded ctypes library
         self.build_log = {}     # kernel name -> nvcc/ptxas report
+
+    def header(self) -> str:
+        return scene_header(self)
 
     def _depth(self, b):
         d = 0
@@ -664,5 +669,3 @@ def dyn_cached(plan: DynPlan, S, qd, rhs, I_O, Hinv, fg):
 fk_motion.launches = 0
 dyn_forward.launches = 0
 dyn_cached.launches = 0
-
-KERNEL_WRAPPERS = (fk_motion, dyn_forward, dyn_cached)

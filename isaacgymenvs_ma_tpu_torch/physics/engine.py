@@ -7,12 +7,17 @@ Jacobi contact solve over a static candidate set.  The per-substep
 kinematics and dynamics chain run through the dispatching wrappers of
 :mod:`.dyn_kernel` — CUDA kernels B1-B3 for CUDA tensors, their plain twins
 for CPU tensors — exactly where the JAX engine runs its Pallas kernels
-(engine.py:802-803, :938-949).
+(engine.py:802-803, :938-949).  With ``SimParams.use_contact_kernel`` the
+contact iteration loop runs through :func:`.contact_kernel.solve` (kernel
+B4, engine.py:1708-1735); otherwise it is a loop of batched products.
 
-Ported so far: what the Ant step runs (ground contact rows, joint limits,
-effort and PD actuation, mass-matrix reuse).  Every feature the JAX engine
-has beyond that raises ``NotImplementedError`` when a model or config asks
-for it, instead of computing something else.
+Ported so far: what the Ant and BallBalance steps run (ground contact rows,
+body-pair contact rows against primitive SDFs with tangent frames,
+rigid-body attractors, joint limits, effort and PD actuation with position
+targets, mass-matrix reuse).  Every feature the JAX engine has beyond that
+raises ``NotImplementedError`` when a model or config asks for it, instead
+of computing something else.  Entry points run on the card unless the
+caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -21,10 +26,11 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from isaacgymenvs_ma_tpu.models import model as md
+from ..models import model as md
 
 from ..device import DTYPE, apply_precision_policy, resolve_device
 from ..ops import maths
+from . import contact_kernel as ck
 from . import dyn_kernel as dk
 
 
@@ -56,8 +62,9 @@ class SimParams(NamedTuple):
 
 
 class Control(NamedTuple):
-    """Per-step actuation inputs: ``tau`` (N, nv) dof effort.  PD targets,
-    ``f_ext`` and ``grab_active`` are not ported yet (they raise)."""
+    """Per-step actuation inputs: ``tau`` (N, nv) dof effort, optional PD
+    ``pos_target``/``vel_target`` (N, nv).  ``f_ext`` and ``grab_active`` are
+    not ported yet (they raise)."""
 
     tau: torch.Tensor
     pos_target: Optional[torch.Tensor] = None
@@ -96,19 +103,12 @@ def _unsupported(what: str):
         "(see ROADMAP.md)")
 
 
-def _check_supported(model, params: SimParams, ground, pair_specs, attractors,
-                     grabs, n_rows: int):
+def _check_supported(model, params: SimParams, grabs, n_rows: int):
     """Reject every engine feature the port does not implement yet."""
-    if pair_specs:
-        _unsupported("body-pair contact rows (pair_specs)")
-    if attractors:
-        _unsupported("rigid-body attractors")
     if grabs:
         _unsupported("grab constraints")
-    if not (ground and n_rows):
-        _unsupported("a scene without ground contact rows (_limit_solve)")
-    if params.use_contact_kernel:
-        _unsupported("the fused contact kernel (use_contact_kernel, B4)")
+    if not n_rows:
+        _unsupported("a scene without contact rows (_limit_solve)")
     if params.warm_start > 0:
         _unsupported("contact warm start (warm_start > 0)")
     if params.contact_capacity is not None:
@@ -121,7 +121,8 @@ def _check_supported(model, params: SimParams, ground, pair_specs, attractors,
         _unsupported("restitution")
     rows_bf16 = params.solver_rows_bf16
     if rows_bf16 is None:
-        rows_bf16 = n_rows * int(model.nv) >= 1024
+        rows_bf16 = (n_rows * int(model.nv) >= 1024
+                     and not params.use_contact_kernel)
     if rows_bf16:
         _unsupported("bfloat16 solver rows (solver_rows_bf16)")
     for name in ("body_lin_damping", "body_ang_damping", "dof_friction"):
@@ -143,7 +144,7 @@ class PhysicsEngine:
 
     def __init__(self, model: md.SceneModel, params: SimParams,
                  ground: bool = True, pair_specs=None, attractors=None,
-                 grabs=None, device="cpu"):
+                 grabs=None, device="cuda"):
         apply_precision_policy()
         self.device = resolve_device(device)
         self.model = model
@@ -216,19 +217,32 @@ class PhysicsEngine:
             q2d[d, qid] = 1.0
         self.q_to_dof = f32(q2d)                          # (nv, nq)
 
-        self._build_contact_set(m, ground)
-        _check_supported(m, params, ground, pair_specs, attractors, grabs,
-                         self.n_ground if ground else 0)
+        self._build_contact_set(m, ground, pair_specs or [])
+        self._build_attractors(m, attractors or [])
+        _check_supported(m, params, grabs,
+                         self.n_ground + self.n_pair_rows)
         self.gravity = f32(params.gravity)
         self.h = params.dt / params.substeps
         self.plan = dk.get_plan(self)
+        # kernel B4's static plan: row masks per group, loop constants
+        self.cplan = None
+        if params.use_contact_kernel:
+            masks = {"c": self.row_masks_np}
+            if self.attractors:
+                masks["a"] = np.stack([a["mask"] for a in self.attractors])
+            self.cplan = ck.ContactPlan(
+                masks, self.nv, params.num_iterations, params.relaxation,
+                has_frames=bool(self.pairs))
 
-    def _build_contact_set(self, m, ground):
-        """Ground contact candidates (engine.py:415-470) and the static
-        row/sensor attribution the readouts use (engine.py:504-513)."""
+    def _build_contact_set(self, m, ground, pair_specs):
+        """Contact candidates (engine.py:415-470), body-pair rows
+        (engine.py:478-503) and the static row/sensor attribution the
+        readouts use (engine.py:504-513).  Rows are the ground rows, then
+        the pair rows, in the JAX engine's order."""
         dev = self.device
         pts_body, pts_off, pts_rad, pts_mu = [], [], [], []
-        for g in m.geoms:
+        geom_pts = {}
+        for gi, g in enumerate(m.geoms):
             if not g.contact:
                 continue
             Rg = md._quat_to_mat_np(g.quat)
@@ -249,42 +263,97 @@ class PhysicsEngine:
                 r = 0.0
             else:
                 continue
+            geom_pts[gi] = list(range(len(pts_body), len(pts_body) + len(cands)))
             for c in cands:
                 pts_body.append(g.body)
                 pts_off.append(g.pos + Rg @ c)
                 pts_rad.append(r)
                 pts_mu.append(g.friction)
+        self.pts_body = np.asarray(pts_body, np.int64)
+        self.pts_off = np.asarray(pts_off, np.float32).reshape(-1, 3)
+        self.pts_rad = np.asarray(pts_rad, np.float32)
+        dbm = np.asarray(m.dof_body_mask, np.float32)           # (nv, nb)
         self.n_ground = 0
-        if pts_body:
-            pts_body = np.array(pts_body, np.int64)
-            pts_off = np.stack(pts_off).astype(np.float32)
-            pts_rad = np.array(pts_rad, np.float32)
-            keep = np.nonzero(
-                _ground_reachable(m, pts_body, pts_off, pts_rad))[0]
+        self.gnd_body = np.zeros(0, np.int64)
+        mask_parts = []
+        if ground and len(pts_body):
+            keep = np.nonzero(_ground_reachable(
+                m, self.pts_body, self.pts_off, self.pts_rad))[0]
             self.n_ground = len(keep)
-            self.gnd_body = pts_body[keep]
-            self.gnd_off = torch.as_tensor(pts_off[keep], device=dev)
-            self.gnd_rad = torch.as_tensor(pts_rad[keep], device=dev)
+            self.gnd_body = self.pts_body[keep]
+            self.gnd_off = torch.as_tensor(self.pts_off[keep], device=dev)
+            self.gnd_rad = torch.as_tensor(self.pts_rad[keep], device=dev)
             self.gnd_mu = torch.as_tensor(
                 np.array(pts_mu, np.float32)[keep], device=dev)
             # (rows, nv) ancestor-dof mask of each ground row
-            self.gnd_row_mask = torch.as_tensor(np.ascontiguousarray(
-                np.asarray(m.dof_body_mask, np.float32)[:, self.gnd_body].T),
-                device=dev)
-        # row attribution (+f on body a; ground rows have no body b) and
-        # sensor readout selections
-        ra = self.gnd_body.tolist() if ground and self.n_ground else []
+            mask_parts.append(dbm[:, self.gnd_body].T)
+        # body-pair rows: candidate points of geom A against the SDF of B
+        self.pairs = []
+        for ga, gb in pair_specs:
+            gA, gB = m.geoms[ga], m.geoms[gb]
+            if gB.gtype == md.GEOM_SDF:
+                _unsupported("SDF-grid pair targets (GEOM_SDF)")
+            if gB.gtype not in (md.GEOM_SPHERE, md.GEOM_CAPSULE,
+                                md.GEOM_CYLINDER, md.GEOM_BOX):
+                raise ValueError(f"no SDF for geom type {gB.gtype}")
+            idx = np.asarray(geom_pts[ga], np.int64)
+            row_mask = dbm[:, self.pts_body[idx]].T - dbm[:, gB.body][None, :]
+            self.pairs.append(dict(
+                pt_idx=idx, tgt_body=int(gB.body), tgt_type=int(gB.gtype),
+                tgt_size=torch.as_tensor(np.asarray(gB.size, np.float32),
+                                         device=dev),
+                tgt_pos=torch.as_tensor(np.asarray(gB.pos, np.float32),
+                                        device=dev),
+                tgt_quat=torch.as_tensor(np.asarray(gB.quat, np.float32),
+                                         device=dev),
+                pts_off=torch.as_tensor(self.pts_off[idx], device=dev),
+                pts_rad=torch.as_tensor(self.pts_rad[idx], device=dev),
+                mu=float(0.5 * (gA.friction + gB.friction))))
+            mask_parts.append(row_mask)
+        self.n_pair_rows = sum(len(p["pt_idx"]) for p in self.pairs)
+        # static (rows, nv) dof masks of all contact rows (_row_masks_np)
+        self.row_masks_np = (np.concatenate(mask_parts, 0).astype(np.float32)
+                             if mask_parts else np.zeros((0, m.nv), np.float32))
+        self.row_masks = torch.as_tensor(self.row_masks_np, device=dev)
+        # row attribution: +f on body a, -f on body b (-1 = world)
+        ra = self.gnd_body.tolist()
+        rb = [-1] * self.n_ground
+        for p_ in self.pairs:
+            ra.extend(self.pts_body[p_["pt_idx"]].tolist())
+            rb.extend([p_["tgt_body"]] * len(p_["pt_idx"]))
         self.row_body_a = np.asarray(ra, np.int64)
+        self.row_body_b = np.asarray(rb, np.int64)
         eye = np.eye(m.nb, dtype=np.float32)
-        self.seg_a = torch.as_tensor(eye[self.row_body_a], device=dev)
+        seg_a = eye[self.row_body_a].reshape(-1, m.nb)
+        seg_b = np.concatenate([eye, np.zeros((1, m.nb), np.float32)])[
+            np.where(self.row_body_b >= 0, self.row_body_b, m.nb)
+        ].reshape(-1, m.nb)
+        self.seg = torch.as_tensor(seg_a - seg_b, device=dev)
         self.sensor_body = np.asarray(m.sensor_body, np.int64)
         sp = np.asarray(m.sensor_pos)
         if sp.shape != (len(self.sensor_body), 3):
             sp = np.zeros((len(self.sensor_body), 3))
         self.sensor_pos = torch.as_tensor(sp.astype(np.float32), device=dev)
         self.sens_a = torch.as_tensor(
-            eye[self.row_body_a][:, self.sensor_body], device=dev)
+            seg_a[:, self.sensor_body], device=dev)
+        self.sens_b = torch.as_tensor(seg_b[:, self.sensor_body], device=dev)
         self.actor_root_body = np.asarray(m.actor_root_body, np.int64)
+
+    def _build_attractors(self, m, attractors):
+        """Rigid-body attractors (engine.py:537-546): soft pins of a body
+        point to a world point, solved as bilateral world-axis rows."""
+        dbm = np.asarray(m.dof_body_mask, np.float32)
+        self.attractors = [dict(
+            body=int(ab),
+            offset=torch.as_tensor(np.asarray(off, np.float32),
+                                   device=self.device),
+            target=torch.as_tensor(np.asarray(tgt, np.float32),
+                                   device=self.device),
+            mask=dbm[:, int(ab)].copy()) for ab, off, tgt in attractors]
+        if self.attractors:
+            self.att_mask = torch.as_tensor(
+                np.stack([a["mask"] for a in self.attractors]),
+                device=self.device)                              # (A, nv)
 
     # ------------------------------------------------------------------
     # kinematics
@@ -485,8 +554,6 @@ class PhysicsEngine:
             _unsupported("per-env physics scales (domain randomization)")
         if ctrl.f_ext is not None or ctrl.grab_active is not None:
             _unsupported("external wrenches / grab activation in Control")
-        if ctrl.pos_target is not None or ctrl.vel_target is not None:
-            _unsupported("PD drive targets in Control")
         h = self.h
         N = q.shape[0]
         body_x, body_q, S, (bx_bl, bq_bl, S_bl) = self.kinematics(q)
@@ -495,9 +562,16 @@ class PhysicsEngine:
         eff_lim = self.dof_effort_limit
         tau = torch.clamp(ctrl.tau, -eff_lim, eff_lim)
         rhs = tau - self.dof_spring * (qpos_dof + h * qd) - self.dof_damping * qd
-        # drive damping with PhysX's drive-force limit; a saturated drive
-        # drops its implicit stiffening from the diagonal (engine.py:886-904)
-        drive = -self.kd_drive * qd
+        # PD drive with PhysX's drive-force limit; a saturated drive drops
+        # its implicit stiffening from the diagonal (engine.py:886-904)
+        drive = torch.zeros_like(rhs)
+        if ctrl.pos_target is not None:
+            drive = drive + self.kp_drive * (ctrl.pos_target - qpos_dof
+                                             - h * qd)
+        if ctrl.vel_target is not None:
+            drive = drive + self.kd_drive * (ctrl.vel_target - qd)
+        else:
+            drive = drive - self.kd_drive * qd
         drive_sat = torch.abs(drive) > eff_lim
         rhs = rhs + torch.clamp(drive, -eff_lim, eff_lim)
         imp = torch.where(drive_sat, 0.0, 1.0)
@@ -522,7 +596,7 @@ class PhysicsEngine:
         qd_new = qd + h * qdd
 
         qd_new, impulse_pts, p_w, imp_dof = self._contact_solve(
-            qd_new, body_x, body_q, S, Hinv, qpos_dof)
+            qd_new, body_x, body_q, S, Hinv, qpos_dof, S_bl, hinv_bl)
         qd_new = torch.clamp(qd_new, -self.dof_velocity_limit,
                              self.dof_velocity_limit)
         q_new = self._integrate(q, qd_new)
@@ -535,28 +609,150 @@ class PhysicsEngine:
                 + maths.quat_apply(body_q[:, self.gnd_body], self.gnd_off))
 
     @staticmethod
+    def _sdf_local(gtype: int, size, p):
+        """Signed distance and outward normal of a primitive at local
+        points p (engine.py:990-1035)."""
+        eps = 1e-9
+        if gtype == md.GEOM_SPHERE:
+            r = torch.linalg.vector_norm(p, dim=-1, keepdim=True)
+            return r[..., 0] - size[..., 0], p / torch.clamp(r, min=eps)
+        if gtype == md.GEOM_CAPSULE:
+            hl = size[..., 1:2]
+            z = torch.minimum(torch.maximum(p[..., 2:3], -hl), hl)
+            d = p - torch.cat([torch.zeros_like(z), torch.zeros_like(z), z], -1)
+            r = torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+            return r[..., 0] - size[..., 0], d / torch.clamp(r, min=eps)
+        if gtype == md.GEOM_CYLINDER:
+            rad = torch.linalg.vector_norm(p[..., :2], dim=-1)
+            a = rad - size[..., 0]                 # radial distance to side
+            b = torch.abs(p[..., 2]) - size[..., 1]  # axial distance to cap
+            outside = torch.sqrt(torch.square(torch.clamp(a, min=0.0))
+                                 + torch.square(torch.clamp(b, min=0.0)))
+            dist = torch.clamp(torch.maximum(a, b), max=0.0) + outside
+            radial_n = p[..., :2] / torch.clamp(rad, min=eps)[..., None]
+            cap_n = torch.sign(p[..., 2])
+            n = torch.where(
+                (b > a)[..., None],
+                torch.cat([torch.zeros_like(radial_n), cap_n[..., None]], -1),
+                torch.cat([radial_n, torch.zeros_like(cap_n)[..., None]], -1))
+            return dist, n
+        if gtype == md.GEOM_BOX:
+            qv = torch.abs(p) - size
+            outside = torch.linalg.vector_norm(torch.clamp(qv, min=0.0),
+                                               dim=-1)
+            inside = torch.clamp(torch.amax(qv, dim=-1), max=0.0)
+            n_out = torch.clamp(qv, min=0.0) * torch.sign(p)
+            face = torch.nn.functional.one_hot(
+                torch.argmax(qv, dim=-1), 3).to(p.dtype)
+            n_in = face * torch.sign(p)
+            n = torch.where((outside > 0)[..., None],
+                            n_out / torch.clamp(outside, min=eps)[..., None],
+                            n_in)
+            return outside + inside, n
+        raise ValueError(f"no SDF for geom type {gtype}")
+
+    @staticmethod
+    def _tangent_frame(n):
+        """(t1, t2, n) columns (..., 3, 3) from normals (..., 3)
+        (engine.py:1038-1046)."""
+        ez = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
+        ex = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
+        ref = torch.where(torch.abs(n[..., 2:3]) < 0.9, ez, ex)
+        t1 = _cross(n, ref)
+        t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1,
+                                                       keepdim=True), min=1e-9)
+        t2 = _cross(n, t1)
+        return torch.stack([t1, t2, n], dim=-1)
+
+    def _pair_rows(self, body_x, body_q):
+        """Narrowphase of the body-pair rows (engine.py:1048-1100): contact
+        points p_c (N, K, 3), gaps phi (N, K), friction (K,) and world
+        normals n (N, K, 3)."""
+        ps, phis, mus, ns = [], [], [], []
+        for pr_ in self.pairs:
+            bodies = self.pts_body[pr_["pt_idx"]]
+            xb, qb = body_x[:, bodies], body_q[:, bodies]
+            p = xb + maths.quat_apply(qb, pr_["pts_off"])
+            tb = pr_["tgt_body"]
+            x_t = body_x[:, tb, None, :] + maths.quat_apply(
+                body_q[:, tb, None, :], pr_["tgt_pos"])
+            q_t = maths.quat_mul(body_q[:, tb, None, :],
+                                 pr_["tgt_quat"].expand(qb.shape))
+            lp = maths.quat_rotate_inverse(q_t, p - x_t)
+            d, n_l = self._sdf_local(pr_["tgt_type"], pr_["tgt_size"], lp)
+            n_w = maths.quat_apply(q_t, n_l)
+            rad = pr_["pts_rad"]
+            ps.append(p - rad[..., None] * n_w)
+            phis.append(d - rad)
+            mus.append(torch.full((len(bodies),), pr_["mu"], dtype=DTYPE,
+                                  device=body_x.device))
+            ns.append(n_w)
+        return (torch.cat(ps, 1), torch.cat(phis, 1), torch.cat(mus, 0),
+                torch.cat(ns, 1))
+
+    @staticmethod
+    def _build_J_flat(S, p_rows, mk, frames=None):
+        """Row Jacobians in the flat (N, 3R, nv) layout (engine.py:1445-1480):
+        per world axis S_lin + S_ang x p, masked by ``mk`` (R, nv), and with
+        ``frames`` (N, R, 3, 3) projected into the row frames."""
+        N, R = p_rows.shape[:2]
+        nv = S.shape[1]
+        mk = mk[None]
+        Sa, Sl = S[:, :, 0:3], S[:, :, 3:6]
+        px, py, pz = (p_rows[..., k][:, :, None] for k in range(3))
+        sax, say, saz = (Sa[..., k][:, None, :] for k in range(3))
+        Jx = (Sl[..., 0][:, None, :] + say * pz - saz * py) * mk
+        Jy = (Sl[..., 1][:, None, :] + saz * px - sax * pz) * mk
+        Jz = (Sl[..., 2][:, None, :] + sax * py - say * px) * mk
+        if frames is None:
+            return torch.stack([Jx, Jy, Jz], dim=2).reshape(N, 3 * R, nv)
+        planes = [frames[..., 0, l][:, :, None] * Jx
+                  + frames[..., 1, l][:, :, None] * Jy
+                  + frames[..., 2, l][:, :, None] * Jz for l in range(3)]
+        return torch.stack(planes, dim=2).reshape(N, 3 * R, nv)
+
+    @staticmethod
     def _w_diag(J_flat, HinvJ_flat, N, R_rows):
         """Per-axis Delassus diagonal (N, R, 3): w_l = J_l . (Hinv J_l)."""
         return torch.clamp(
             torch.sum(J_flat * HinvJ_flat, dim=-1).reshape(N, R_rows, 3),
             min=1e-8)
 
-    def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof):
-        """Projected-Jacobi impulse solve for flat-ground contacts + joint
-        limits: the ground-row branch of engine.py:1248-1925.
+    def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, S_bl,
+                       hinv_bl):
+        """Projected-Jacobi impulse solve over ground rows, body-pair rows,
+        attractors and joint limits (engine.py:1248-1925 without compaction,
+        row reuse, warm start, grabs, terrain or restitution).
 
         Rows are speculative (active at phi < contact_margin, approach speed
-        capped at phi/h).  The iteration is a Python loop of batched
-        products, as the JAX package leaves this loop to XLA
-        (engine.py:1858-1896); its Pallas kernel (B4) is opt-in there and
-        not ported yet.  Returns (qd, world impulses (N, P, 3), contact
+        capped at phi/h).  Pair rows carry tangent frames; when pairs exist
+        the ground rows get identity frames, and every row is built already
+        projected into its frame.  Rows, the H^-1 J products and the
+        Delassus diagonals are built once here; the iteration loop is a
+        Python loop of batched products, or kernel B4 through
+        :func:`.contact_kernel.solve` with ``SimParams.use_contact_kernel``
+        (engine.py:1708-1735; ``S_bl``/``hinv_bl`` are the batch-last
+        inputs it takes).  Returns (qd, world impulses (N, P, 3), contact
         points (N, P, 3), J^T lambda (N, nv))."""
         pr = self.params
         h = self.h
         N, nv = qd.shape[0], self.nv
-        p = self._contact_points(body_x, body_q)                # (N, P, 3)
-        phi = p[..., 2] - self.gnd_rad                          # flat z = 0
-        mu = self.gnd_mu * pr.plane_friction
+        ps, phis, mus, frames = [], [], [], None
+        if self.n_ground:
+            p = self._contact_points(body_x, body_q)            # (N, G, 3)
+            ps.append(p)
+            phis.append(p[..., 2] - self.gnd_rad)                # flat z = 0
+            mus.append((self.gnd_mu * pr.plane_friction).expand(N, -1))
+        if self.pairs:
+            pp, pphi, pmu, pn = self._pair_rows(body_x, body_q)
+            frame = self._tangent_frame(pn)                     # (N, K, 3, 3)
+            ps.append(pp)
+            phis.append(pphi)
+            mus.append(pmu.expand(N, -1))
+            eye = torch.eye(3, dtype=qd.dtype, device=qd.device)
+            frames = torch.cat([eye.expand(N, self.n_ground, 3, 3), frame], 1)
+        p, phi, mu = torch.cat(ps, 1), torch.cat(phis, 1), torch.cat(mus, 1)
+        P = p.shape[1]
         active = phi < pr.contact_margin
         b_n = -pr.baumgarte / h * torch.clamp(phi + pr.contact_slop, max=0.0)
         if pr.contact_margin > 0.0:
@@ -569,30 +765,46 @@ class PhysicsEngine:
         b_hi = -pr.baumgarte / h * torch.clamp(hi_gap, max=0.0)
         act_lo = self.dof_has_limit & (lo_gap < 0.0)
         act_hi = self.dof_has_limit & (hi_gap < 0.0)
-        hinv_diag = torch.clamp(torch.diagonal(Hinv, dim1=-2, dim2=-1),
-                                min=1e-8)
 
-        # contact Jacobian in the flat (N, 3P, nv) layout: per world axis,
-        # S_lin + S_ang x p, masked to the row's ancestor dofs
-        mk = self.gnd_row_mask[None]                            # (1, P, nv)
-        Sa, Sl = S[:, :, 0:3], S[:, :, 3:6]
-        px, py, pz = (p[..., k][:, :, None] for k in range(3))  # (N, P, 1)
-        sax, say, saz = (Sa[..., k][:, None, :] for k in range(3))
-        Jx = (Sl[..., 0][:, None, :] + say * pz - saz * py) * mk
-        Jy = (Sl[..., 1][:, None, :] + saz * px - sax * pz) * mk
-        Jz = (Sl[..., 2][:, None, :] + sax * py - say * px) * mk
-        P = p.shape[1]
-        J_flat = torch.stack([Jx, Jy, Jz], dim=2).reshape(N, 3 * P, nv)
-        HinvJ_flat = torch.bmm(J_flat, Hinv)                    # (N, 3P, nv)
+        J_flat = self._build_J_flat(S, p, self.row_masks, frames)  # (N,3P,nv)
+        HinvJ_flat = torch.bmm(J_flat, Hinv)
         w_diag = self._w_diag(J_flat, HinvJ_flat, N, P)
 
+        A = len(self.attractors)
+        if A:
+            # attractor rows (engine.py:1684-1706): world axes, no frames
+            pa = torch.stack([
+                body_x[:, a["body"]]
+                + maths.quat_apply(body_q[:, a["body"]], a["offset"])
+                for a in self.attractors], 1)                    # (N, A, 3)
+            tgt = torch.stack([a["target"] for a in self.attractors])
+            att_b = -pr.baumgarte / h * (pa - tgt)
+            aJ = self._build_J_flat(S, pa, self.att_mask)       # (N, 3A, nv)
+            aHJ = torch.bmm(aJ, Hinv)
+            att_W = self._w_diag(aJ, aHJ, N, A)
+
+        if self.cplan is not None:
+            qd, lam, imp_dof = ck.solve(
+                self.cplan, S_bl, hinv_bl, qd, p, b_n, mu, active.to(qd.dtype),
+                frames, w_diag, b_lo, b_hi, act_lo.to(qd.dtype),
+                act_hi.to(qd.dtype),
+                **(dict(pts_a=pa, b_a=att_b, w_a=att_W) if A else {}))
+            return qd, self._to_world(lam, frames), p, imp_dof
+
+        hinv_diag = torch.clamp(torch.diagonal(Hinv, dim1=-2, dim2=-1),
+                                min=1e-8)
         lam = torch.zeros((N, P, 3), dtype=qd.dtype, device=qd.device)
         lam_lo = torch.zeros_like(qd)
         lam_hi = torch.zeros_like(qd)
         relax = pr.relaxation
         for _ in range(pr.num_iterations):
+            if A:
+                v_a = torch.bmm(aJ, qd[..., None])[..., 0].reshape(N, A, 3)
+                dl_a = relax * (att_b - v_a) / att_W
+                qd = qd + torch.bmm(dl_a.reshape(N, 1, 3 * A), aHJ)[:, 0]
+            # row-frame velocities; normal rows, then the friction box
+            # against the new normal
             v_c = torch.bmm(J_flat, qd[..., None])[..., 0].reshape(N, P, 3)
-            # normal rows, then the friction box against the new normal
             dv_n = b_n - v_c[..., 2]
             lam_n = torch.clamp(lam[..., 2] + relax * dv_n / w_diag[..., 2],
                                 min=0.0)
@@ -618,7 +830,16 @@ class PhysicsEngine:
             lam, lam_lo, lam_hi = lam_new, lam_lo_new, lam_hi_new
         imp_dof = (torch.bmm(lam.reshape(N, 1, 3 * P), J_flat)[:, 0]
                    + (lam_lo - lam_hi))
-        return qd, lam, p, imp_dof
+        return qd, self._to_world(lam, frames), p, imp_dof
+
+    @staticmethod
+    def _to_world(lam, frames):
+        """Row-frame impulses (N, P, 3) -> world (engine.py:1828-1834)."""
+        if frames is None:
+            return lam
+        return (frames[..., :, 0] * lam[..., 0, None]
+                + frames[..., :, 1] * lam[..., 1, None]
+                + frames[..., :, 2] * lam[..., 2, None])
 
     def _integrate(self, q, qd):
         """Semi-implicit Euler; free-joint quaternions by the exponential
@@ -671,19 +892,25 @@ class PhysicsEngine:
         return SimState(q, qd, state.lam), out
 
     def _outputs(self, body_x, body_q, V, qdd, impulses, p_w, dof_force):
-        """Readouts incl. contact forces and the foot force sensors
-        (engine.py:2023-2080; Ant's obs[28:52])."""
+        """Readouts incl. net contact forces (+f on a row's body a, -f on its
+        body b) and force sensors with the wrenches of both ends
+        (engine.py:2023-2080; Ant's obs[28:52], BallBalance's tray
+        sensors)."""
         w = V[..., 0:3]
         v_lin = V[..., 3:6] + _cross(w, body_x)
         force_rows = impulses / self.params.dt                  # world frame
-        contact_force = torch.einsum("npk,pb->nbk", force_rows, self.seg_a)
+        contact_force = torch.einsum("npk,pb->nbk", force_rows, self.seg)
         N = body_x.shape[0]
         if len(self.sensor_body):
             # wrench about each sensor point, rotated into the body frame
             xa = body_x[:, self.row_body_a]
+            xb = body_x[:, np.maximum(self.row_body_b, 0)]
             tq_a = _cross(p_w - xa, force_rows)
-            f_b = torch.einsum("npk,ps->nsk", force_rows, self.sens_a)
-            n_o = torch.einsum("npk,ps->nsk", tq_a, self.sens_a)
+            tq_b = _cross(p_w - xb, force_rows)
+            f_b = (torch.einsum("npk,ps->nsk", force_rows, self.sens_a)
+                   - torch.einsum("npk,ps->nsk", force_rows, self.sens_b))
+            n_o = (torch.einsum("npk,ps->nsk", tq_a, self.sens_a)
+                   - torch.einsum("npk,ps->nsk", tq_b, self.sens_b))
             qs = body_q[:, self.sensor_body]
             r_s = maths.quat_apply(qs, self.sensor_pos)
             n_b = n_o - _cross(r_s, f_b)

@@ -3,7 +3,7 @@
 obs 60 / act 8; potential-based progress reward toward (1000, 0, 0) plus
 alive/up/heading bonuses and action/electricity/limit costs; 4 foot force
 sensors (obs[28:52]); direct effort actuation ``force = action * gear *
-power``.  The model and the task config are shared with the JAX package.
+power``.  The model is the port's copy of the JAX package's ``build_ant``.
 """
 from __future__ import annotations
 
@@ -13,8 +13,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from isaacgymenvs_ma_tpu.models.mjcf import load_mjcf
-from isaacgymenvs_ma_tpu.models.robots import build_ant
+from ..models.mjcf import load_mjcf
+from ..models.robots import build_ant
 
 from ..device import DTYPE
 from ..ops import maths
@@ -80,7 +80,7 @@ class AntTaskState(NamedTuple):
 
 
 class Ant(VecTaskBase):
-    def __init__(self, cfg, device="cpu", seed: int = 0):
+    def __init__(self, cfg, device="cuda", seed: int = 0, sim_params=None):
         cfg["env"]["numObservations"] = 60
         cfg["env"]["numActions"] = 8
         e = cfg["env"]
@@ -94,7 +94,8 @@ class Ant(VecTaskBase):
         self.termination_height = float(e["terminationHeight"])
         self.dof_vel_scale = float(e["dofVelocityScale"])
         self.contact_force_scale = float(e["contactForceScale"])
-        super().__init__(cfg, device=device, seed=seed)
+        super().__init__(cfg, device=device, seed=seed,
+                         sim_params=sim_params)
 
         m = self.model
         f32 = lambda x: torch.as_tensor(  # noqa: E731

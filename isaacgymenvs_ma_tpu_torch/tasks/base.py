@@ -4,7 +4,8 @@
 -> pre_physics -> ``control_freq_inv x`` engine.step -> sim-health net ->
 progress += 1 -> masked ``reset_idx`` of the envs flagged on the *previous*
 step -> readout refresh -> obs/reward -> timeouts -> clip obs.  ``reset_buf``
-starts at 1, so the first step resets every env after physics.
+starts at 1, so the first step resets every env after physics (before
+physics for tasks with ``reset_in_pre_physics``, as BallBalance).
 
 The JAX version threads a PRNG key through ``EnvState``; here each task
 owns a ``torch.Generator`` (``task.generator``) for its reset draws, and
@@ -75,9 +76,17 @@ def parse_sim_params(sim_cfg: dict) -> SimParams:
 
 
 class VecTaskBase:
-    """Static config + engine; the step is a function of (state, actions)."""
+    """Static config + engine; the step is a function of (state, actions).
 
-    def __init__(self, cfg: dict, device="cpu", seed: int = 0):
+    ``device`` defaults to the card; ``sim_params`` replaces the SimParams
+    parsed from ``cfg["sim"]`` (e.g. with ``use_contact_kernel=True``, which
+    has no config key)."""
+
+    # BallBalance resets in pre_physics_step (base.py:110-111)
+    reset_in_pre_physics = False
+
+    def __init__(self, cfg: dict, device="cuda", seed: int = 0,
+                 sim_params: Optional[SimParams] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         eng = str(cfg.get("physics_engine", "physx"))
@@ -95,7 +104,8 @@ class VecTaskBase:
         self.clip_actions = float(env_cfg.get("clipActions", math.inf))
         self.control_freq_inv = int(env_cfg.get("controlFrequencyInv", 1))
         self.max_episode_length = int(env_cfg.get("episodeLength", 500))
-        self.sim_params = parse_sim_params(cfg.get("sim", {}))
+        self.sim_params = (parse_sim_params(cfg.get("sim", {}))
+                           if sim_params is None else sim_params)
         self.dt = self.sim_params.dt
         self.terrain = None            # set by terrain tasks (not ported)
         if (cfg.get("task", {}) or {}).get("randomize"):
@@ -152,6 +162,10 @@ class VecTaskBase:
              reset_draws=None) -> Tuple[EnvState, StepResult]:
         actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
         reset_mask = state.reset_buf > 0
+        if self.reset_in_pre_physics:
+            sim, task = self.reset_idx(state.sim, state.task, reset_mask,
+                                       reset_draws)
+            state = state._replace(sim=sim, task=task)
         ctrl = self.pre_physics(state, actions)
         sim = state.sim
         out = None
@@ -172,7 +186,9 @@ class VecTaskBase:
 
         # ---- post physics (base.py:269-283 ordering)
         progress = state.progress + 1
-        sim, task = self.reset_idx(sim, state.task, reset_mask, reset_draws)
+        task = state.task
+        if not self.reset_in_pre_physics:
+            sim, task = self.reset_idx(sim, task, reset_mask, reset_draws)
         progress = torch.where(reset_mask, 0, progress).to(torch.int32)
         out = self.engine.forward(sim, prev_out=out)
 

@@ -6,13 +6,16 @@ Capture format: the JAX package's ``.npz`` fields (``task``, ``actions``
 ``init_qd``, ``atol``) plus what the port needs to replay a trajectory
 across resets, whose RNG streams differ between the two packages:
 
-    init_progress, init_reset_buf           (N,) int32
-    init_potentials, init_prev_potentials   (N,) f32   Ant task state
-    init_actions                            (N, A) f32
-    reset_pos, reset_vel                    (T, N, 8) f32  the reset draws
-    q, qd                                   (T, N, nq|nv) f32  per-step state
+    init_progress, init_reset_buf       (N,) int32
+    init_<field>                        each field of the task state, e.g.
+                                        Ant's init_potentials (N,), or
+                                        BallBalance's
+                                        init_dof_position_targets (N, 6)
+    <draw>                              (T, N, ...) the reset draws of every
+                                        step, named in RESET_DRAWS
+    q, qd                               (T, N, nq|nv) f32  per-step state
 
-``scripts/record_torch_golden.py`` writes such a file from the JAX package.
+``scripts/record_torch_golden.py`` writes such files from the JAX package.
 """
 from __future__ import annotations
 
@@ -21,11 +24,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from isaacgymenvs_ma_tpu.utils.config import deep_merge
+from .config import deep_merge
 
 from ..convert import env_state_from_jax
-from ..tasks.ant import TASK_CFG, Ant
+from ..tasks import ant, ball_balance
 
+TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
+         "BallBalance": (ball_balance.BallBalance, ball_balance.TASK_CFG,
+                         ball_balance.BBTaskState)}
+# capture keys of each task's reset draws, in reset_idx's order
+RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
+               "BallBalance": ("reset_dists", "reset_dirs", "reset_hspeeds",
+                               "reset_height")}
 
 # Per-step max abs error bounds of the Ant golden replay
 # (tests/data/torch_port/ant_golden.npz).  Measured on the CPU twins over
@@ -33,6 +43,16 @@ from ..tasks.ant import TASK_CFG, Ant
 # rows amplify float32 rounding roughly tenfold every two steps); reward
 # differs by one float32 ulp of the ~6e4 potential (3.9e-3).  Resets exact.
 GOLDEN_TOL = {"q": 2e-4, "qd": 1e-2, "obs": 2e-3, "rew": 1e-2}
+# Per-step bounds of the BallBalance replay
+# (tests/data/torch_port/ball_balance_golden.npz), on the default loop and
+# on kernel B4.  Measured on the CPU twins over its 6 steps: q 2.8e-6 ->
+# 1.5e-5 (the B4 route; 6.9e-6 on the default loop), qd <= 6.4e-4, obs <=
+# 9.8e-5, reward <= 1.1e-5; resets exact.  q, qd and obs are held at Ant's
+# bounds (the same float32 amplification through the contact rows, and the
+# card sums in other orders); the reward has no large potential in it and
+# is held at 2e-4, twenty times the measured error.
+BB_GOLDEN_TOL = {"q": 2e-4, "qd": 1e-2, "obs": 2e-3, "rew": 2e-4}
+TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL}
 
 
 class StepErrors(NamedTuple):
@@ -46,28 +66,34 @@ class StepErrors(NamedTuple):
     finite: bool
 
 
-def replay(npz_path: str, device) -> StepErrors:
-    """Replay an Ant capture on ``device`` with the recorded reset draws."""
+def replay(npz_path: str, device, use_contact_kernel: bool = False
+           ) -> StepErrors:
+    """Replay a capture on ``device`` with the recorded reset draws; with
+    ``use_contact_kernel`` the contact loop runs through kernel B4."""
     d = np.load(npz_path, allow_pickle=False)
-    if str(d["task"]) != "Ant":
-        raise ValueError(f"only Ant captures can be replayed, got {d['task']}")
+    name = str(d["task"])
+    if name not in TASKS:
+        raise ValueError(f"no replay for task {name!r}")
+    cls, task_cfg, state_cls = TASKS[name]
     T, N = d["actions"].shape[:2]
-    task = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": int(N)}}),
-               device=device)
-    state = env_state_from_jax({
-        "sim.q": d["init_q"], "sim.qd": d["init_qd"],
-        "progress": d["init_progress"], "reset_buf": d["init_reset_buf"],
-        "task.potentials": d["init_potentials"],
-        "task.prev_potentials": d["init_prev_potentials"],
-        "task.actions": d["init_actions"]}, device)
+    cfg = deep_merge(task_cfg, {"env": {"numEnvs": int(N)}})
+    params = None
+    if use_contact_kernel:
+        from ..tasks.base import parse_sim_params
+        params = parse_sim_params(cfg["sim"])._replace(use_contact_kernel=True)
+    task = cls(cfg, device=device, sim_params=params)
+    arrays = {"sim.q": d["init_q"], "sim.qd": d["init_qd"],
+              "progress": d["init_progress"],
+              "reset_buf": d["init_reset_buf"]}
+    arrays.update({f"task.{f}": d[f"init_{f}"] for f in state_cls._fields})
+    state = env_state_from_jax(arrays, device)
     t_ = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
     errs = {k: np.zeros(T) for k in ("q", "qd", "obs", "rew")}
     mism = np.zeros(T, np.int64)
     finite = True
     for t in range(T):
-        state, res = task.step(state, t_(d["actions"][t]),
-                               reset_draws=(t_(d["reset_pos"][t]),
-                                            t_(d["reset_vel"][t])))
+        draws = tuple(t_(d[k][t]) for k in RESET_DRAWS[name])
+        state, res = task.step(state, t_(d["actions"][t]), reset_draws=draws)
         got = {"q": state.sim.q, "qd": state.sim.qd, "obs": res.obs,
                "rew": res.rew}
         for k, v in got.items():

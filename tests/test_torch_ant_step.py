@@ -10,7 +10,10 @@ Tolerances (the JAX package's kernel-path parity bounds,
 tests/test_dyn_kernel.py:128-136): q rtol 2e-4 / atol 2e-5, qd and obs 2e-3,
 reset exact.  Reward at 2e-3 plus two float32 ulps of the potential: the
 progress term is a difference of two potentials of ~6e4 (one ulp there is
-3.9e-3), so a one-ulp difference in a potential shows in the reward.
+3.9e-3), so a one-ulp difference in a potential shows in the reward.  The
+contact-kernel route (``use_contact_kernel``: kernel B4's twin on the CPU)
+is held against the JAX kernel route in interpret mode at the same q, qd
+and obs bounds (the JAX package's, tests/test_dyn_kernel.py:112-136).
 """
 import numpy as np
 import jax
@@ -18,12 +21,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
 from isaacgymenvs_ma_tpu.tasks.ant import Ant as JAnt, TASK_CFG as JCFG
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.convert import env_state_from_jax
 from isaacgymenvs_ma_tpu_torch.physics.engine import (
     Control, PhysicsEngine, SimParams, SimState)
 from isaacgymenvs_ma_tpu_torch.tasks.ant import Ant, TASK_CFG
+from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
 
 
 def jax_state_arrays(st) -> dict:
@@ -52,7 +57,7 @@ def _rew_atol(dt):
 def ant_pair(request):
     n = request.param
     jt = JAnt(deep_merge(JCFG, {"env": {"numEnvs": n}}))
-    tt = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": n}}))
+    tt = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": n}}), device="cpu")
     step = jax.jit(jt.step)
     st0 = jt.initial_state(jax.random.PRNGKey(11))
     rng = np.random.default_rng(n)
@@ -144,6 +149,44 @@ def test_engine_step_matches_jax(ant_pair):
             atol=2e-3 * max(1.0, float(np.abs(ref).max())), err_msg=name)
 
 
+def test_ant_kernel_route_matches_jax_interpret():
+    """Ant with use_contact_kernel against the JAX kernel route in
+    interpret mode, from the setup of the JAX package's
+    test_full_step_parity_interpret (128 envs, PRNGKey(5) state, PRNGKey(6)
+    actions) advanced 5 steps so that the feet are on the ground, with a
+    quarter of the envs flagged to reset."""
+    n = 128
+    jt = JAnt(deep_merge(JCFG, {"env": {"numEnvs": n}}))
+    st = jt.initial_state(jax.random.PRNGKey(5))
+    acts = np.array(jax.random.uniform(
+        jax.random.PRNGKey(6), (n, 8), minval=-1, maxval=1))
+    step = jax.jit(jt.step)
+    for _ in range(5):
+        st, _ = step(st, jnp.asarray(acts))
+    st = st._replace(
+        reset_buf=jnp.asarray((np.arange(n) % 4 == 0).astype(np.int32)))
+
+    jdk._FORCE_INTERPRET = True
+    try:
+        st2, res = jt.step(st, jnp.asarray(acts))
+    finally:
+        jdk._FORCE_INTERPRET = False
+    cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": n}})
+    tt = Ant(cfg, device="cpu", sim_params=parse_sim_params(cfg["sim"])
+             ._replace(use_contact_kernel=True))
+    draws = tuple(torch.as_tensor(d) for d in jax_reset_draws(st, n))
+    ts2, tres = tt.step(env_state_from_jax(jax_state_arrays(st), "cpu"),
+                        torch.as_tensor(acts), reset_draws=draws)
+    np.testing.assert_allclose(ts2.sim.q.numpy(), np.asarray(st2.sim.q),
+                               rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(ts2.sim.qd.numpy(), np.asarray(st2.sim.qd),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(tres.obs.numpy(), np.asarray(res.obs),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_array_equal(tres.reset.numpy(), np.asarray(res.reset))
+    assert float(np.abs(np.asarray(res.obs)[:, 28:52]).max()) > 0.1
+
+
 def test_env_state_from_jax_roundtrip(ant_pair):
     _, tt, _, _, st, _ = ant_pair
     arrays = jax_state_arrays(st)
@@ -161,7 +204,8 @@ def test_generator_reset_draws_are_seeded():
     generator: the same seed gives the same first step."""
     out = []
     for _ in range(2):
-        t = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": 4}}), seed=5)
+        t = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": 4}}), device="cpu",
+                seed=5)
         st, _ = t.step(t.initial_state(), t.zero_actions())
         out.append(st.sim.q)
     torch.testing.assert_close(out[0], out[1], rtol=0, atol=0)
@@ -169,7 +213,7 @@ def test_generator_reset_draws_are_seeded():
 
 
 _UNPORTED = [
-    {"use_contact_kernel": True}, {"warm_start": 0.5},
+    {"warm_start": 0.5},
     {"contact_capacity": 8}, {"reuse_contact_rows": True},
     {"mass_splitting": True}, {"solver_rows_bf16": True},
     {"plane_restitution": 0.5},
@@ -182,22 +226,31 @@ def test_unported_options_raise(override):
     from isaacgymenvs_ma_tpu.models.robots import build_ant
     params = SimParams(contact_margin=0.02)._replace(**override)
     with pytest.raises(NotImplementedError):
-        PhysicsEngine(build_ant(), params)
+        PhysicsEngine(build_ant(), params, device="cpu")
 
 
 @pytest.mark.parametrize("kwargs", [{"ground": False},
-                                    {"pair_specs": [(0, 1)]},
-                                    {"attractors": [(0, (0, 0, 0), (0, 0, 1))]},
+                                    {"pair_specs": [(0, 1)], "sdf": True},
+                                    {"ground": False,
+                                     "attractors": [(0, (0, 0, 0), (0, 0, 1))]},
                                     {"grabs": [(0, (0, 0, 0), 1, (0, 0, 0))]}],
                          ids=["no_ground", "pairs", "attractors", "grabs"])
 def test_unported_scene_features_raise(kwargs):
+    """Still unported: a scene with no contact rows at all (the JAX engine's
+    _limit_solve, which also ignores attractors), SDF-grid pair targets,
+    grab constraints."""
+    import dataclasses
+    from isaacgymenvs_ma_tpu.models.model import GEOM_SDF
     from isaacgymenvs_ma_tpu.models.robots import build_ant
+    m = build_ant()
+    if kwargs.pop("sdf", False):
+        m.geoms[1] = dataclasses.replace(m.geoms[1], gtype=GEOM_SDF)
     with pytest.raises(NotImplementedError):
-        PhysicsEngine(build_ant(), SimParams(), **kwargs)
+        PhysicsEngine(m, SimParams(), device="cpu", **kwargs)
 
 
 def test_terrain_and_phys_raise():
-    t = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": 4}}))
+    t = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": 4}}), device="cpu")
     st = t.initial_state()
     ctrl = t.pre_physics(st, t.zero_actions())
     with pytest.raises(NotImplementedError):
@@ -207,14 +260,14 @@ def test_terrain_and_phys_raise():
     with pytest.raises(NotImplementedError):
         t.engine.step(st.sim, ctrl._replace(f_ext=torch.zeros(4, 9, 6)))
     with pytest.raises(NotImplementedError):
-        t.engine.step(st.sim, ctrl._replace(pos_target=torch.zeros(4, 14)))
+        t.engine.step(st.sim, ctrl._replace(grab_active=torch.zeros(4, 1)))
 
 
 def test_domain_randomization_raises():
     cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": 4},
                                 "task": {"randomize": True}})
     with pytest.raises(NotImplementedError):
-        Ant(cfg)
+        Ant(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("spec", ["shadow_hand", "franka_panda", "anymal"])

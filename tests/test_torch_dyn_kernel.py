@@ -25,7 +25,7 @@ from isaacgymenvs_ma_tpu_torch.tasks.ant import Ant, TASK_CFG
 def scene(request):
     n = request.param
     jt = JAnt(deep_merge(JCFG, {"env": {"numEnvs": n}}))
-    tt = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": n}}))
+    tt = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": n}}), device="cpu")
     st = jt.initial_state(jax.random.PRNGKey(3))
     acts = jnp.asarray(np.random.default_rng(n).uniform(
         -1, 1, (n, 8)).astype(np.float32))

@@ -1,20 +1,28 @@
-"""Replay of the committed JAX Ant golden capture on the port's CPU twins.
+"""Replay of the committed JAX golden captures on the port's CPU twins.
 
-tests/data/torch_port/ant_golden.npz (scripts/record_torch_golden.py): Ant
-at 64 envs, 6 steps of fixed actions from a warmed-up state with the feet
-on the ground, a quarter of the envs reset on step 1 with the recorded JAX
-reset draws.  chip_smoke.py replays the same file through the CUDA kernels.
+tests/data/torch_port/ant_golden.npz and ball_balance_golden.npz
+(scripts/record_torch_golden.py): the task at 64 envs, 6 steps of fixed
+actions from a warmed-up state (Ant's feet on the ground, BallBalance's
+balls on the trays), a quarter of the envs reset on step 1 with the
+recorded JAX reset draws.  chip_smoke.py replays the same files through the
+CUDA kernels.
 
-The per-step tolerances and their reasons are parity.GOLDEN_TOL's.
+The per-step tolerances and their reasons are parity.GOLDEN_TOL's (Ant)
+and parity.BB_GOLDEN_TOL's (BallBalance).
 """
 import os
 
 import numpy as np
 
-from isaacgymenvs_ma_tpu_torch.utils.parity import GOLDEN_TOL, replay
+import pytest
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
-                      "torch_port", "ant_golden.npz")
+from isaacgymenvs_ma_tpu_torch.utils.parity import (BB_GOLDEN_TOL,
+                                                     GOLDEN_TOL, replay)
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                    "torch_port")
+GOLDEN = os.path.join(DATA, "ant_golden.npz")
+BB_GOLDEN = os.path.join(DATA, "ball_balance_golden.npz")
 
 
 def test_golden_capture_format():
@@ -32,6 +40,31 @@ def test_golden_replay_on_cpu_twins():
     e = replay(GOLDEN, "cpu")
     assert e.finite
     for k, tol in GOLDEN_TOL.items():
+        errs = getattr(e, k)
+        assert (errs <= tol).all(), f"{k} per-step errors {errs} > {tol}"
+    assert int(e.reset_mismatches.sum()) == 0
+
+
+def test_ball_balance_golden_capture_format():
+    d = np.load(BB_GOLDEN)
+    T, N = d["actions"].shape[:2]
+    assert (T, N) == (6, 64) and str(d["task"]) == "BallBalance"
+    assert d["obs"].shape == (T, N, 24) and d["q"].shape == (T, N, 20)
+    assert d["init_dof_position_targets"].shape == (N, 6)
+    assert d["reset_dirs"].shape == (T, N, 2)
+    assert d["reset_height"].shape == (T, N)
+    assert int(d["init_reset_buf"].sum()) == N // 4
+    # the balls rest on the trays: the tray force sensors read the pair row
+    assert float(np.abs(d["obs"][:, :, 12:]).max()) > 1.0
+    assert os.path.getsize(BB_GOLDEN) < 200_000
+
+
+@pytest.mark.parametrize("kernel_route", [False, True],
+                         ids=["default_loop", "contact_kernel"])
+def test_ball_balance_golden_replay_on_cpu_twins(kernel_route):
+    e = replay(BB_GOLDEN, "cpu", use_contact_kernel=kernel_route)
+    assert e.finite
+    for k, tol in BB_GOLDEN_TOL.items():
         errs = getattr(e, k)
         assert (errs <= tol).all(), f"{k} per-step errors {errs} > {tol}"
     assert int(e.reset_mismatches.sum()) == 0

@@ -1,8 +1,10 @@
-"""The port never imports jax.
+"""The port never imports jax, nor anything of the JAX package.
 
 Runs in a subprocess because tests/conftest.py imports jax into this one:
-import every module of isaacgymenvs_ma_tpu_torch, build Ant at 8 envs,
-step it, then check that no jax module was loaded.
+import every module of isaacgymenvs_ma_tpu_torch, build and step Ant and
+BallBalance at 8 envs on the CPU (default loop and contact-kernel route),
+then check that neither ``jax*`` nor ``isaacgymenvs_ma_tpu`` /
+``isaacgymenvs_ma_tpu.*`` was loaded.
 """
 import os
 import subprocess
@@ -20,14 +22,28 @@ SCRIPT = textwrap.dedent("""
     for name in mods:
         importlib.import_module(name)
     from isaacgymenvs_ma_tpu_torch.tasks.ant import Ant, TASK_CFG
-    from isaacgymenvs_ma_tpu.utils.config import deep_merge
-    task = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": 8}}))
-    state = task.initial_state()
-    for _ in range(2):
-        state, res = task.step(state, torch.tanh(torch.randn(8, 8)))
-    assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 60)
-    loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-    print("MODULES", len(mods), "JAX", loaded)
+    from isaacgymenvs_ma_tpu_torch.tasks.ball_balance import (
+        BallBalance, TASK_CFG as BB_CFG)
+    from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
+    from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
+    for cls, cfg0, n_obs, n_act in ((Ant, TASK_CFG, 60, 8),
+                                    (BallBalance, BB_CFG, 24, 3)):
+        for kernel_route in (False, True):
+            cfg = deep_merge(cfg0, {"env": {"numEnvs": 8}})
+            params = parse_sim_params(cfg["sim"])._replace(
+                use_contact_kernel=kernel_route)
+            task = cls(cfg, device="cpu", sim_params=params)
+            state = task.initial_state()
+            for _ in range(2):
+                state, res = task.step(state,
+                                       torch.tanh(torch.randn(8, n_act)))
+            assert torch.isfinite(res.obs).all()
+            assert res.obs.shape == (8, n_obs)
+    loaded = sorted(m for m in sys.modules
+                    if m == "jax" or m.startswith("jax")
+                    or m == "isaacgymenvs_ma_tpu"
+                    or m.startswith("isaacgymenvs_ma_tpu."))
+    print("MODULES", len(mods), "LOADED", loaded)
     assert not loaded, loaded
 """)
 
@@ -38,8 +54,8 @@ def test_port_imports_and_steps_without_jax():
     proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert "JAX []" in proc.stdout
-    # every module of the package was imported (scaffold, ops, physics,
-    # tasks, convert)
+    assert "LOADED []" in proc.stdout
+    # every module of the package was imported (scaffold, models, ops,
+    # physics, tasks, utils, convert)
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 12, proc.stdout
+    assert n_mods >= 19, proc.stdout
