@@ -5,21 +5,28 @@
 
 Phases, each printing its own lines; any failure exits non-zero:
   1. device: torch/CUDA versions, the card's name and power limit
-  2. build: nvcc builds kernels B1-B3 for the Ant and the BallBalance scene,
-     B4 for both scenes' contact plans and for a synthetic plan with grab
-     rows, all compilers started together
+  2. build: nvcc builds kernels B1-B3 for the Ant, BallBalance and
+     FrankaReachMA scenes, B4 for the Ant and BallBalance contact plans and
+     for a synthetic plan with grab rows, B5 for n = 6, 7 and 14, all
+     compilers started together; each kernel's ptxas registers and spills
   3. kernels: each kernel against its plain PyTorch twin on the card, with
      kernel and twin times: B1-B3 at Ant-4096 shapes on a generic state and
-     at BallBalance-4096 shapes on a warmed-up state; B4 on the inputs the
-     main path hands it at Ant-4096 (no frames) and BallBalance-4096
-     (frames, attractors), and on the synthetic grab plan
+     at BallBalance-4096 and FrankaReachMA-8192 shapes on warmed-up states;
+     B4 on the inputs the main path hands it at Ant-4096 (no frames) and
+     BallBalance-4096 (frames, attractors), and on the synthetic grab plan;
+     B5 on the two OSC inverses of a warmed-up FrankaReachMA-8192 step
+     ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and on
+     seeded SPD matrices at (16384, 7, 7) and (4096, 14, 14), with
+     torch.linalg.inv's time beside it
   4. golden: the committed JAX captures replayed through the kernels: Ant
-     and BallBalance, each on the default loop and on B4
+     and BallBalance, each on the default loop and on B4; FrankaReachMA on
+     the default loop (compaction and row reuse)
   5. main path, each phase with the launch counts set to 0 just before it:
-     Ant-4096 (200 steps) and BallBalance-4096 (100 steps) on the default
-     contact loop, and each on B4 (100 steps), tanh(obs @ W) actions;
-     env-steps/s, stream ms per step by CUDA events (the kernels and the
-     device's idle gaps between them), launches per kernel
+     Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
+     FrankaReachMA at 8192 envs x 2 arms, 100 steps each, tanh(obs @ W)
+     actions; env-steps/s (and agent-steps/s), stream ms per step by CUDA
+     events (the kernels and the device's idle gaps between them),
+     launches per kernel
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Needs a CUDA device; never falls back to
 the CPU and never imports jax.
@@ -33,12 +40,17 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_ENVS = 4096
-PHASES = (  # tag, task, use_contact_kernel, steps
-    ("ant", "Ant", False, 200),
-    ("ant_b4", "Ant", True, 100),
-    ("ball_balance", "BallBalance", False, 100),
-    ("ball_balance_b4", "BallBalance", True, 100),
+PHASES = (  # tag, task, use_contact_kernel, steps, envs
+    ("ant", "Ant", False, 100, N_ENVS),
+    ("ant_b4", "Ant", True, 100, N_ENVS),
+    ("ball_balance", "BallBalance", False, 100, N_ENVS),
+    ("ball_balance_b4", "BallBalance", True, 100, N_ENVS),
+    ("franka_reach_ma", "FrankaReachMA", False, 100, 8192),
 )
+DYN = ("fk_motion", "dyn_forward", "dyn_cached")
+# kernel name -> scene of its kernels-JSON row (where it runs first)
+JSON_SCENE = {"fk_motion": "ant", "dyn_forward": "ant", "dyn_cached": "ant",
+              "contact_solve": "ant", "spd_inverse": "franka_reach_ma"}
 KERNELS = {  # kernel name -> (CUDA source, TPU kernel replaced)
     "fk_motion": ("isaacgymenvs_ma_tpu_torch/physics/csrc/fk_motion.cu",
                   "isaacgymenvs_ma_tpu/physics/dyn_kernel.py:657"),
@@ -49,6 +61,8 @@ KERNELS = {  # kernel name -> (CUDA source, TPU kernel replaced)
     "contact_solve": (
         "isaacgymenvs_ma_tpu_torch/physics/csrc/contact_solve.cu",
         "isaacgymenvs_ma_tpu/physics/contact_kernel.py:221"),
+    "spd_inverse": ("isaacgymenvs_ma_tpu_torch/physics/csrc/spd_inverse.cu",
+                    "isaacgymenvs_ma_tpu/physics/engine.py:241"),
 }
 # H100 SXM published peaks: HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -118,6 +132,12 @@ def flops_dyn_forward(plan):
 
 def flops_dyn_cached(plan):
     return flops_rnea(plan) + 2 * plan.nv * plan.nv + plan.nv
+
+
+def flops_spd(n):
+    """The Gauss-Jordan sweep of one n x n matrix: per pivot a rank-1
+    update (2 n^2) and the pivot row and column (3 n)."""
+    return n * (2 * n * n + 3 * n)
 
 
 def flops_contact(cplan):
@@ -249,6 +269,11 @@ def policy(torch, task, dev):
     return lambda obs: torch.tanh(obs @ W)
 
 
+def zero_obs(torch, task, dev):
+    """The obs a run starts from: one row per agent."""
+    return torch.zeros((task.rl_games_batch, task.num_obs), device=dev)
+
+
 def run_steps(torch, task, state, obs, act, steps):
     for _ in range(steps):
         state, res = task.step(state, act(obs))
@@ -256,11 +281,11 @@ def run_steps(torch, task, state, obs, act, steps):
     return state, obs
 
 
-def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen):
+def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
     """B1-B3 against their twins on one scene's state; returns per kernel
-    {max_abs_err, ms, plain_ms, bytes, flops}.  ``widen``: hold the outputs
-    that pass through the bias force (qdd) per env against the float64
-    twin's rounding noise as ``hold`` says; else at fixed bounds."""
+    {max_abs_err, ms, plain_ms, bytes, flops}.  ``widen``: names of the B2
+    and B3 outputs ("qdd", "Hinv") held per env against the twin's float32
+    rounding noise as ``hold`` says; the others at fixed bounds."""
     plan = task.engine.plan
     N = q_bl.shape[-1]
     g = torch.Generator(device=dev).manual_seed(3)
@@ -273,12 +298,14 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen):
     close = lambda what, a, b, rtol, atol, noise=None: hold(  # noqa: E731
         f"{scene} {what}", a, b, rtol, atol, noise)
 
-    def noise(twin, *a):
-        """rounding_noise of a twin's first output (qdd), if ``widen``."""
-        if not widen:
-            return None
-        first = lambda c: lambda *x: twin(plan, c, *x)[0]  # noqa: E731
-        return rounding_noise(torch, first(consts), first(c64), a)[0]
+    def noise(twin, names, *a):
+        """{output name: rounding_noise pair} for the twin's outputs (named
+        ``names`` in order) that ``widen`` names."""
+        if not set(names) & set(widen):
+            return {}
+        run = lambda c: lambda *x: twin(plan, c, *x)  # noqa: E731
+        pairs = rounding_noise(torch, run(consts), run(c64), a)
+        return {n: z for n, z in zip(names, pairs) if n in widen}
 
     bx, bq, S = dk.fk_motion(plan, q_bl)
     rbx, rbq, rS = dk._fk_motion_bl(plan, q_bl)
@@ -294,22 +321,25 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen):
     qdd, hinv, io = dk.dyn_forward(plan, *args)
     rqdd, rhinv, rio = dk.dyn_full_bl(plan, consts, *args)
     # qdd goes through the bias force, which at BallBalance (balls rolling
-    # and spinning fast 1-2 m from the world origin) cancels large terms
+    # and spinning fast 1-2 m from the world origin) cancels large terms;
+    # at FrankaReachMA H^-1 spans the cubes' tiny rotational inertias
+    # (~1e4) and the arms' (~1)
+    out3 = ("qdd", "Hinv", "I_O")
+    nz = noise(dk.dyn_full_bl, out3, *args)
     err = max(close("dyn_forward I_O", io, rio, 1e-5, 1e-5),
-              close("dyn_forward Hinv", hinv, rhinv, 2e-4, 1e-5),
-              close("dyn_forward qdd", qdd, rqdd, 2e-4, 2e-4,
-                    noise(dk.dyn_full_bl, *args)))
+              close("dyn_forward Hinv", hinv, rhinv, 2e-4, 1e-5,
+                    nz.get("Hinv")),
+              close("dyn_forward qdd", qdd, rqdd, 2e-4, 2e-4, nz.get("qdd")))
     # per-env mass and shape scales (the domain-randomization inputs)
     ms = torch.rand((plan.nb, N), generator=g, device=dev) + 0.5
     ss = torch.rand((plan.nb, 3, N), generator=g, device=dev) * 0.7 + 0.7
     out_s = dk.dyn_forward(plan, *args, ms, ss)
     ref_s = dk.dyn_full_bl(plan, consts, *args, ms, ss)
-    err = max(err, close("dyn_forward scaled qdd", out_s[0], ref_s[0], 2e-4,
-                         2e-4, noise(dk.dyn_full_bl, *args, ms, ss)),
-              *(close(f"dyn_forward scaled {k}", a, b, *tol)
-                for k, a, b, tol in zip(
-                    ("Hinv", "I_O"), out_s[1:], ref_s[1:],
-                    ((2e-4, 1e-5), (1e-5, 1e-5)))))
+    nz = noise(dk.dyn_full_bl, out3, *args, ms, ss)
+    err = max(err, *(close(f"dyn_forward scaled {k}", a, b, *tol, nz.get(k))
+                     for k, a, b, tol in zip(
+                         out3, out_s, ref_s,
+                         ((2e-4, 2e-4), (2e-4, 1e-5), (1e-5, 1e-5)))))
     report["dyn_forward"] = dict(
         max_abs_err=err, ms=gpu_ms(torch, lambda: dk.dyn_forward(plan, *args)),
         plain_ms=gpu_ms(torch, lambda: dk.dyn_full_bl(plan, consts, *args)),
@@ -323,7 +353,7 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen):
     report["dyn_cached"] = dict(
         max_abs_err=close(
             "dyn_cached qdd", qdd_c, rqdd_c, 2e-4, 2e-4,
-            noise(lambda *x: (dk.dyn_cached_bl(*x),), *cargs)),
+            noise(dk.dyn_cached_bl, ("qdd",), *cargs).get("qdd")),
         ms=gpu_ms(torch, lambda: dk.dyn_cached(plan, *cargs)),
         plain_ms=gpu_ms(torch, lambda: dk.dyn_cached_bl(plan, consts, *cargs)),
         bytes=nbytes(*cargs, qdd_c), flops=flops_dyn_cached(plan) * N)
@@ -342,9 +372,8 @@ def capture_contact_inputs(torch, ck, task, dev, steps):
 
     ck.solve_kernel = spy
     try:
-        obs = torch.zeros((task.num_envs, task.num_obs), device=dev)
-        run_steps(torch, task, task.initial_state(), obs,
-                  policy(torch, task, dev), steps)
+        run_steps(torch, task, task.initial_state(),
+                  zero_obs(torch, task, dev), policy(torch, task, dev), steps)
     finally:
         ck.solve_kernel = launch
     return box["call"]
@@ -410,13 +439,67 @@ def check_contact_kernel(torch, ck, call, scene, widen):
                 flops=flops_contact(plan) * N)
 
 
-def main_phase(torch, wrappers, task, dev, steps, kernel_route):
+def capture_osc_inputs(torch, ctl, task, state, dev):
+    """The SPD matrices one FrankaReachMA control step inverts through
+    kernel B5 (the arm mass matrices, then J M^-1 J^T), from ``state``:
+    OSC's ``spd_inverse`` (module ``ctl``) is wrapped for one call."""
+    box = []
+    inverse = ctl.spd_inverse
+
+    def spy(H):
+        box.append(H.clone())
+        return inverse(H)
+
+    ctl.spd_inverse = spy
+    try:
+        task.pre_physics(state, policy(torch, task, dev)(
+            zero_obs(torch, task, dev) + 0.5))
+    finally:
+        ctl.spd_inverse = inverse
+    return box
+
+
+def seeded_spd(torch, B, n, seed, dev):
+    """A A^T + 3 I from a seed (tests/test_contact_opt.py:88-89)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((B, n, n), generator=g, device=dev)
+    return A @ A.transpose(1, 2) + 3.0 * torch.eye(n, device=dev)
+
+
+def check_spd_kernel(torch, sk, dk, H, label, widen):
+    """B5 against its twin on a (B, n, n) SPD stack: rtol 1e-4 / atol 1e-6
+    per entry (the kernel rounds fused multiply-adds once); with
+    ``widen`` each matrix's bound is widened by its twin's float32 rounding
+    noise as ``hold`` says (near-singular arm poses make J M^-1 J^T
+    ill-conditioned).  Prints max |H H^-1 - I| of the kernel and the twin;
+    returns the report entry, with torch.linalg.inv's time beside it."""
+    B, n = H.shape[0], H.shape[-1]
+    out = sk.sweep_inverse(H)
+    H_bl = H.permute(1, 2, 0).contiguous()
+    ref = dk.sweep_inverse_bl(H_bl)
+    nz = (rounding_noise(torch, dk.sweep_inverse_bl, dk.sweep_inverse_bl,
+                         (H_bl,))[0] if widen else None)
+    err = hold(f"{label} spd_inverse", out.permute(1, 2, 0), ref, 1e-4, 1e-6,
+               nz)
+    eye = torch.eye(n, device=H.device)
+    resid = [float((torch.bmm(H, x) - eye).abs().amax())
+             for x in (out, ref.permute(2, 0, 1))]
+    print(f"[check] {label} spd_inverse max|H Hinv - I| kernel={resid[0]:.3g}"
+          f" twin={resid[1]:.3g}", flush=True)
+    return dict(max_abs_err=err, ms=gpu_ms(torch, lambda: sk.sweep_inverse(H)),
+                plain_ms=gpu_ms(torch, lambda: dk.sweep_inverse_bl(H_bl)),
+                library_ms=gpu_ms(torch, lambda: torch.linalg.inv(H)),
+                bytes=nbytes(H, out), flops=flops_spd(n) * B)
+
+
+def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
     """One main-path phase: warm up, set every launch count to 0, drive
     ``steps`` steps, read the counts.  Fails on non-finite output, a wrong
-    shape, a path kernel never launched, or B4 launched off its route."""
+    shape, a kernel of ``expected`` never launched or one of ``forbidden``
+    launched."""
     act = policy(torch, task, dev)
     state = task.initial_state()
-    obs = torch.zeros((task.num_envs, task.num_obs), device=dev)
+    obs = zero_obs(torch, task, dev)
     state, obs = run_steps(torch, task, state, obs, act, 10)   # warm-up
     finite = torch.ones((), dtype=torch.bool, device=dev)
     resets = torch.zeros((), dtype=torch.int64, device=dev)
@@ -440,16 +523,65 @@ def main_phase(torch, wrappers, task, dev, steps, kernel_route):
                & torch.isfinite(state.sim.qd).all())
     if not bool(finite):
         raise RuntimeError("main path produced non-finite values")
-    if tuple(obs.shape) != (task.num_envs, task.num_obs):
+    if tuple(obs.shape) != (task.rl_games_batch, task.num_obs):
         raise RuntimeError(f"obs shape {tuple(obs.shape)}")
-    on_path = [k for k in launches if k != "contact_solve" or kernel_route]
-    missing = [k for k in on_path if launches[k] <= 0]
+    missing = [k for k in expected if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"main path never launched kernels {missing}")
-    if not kernel_route and launches["contact_solve"]:
-        raise RuntimeError("the default contact loop launched B4")
+    stray = [k for k in forbidden if launches[k]]
+    if stray:
+        raise RuntimeError(f"main path launched kernels {stray} off their "
+                           "path")
     return dict(seconds=seconds, stream_ms=start.elapsed_time(end) / steps,
                 resets=int(resets), launches=launches)
+
+
+def build_all(_build, plans):
+    """Build every plan's kernels, all nvcc processes started together;
+    print the time and each kernel's ptxas registers and spills."""
+    t0 = time.perf_counter()
+    pending = [_build.build(p, wait=False) for _, p in plans]
+    for finish in pending:
+        finish()
+    phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
+          libraries=sum(len(p.libs) for _, p in plans))
+    for scene, p in plans:
+        for name in sorted(p.build_log):
+            for line in p.build_log[name].splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {scene} {name}: {line.strip()}",
+                          flush=True)
+
+
+def check_franka_kernels(torch, dk, sk, ctl, task, dev):
+    """B1-B3 at FrankaReachMA-8192 shapes on a state 30 steps in (cubes on
+    the table, arms moving), qdd and H^-1 held per env; B5 on that state's
+    two OSC inverses (held per matrix) and on seeded SPD stacks at
+    (16384, 7, 7) and (4096, 14, 14) (fixed bounds)."""
+    st, _ = run_steps(torch, task, task.initial_state(),
+                      zero_obs(torch, task, dev), policy(torch, task, dev), 30)
+    gq = torch.Generator(device=dev).manual_seed(13)
+    qd = st.sim.qd + 0.3 * torch.randn(st.sim.qd.shape, generator=gq,
+                                       device=dev)
+    rep = check_dyn_kernels(torch, dk, task, st.sim.q.t().contiguous(),
+                            qd.t().contiguous(), dev, "franka_reach_ma",
+                            ("qdd", "Hinv"))
+    mm, m_eef_inv = capture_osc_inputs(torch, ctl, task, st, dev)
+
+    def spd(label, H, widen):
+        B, n = H.shape[0], H.shape[-1]
+        return check_spd_kernel(torch, sk, dk, H,
+                                f"franka_reach_ma {label} ({B},{n},{n})",
+                                widen)
+
+    # the kernels JSON row of B5: the arm mass matrices of the main path
+    rep["spd_inverse"] = spd("osc_mm", mm, True)
+    extra = {"osc_m_eef_inv": spd("osc_m_eef_inv", m_eef_inv, True),
+             "seeded_7": spd("seeded_7", seeded_spd(torch, 16384, 7, 21, dev),
+                             False),
+             "seeded_14": spd("seeded_14",
+                              seeded_spd(torch, 4096, 14, 22, dev), False)}
+    return rep, extra
 
 
 def main():
@@ -467,7 +599,9 @@ def main():
                            f"{port.__file__}, not from this checkout")
     from isaacgymenvs_ma_tpu_torch.physics import KERNEL_WRAPPERS, _build
     from isaacgymenvs_ma_tpu_torch.physics import contact_kernel as ck
+    from isaacgymenvs_ma_tpu_torch.physics import controllers as ctl
     from isaacgymenvs_ma_tpu_torch.physics import dyn_kernel as dk
+    from isaacgymenvs_ma_tpu_torch.physics import spd_kernel as sk
     from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
     from isaacgymenvs_ma_tpu_torch.utils import parity
     from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
@@ -480,33 +614,24 @@ def main():
     print(f"nvidia-smi: {smi}", flush=True)
     dev = torch.device("cuda", 0)
 
-    def make(name, kernel_route):
+    def make(name, kernel_route, n_envs):
         cls, task_cfg, _ = parity.TASKS[name]
-        cfg = deep_merge(task_cfg, {"env": {"numEnvs": N_ENVS}})
+        cfg = deep_merge(task_cfg, {"env": {"numEnvs": n_envs}})
         params = parse_sim_params(cfg["sim"])._replace(
             use_contact_kernel=kernel_route)
         return cls(cfg, device=dev, seed=1, sim_params=params)
 
     # ---- 2. build: every distinct kernel and header, compilers in parallel
-    tasks = {tag: make(name, route) for tag, name, route, _ in PHASES}
+    tasks = {tag: make(name, route, n) for tag, name, route, _, n in PHASES}
     grab = synthetic_grab_call(torch, np, ck, dev)
-    plans = [("ant", tasks["ant"].engine.plan),
-             ("ball_balance", tasks["ball_balance"].engine.plan),
-             ("ant", tasks["ant_b4"].engine.cplan),
-             ("ball_balance", tasks["ball_balance_b4"].engine.cplan),
-             ("grab", grab[0])]
-    t0 = time.perf_counter()
-    pending = [_build.build(p, wait=False) for _, p in plans]
-    for finish in pending:
-        finish()
-    phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
-          libraries=sum(len(p.libs) for _, p in plans))
-    for scene, p in plans:
-        for name in sorted(p.build_log):
-            for line in p.build_log[name].splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {scene} {name}: {line.strip()}",
-                          flush=True)
+    build_all(_build, [
+        ("ant", tasks["ant"].engine.plan),
+        ("ball_balance", tasks["ball_balance"].engine.plan),
+        ("franka_reach_ma", tasks["franka_reach_ma"].engine.plan),
+        ("ant", tasks["ant_b4"].engine.cplan),
+        ("ball_balance", tasks["ball_balance_b4"].engine.cplan),
+        ("grab", grab[0]),
+        *((f"spd n={n}", sk.get_plan(n)) for n in (6, 7, 14))])
 
     # ---- 3. kernels against their twins
     q_np, qd_np = generic_ant_state(np, tasks["ant"], seed=7)
@@ -514,36 +639,43 @@ def main():
     # Ant keeps fixed bounds; BallBalance's fast-rolling balls and its
     # friction box make float32 alone move the twin: held per env (hold)
     report = {"ant": check_dyn_kernels(torch, dk, tasks["ant"], to_bl(q_np),
-                                       to_bl(qd_np), dev, "ant", False)}
+                                       to_bl(qd_np), dev, "ant")}
     bb = tasks["ball_balance"]
-    st, _ = run_steps(torch, bb, bb.initial_state(),
-                      torch.zeros((N_ENVS, bb.num_obs), device=dev),
+    st, _ = run_steps(torch, bb, bb.initial_state(), zero_obs(torch, bb, dev),
                       policy(torch, bb, dev), 30)
     gq = torch.Generator(device=dev).manual_seed(11)
     qd_bb = st.sim.qd + torch.randn(st.sim.qd.shape, generator=gq, device=dev)
     report["ball_balance"] = check_dyn_kernels(
         torch, dk, bb, st.sim.q.t().contiguous(), qd_bb.t().contiguous(), dev,
-        "ball_balance", True)
+        "ball_balance", ("qdd",))
     for scene, widen in (("ant", False), ("ball_balance", True)):
         call = capture_contact_inputs(torch, ck, tasks[scene + "_b4"], dev, 30)
         report[scene]["contact_solve"] = check_contact_kernel(
             torch, ck, call, scene, widen)
     report["grab"] = {"contact_solve": check_contact_kernel(
         torch, ck, grab, "grab", False)}
+    report["franka_reach_ma"], spd_extra = check_franka_kernels(
+        torch, dk, sk, ctl, tasks["franka_reach_ma"], dev)
+    report["franka_reach_ma spd"] = spd_extra
     for scene, r in report.items():
         for name, e in r.items():
             b_ms, b_by = bound(e["bytes"], e["flops"])
+            lib = ("" if e.get("library_ms") is None
+                   else f" library_ms={e['library_ms']:.5f}")
             phase("kernel", scene=scene, name=name,
                   max_abs_err=f"{e['max_abs_err']:.3g}", ms=f"{e['ms']:.5f}",
                   plain_ms=f"{e['plain_ms']:.5f}", bound_ms=f"{b_ms:.5f}",
-                  bound_by=b_by, bytes=e["bytes"], flops=e["flops"])
+                  bound_by=b_by, bytes=e["bytes"], flops=str(e["flops"]) + lib)
 
-    # ---- 4. golden JAX captures replayed through the kernels
-    for fname in ("ant_golden.npz", "ball_balance_golden.npz"):
+    # ---- 4. golden JAX captures replayed through the kernels (B4 takes
+    # no compacted or reused rows: FrankaReachMA on the default loop only)
+    for fname, routes in (("ant_golden.npz", (False, True)),
+                          ("ball_balance_golden.npz", (False, True)),
+                          ("franka_reach_ma_golden.npz", (False,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]
-        for kernel_route in (False, True):
+        for kernel_route in routes:
             e = parity.replay(path, dev, use_contact_kernel=kernel_route)
             if not e.finite:
                 raise RuntimeError(f"{fname} replay produced non-finite "
@@ -563,27 +695,39 @@ def main():
 
     # ---- 5. main path: each phase with the counts set to 0 just before it
     total = {name: 0 for name in KERNEL_WRAPPERS}
-    for tag, _, kernel_route, steps in PHASES:
-        r = main_phase(torch, KERNEL_WRAPPERS, tasks[tag], dev, steps,
-                       kernel_route)
-        for name, c in r["launches"].items():
-            total[name] += c
-        phase("main", phase=tag, envs=N_ENVS, steps=steps,
+    for tag, name, kernel_route, steps, n_envs in PHASES:
+        task = tasks[tag]
+        expected = DYN + (("contact_solve",) if kernel_route else ())
+        if name == "FrankaReachMA":
+            expected += ("spd_inverse",)
+        forbidden = [k for k in KERNEL_WRAPPERS if k not in expected]
+        r = main_phase(torch, KERNEL_WRAPPERS, task, dev, steps, expected,
+                       forbidden)
+        n_b5 = r["launches"]["spd_inverse"]
+        if name == "FrankaReachMA" and n_b5 != 2 * steps:
+            raise RuntimeError(f"OSC launched B5 {n_b5} times in {steps} "
+                               "steps, not twice a step")
+        for k, c in r["launches"].items():
+            total[k] += c
+        rows_per_s = task.rl_games_batch * steps / r["seconds"]
+        agents = ({} if task.num_agents == 1 else dict(
+            agents=task.num_agents, agent_steps_per_s=f"{rows_per_s:.1f}"))
+        phase("main", phase=tag, envs=n_envs, steps=steps,
               seconds=f"{r['seconds']:.4f}",
-              env_steps_per_s=f"{N_ENVS * steps / r['seconds']:.1f}",
-              stream_ms_per_step=f"{r['stream_ms']:.4f}",
+              env_steps_per_s=f"{n_envs * steps / r['seconds']:.1f}",
+              **agents, stream_ms_per_step=f"{r['stream_ms']:.4f}",
               resets=r["resets"],
               launches=json.dumps(r["launches"]).replace(" ", ""))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        e = report["ant"][name]   # the JSON line holds the Ant-4096 shapes
+        e = report[JSON_SCENE[name]][name]
         b_ms, b_by = bound(e["bytes"], e["flops"])
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=total[name], max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-            library_ms=None))
+            library_ms=e.get("library_ms")))
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

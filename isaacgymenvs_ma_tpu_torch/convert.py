@@ -12,8 +12,8 @@ numpy arrays under flat dotted names, e.g. from a JAX ``EnvState`` ``st``::
               "task.actions": np.asarray(st.task.actions)}
 
 The ``task.*`` keys name the fields of one task's state class (Ant's
-``AntTaskState``, BallBalance's ``BBTaskState``); the class is picked by
-its field names.  This slice has no learned weights; the PPO slice extends
+``AntTaskState``, BallBalance's ``BBTaskState``, FrankaReachMA's
+``FrankaMATaskState``); the class is picked by its field names.  This slice has no learned weights; the PPO slice extends
 this module with network parameters.
 """
 from __future__ import annotations
@@ -26,8 +26,9 @@ from .physics.engine import SimState
 from .tasks.ant import AntTaskState
 from .tasks.ball_balance import BBTaskState
 from .tasks.base import EnvState
+from .tasks.franka_reach_ma import FrankaMATaskState
 
-TASK_STATES = (AntTaskState, BBTaskState)
+TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState)
 
 
 def env_state_from_jax(arrays: dict, device) -> EnvState:

@@ -1,2 +1,3 @@
 """Scene models of the port: numpy-only copies of the JAX package's
-``models.model``, ``models.mjcf`` and ``models.robots``."""
+``models.model``, ``models.mjcf``, ``models.robots``, ``models.franka``
+and ``models.specs.franka_panda``."""

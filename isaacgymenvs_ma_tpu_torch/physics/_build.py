@@ -6,8 +6,8 @@ Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
 returning the CUDA error code).  The library links its own CUDA runtime,
 so each launch selects the tensors' device itself.
 Each plan's header (``DynPlan.header``: the static tree for B1-B3;
-``ContactPlan.header``: the row masks and loop constants for B4) is
-force-included (``-include``), so the static scene is compiled into the
+``ContactPlan.header``: the row masks and loop constants for B4;
+``SpdPlan.header``: the matrix size for B5) is force-included (``-include``), so the static scene is compiled into the
 kernels.
 
 Libraries go to ``build/torch_kernels/<hash>/`` next to the package (a
@@ -34,7 +34,8 @@ _ARGTYPES = {
     name: [ctypes.c_int] + [ctypes.c_void_p] * n_ptr
     + [ctypes.c_int, ctypes.c_void_p]
     for name, n_ptr in (("fk_motion", 4), ("dyn_forward", 11),
-                        ("dyn_cached", 7), ("contact_solve", 23))
+                        ("dyn_cached", 7), ("contact_solve", 23),
+                        ("spd_inverse", 2))
 }
 
 

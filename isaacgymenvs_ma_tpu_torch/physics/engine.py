@@ -10,13 +10,17 @@ for CPU tensors — exactly where the JAX engine runs its Pallas kernels
 (engine.py:802-803, :938-949).  With ``SimParams.use_contact_kernel`` the
 contact iteration loop runs through :func:`.contact_kernel.solve` (kernel
 B4, engine.py:1708-1735); otherwise it is a loop of batched products.
+:func:`spd_inverse` (OSC's two inverses) runs through kernel B5
+(:mod:`.spd_kernel`).
 
-Ported so far: what the Ant and BallBalance steps run (ground contact rows,
-body-pair contact rows against primitive SDFs with tangent frames,
-rigid-body attractors, joint limits, effort and PD actuation with position
-targets, mass-matrix reuse).  Every feature the JAX engine has beyond that
-raises ``NotImplementedError`` when a model or config asks for it, instead
-of computing something else.  Entry points run on the card unless the
+Ported so far: what the Ant, BallBalance and FrankaReachMA steps run
+(ground contact rows, body-pair contact rows against primitive SDFs with
+tangent frames, rigid-body attractors, joint limits, effort and PD
+actuation with position targets, mass-matrix reuse, active-set compaction
+and contact-row reuse with impulse continuation on the batched-product
+loop, the controller readouts).  Every feature the JAX engine has beyond
+that raises ``NotImplementedError`` when a model or config asks for it,
+instead of computing something else.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ..device import DTYPE, apply_precision_policy, resolve_device
 from ..ops import maths
 from . import contact_kernel as ck
 from . import dyn_kernel as dk
+from . import spd_kernel
 
 
 class SimParams(NamedTuple):
@@ -103,6 +108,38 @@ def _unsupported(what: str):
         "(see ROADMAP.md)")
 
 
+def spd_inverse(H: torch.Tensor) -> torch.Tensor:
+    """Batched SPD matrix inverse (engine.py:274-312) of (..., n, n).
+
+    n = 1 and n = 2 in closed form, as the JAX package; n >= 3 through
+    :func:`.spd_kernel.sweep_inverse`: kernel B5 for CUDA tensors, its plain
+    twin (the Gauss-Jordan sweep) for CPU tensors.  H must be symmetric
+    positive definite (no pivoting)."""
+    n = H.shape[-1]
+    if n == 1:
+        return 1.0 / H
+    if n == 2:
+        a, b, d = H[..., 0, 0], H[..., 0, 1], H[..., 1, 1]
+        det = a * d - b * b
+        inv = torch.stack([torch.stack([d, -b], -1),
+                           torch.stack([-b, a], -1)], -2)
+        return inv / det[..., None, None]
+    flat = H.reshape(-1, n, n).contiguous()
+    return spd_kernel.sweep_inverse(flat).reshape(H.shape)
+
+
+def solver_rows_bf16(model, params: SimParams, n_rows: int) -> bool:
+    """Whether the JAX engine stores the loop's row matrices in bfloat16
+    (SimParams.solver_rows_bf16; None = its auto rule, engine.py:1798-1803:
+    the rows left after active-set compaction times nv reach 1024).  The
+    kernel route has no bf16 rows."""
+    if params.solver_rows_bf16 is not None:
+        return bool(params.solver_rows_bf16)
+    cap = params.contact_capacity
+    rows = n_rows if cap is None else min(n_rows, int(cap))
+    return rows * int(model.nv) >= 1024 and not params.use_contact_kernel
+
+
 def _check_supported(model, params: SimParams, grabs, n_rows: int):
     """Reject every engine feature the port does not implement yet."""
     if grabs:
@@ -111,19 +148,16 @@ def _check_supported(model, params: SimParams, grabs, n_rows: int):
         _unsupported("a scene without contact rows (_limit_solve)")
     if params.warm_start > 0:
         _unsupported("contact warm start (warm_start > 0)")
-    if params.contact_capacity is not None:
-        _unsupported("active-set compaction (contact_capacity)")
-    if params.reuse_contact_rows:
-        _unsupported("contact-row reuse (reuse_contact_rows)")
+    if params.use_contact_kernel and (params.contact_capacity is not None
+                                      or params.reuse_contact_rows):
+        _unsupported("kernel B4 with active-set compaction or contact-row "
+                     "reuse (use_contact_kernel with contact_capacity or "
+                     "reuse_contact_rows)")
     if params.mass_splitting:
         _unsupported("Jacobi mass splitting (mass_splitting)")
     if params.plane_restitution != 0.0:
         _unsupported("restitution")
-    rows_bf16 = params.solver_rows_bf16
-    if rows_bf16 is None:
-        rows_bf16 = (n_rows * int(model.nv) >= 1024
-                     and not params.use_contact_kernel)
-    if rows_bf16:
+    if solver_rows_bf16(model, params, n_rows):
         _unsupported("bfloat16 solver rows (solver_rows_bf16)")
     for name in ("body_lin_damping", "body_ang_damping", "dof_friction"):
         v = np.asarray(getattr(model, name, np.zeros(0)))
@@ -210,6 +244,7 @@ class PhysicsEngine:
         for b in range(m.nb):
             if int(m.jnt_type[b]) in (md.HINGE, md.SLIDE, md.SCREW):
                 dof_qid[m.v_adr[b]] = m.q_adr[b]
+        self.dof_qid = dof_qid                            # (nv,) q index
         self.scalar_dofs = np.nonzero(dof_qid >= 0)[0]
         self.scalar_qids = dof_qid[self.scalar_dofs]
         q2d = np.zeros((m.nv, m.nq), np.float32)
@@ -541,12 +576,14 @@ class PhysicsEngine:
     # ------------------------------------------------------------------
     # substep
     def substep(self, q, qd, ctrl: Control, terrain=None, phys=None,
-                dyn_cache=None):
+                dyn_cache=None, contact_cache=None):
         """One physics substep (engine.py:785-987, kernel branch).
 
         ``dyn_cache``: batch-last ``(I_O, Hinv)`` from the first substep of
         the control step (SimParams.reuse_mass_matrix); given, the cached
-        chain B3 runs instead of the full chain B2.  ``terrain`` and
+        chain B3 runs instead of the full chain B2.  ``contact_cache``: the
+        contact-row cache of the first substep (SimParams.
+        reuse_contact_rows, see :meth:`_contact_solve`).  ``terrain`` and
         ``phys`` (domain-randomization scales) are not ported yet."""
         if terrain is not None:
             _unsupported("terrain heightfields")
@@ -595,13 +632,14 @@ class PhysicsEngine:
         qdd = qdd_bl.t()
         qd_new = qd + h * qdd
 
-        qd_new, impulse_pts, p_w, imp_dof = self._contact_solve(
-            qd_new, body_x, body_q, S, Hinv, qpos_dof, S_bl, hinv_bl)
+        qd_new, impulse_pts, p_w, imp_dof, ccache_out = self._contact_solve(
+            qd_new, body_x, body_q, S, Hinv, qpos_dof, S_bl, hinv_bl,
+            ccache=contact_cache, qd_geom=qd)
         qd_new = torch.clamp(qd_new, -self.dof_velocity_limit,
                              self.dof_velocity_limit)
         q_new = self._integrate(q, qd_new)
         return q_new, qd_new, (body_x, body_q, qdd, impulse_pts, p_w,
-                               imp_dof, cache_out)
+                               imp_dof, cache_out, ccache_out)
 
     def _contact_points(self, body_x, body_q):
         """World ground-candidate positions p (N, n_ground, 3)."""
@@ -693,11 +731,12 @@ class PhysicsEngine:
     @staticmethod
     def _build_J_flat(S, p_rows, mk, frames=None):
         """Row Jacobians in the flat (N, 3R, nv) layout (engine.py:1445-1480):
-        per world axis S_lin + S_ang x p, masked by ``mk`` (R, nv), and with
-        ``frames`` (N, R, 3, 3) projected into the row frames."""
+        per world axis S_lin + S_ang x p, masked by ``mk`` (R, nv) or, after
+        compaction, per env (N, R, nv), and with ``frames`` (N, R, 3, 3)
+        projected into the row frames."""
         N, R = p_rows.shape[:2]
         nv = S.shape[1]
-        mk = mk[None]
+        mk = mk[None] if mk.dim() == 2 else mk
         Sa, Sl = S[:, :, 0:3], S[:, :, 3:6]
         px, py, pz = (p_rows[..., k][:, :, None] for k in range(3))
         sax, say, saz = (Sa[..., k][:, None, :] for k in range(3))
@@ -718,25 +757,12 @@ class PhysicsEngine:
             torch.sum(J_flat * HinvJ_flat, dim=-1).reshape(N, R_rows, 3),
             min=1e-8)
 
-    def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, S_bl,
-                       hinv_bl):
-        """Projected-Jacobi impulse solve over ground rows, body-pair rows,
-        attractors and joint limits (engine.py:1248-1925 without compaction,
-        row reuse, warm start, grabs, terrain or restitution).
-
-        Rows are speculative (active at phi < contact_margin, approach speed
-        capped at phi/h).  Pair rows carry tangent frames; when pairs exist
-        the ground rows get identity frames, and every row is built already
-        projected into its frame.  Rows, the H^-1 J products and the
-        Delassus diagonals are built once here; the iteration loop is a
-        Python loop of batched products, or kernel B4 through
-        :func:`.contact_kernel.solve` with ``SimParams.use_contact_kernel``
-        (engine.py:1708-1735; ``S_bl``/``hinv_bl`` are the batch-last
-        inputs it takes).  Returns (qd, world impulses (N, P, 3), contact
-        points (N, P, 3), J^T lambda (N, nv))."""
+    def _contact_rows(self, body_x, body_q, N):
+        """Narrowphase of every candidate row, ground rows first
+        (engine.py:1306-1397): points p (N, P, 3), gaps phi (N, P),
+        friction mu (N, P) and, when pairs exist, row frames (N, P, 3, 3)
+        (identity on the ground rows), else None."""
         pr = self.params
-        h = self.h
-        N, nv = qd.shape[0], self.nv
         ps, phis, mus, frames = [], [], [], None
         if self.n_ground:
             p = self._contact_points(body_x, body_q)            # (N, G, 3)
@@ -749,26 +775,60 @@ class PhysicsEngine:
             ps.append(pp)
             phis.append(pphi)
             mus.append(pmu.expand(N, -1))
-            eye = torch.eye(3, dtype=qd.dtype, device=qd.device)
+            eye = torch.eye(3, dtype=body_x.dtype, device=body_x.device)
             frames = torch.cat([eye.expand(N, self.n_ground, 3, 3), frame], 1)
-        p, phi, mu = torch.cat(ps, 1), torch.cat(phis, 1), torch.cat(mus, 1)
-        P = p.shape[1]
+        return (torch.cat(ps, 1), torch.cat(phis, 1), torch.cat(mus, 1),
+                frames)
+
+    def _normal_targets(self, phi):
+        """Active mask and normal target velocity of rows with gaps ``phi``
+        (engine.py:1398-1406): speculative rows (0 <= phi < margin) cap the
+        approach speed at phi/h, penetrating rows push out by Baumgarte."""
+        pr, h = self.params, self.h
         active = phi < pr.contact_margin
         b_n = -pr.baumgarte / h * torch.clamp(phi + pr.contact_slop, max=0.0)
         if pr.contact_margin > 0.0:
             b_n = torch.where(phi >= 0.0, -phi / h, b_n)
-        b_n = torch.clamp(b_n, max=pr.max_depenetration_velocity)
+        return active, torch.clamp(b_n, max=pr.max_depenetration_velocity)
 
+    def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, S_bl,
+                       hinv_bl, ccache=None, qd_geom=None):
+        """Projected-Jacobi impulse solve over ground rows, body-pair rows,
+        attractors and joint limits (engine.py:1248-1925 without warm start,
+        grabs, terrain or restitution).
+
+        Rows are speculative (active at phi < contact_margin, approach speed
+        capped at phi/h).  Pair rows carry tangent frames; when pairs exist
+        the ground rows get identity frames, and every row is built already
+        projected into its frame.  Rows, the H^-1 J products and the
+        Delassus diagonals are built once here; the iteration loop is a
+        Python loop of batched products, or kernel B4 through
+        :func:`.contact_kernel.solve` with ``SimParams.use_contact_kernel``
+        (engine.py:1708-1735; ``S_bl``/``hinv_bl`` are the batch-last
+        inputs it takes).
+
+        On the batched-product loop, ``SimParams.contact_capacity`` K keeps
+        only the K deepest rows per env (active-set compaction,
+        engine.py:1498-1557), selected before any Jacobian is built, ties to
+        the lower row index as ``lax.top_k``; the impulses are scattered back
+        to the candidate rows.  With ``SimParams.reuse_contact_rows`` the
+        first substep returns its row set as a cache; given it as
+        ``ccache``, a later substep reuses selection, Jacobians, Delassus
+        diagonals, frames and friction, advances the gaps by
+        ``h J qd_geom`` (``qd_geom``: the velocity the previous substep
+        integrated with) and, with ``contact_continuation``, seeds the loop
+        from the cached impulses on still-active rows (engine.py:1582-1651,
+        :1837-1842).  Returns (qd, world impulses (N, P, 3), contact points
+        (N, P, 3), J^T lambda (N, nv), the row cache or None)."""
+        pr = self.params
+        h = self.h
+        N, nv = qd.shape[0], self.nv
         lo_gap = qpos_dof - self.dof_lower
         hi_gap = self.dof_upper - qpos_dof
         b_lo = -pr.baumgarte / h * torch.clamp(lo_gap, max=0.0)
         b_hi = -pr.baumgarte / h * torch.clamp(hi_gap, max=0.0)
         act_lo = self.dof_has_limit & (lo_gap < 0.0)
         act_hi = self.dof_has_limit & (hi_gap < 0.0)
-
-        J_flat = self._build_J_flat(S, p, self.row_masks, frames)  # (N,3P,nv)
-        HinvJ_flat = torch.bmm(J_flat, Hinv)
-        w_diag = self._w_diag(J_flat, HinvJ_flat, N, P)
 
         A = len(self.attractors)
         if A:
@@ -784,18 +844,68 @@ class PhysicsEngine:
             att_W = self._w_diag(aJ, aHJ, N, A)
 
         if self.cplan is not None:
+            p, phi, mu, frames = self._contact_rows(body_x, body_q, N)
+            active, b_n = self._normal_targets(phi)
+            J_flat = self._build_J_flat(S, p, self.row_masks, frames)
+            w_diag = self._w_diag(J_flat, torch.bmm(J_flat, Hinv), N,
+                                  p.shape[1])
             qd, lam, imp_dof = ck.solve(
                 self.cplan, S_bl, hinv_bl, qd, p, b_n, mu, active.to(qd.dtype),
                 frames, w_diag, b_lo, b_hi, act_lo.to(qd.dtype),
                 act_hi.to(qd.dtype),
                 **(dict(pts_a=pa, b_a=att_b, w_a=att_W) if A else {}))
-            return qd, self._to_world(lam, frames), p, imp_dof
+            return qd, self._to_world(lam, frames), p, imp_dof, None
+
+        reuse_rows = pr.reuse_contact_rows and pr.substeps > 1
+        if ccache is None:
+            p, phi, mu, frames = self._contact_rows(body_x, body_q, N)
+            sel = None
+            phi_r, p_r, mu_r, masks_r, frames_r = (phi, p, mu, self.row_masks,
+                                                   frames)
+            K = pr.contact_capacity
+            if K is not None and p.shape[1] > K:
+                # the K deepest rows per env; a stable ascending sort puts
+                # equal gaps (resting faces) in row order, as top_k(-phi)
+                sel = torch.sort(phi, dim=1, stable=True).indices[:, :K]
+                env = torch.arange(N, device=qd.device)[:, None]
+                phi_r, p_r, mu_r = phi[env, sel], p[env, sel], mu[env, sel]
+                masks_r = self.row_masks[sel]                   # (N, K, nv)
+                if frames is not None:
+                    frames_r = frames[env, sel]
+            R = p_r.shape[1]
+            active, b_n = self._normal_targets(phi_r)
+            J_flat = self._build_J_flat(S, p_r, masks_r, frames_r)  # (N,3R,nv)
+            HinvJ_flat = torch.bmm(J_flat, Hinv)
+            w_diag = self._w_diag(J_flat, HinvJ_flat, N, R)
+            lam = torch.zeros((N, R, 3), dtype=qd.dtype, device=qd.device)
+            lam_lo = torch.zeros_like(qd)
+            lam_hi = torch.zeros_like(qd)
+        else:
+            cc = ccache
+            sel, J_flat, HinvJ_flat, w_diag = (
+                cc["sel"], cc["J_flat"], cc["HinvJ_flat"], cc["w_diag"])
+            frames_r, mu_r, p = cc["frames_r"], cc["mu"], cc["p_full"]
+            R = w_diag.shape[1]
+            # gaps advanced by the normal velocity through the cached rows
+            v_n = torch.bmm(J_flat, qd_geom[..., None])[..., 0].reshape(
+                N, R, 3)[..., 2]
+            phi_r = cc["phi_rows"] + h * v_n
+            active, b_n = self._normal_targets(phi_r)
+            if pr.contact_continuation:
+                lam = torch.where(active[..., None], cc["lam"], 0.0)
+                lam_lo = torch.where(act_lo, cc["lam_lo"], 0.0)
+                lam_hi = torch.where(act_hi, cc["lam_hi"], 0.0)
+                # the seeds' velocity, applied once before the loop
+                qd = (qd
+                      + torch.bmm(lam.reshape(N, 1, 3 * R), HinvJ_flat)[:, 0]
+                      + torch.bmm(Hinv, (lam_lo - lam_hi)[..., None])[..., 0])
+            else:
+                lam = torch.zeros((N, R, 3), dtype=qd.dtype, device=qd.device)
+                lam_lo = torch.zeros_like(qd)
+                lam_hi = torch.zeros_like(qd)
 
         hinv_diag = torch.clamp(torch.diagonal(Hinv, dim1=-2, dim2=-1),
                                 min=1e-8)
-        lam = torch.zeros((N, P, 3), dtype=qd.dtype, device=qd.device)
-        lam_lo = torch.zeros_like(qd)
-        lam_hi = torch.zeros_like(qd)
         relax = pr.relaxation
         for _ in range(pr.num_iterations):
             if A:
@@ -804,12 +914,12 @@ class PhysicsEngine:
                 qd = qd + torch.bmm(dl_a.reshape(N, 1, 3 * A), aHJ)[:, 0]
             # row-frame velocities; normal rows, then the friction box
             # against the new normal
-            v_c = torch.bmm(J_flat, qd[..., None])[..., 0].reshape(N, P, 3)
+            v_c = torch.bmm(J_flat, qd[..., None])[..., 0].reshape(N, R, 3)
             dv_n = b_n - v_c[..., 2]
             lam_n = torch.clamp(lam[..., 2] + relax * dv_n / w_diag[..., 2],
                                 min=0.0)
             lam_n = torch.where(active, lam_n, 0.0)
-            max_f = mu * lam_n
+            max_f = mu_r * lam_n
             lam_t1 = torch.clamp(
                 lam[..., 0] + relax * (-v_c[..., 0]) / w_diag[..., 0],
                 -max_f, max_f)
@@ -819,7 +929,7 @@ class PhysicsEngine:
             lam_new = torch.stack([lam_t1, lam_t2, lam_n], dim=-1)
             lam_new = torch.where(active[..., None], lam_new, 0.0)
             dlam = lam_new - lam
-            qd2 = qd + torch.bmm(dlam.reshape(N, 1, 3 * P), HinvJ_flat)[:, 0]
+            qd2 = qd + torch.bmm(dlam.reshape(N, 1, 3 * R), HinvJ_flat)[:, 0]
             # joint limits (J = e_i): lower pushes +, upper pushes -
             lam_lo_new = torch.where(act_lo, torch.clamp(
                 lam_lo + relax * (b_lo - qd2) / hinv_diag, min=0.0), 0.0)
@@ -828,9 +938,21 @@ class PhysicsEngine:
             dlim = (lam_lo_new - lam_lo) - (lam_hi_new - lam_hi)
             qd = qd2 + torch.bmm(Hinv, dlim[..., None])[..., 0]
             lam, lam_lo, lam_hi = lam_new, lam_lo_new, lam_hi_new
-        imp_dof = (torch.bmm(lam.reshape(N, 1, 3 * P), J_flat)[:, 0]
+        imp_dof = (torch.bmm(lam.reshape(N, 1, 3 * R), J_flat)[:, 0]
                    + (lam_lo - lam_hi))
-        return qd, self._to_world(lam, frames), p, imp_dof
+        lam_w = self._to_world(lam, frames_r)
+        ccache_out = None
+        if reuse_rows:
+            ccache_out = (dict(ccache) if ccache is not None else dict(
+                sel=sel, J_flat=J_flat, HinvJ_flat=HinvJ_flat, w_diag=w_diag,
+                frames_r=frames_r, mu=mu_r, p_full=p))
+            ccache_out.update(phi_rows=phi_r, lam=lam, lam_lo=lam_lo,
+                              lam_hi=lam_hi)
+        if sel is not None:
+            # compacted impulses back to their candidate rows
+            lam_w = torch.zeros_like(p).scatter(
+                1, sel[..., None].expand(-1, -1, 3), lam_w)
+        return qd, lam_w, p, imp_dof, ccache_out
 
     @staticmethod
     def _to_world(lam, frames):
@@ -874,11 +996,14 @@ class PhysicsEngine:
         imp_dof_accum = torch.zeros_like(qd)
         cache = None
         aux = None
+        ccache = None
         for _ in range(self.params.substeps):
             q, qd, aux = self.substep(q, qd, ctrl, terrain, phys,
-                                      dyn_cache=cache)
+                                      dyn_cache=cache, contact_cache=ccache)
             if self.params.reuse_mass_matrix:
                 cache = aux[6]
+            if self.params.reuse_contact_rows:
+                ccache = aux[7]
             impulse_accum = (aux[3] if impulse_accum is None
                              else impulse_accum + aux[3])
             imp_dof_accum = imp_dof_accum + aux[5]
@@ -930,6 +1055,26 @@ class PhysicsEngine:
         rb = self.actor_root_body
         return torch.cat([body_x[:, rb], body_q[:, rb], v_lin[:, rb],
                           w[:, rb]], dim=-1)
+
+    def dynamics_readout(self, state: SimState):
+        """Mass matrix and kinematics for task-level controllers
+        (engine.py:2082-2094; OSC): (M (N, nv, nv), body_x, body_q, S, V).
+        Kinematics through kernel B1; the mass matrix in plain PyTorch, as
+        the JAX package computes it outside any Pallas kernel."""
+        body_x, body_q, S, _ = self.kinematics(state.q)
+        V = self.body_velocities(S, state.qd)
+        I_O, _ = self.spatial_inertia(body_x, body_q)
+        return self.mass_matrix(S, I_O), body_x, body_q, S, V
+
+    def point_jacobian(self, S, body_x, body: int, point=None):
+        """Jacobian rows [lin(3), ang(3)] per dof of a point on ``body``
+        (engine.py:2096-2107): (N, nv, 6), zero on the dofs that do not move
+        the body.  ``point``: world point (default: the body origin)."""
+        p = body_x[:, body] if point is None else point
+        S_ang, S_lin = S[..., 0:3], S[..., 3:6]
+        J_lin = S_lin + _cross(S_ang, p[:, None, :])
+        mask = self.dof_body_mask_f[:, body][None, :, None]
+        return torch.cat([J_lin, S_ang], dim=-1) * mask
 
     def forward(self, state: SimState,
                 prev_out: Optional[SimOutput] = None) -> SimOutput:

@@ -11,6 +11,12 @@ The JAX version threads a PRNG key through ``EnvState``; here each task
 owns a ``torch.Generator`` (``task.generator``) for its reset draws, and
 ``step`` also accepts explicit ``reset_draws`` so tests can inject the
 reference's draws.
+
+Multi-agent tasks (``numAgents`` K > 1, the MA fork) fold the agents into
+the batch: actions, obs, rewards, resets and time-outs have
+``rl_games_batch`` = N * K rows, agent-minor (row n * K + k), while the
+physics state, progress and ``reset_buf`` stay per env (base.py:154,
+:357-369).
 """
 from __future__ import annotations
 
@@ -111,13 +117,11 @@ class VecTaskBase:
         if (cfg.get("task", {}) or {}).get("randomize"):
             raise NotImplementedError(
                 "domain randomization is not ported yet (see ROADMAP.md)")
-        if self.num_agents != 1:
-            raise NotImplementedError(
-                "multi-agent tasks are not ported yet (see ROADMAP.md)")
         self.generator = make_generator(seed, self.device)
         model, ground = self.create_model()
         self.model = model
         self.engine = self.build_engine(model, ground)
+        self.rl_games_batch = self.num_envs * self.num_agents
 
     # ------------------------------------------------------------------
     # hooks for concrete tasks
@@ -154,9 +158,10 @@ class VecTaskBase:
             task=self.initial_task_state())
 
     def reset(self, state: EnvState):
-        """Initial obs (vec_task.py:428-440: no recompute, just zeros)."""
-        return state, torch.zeros((self.num_envs, self.num_obs), dtype=DTYPE,
-                                  device=self.device)
+        """Initial obs (vec_task.py:428-440: no recompute, just zeros),
+        one row per agent."""
+        return state, torch.zeros((self.rl_games_batch, self.num_obs),
+                                  dtype=DTYPE, device=self.device)
 
     def step(self, state: EnvState, actions: torch.Tensor,
              reset_draws=None) -> Tuple[EnvState, StepResult]:
@@ -198,7 +203,7 @@ class VecTaskBase:
 
         timeout = (progress >= self.max_episode_length - 1) & (reset != 0)
         extras = dict(extras)
-        extras["time_outs"] = timeout
+        extras["time_outs"] = self._to_batch(timeout)
         obs = torch.nan_to_num(torch.clamp(obs, -self.clip_obs, self.clip_obs))
         if states is not None:
             states = torch.nan_to_num(
@@ -209,11 +214,19 @@ class VecTaskBase:
         new_state = EnvState(sim=sim, progress=progress, reset_buf=reset,
                              task=task, phys=state.phys)
         return new_state, StepResult(obs=obs, states=states, rew=rew,
-                                     reset=reset, extras=extras)
+                                     reset=self._to_batch(reset),
+                                     extras=extras)
+
+    def _to_batch(self, per_env: torch.Tensor) -> torch.Tensor:
+        """Per-env values to per-agent rows (base.py:357-366); values that
+        already have a row per agent pass through."""
+        if self.num_agents == 1 or per_env.shape[0] == self.rl_games_batch:
+            return per_env
+        return torch.repeat_interleave(per_env, self.num_agents, dim=0)
 
     def zero_actions(self) -> torch.Tensor:
-        return torch.zeros((self.num_envs, self.num_actions), dtype=DTYPE,
-                           device=self.device)
+        return torch.zeros((self.rl_games_batch, self.num_actions),
+                           dtype=DTYPE, device=self.device)
 
 
 def masked_update(mask, new, old):

@@ -2,9 +2,10 @@
 isaacgymenvs_ma_tpu/utils/parity.py).
 
 Capture format: the JAX package's ``.npz`` fields (``task``, ``actions``
-(T, N, A), ``obs`` (T, N, O), ``rew`` (T, N), ``reset`` (T, N), ``init_q``,
-``init_qd``, ``atol``) plus what the port needs to replay a trajectory
-across resets, whose RNG streams differ between the two packages:
+(T, B, A), ``obs`` (T, B, O), ``rew`` (T, B), ``reset`` (T, B), ``init_q``,
+``init_qd``, ``atol``; B = N envs times the task's agents) plus what the
+port needs to replay a trajectory across resets, whose RNG streams differ
+between the two packages:
 
     init_progress, init_reset_buf       (N,) int32
     init_<field>                        each field of the task state, e.g.
@@ -27,15 +28,19 @@ import torch
 from .config import deep_merge
 
 from ..convert import env_state_from_jax
-from ..tasks import ant, ball_balance
+from ..tasks import ant, ball_balance, franka_reach_ma
 
 TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
          "BallBalance": (ball_balance.BallBalance, ball_balance.TASK_CFG,
-                         ball_balance.BBTaskState)}
+                         ball_balance.BBTaskState),
+         "FrankaReachMA": (franka_reach_ma.FrankaReachMA,
+                           franka_reach_ma.TASK_CFG,
+                           franka_reach_ma.FrankaMATaskState)}
 # capture keys of each task's reset draws, in reset_idx's order
 RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                "BallBalance": ("reset_dists", "reset_dirs", "reset_hspeeds",
-                               "reset_height")}
+                               "reset_height"),
+               "FrankaReachMA": ("dof_noise", "cube_xy_u", "cube_z_u")}
 
 # Per-step max abs error bounds of the Ant golden replay
 # (tests/data/torch_port/ant_golden.npz).  Measured on the CPU twins over
@@ -52,7 +57,17 @@ GOLDEN_TOL = {"q": 2e-4, "qd": 1e-2, "obs": 2e-3, "rew": 1e-2}
 # card sums in other orders); the reward has no large potential in it and
 # is held at 2e-4, twenty times the measured error.
 BB_GOLDEN_TOL = {"q": 2e-4, "qd": 1e-2, "obs": 2e-3, "rew": 2e-4}
-TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL}
+# Per-step bounds of the FrankaReachMA replay
+# (tests/data/torch_port/franka_reach_ma_golden.npz, 16 envs x 2 arms, on
+# the default loop with compaction and row reuse).  Measured over its 6
+# steps on the CPU twins and through the kernels on an H100 (chip_smoke.py):
+# q <= 1.7e-6, qd <= 8.1e-5, obs <= 7.9e-7, reward <= 9.5e-7; resets exact.
+# The arms' joints are damped and most cubes rest, so float32 differences
+# do not grow step by step as at Ant; each bound is about ten times the
+# largest error seen, for the card's other summation orders.
+FRANKA_GOLDEN_TOL = {"q": 2e-5, "qd": 1e-3, "obs": 1e-5, "rew": 1e-5}
+TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
+              "FrankaReachMA": FRANKA_GOLDEN_TOL}
 
 
 class StepErrors(NamedTuple):
@@ -75,7 +90,7 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
     if name not in TASKS:
         raise ValueError(f"no replay for task {name!r}")
     cls, task_cfg, state_cls = TASKS[name]
-    T, N = d["actions"].shape[:2]
+    T, N = d["actions"].shape[0], d["init_q"].shape[0]
     cfg = deep_merge(task_cfg, {"env": {"numEnvs": int(N)}})
     params = None
     if use_contact_kernel:

@@ -1,15 +1,16 @@
 """Where the time goes in a PyTorch port task step on one GPU.
 
-    python3 scripts/profile_torch_ant.py [--task Ant|BallBalance]
-        [--contact-kernel] [--envs 4096] [--steps 20] [--table PATH]
+    python3 scripts/profile_torch_ant.py [--task Ant|BallBalance|FrankaReachMA]
+        [--contact-kernel] [--envs N] [--steps 20] [--table PATH]
 
-Runs the port's step of the task (Ant by default; ``--contact-kernel``
-routes the contact loop through kernel B4) with tanh(obs @ W) actions, as
-chip_smoke.py does, under torch.profiler after a warm-up, and prints: host
-wall time per step, device kernel time per step (the sum over CUDA
-kernels), the device busy share (kernel time / wall time), kernel launches
-per step, the top kernels by device time and the port's kernels B1-B4.
-``--table`` writes torch.profiler's full table to PATH.
+Runs the port's step of the task (Ant by default, at its configuration's
+env count unless ``--envs``; ``--contact-kernel`` routes the contact loop
+through kernel B4) with tanh(obs @ W) actions, as chip_smoke.py does, under
+torch.profiler after a warm-up, and prints: host wall time per step, device
+kernel time per step (the sum over CUDA kernels), the device busy share
+(kernel time / wall time), kernel launches per step, the top kernels by
+device time and the port's kernels B1-B5.  ``--table`` writes
+torch.profiler's full table to PATH.
 """
 import argparse
 import os
@@ -21,10 +22,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--task", default="Ant", choices=("Ant", "BallBalance"))
+    ap.add_argument("--task", default="Ant",
+                    choices=("Ant", "BallBalance", "FrankaReachMA"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
-    ap.add_argument("--envs", type=int, default=4096)
+    ap.add_argument("--envs", type=int, default=None,
+                    help="envs (default: the task configuration's)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--table", default=None,
                     help="write the profiler's full table to this file")
@@ -41,14 +44,15 @@ def main():
 
     dev = torch.device("cuda", 0)
     cls, task_cfg, _ = TASKS[args.task]
-    cfg = deep_merge(task_cfg, {"env": {"numEnvs": args.envs}})
+    cfg = deep_merge(task_cfg, {"env": {"numEnvs": args.envs
+                                        or task_cfg["env"]["numEnvs"]}})
     params = parse_sim_params(cfg["sim"])._replace(
         use_contact_kernel=args.contact_kernel)
     task = cls(cfg, device=dev, seed=1, sim_params=params)
     W = torch.randn((task.num_obs, task.num_actions), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0)) * 0.1
     state = task.initial_state()
-    obs = torch.zeros((args.envs, task.num_obs), device=dev)
+    obs = torch.zeros((task.rl_games_batch, task.num_obs), device=dev)
     for _ in range(20):
         state, res = task.step(state, torch.tanh(obs @ W))
         obs = res.obs
@@ -70,7 +74,8 @@ def main():
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=100))
     print(f"task={args.task} contact_kernel={args.contact_kernel} "
-          f"envs={args.envs} steps={args.steps} "
+          f"envs={task.num_envs} agents={task.num_agents} "
+          f"steps={args.steps} "
           f"wall_ms_per_step={wall / args.steps * 1e3:.3f} "
           f"device_kernel_ms_per_step={dev_us / args.steps / 1e3:.3f} "
           f"device_busy_share={dev_us / 1e6 / wall:.4f} "
@@ -83,9 +88,10 @@ def main():
     for name, (t, c) in top:
         print(f"  {t / args.steps / 1e3:8.4f} ms/step {c / args.steps:6.1f} "
               f"launches/step  {name[:90]}")
-    # the port's own kernels (B1-B4): device time per launch
+    # the port's own kernels (B1-B5): device time per launch
     for kname in ("fk_motion_kernel", "dyn_forward_kernel",
-                  "dyn_cached_kernel", "contact_solve_kernel"):
+                  "dyn_cached_kernel", "contact_solve_kernel",
+                  "spd_inverse_kernel"):
         hits = [(t, c) for n, (t, c) in by_name.items() if kname in n]
         t = sum(h[0] for h in hits)
         c = sum(h[1] for h in hits)

@@ -1,13 +1,16 @@
 """Record the JAX golden trajectories that the PyTorch port replays.
 
-Writes tests/data/torch_port/ant_golden.npz (``--task Ant``, the default)
-or tests/data/torch_port/ball_balance_golden.npz (``--task BallBalance``)
-in the capture format of isaacgymenvs_ma_tpu_torch/utils/parity.py: the task
-at 64 envs from its JAX default path, warmed up for 20 steps (Ant: the feet
-on the ground; BallBalance: the balls landed on the trays), then 6 recorded
-steps under fixed seeded actions, with a quarter of the envs flagged to
-reset on the first recorded step and the JAX reset draws stored for every
-step.
+Writes one capture under tests/data/torch_port/ in the format of
+isaacgymenvs_ma_tpu_torch/utils/parity.py, from the task's JAX default
+path: ``--task Ant`` (the default) -> ant_golden.npz and ``--task
+BallBalance`` -> ball_balance_golden.npz at 64 envs, ``--task
+FrankaReachMA`` -> franka_reach_ma_golden.npz at 16 envs x 2 arms.  The
+task is warmed up for 20 steps (Ant: the feet on the ground; BallBalance:
+the balls landed on the trays; FrankaReachMA: the cubes landed on the
+table), then 6 steps are recorded under fixed seeded actions, with a
+quarter of the envs flagged to reset on the first recorded step and the
+JAX reset draws stored for every step.  Multi-agent tasks record actions,
+obs, rewards and resets per agent row (num_envs * num_agents rows).
 
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
 """
@@ -19,36 +22,51 @@ import jax
 import jax.numpy as jnp
 
 from isaacgymenvs_ma_tpu.ops import rng as rng_ops
-from isaacgymenvs_ma_tpu.tasks import ant, ball_balance
+from isaacgymenvs_ma_tpu.tasks import ant, ball_balance, franka_reach_ma
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 
-N, WARMUP, T = 64, 20, 6
+WARMUP, T = 20, 6
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "tests", "data", "torch_port")
 
 
-def ant_draws(k_reset):
+def ant_draws(k_reset, task):
     """Ant.reset_idx's draws (ant.py:138-141)."""
+    n = task.num_envs
     k1, k2 = jax.random.split(k_reset)
-    return {"reset_pos": jax.random.uniform(k1, (N, 8), minval=-0.2,
+    return {"reset_pos": jax.random.uniform(k1, (n, 8), minval=-0.2,
                                             maxval=0.2),
-            "reset_vel": jax.random.uniform(k2, (N, 8), minval=-0.1,
+            "reset_vel": jax.random.uniform(k2, (n, 8), minval=-0.1,
                                             maxval=0.1)}
 
 
-def ball_balance_draws(k_reset):
+def ball_balance_draws(k_reset, task):
     """BallBalance.reset_idx's draws (ball_balance.py:207-226)."""
+    n = task.num_envs
     k1, k2, k3, k4 = jax.random.split(k_reset, 4)
-    return {"reset_dists": rng_ops.rand_float(k1, 0.001, 0.5, (N, 1)),
-            "reset_dirs": rng_ops.random_dir_2(k2, (N, 1))[:, 0, :],
-            "reset_hspeeds": rng_ops.rand_float(k3, 0.0, 5.0, (N, 1)),
-            "reset_height": rng_ops.rand_float(k4, 1.0, 2.0, (N,))}
+    return {"reset_dists": rng_ops.rand_float(k1, 0.001, 0.5, (n, 1)),
+            "reset_dirs": rng_ops.random_dir_2(k2, (n, 1))[:, 0, :],
+            "reset_hspeeds": rng_ops.rand_float(k3, 0.0, 5.0, (n, 1)),
+            "reset_height": rng_ops.rand_float(k4, 1.0, 2.0, (n,))}
 
 
-TASKS = {
-    "Ant": (ant.Ant, ant.TASK_CFG, ant_draws, "ant_golden.npz"),
+def franka_reach_ma_draws(k_reset, task):
+    """FrankaReachMA.reset_idx's uniform draws (franka_reach_ma.py:279-298):
+    arm dof noise (N, K, 9), cube xy (N, T, 2) and cube height (N, T)."""
+    n, k, t = task.num_envs, task.num_agents, task.num_targets
+    k1, k2, k3 = jax.random.split(k_reset, 3)
+    return {"dof_noise": jax.random.uniform(k1, (n, k, 9)),
+            "cube_xy_u": jax.random.uniform(k2, (n, t, 2)),
+            "cube_z_u": jax.random.uniform(k3, (n, t))}
+
+
+TASKS = {  # name -> (class, config, draws, envs, file)
+    "Ant": (ant.Ant, ant.TASK_CFG, ant_draws, 64, "ant_golden.npz"),
     "BallBalance": (ball_balance.BallBalance, ball_balance.TASK_CFG,
-                    ball_balance_draws, "ball_balance_golden.npz"),
+                    ball_balance_draws, 64, "ball_balance_golden.npz"),
+    "FrankaReachMA": (franka_reach_ma.FrankaReachMA,
+                      franka_reach_ma.TASK_CFG, franka_reach_ma_draws, 16,
+                      "franka_reach_ma_golden.npz"),
 }
 
 
@@ -56,16 +74,16 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant", choices=sorted(TASKS))
     args = ap.parse_args()
-    cls, task_cfg, draws_of, fname = TASKS[args.task]
-    task = cls(deep_merge(task_cfg, {"env": {"numEnvs": N}}))
-    A = task.num_actions
+    cls, task_cfg, draws_of, n, fname = TASKS[args.task]
+    task = cls(deep_merge(task_cfg, {"env": {"numEnvs": n}}))
+    A, B = task.num_actions, task.rl_games_batch
     step = jax.jit(task.step)
     rng = np.random.default_rng(2024)
     st = task.initial_state(jax.random.PRNGKey(2024))
     for _ in range(WARMUP):
-        st, _ = step(st, jnp.asarray(rng.uniform(-1, 1, (N, A)), jnp.float32))
+        st, _ = step(st, jnp.asarray(rng.uniform(-1, 1, (B, A)), jnp.float32))
     flags = np.asarray(st.reset_buf).copy()
-    flags[: N // 4] = 1
+    flags[: n // 4] = 1
     st = st._replace(reset_buf=jnp.asarray(flags, jnp.int32))
     rec = {
         "task": np.asarray(args.task), "atol": np.float32(2e-3),
@@ -75,11 +93,11 @@ def main():
     }
     for f in st.task._fields:
         rec[f"init_{f}"] = np.asarray(getattr(st.task, f))
-    actions = rng.uniform(-1, 1, (T, N, A)).astype(np.float32)
+    actions = rng.uniform(-1, 1, (T, B, A)).astype(np.float32)
     fields = {k: [] for k in ("obs", "rew", "reset", "q", "qd")}
     for t in range(T):
         k_reset = jax.random.split(st.rng, 6)[1]   # VecTaskBase.step's key
-        for k, v in draws_of(k_reset).items():
+        for k, v in draws_of(k_reset, task).items():
             fields.setdefault(k, []).append(np.asarray(v))
         st, res = step(st, jnp.asarray(actions[t]))
         fields["obs"].append(np.asarray(res.obs))

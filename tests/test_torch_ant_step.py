@@ -212,9 +212,12 @@ def test_generator_reset_draws_are_seeded():
     assert torch.isfinite(out[0]).all()
 
 
+# compaction and row reuse are ported on the batched-product loop; kernel
+# B4 does not take them yet
 _UNPORTED = [
     {"warm_start": 0.5},
-    {"contact_capacity": 8}, {"reuse_contact_rows": True},
+    {"contact_capacity": 8, "use_contact_kernel": True},
+    {"reuse_contact_rows": True, "use_contact_kernel": True},
     {"mass_splitting": True}, {"solver_rows_bf16": True},
     {"plane_restitution": 0.5},
 ]

@@ -297,9 +297,13 @@ def test_entry_points_default_to_cuda():
         pytest.skip("a CUDA device is present: the default is usable")
     from isaacgymenvs_ma_tpu_torch.models.robots import build_ant
     from isaacgymenvs_ma_tpu_torch.physics.engine import SimParams
+    from isaacgymenvs_ma_tpu_torch.tasks.franka_reach_ma import (
+        FrankaReachMA, TASK_CFG as FCFG)
     for make in (lambda: BallBalance(deep_merge(TASK_CFG,
                                                 {"env": {"numEnvs": 4}})),
                  lambda: Ant(deep_merge(ACFG, {"env": {"numEnvs": 4}})),
+                 lambda: FrankaReachMA(deep_merge(FCFG,
+                                                  {"env": {"numEnvs": 4}})),
                  lambda: PhysicsEngine(build_ant(), SimParams())):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()

@@ -2,9 +2,10 @@
 
 Runs in a subprocess because tests/conftest.py imports jax into this one:
 import every module of isaacgymenvs_ma_tpu_torch, build and step Ant and
-BallBalance at 8 envs on the CPU (default loop and contact-kernel route),
-then check that neither ``jax*`` nor ``isaacgymenvs_ma_tpu`` /
-``isaacgymenvs_ma_tpu.*`` was loaded.
+BallBalance at 8 envs on the CPU (default loop and contact-kernel route)
+and FrankaReachMA at 4 envs x 2 arms (OSC, compaction, row reuse), call
+``spd_inverse``, then check that neither ``jax*`` nor
+``isaacgymenvs_ma_tpu`` / ``isaacgymenvs_ma_tpu.*`` was loaded.
 """
 import os
 import subprocess
@@ -39,6 +40,18 @@ SCRIPT = textwrap.dedent("""
                                        torch.tanh(torch.randn(8, n_act)))
             assert torch.isfinite(res.obs).all()
             assert res.obs.shape == (8, n_obs)
+    from isaacgymenvs_ma_tpu_torch.tasks.franka_reach_ma import (
+        FrankaReachMA, TASK_CFG as FR_CFG)
+    from isaacgymenvs_ma_tpu_torch.physics.engine import spd_inverse
+    task = FrankaReachMA(deep_merge(FR_CFG, {"env": {"numEnvs": 4}}),
+                         device="cpu")
+    state = task.initial_state()
+    for _ in range(2):
+        state, res = task.step(state, torch.tanh(torch.randn(8, 6)))
+    assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 19)
+    A = torch.randn(5, 7, 7)
+    Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
+    assert torch.isfinite(Hinv).all()
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax")
                     or m == "isaacgymenvs_ma_tpu"
