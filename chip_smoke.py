@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (isaacgymenvs_ma_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
-Phases, each printing its own lines; any failure exits non-zero:
+Phases, each printing its own lines; any failure exits non-zero
+(``--kernels-only`` stops after phase 3 and prints no result line):
   1. device: torch/CUDA versions, the card's name and power limit
   2. build: nvcc builds kernels B1-B3 for the Ant, BallBalance and
      FrankaReachMA scenes, B4 for the Ant and BallBalance contact plans and
@@ -17,7 +18,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      B5 on the two OSC inverses of a warmed-up FrankaReachMA-8192 step
      ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and on
      seeded SPD matrices at (16384, 7, 7) and (4096, 14, 14), with
-     torch.linalg.inv's time beside it
+     torch.linalg.inv's time beside it; for the team kernels B2 and B4, per
+     scene, the device time per launch by CUPTI beside the bound and the
+     one-thread kernels' recorded time, ptxas's registers and spills, and
+     the launch layout (team, envs per block, shared memory)
   4. golden: the committed JAX captures replayed through the kernels: Ant
      and BallBalance, each on the default loop and on B4; FrankaReachMA on
      the default loop (compaction and row reuse)
@@ -33,6 +37,7 @@ the CPU and never imports jax.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +73,15 @@ KERNELS = {  # kernel name -> (CUDA source, TPU kernel replaced)
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+# The team kernels B2 and B4: device us per launch of their one-thread
+# predecessors, by CUPTI inside the step (PERF.md: B4 PR 3, B2 at Ant and
+# BallBalance PR 3, at FrankaReachMA PR 4; one H100 80GB HBM3, 700 W)
+RECORDED_US = {("ant", "dyn_forward"): 48.51,
+               ("ball_balance", "dyn_forward"): 72.08,
+               ("franka_reach_ma", "dyn_forward"): 1069.51,
+               ("ant", "contact_solve"): 269.60,
+               ("ball_balance", "contact_solve"): 634.54,
+               ("grab", "contact_solve"): None}
 
 
 def phase(tag, **fields):
@@ -101,6 +115,52 @@ def gpu_ms(torch, fn, batches=5, per_batch=20):
         end.synchronize()
         times.append(start.elapsed_time(end) / per_batch)
     return statistics.median(times)
+
+
+def device_us(torch, fn, kernel, calls=20):
+    """Mean device time (us) per launch of the CUDA kernel whose name holds
+    ``kernel``, by CUPTI (torch.profiler) over the launches it records of
+    ``calls`` calls of ``fn`` after a warm-up (it may miss the first): the
+    kernel alone, without the host's share."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e.device_time_total for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.name]
+    if not calls // 2 <= len(hits) <= calls:
+        raise RuntimeError(f"profiler saw {len(hits)} launches of {kernel} "
+                           f"in {calls} calls")
+    return sum(hits) / len(hits)
+
+
+def ptxas_report(log, kernel):
+    """Registers, stack frame, spill store / load bytes and static shared
+    memory of the entry function whose name holds ``kernel``, from the
+    ``-Xptxas -v`` report of its build."""
+    rep, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:entry function|Function properties for) '?([^' ]+)",
+                      line)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None or kernel not in current:
+            continue
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_st", r"(\d+) bytes spill stores"),
+                         ("spill_ld", r"(\d+) bytes spill loads"),
+                         ("regs", r"Used (\d+) registers"),
+                         ("static_smem", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                rep[key] = int(m.group(1))
+    return rep
 
 
 def nbytes(*tensors):
@@ -343,6 +403,8 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
     report["dyn_forward"] = dict(
         max_abs_err=err, ms=gpu_ms(torch, lambda: dk.dyn_forward(plan, *args)),
         plain_ms=gpu_ms(torch, lambda: dk.dyn_full_bl(plan, consts, *args)),
+        device_us=device_us(torch, lambda: dk.dyn_forward(plan, *args),
+                            "dyn_forward_kernel"),
         bytes=nbytes(*args, qdd, hinv, io), flops=flops_dyn_forward(plan) * N)
 
     body_x, body_q = rbx.permute(2, 0, 1), rbq.permute(2, 0, 1)
@@ -435,6 +497,9 @@ def check_contact_kernel(torch, ck, call, scene, widen):
     return dict(max_abs_err=err,
                 ms=gpu_ms(torch, lambda: ck.solve_kernel(plan, *a, **k)),
                 plain_ms=gpu_ms(torch, lambda: ck.solve_bl(plan, *a, **k)),
+                device_us=device_us(
+                    torch, lambda: ck.solve_kernel(plan, *a, **k),
+                    "contact_solve_kernel"),
                 bytes=nbytes(*a, *k.values(), *out),
                 flops=flops_contact(plan) * N)
 
@@ -666,6 +731,33 @@ def main():
                   max_abs_err=f"{e['max_abs_err']:.3g}", ms=f"{e['ms']:.5f}",
                   plain_ms=f"{e['plain_ms']:.5f}", bound_ms=f"{b_ms:.5f}",
                   bound_by=b_by, bytes=e["bytes"], flops=str(e["flops"]) + lib)
+    # the team kernels: device time beside the bound and the one-thread
+    # kernels' recorded time, ptxas report and launch layout per scene
+    team_plans = {("ant", "dyn_forward"): tasks["ant"].engine.plan,
+                  ("ball_balance", "dyn_forward"):
+                      tasks["ball_balance"].engine.plan,
+                  ("franka_reach_ma", "dyn_forward"):
+                      tasks["franka_reach_ma"].engine.plan,
+                  ("ant", "contact_solve"): tasks["ant_b4"].engine.cplan,
+                  ("ball_balance", "contact_solve"):
+                      tasks["ball_balance_b4"].engine.cplan,
+                  ("grab", "contact_solve"): grab[0]}
+    for (scene, name), p in team_plans.items():
+        e = report[scene][name]
+        b_us = bound(e["bytes"], e["flops"])[0] * 1e3
+        was = RECORDED_US[(scene, name)]
+        lay = p.layout()
+        px = ptxas_report(p.build_log.get(name, ""), name + "_kernel")
+        phase("team_kernel", scene=scene, name=name,
+              device_us=f"{e['device_us']:.2f}", bound_us=f"{b_us:.2f}",
+              x_bound=f"{e['device_us'] / b_us:.1f}",
+              recorded_us="not_measured" if was is None else was,
+              speedup="-" if was is None else f"{was / e['device_us']:.2f}",
+              regs=px.get("regs"), stack=px.get("stack"),
+              spill_st=px.get("spill_st"), spill_ld=px.get("spill_ld"),
+              smem_bytes=lay.smem_bytes, team=lay.team, envs=lay.envs)
+    if "--kernels-only" in sys.argv[1:]:
+        return 0
 
     # ---- 4. golden JAX captures replayed through the kernels (B4 takes
     # no compacted or reused rows: FrankaReachMA on the default loop only)

@@ -23,7 +23,10 @@ solve       csrc/contact_solve  contact_kernel.py:221 solve_pallas
 kernel for CUDA tensors (no fallback either way) and counts its launches in
 ``solve.launches``.  The static part of the problem (row masks per group,
 iteration count, relaxation, whether rows carry frames) is a
-:class:`ContactPlan`, baked into the kernel as a per-plan header.
+:class:`ContactPlan`, baked into the kernel as a per-plan header, with the
+kernel's launch layout (:func:`contact_layout`): a team of lanes per env,
+the rows of each group split over the team (:meth:`ContactPlan.row_lanes`),
+the env's inputs and row Jacobians in shared memory.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ import ctypes
 import numpy as np
 import torch
 
-from .dyn_kernel import (_c_float, _c_list, _check_kernel_input, _launch,
-                         _on_cpu, _ptr)
+from .dyn_kernel import (KernelLayout, _c_float, _c_list,
+                         _check_kernel_input, _dev_array, _launch, _on_cpu,
+                         _ptr, packed_offsets, quad_odd)
 
 GROUPS = ("c", "a", "g")   # contact rows, attractors, grabs
 
@@ -80,16 +84,55 @@ class ContactPlan:
     def header(self) -> str:
         return contact_header(self)
 
+    def layout(self) -> KernelLayout:
+        """Launch layout of kernel B4 (team, envs per block, shared memory)."""
+        return contact_layout(self)
+
+    def row_lanes(self, group: str) -> list:
+        """The rows of ``group`` ("c", "a", "g") that each lane of B4's team
+        owns: row r goes to lane r % team."""
+        team = self.layout().team
+        rows = self.masks[group].shape[0]
+        return [list(range(lane, rows, team)) for lane in range(team)]
+
     def mask_nonzeros(self) -> dict:
         """Nonzero mask entries per group (the kernel's work per pass)."""
         return {k: int(np.count_nonzero(v)) for k, v in self.masks.items()}
 
 
+def contact_layout(plan: ContactPlan) -> KernelLayout:
+    """B4's layout: the team covers half the widest of the row groups and
+    the dofs (one lane per row or dof, up to two of each), in blocks of 128
+    threads: each lane keeps its rows' and dofs' data in registers, and on
+    the H100 half-width teams in small blocks (more envs resident per SM)
+    ran faster than full-width ones at Ant, BallBalance and on the grab
+    plan.  Per env, each array on a 16-byte boundary: the staged inputs,
+    the groups' row Jacobians J (row c * rows + r, frame-projected for
+    contact rows, built once per solve, row stride ``quad_odd(NV)``: read
+    as float4), the contact impulses, one group's impulse deltas and the
+    dof impulse x."""
+    nv, P, A, G = plan.nv, plan.P, plan.A, plan.G
+    js = quad_odd(nv)
+    offsets, total = packed_offsets([
+        ("S", 6 * nv), ("HI", nv * nv), ("QD", nv), ("PC", 3 * P),
+        ("BN", P), ("MU", P), ("ACT", P), ("FR", 9 * P if plan.has_frames
+                                           else 0),
+        ("WC", 3 * P), ("BLO", nv), ("BHI", nv), ("ALO", nv), ("AHI", nv),
+        ("PA", 3 * A), ("BA", 3 * A), ("WA", 3 * A), ("PG", 3 * G),
+        ("BG", 3 * G), ("WG", 3 * G), ("GACT", G), ("JC", 3 * P * js),
+        ("JA", 3 * A * js), ("JG", 3 * G * js), ("LAM", 3 * P),
+        ("DL", 3 * max(P, A, G)), ("X", nv)], align=4)
+    offsets["JS"] = js
+    return KernelLayout(-(-max(nv, P, A, G) // 2), offsets, total,
+                        quad=True, threads=128)
+
+
 def contact_header(plan: ContactPlan) -> str:
     """C++ header baking a contact plan into kernel B4: sizes, iteration
-    count, relaxation, and the row masks as ``constexpr`` tables (the
-    kernel's fully unrolled row/dof loops fold every lookup to an immediate
-    and drop the masked-out dofs at compile time)."""
+    count, relaxation, the launch layout, the row masks as device arrays
+    (``dmask_*``, row r at ``r * NV``: the lanes of a team read different
+    rows), and which dofs each group touches (``used_*``, read in unrolled
+    dof loops, where each lookup folds to an immediate)."""
     nv = plan.nv
     lines = [
         "// Generated by isaacgymenvs_ma_tpu_torch.physics.contact_kernel."
@@ -103,14 +146,11 @@ def contact_header(plan: ContactPlan) -> str:
         f"constexpr bool FRAMES = {'true' if plan.has_frames else 'false'};",
         f"constexpr int NITER = {plan.num_iterations};",
         f"constexpr float RELAX = {_c_float(plan.relaxation)};",
-    ]
+    ] + plan.layout().header_lines("B4")
     for k in GROUPS:
         m = plan.masks[k]
         vals = m.reshape(-1) if m.size else np.zeros(1, np.float32)
-        lines.append(
-            f"__device__ __forceinline__ float mask_{k}(int r, int v) {{ "
-            f"constexpr float t[{vals.size}] = {_c_list(vals, _c_float)}; "
-            f"return t[r * {nv} + v]; }}")
+        lines.append(_dev_array("float", f"dmask_{k}", vals))
         used = (m != 0).any(axis=0) if m.size else np.zeros(nv, bool)
         lines.append(
             f"__device__ __forceinline__ bool used_{k}(int v) {{ "

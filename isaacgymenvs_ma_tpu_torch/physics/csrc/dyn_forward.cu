@@ -11,24 +11,183 @@
 //
 // In (batch-last f32): body_x (NB,3,N), body_q (NB,4,N), S (NV,6,N),
 // qd/rhs/diag (NV,N), mass_scale (NB,N) or null, shape_scale (NB,3,N) or null.
-// Out: qdd (NV,N), Hinv (NV,NV,N), I_O (NB,6,6,N) (the cache for B3).
+// Out: qdd (NV,N), Hinv (NV,NV,N) dense, zero off H's blocks, I_O (NB,6,6,N)
+// (the cache for B3).
 //
-// What bounds it on the H100: per-thread working set and latency.  One
-// thread holds I_O (NB*36), H (NV*NV), S (NV*6) and the RNEA vectors —
-// ~700 floats for Ant (the Pallas kernel's VMEM estimate is ~2,560 per env)
-// — far above the 255-register limit, so most of it spills to local memory
-// (L1/L2-backed, coalesced across the warp because local memory is
-// interleaved per thread).  The sweep is ~NV^3 = 2.7k FMAs per env.  At
-// 4096 envs the grid is 128 one-warp blocks for 132 SMs: under-filled, one
-// warp per SM with nothing to hide latency.  The design keeps one global
-// round trip (inputs read once, outputs written once) and reuses the I_O
-// buffer in place for the composite inertias after C is computed.  A warp
-// per env with shared-memory tiles is later work.
+// What bounds it on the H100: bytes.  The function moves its inputs and
+// outputs once (88 MB at FrankaReachMA-8192: I_O and H^-1 are most of it,
+// 26 us at 3.35 TB/s) and does ~25k FLOP per env (3 us at 67 TFLOP/s).  A
+// thread that owns a whole env cannot hold its working set (Franka: I_O
+// 1,260 floats, H 900, S 180, the RNEA vectors) in 255 registers: the
+// one-thread kernel spilled ~190 KB per thread, ~1.5 GB of local-memory
+// traffic per launch, and ran 128 one-warp blocks at 4096 envs, one warp of
+// an SM's 64 to hide latency.  Design:
+//   * A team of B2_TEAM lanes (8-32, from the plan: one lane per body or
+//     dof) owns one env; B2_ENVS envs share a block.  The env's working set
+//     lives in shared memory (B2_FLOATS floats per env, odd so neighbouring
+//     envs fall in different banks), not in registers: nothing spills, and
+//     an SM holds several blocks.
+//   * Inputs are staged by the whole block with cp.async and outputs
+//     written back with consecutive threads on consecutive envs, so every
+//     global access is a coalesced run of B2_ENVS floats per row; I_O is
+//     written once, before its composite sums overwrite it in place.
+//   * Spatial inertia, the per-body RNEA forces and the CRBA column forces
+//     take one lane per body or dof.  Path sums (velocities, accelerations)
+//     go level by level over the tree, and subtree sums (forces and
+//     composite inertias, 42 components in one run) over the bodies that
+//     have children, one (body, component) per lane, from the compile-time
+//     tables lvl_off / gat_off and the lanes' device tables (b2_*).
+//   * H is block diagonal: FrankaReachMA's 30 x 30 is two 9-dof arms and
+//     two 6-dof cubes.  CRBA fills only the dof_anc pairs (one per lane).
+//     The sweep runs every block at once: each lane holds its dof's row of
+//     H in registers, in block-local columns, and at step k the lane of
+//     each block's k-th dof publishes its row in shared memory for the
+//     block's other lanes: MAXBLK steps of MAXBLK multiply-adds per lane,
+//     one __syncwarp each, instead of NV steps over NV^2 entries.  Entries
+//     off the blocks are written as exact zeros, as the dense sweep leaves
+//     them; each entry on a block sees the dense sweep's arithmetic.  qdd
+//     sums over the row's block.
+// Only the order of float sums differs from the one-thread kernel.
 #include "dyn_common.cuh"
+#include "team.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(dyn::kThreads)
+namespace sc = scene;
+constexpr int NB = sc::NB, NV = sc::NV;
+constexpr int T = sc::B2_TEAM, E = sc::B2_ENVS, W = sc::B2_FLOATS;
+constexpr int HS = sc::B2_HS;            // row stride of H in shared memory
+constexpr int kBlock = T * E;
+constexpr int RD = (NV + T - 1) / T;  // dofs per lane
+static_assert(32 % T == 0, "a team never spans two warps");
+static_assert(sc::B2_FB == sc::B2_IO + 36 * NB,
+              "I_O and F form one run of 42 components");
+
+template <typename V>
+__device__ __forceinline__ V tab(const V* p, int i) { return __ldg(p + i); }
+
+__device__ __forceinline__ void stage(float* smem, int off,
+                                      const float* __restrict__ g, int M,
+                                      int n0, int N) {
+  team::stage<E, W, kBlock>(smem, off, g, M, n0, N);
+}
+
+// Root-to-body path sums of a component-major (6, NB) array, level by level.
+__device__ __forceinline__ void path_sum(float* X, int lane) {
+#pragma unroll
+  for (int L = 1; L < sc::NLEV; ++L) {
+    const int lo = sc::lvl_off(L), cnt = sc::lvl_off(L + 1) - lo;
+    for (int it = lane; it < 6 * cnt; it += T) {
+      const int b = tab(sc::b2_lvl_body, lo + it % cnt), k = it / cnt;
+      X[k * NB + b] += X[k * NB + tab(sc::b2_parent, b)];
+    }
+    __syncwarp();
+  }
+}
+
+// Subtree sums of a component-major (K, NB) array, leaves up: each body of
+// level L that has children gathers them (level L + 1).
+template <int K>
+__device__ __forceinline__ void subtree_sum(float* X, int lane) {
+#pragma unroll
+  for (int L = sc::NLEV - 2; L >= 0; --L) {
+    const int lo = sc::gat_off(L), cnt = sc::gat_off(L + 1) - lo;
+    for (int it = lane; it < K * cnt; it += T) {
+      const int b = tab(sc::b2_gat_body, lo + it % cnt), k = it / cnt;
+      const int c1 = tab(sc::b2_child_off, b + 1);
+      float s = X[k * NB + b];
+      for (int c = tab(sc::b2_child_off, b); c < c1; ++c)
+        s += X[k * NB + tab(sc::b2_child, c)];
+      X[k * NB + b] = s;
+    }
+    __syncwarp();
+  }
+}
+
+// World spatial inertia of body b about the origin into IO(k, b).
+__device__ __forceinline__ void spatial_inertia(const float* env, float* IO,
+                                                int b, bool has_ms,
+                                                bool has_ss) {
+  const float* q = env + sc::B2_BQ + b * 4;
+  const float x = q[0], y = q[1], z = q[2], w = q[3];
+  const float xx = x * x, yy = y * y, zz = z * z;
+  const float xy = x * y, xz = x * z, yz = y * z;
+  const float wx = w * x, wy = w * y, wz = w * z;
+  const float R[3][3] = {
+      {1.0f - 2.0f * (yy + zz), 2.0f * (xy - wz), 2.0f * (xz + wy)},
+      {2.0f * (xy + wz), 1.0f - 2.0f * (xx + zz), 2.0f * (yz - wx)},
+      {2.0f * (xz - wy), 2.0f * (yz + wx), 1.0f - 2.0f * (xx + yy)}};
+  float I[3][3], com[3], m = tab(sc::b2_mass, b);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    com[i] = tab(sc::b2_com, b * 3 + i);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) I[i][j] = tab(sc::b2_inertia, b * 9 + i * 3 + j);
+  }
+  if (has_ss) {
+    // uniform-density second-moment transform C' = svol * S C S
+    float s[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s[k] = env[sc::B2_SS + b * 3 + k];
+    const float svol = s[0] * s[1] * s[2];
+    const float tr = I[0][0] + I[1][1] + I[2][2];
+    float Cm[3][3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float c0 = (i == j ? 0.5f * tr : 0.0f) - I[i][j];
+        Cm[i][j] = svol * (s[i] * c0 * s[j]);
+      }
+    const float trc = Cm[0][0] + Cm[1][1] + Cm[2][2];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) I[i][j] = (i == j ? trc : 0.0f) - Cm[i][j];
+    m = m * svol;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) com[k] = com[k] * s[k];
+  }
+  // Ic = R I R^T, world com c = x + R com
+  float RI[3][3], Ic[3][3], c[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      RI[i][j] = R[i][0] * I[0][j] + R[i][1] * I[1][j] + R[i][2] * I[2][j];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      Ic[i][j] = RI[i][0] * R[j][0] + RI[i][1] * R[j][1] + RI[i][2] * R[j][2];
+    c[i] = env[sc::B2_BX + b * 3 + i] +
+           (R[i][0] * com[0] + R[i][1] * com[1] + R[i][2] * com[2]);
+  }
+  if (has_ms) {
+    const float ms = env[sc::B2_MS + b];
+    m = m * ms;
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) Ic[i][j] = Ic[i][j] * ms;
+  }
+  const float cx[3][3] = {{0.0f, -c[2], c[1]},
+                          {c[2], 0.0f, -c[0]},
+                          {-c[1], c[0], 0.0f}};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float cxcx =
+          cx[i][0] * cx[0][j] + cx[i][1] * cx[1][j] + cx[i][2] * cx[2][j];
+      IO[(i * 6 + j) * NB + b] = Ic[i][j] - m * cxcx;        // top-left
+      IO[(i * 6 + 3 + j) * NB + b] = m * cx[i][j];           // top-right
+      IO[((3 + i) * 6 + j) * NB + b] = -(m * cx[i][j]);      // bottom-left
+      IO[((3 + i) * 6 + 3 + j) * NB + b] = i == j ? m : 0.0f;
+    }
+}
+
+__global__ void __launch_bounds__(kBlock, 1)
 dyn_forward_kernel(const float* __restrict__ bx, const float* __restrict__ bq,
                    const float* __restrict__ Sg, const float* __restrict__ qdg,
                    const float* __restrict__ rhs,
@@ -37,164 +196,201 @@ dyn_forward_kernel(const float* __restrict__ bx, const float* __restrict__ bq,
                    const float* __restrict__ shape_scale,
                    float* __restrict__ qdd_out, float* __restrict__ hinv_out,
                    float* __restrict__ io_out, int N) {
-  namespace sc = scene;
-  constexpr int NB = sc::NB, NV = sc::NV;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;   // ragged last block
+  extern __shared__ float smem[];
+  const int n0 = blockIdx.x * E;
+  const int lane = threadIdx.x % T;
+  float* env = smem + (threadIdx.x / T) * W;
+  float* IO = env + sc::B2_IO;     // (36, NB): I_O, then composite inertias
+  float* FB = env + sc::B2_FB;     // (6, NB): body forces, then subtree sums
+  float* V = env + sc::B2_V;       // (6, NB) body velocities
+  float* A = env + sc::B2_A;       // (6, NB) velocity-product accelerations
+  float* S = env + sc::B2_S;       // (NV, 6) as in global memory
+  float* QD = env + sc::B2_QD;
+  float* RHS = env + sc::B2_RHS;   // rhs, then rhs - C
+  float* DIAG = env + sc::B2_DIAG;
+  float* QDD = env + sc::B2_QDD;
+  float* FD = env + sc::B2_FD;     // (NV, 6) CRBA column forces
+  float* H = env + sc::B2_H;       // (NV, HS): H, then H^-1
 
-  float S[NV][6], qd[NV];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    qd[v] = qdg[v * N + n];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) S[v][k] = Sg[(v * 6 + k) * N + n];
-  }
+  // ---- stage the block's inputs (body_x/q and the scales share F, V, A)
+  stage(smem, sc::B2_BX, bx, 3 * NB, n0, N);
+  stage(smem, sc::B2_BQ, bq, 4 * NB, n0, N);
+  if (mass_scale != nullptr) stage(smem, sc::B2_MS, mass_scale, NB, n0, N);
+  if (shape_scale != nullptr)
+    stage(smem, sc::B2_SS, shape_scale, 3 * NB, n0, N);
+  stage(smem, sc::B2_S, Sg, 6 * NV, n0, N);
+  stage(smem, sc::B2_QD, qdg, NV, n0, N);
+  stage(smem, sc::B2_RHS, rhs, NV, n0, N);
+  stage(smem, sc::B2_DIAG, diag, NV, n0, N);
+  team::stage_wait();
+  __syncthreads();
 
-  // ---- world spatial inertia about the origin
-  float IO[NB][36];
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    const float x = bq[(b * 4 + 0) * N + n], y = bq[(b * 4 + 1) * N + n];
-    const float z = bq[(b * 4 + 2) * N + n], w = bq[(b * 4 + 3) * N + n];
-    const float xx = x * x, yy = y * y, zz = z * z;
-    const float xy = x * y, xz = x * z, yz = y * z;
-    const float wx = w * x, wy = w * y, wz = w * z;
-    const float R[3][3] = {
-        {1.0f - 2.0f * (yy + zz), 2.0f * (xy - wz), 2.0f * (xz + wy)},
-        {2.0f * (xy + wz), 1.0f - 2.0f * (xx + zz), 2.0f * (yz - wx)},
-        {2.0f * (xz - wy), 2.0f * (yz + wx), 1.0f - 2.0f * (xx + yy)}};
-    float I[3][3], com[3], m = sc::mass(b);
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      com[i] = sc::com(b, i);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) I[i][j] = sc::inertia(b, i * 3 + j);
-    }
-    if (shape_scale != nullptr) {
-      // uniform-density second-moment transform C' = svol * S C S
-      float s[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) s[k] = shape_scale[(b * 3 + k) * N + n];
-      const float svol = s[0] * s[1] * s[2];
-      const float tr = I[0][0] + I[1][1] + I[2][2];
-      float Cm[3][3];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-          const float c0 = (i == j ? 0.5f * tr : 0.0f) - I[i][j];
-          Cm[i][j] = svol * (s[i] * c0 * s[j]);
-        }
-      const float trc = Cm[0][0] + Cm[1][1] + Cm[2][2];
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) I[i][j] = (i == j ? trc : 0.0f) - Cm[i][j];
-      m = m * svol;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) com[k] = com[k] * s[k];
-    }
-    // Ic = R I R^T, world com c = x + R com
-    float RI[3][3], Ic[3][3], c[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        RI[i][j] = R[i][0] * I[0][j] + R[i][1] * I[1][j] + R[i][2] * I[2][j];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        Ic[i][j] = RI[i][0] * R[j][0] + RI[i][1] * R[j][1] + RI[i][2] * R[j][2];
-      c[i] = bx[(b * 3 + i) * N + n] +
-             (R[i][0] * com[0] + R[i][1] * com[1] + R[i][2] * com[2]);
-    }
-    if (mass_scale != nullptr) {
-      const float ms = mass_scale[b * N + n];
-      m = m * ms;
-#pragma unroll
-      for (int i = 0; i < 3; ++i)
-#pragma unroll
-        for (int j = 0; j < 3; ++j) Ic[i][j] = Ic[i][j] * ms;
-    }
-    const float cx[3][3] = {{0.0f, -c[2], c[1]},
-                            {c[2], 0.0f, -c[0]},
-                            {-c[1], c[0], 0.0f}};
-#pragma unroll
-    for (int i = 0; i < 3; ++i)
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const float cxcx =
-            cx[i][0] * cx[0][j] + cx[i][1] * cx[1][j] + cx[i][2] * cx[2][j];
-        IO[b][i * 6 + j] = Ic[i][j] - m * cxcx;        // top-left
-        IO[b][i * 6 + 3 + j] = m * cx[i][j];           // top-right
-        IO[b][(3 + i) * 6 + j] = -(m * cx[i][j]);      // bottom-left
-        IO[b][(3 + i) * 6 + 3 + j] = i == j ? m : 0.0f;
-      }
-#pragma unroll
-    for (int k = 0; k < 36; ++k) io_out[(b * 36 + k) * N + n] = IO[b][k];
-  }
+  // ---- world spatial inertia, one lane per body
+  for (int b = lane; b < NB; b += T)
+    spatial_inertia(env, IO, b, mass_scale != nullptr, shape_scale != nullptr);
+  __syncthreads();
+  // I_O out: element (b, k) at IO[k * NB + b]
+  team::store<E, W, kBlock>(io_out, NB * 36, n0, N, smem, sc::B2_IO,
+                    [](int i) { return (i % 36) * NB + i / 36; });
 
-  // ---- bias force against the fresh I_O (gravity through a0)
-  float C[NV];
-  dyn::bias_force<true>(
-      S, qd, [&](int b, int k) { return IO[b][k]; },
-      [](int, int) { return 0.0f; }, C);
-
-  // ---- composite inertias (in place) and the CRBA mass matrix
-  dyn::subtree_sum<36>(IO);
-  float F[NV][6];
-#pragma unroll
-  for (int v = 0; v < NV; ++v) dyn::matvec6(IO[sc::dof_body(v)], S[v], F[v]);
-  float H[NV][NV];
-#pragma unroll
-  for (int i = 0; i < NV; ++i)
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      float g = 0.0f;
-      if (sc::anc(i, j)) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) g += S[i][k] * F[j][k];
-      } else if (sc::anc(j, i)) {
-#pragma unroll
-        for (int k = 0; k < 6; ++k) g += F[i][k] * S[j][k];
-      }
-      H[i][j] = i == j ? g + diag[i * N + n] : g;
-    }
-
-  // ---- Gauss-Jordan sweep inverse, in place, no pivoting
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    const float inv_d = 1.0f / H[k][k];
-    float row[NV], col[NV];
-#pragma unroll
-    for (int j = 0; j < NV; ++j) row[j] = H[k][j] * inv_d;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) col[i] = i == k ? 0.0f : H[i][k];
-#pragma unroll
-    for (int i = 0; i < NV; ++i)
-#pragma unroll
-      for (int j = 0; j < NV; ++j) H[i][j] = H[i][j] - col[i] * row[j];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) H[i][k] = i == k ? inv_d : -col[i] * inv_d;
-#pragma unroll
-    for (int j = 0; j < NV; ++j) H[k][j] = j == k ? inv_d : row[j];
-  }
-
-  // ---- qdd = H^-1 (rhs - C)
-  float r[NV];
-#pragma unroll
-  for (int j = 0; j < NV; ++j) r[j] = rhs[j * N + n] - C[j];
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
+  // ---- RNEA bias force against the fresh I_O (gravity through a0)
+  for (int it = lane; it < 6 * NB; it += T) {     // own joint motion
+    const int k = it / NB, b = it % NB;
+    const int v0 = tab(sc::b2_vadr, b), nd = tab(sc::b2_ndof, b);
     float acc = 0.0f;
-#pragma unroll
-    for (int j = 0; j < NV; ++j) {
-      hinv_out[(i * NV + j) * N + n] = H[i][j];
-      acc += H[i][j] * r[j];
-    }
-    qdd_out[i * N + n] = acc;
+    for (int d = v0; d < v0 + nd; ++d) acc += S[d * 6 + k] * QD[d];
+    V[it] = acc;
   }
+  __syncwarp();
+  path_sum(V, lane);
+  for (int b = lane; b < NB; b += T) {            // xi = V_body x (S qd)
+    const int v0 = tab(sc::b2_vadr, b), nd = tab(sc::b2_ndof, b);
+    float Vb[6], acc[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      Vb[k] = V[k * NB + b];
+      acc[k] = 0.0f;
+    }
+    for (int d = v0; d < v0 + nd; ++d) {
+      float sqd[6], xi[6];
+#pragma unroll
+      for (int k = 0; k < 6; ++k) sqd[k] = S[d * 6 + k] * QD[d];
+      dyn::cross_motion(Vb, sqd, xi);
+#pragma unroll
+      for (int k = 0; k < 6; ++k) acc[k] += xi[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) A[k * NB + b] = acc[k];
+  }
+  __syncwarp();
+  path_sum(A, lane);
+  for (int b = lane; b < NB; b += T) {            // I (a0 + a) + V x* (I V)
+    float I[36], Vb[6], a[6], Iv[6], Ia[6], cf[6];
+#pragma unroll
+    for (int k = 0; k < 36; ++k) I[k] = IO[k * NB + b];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      Vb[k] = V[k * NB + b];
+      a[k] = tab(sc::b2_a0, b * 6 + k) + A[k * NB + b];
+    }
+    dyn::matvec6(I, Vb, Iv);
+    dyn::matvec6(I, a, Ia);
+    dyn::cross_force(Vb, Iv, cf);
+#pragma unroll
+    for (int k = 0; k < 6; ++k) FB[k * NB + b] = Ia[k] + cf[k];
+  }
+  __syncthreads();   // the I_O store is done reading: sum in place
+  subtree_sum<42>(IO, lane);                       // composite I_O and F
+
+  // ---- C, rhs - C, CRBA column forces F_v = Icomp(body v) S_v; zero H
+  for (int v = lane; v < NV; v += T) {
+    const int b = tab(sc::b2_dof_body, v);
+    float c = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) c += S[v * 6 + k] * FB[k * NB + b];
+    RHS[v] = RHS[v] - c;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) acc += IO[(i * 6 + j) * NB + b] * S[v * 6 + j];
+      FD[v * 6 + i] = acc;
+    }
+  }
+  for (int it = lane; it < NV * HS; it += T) H[it] = 0.0f;
+  __syncwarp();
+  // H(i, j) = H(j, i) = S_i . F_j for each pair with i an ancestor dof of j
+  for (int it = lane; it < sc::NPAIR; it += T) {
+    const int pr = tab(sc::b2_pair, it), i = pr & 255, j = pr >> 8;
+    float g = 0.0f;
+#pragma unroll
+    for (int k = 0; k < 6; ++k) g += S[i * 6 + k] * FD[j * 6 + k];
+    if (i == j) {
+      H[i * HS + i] = g + DIAG[i];
+    } else {
+      H[i * HS + j] = g;
+      H[j * HS + i] = g;
+    }
+  }
+  __syncwarp();
+
+  // ---- block sweep (Gauss-Jordan, no pivoting), all blocks at once: each
+  // lane keeps its dofs' rows of H in registers, in block-local columns; at
+  // step k the lane of each block's k-th dof publishes its row, and every
+  // lane of the block updates its own row against it
+  constexpr int MB = sc::MAXBLK;
+  float h[RD][MB];
+  int blk[RD];
+#pragma unroll
+  for (int q = 0; q < RD; ++q) {
+    const int i = min(lane + q * T, NV - 1);    // lanes past NV: unused copy
+    blk[q] = tab(sc::b2_dof_block, i);
+    const int base = blk[q] & 255, size = (blk[q] >> 8) & 255;
+#pragma unroll
+    for (int c = 0; c < MB; ++c)
+      h[q][c] = c < size ? H[i * HS + tab(sc::b2_block_dofs, base + c)] : 0.0f;
+  }
+  __syncwarp();              // H's space now holds the pivot rows
+#pragma unroll
+  for (int k = 0; k < MB; ++k) {
+#pragma unroll
+    for (int q = 0; q < RD; ++q) {
+      const int i = lane + q * T;
+      if (i < NV && (blk[q] >> 16) == k) {
+#pragma unroll
+        for (int c = 0; c < MB; ++c) H[i * HS + c] = h[q][c];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < RD; ++q) {
+      const int i = lane + q * T;
+      const int base = blk[q] & 255, size = (blk[q] >> 8) & 255;
+      if (i < NV && k < size) {
+        const float* prow = H + tab(sc::b2_block_dofs, base + k) * HS;
+        const float inv_d = 1.0f / prow[k];
+        if ((blk[q] >> 16) == k) {
+#pragma unroll
+          for (int c = 0; c < MB; ++c)
+            h[q][c] = c == k ? inv_d : prow[c] * inv_d;
+        } else {
+          const float col = h[q][k];
+#pragma unroll
+          for (int c = 0; c < MB; ++c)
+            h[q][c] = c == k ? -col * inv_d : h[q][c] - col * (prow[c] * inv_d);
+        }
+      }
+    }
+  }
+  __syncwarp();              // the last pivot row is read
+#pragma unroll
+  for (int q = 0; q < RD; ++q) {
+    const int i = lane + q * T;
+    if (i < NV) {
+      const int base = blk[q] & 255, size = (blk[q] >> 8) & 255;
+      for (int j = 0; j < NV; ++j) H[i * HS + j] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < MB; ++c)
+        if (c < size) H[i * HS + tab(sc::b2_block_dofs, base + c)] = h[q][c];
+    }
+  }
+  __syncwarp();
+
+  // ---- qdd = H^-1 (rhs - C) over each dof's block
+  for (int v = lane; v < NV; v += T) {
+    const int db = tab(sc::b2_dof_block, v);
+    const int base = db & 255, size = (db >> 8) & 255;
+    float acc = 0.0f;
+    for (int q = base; q < base + size; ++q) {
+      const int j = tab(sc::b2_block_dofs, q);
+      acc += H[v * HS + j] * RHS[j];
+    }
+    QDD[v] = acc;
+  }
+  __syncthreads();
+  team::store<E, W, kBlock>(qdd_out, NV, n0, N, smem, sc::B2_QDD);
+  team::store<E, W, kBlock>(hinv_out, NV * NV, n0, N, smem, sc::B2_H,
+                    [](int i) { return (i / NV) * HS + i % NV; });
 }
 
 }  // namespace
@@ -206,10 +402,13 @@ extern "C" int dyn_forward_launch(int device, const float* bx, const float* bq,
                                   const float* shape_scale, float* qdd,
                                   float* hinv, float* io, int N, void* stream) {
   if (N <= 0) return 0;
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  const int blocks = (N + dyn::kThreads - 1) / dyn::kThreads;
-  dyn_forward_kernel<<<blocks, dyn::kThreads, 0,
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int bytes = sc::B2_SMEM_BYTES;
+  err = team::allow_smem(dyn_forward_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (N + E - 1) / E;
+  dyn_forward_kernel<<<blocks, kBlock, bytes,
                        static_cast<cudaStream_t>(stream)>>>(
       bx, bq, S, qd, rhs, diag, mass_scale, shape_scale, qdd, hinv, io, N);
   return static_cast<int>(cudaGetLastError());

@@ -1,12 +1,16 @@
 """Batch-last dynamics chain: plain PyTorch twins and CUDA kernels B1-B3.
 
 Port of isaacgymenvs_ma_tpu/physics/dyn_kernel.py.  Every array at the
-kernel boundary is laid out ``(..., N)`` with the env batch minor, so on the
-card one thread owns one env and neighbouring threads read neighbouring
-addresses.  The static kinematic tree is baked into the kernels: the JAX
-code unrolls it in Python while tracing, the CUDA sources unroll it at
-compile time against a per-scene header of ``constexpr`` tables generated
-here from :class:`DynPlan` (:func:`scene_header`).
+kernel boundary is laid out ``(..., N)`` with the env batch minor, so
+neighbouring threads read neighbouring addresses.  B1 and B3 run one thread
+per env; B2 runs a team of lanes per env over the env's working set staged
+in shared memory (:func:`dyn_forward_layout` sizes the team, the envs per
+block and the shared memory).  The static kinematic tree is baked into the
+kernels: the JAX code unrolls it in Python while tracing, the CUDA sources
+unroll it at compile time against a per-scene header of ``constexpr``
+tables, and read B2's per-lane tables (tree levels, children, H's
+diagonal blocks) from device arrays, all generated here from
+:class:`DynPlan` (:func:`scene_header`).
 
 Three kernels, each with a plain twin in this module and a dispatching
 wrapper that runs the twin for CPU tensors and launches the kernel for CUDA
@@ -67,6 +71,14 @@ class DynPlan:
         ]
         # CRBA pair mask (strict-ancestor + same-body upper triangle)
         self.dof_anc = np.asarray(engine.dof_anc_np, bool)
+        # H's diagonal blocks: the connected components of dof_anc, i.e. the
+        # dofs under each root body, each in dof order
+        self.blocks = dof_blocks(self.dof_anc)
+        depth = [self._depth(b) for b in range(self.nb)]
+        self.levels = [[b for b in range(self.nb) if depth[b] == d]
+                       for d in range(max(depth) + 1)]
+        self.children = [[c for c in range(self.nb) if self.parent[c] == b]
+                         for b in range(self.nb)]
         self.fk = [self._fk_body(engine, b) for b in range(self.nb)]
         self._consts = {}
         self.libs = {}          # kernel name -> loaded ctypes library
@@ -74,6 +86,10 @@ class DynPlan:
 
     def header(self) -> str:
         return scene_header(self)
+
+    def layout(self) -> "KernelLayout":
+        """Launch layout of kernel B2 (team, envs per block, shared memory)."""
+        return dyn_forward_layout(self)
 
     def _depth(self, b):
         d = 0
@@ -128,6 +144,110 @@ def get_plan(engine) -> DynPlan:
         plan = DynPlan(engine)
         engine._dyn_plan = plan
     return plan
+
+
+def dof_blocks(dof_anc) -> list:
+    """Connected components of the dof pairs that ``dof_anc`` couples (H is
+    zero between two components), each as its sorted dof list, ordered by
+    first dof."""
+    nv = len(dof_anc)
+    label = list(range(nv))
+
+    def root(i):
+        while label[i] != i:
+            i = label[i]
+        return i
+
+    for i, j in zip(*np.nonzero(np.asarray(dof_anc, bool))):
+        label[root(int(i))] = root(int(j))
+    groups = {}
+    for v in range(nv):
+        groups.setdefault(root(v), []).append(v)
+    return sorted(groups.values(), key=lambda g: g[0])
+
+
+# ---------------------------------------------------------------------------
+# launch layout of the team kernels (B2, B4)
+
+MAX_SMEM_BYTES = 232448     # shared memory one block may use on an H100
+
+
+class KernelLayout:
+    """How a team kernel lays out one launch: ``team`` lanes per env (a
+    power of two up to a warp, so a team never spans two warps),
+    ``envs`` envs per block, ``floats`` per env in shared memory (odd, or
+    with ``quad`` a multiple of four that is an odd number of float4s: in
+    either case consecutive envs start in different banks), ``offsets`` of
+    the env's arrays (in floats) and the block's ``smem_bytes``."""
+
+    def __init__(self, work: int, offsets: dict, floats: int,
+                 quad: bool = False, threads: int = 256):
+        self.team = min(32, max(8, 1 << max(0, int(work) - 1).bit_length()))
+        self.offsets = dict(offsets)
+        self.floats = quad_odd(floats) if quad else int(floats) | 1
+        env_bytes = 4 * self.floats
+        envs = max(1, threads // self.team)
+        while envs > 1 and envs * env_bytes > MAX_SMEM_BYTES:
+            envs //= 2
+        if envs * env_bytes > MAX_SMEM_BYTES:
+            raise ValueError(f"one env needs {env_bytes} B of shared memory; "
+                             f"a block has {MAX_SMEM_BYTES}")
+        self.envs = envs
+        self.smem_bytes = envs * env_bytes
+
+    def header_lines(self, prefix: str) -> list:
+        return [f"constexpr int {prefix}_TEAM = {self.team};",
+                f"constexpr int {prefix}_ENVS = {self.envs};",
+                f"constexpr int {prefix}_FLOATS = {self.floats};",
+                f"constexpr int {prefix}_SMEM_BYTES = {self.smem_bytes};"] + [
+                    f"constexpr int {prefix}_{k} = {v};"
+                    for k, v in self.offsets.items()]
+
+
+def packed_offsets(sizes, align: int = 1) -> tuple:
+    """(name, floats) pairs laid end to end, each starting and ending on a
+    multiple of ``align`` floats -> ({name: offset}, total)."""
+    offsets, at = {}, 0
+    for name, n in sizes:
+        offsets[name] = at
+        at += -(-int(n) // align) * align
+    return offsets, at
+
+
+def quad_odd(n: int) -> int:
+    """The least multiple of four floats >= n that is an odd number of
+    float4s: rows of that stride, read as float4 by the lanes of a team,
+    hit distinct banks."""
+    q = -(-int(n) // 4)
+    return 4 * (q + 1 - q % 2)
+
+
+def odd(n: int) -> int:
+    """The row stride of a shared-memory matrix: n, or n + 1 when even, so
+    the lanes of a team walking a column hit distinct banks."""
+    return n | 1
+
+
+def dyn_forward_layout(plan: "DynPlan") -> KernelLayout:
+    """B2's layout: one lane per body (or dof), so the team covers
+    max(NB, NV).  Per env: I_O then the per-body force F (component-major,
+    element (k, b) at k * NB + b, so the 42 components of a subtree sum are
+    one run), body velocities and accelerations, S, qd, rhs (then rhs - C),
+    the drive diagonal, qdd, the CRBA column forces and H (row stride
+    ``odd(NV)``; during the sweep it holds the pivot rows instead).  The
+    staged inputs body_x, body_q and the two scales are read only before F,
+    V and A exist and share their space."""
+    nb, nv = plan.nb, plan.nv
+    offsets, total = packed_offsets([
+        ("IO", 36 * nb), ("FB", 6 * nb), ("V", 6 * nb), ("A", 6 * nb),
+        ("S", 6 * nv), ("QD", nv), ("RHS", nv), ("DIAG", nv), ("QDD", nv),
+        ("FD", 6 * nv), ("H", nv * odd(nv))])
+    inputs, n_in = packed_offsets([("BX", 3 * nb), ("BQ", 4 * nb),
+                                   ("MS", nb), ("SS", 3 * nb)])
+    assert n_in <= 18 * nb
+    offsets.update({k: offsets["FB"] + v for k, v in inputs.items()})
+    offsets["HS"] = odd(nv)
+    return KernelLayout(max(nb, nv), offsets, total)
 
 
 def _np_qapply(q, v):
@@ -555,8 +675,84 @@ def scene_header(plan: DynPlan) -> str:
             f"constexpr float t[{nb * k}] = "
             f"{_c_list(np.asarray(tab, np.float32).reshape(-1), _c_float)}; "
             f"return t[b * {k} + k]; }}")
+    lines += _b2_tables(plan, a0)
     lines += ["}  // namespace scene", ""]
     return "\n".join(lines)
+
+
+def _dev_array(ctype: str, name: str, vals) -> str:
+    """A table in device memory, for indices that differ between the lanes
+    of a team (a ``constexpr`` table indexed at run time would be copied to
+    each thread's stack)."""
+    vals = list(vals) or [0]
+    fmt = _c_float if ctype == "float" else (lambda v: str(int(v)))
+    return (f"__device__ const {ctype} {name}[{len(vals)}] = "
+            f"{_c_list(vals, fmt)};")
+
+
+def b2_tables(plan: DynPlan) -> dict:
+    """The per-lane tables of kernel B2, as plain lists.
+
+    ``lvl_body``: bodies ordered by tree depth, level L at
+    ``lvl_off[L]:lvl_off[L + 1]``; ``gat_body``: the same for the bodies
+    that have children, level L at ``gat_off[L]:gat_off[L + 1]``;
+    ``child``: children of body b at ``child_off[b]:child_off[b + 1]``; ``block_dofs``: the blocks' dofs
+    end to end, block i at ``block_off[i]`` with ``block_size[i]`` dofs;
+    ``dof_block[v]``: base | size << 8 | at << 16 of v's block (its dofs at
+    ``block_dofs[base:base + size]``, v at ``base + at``); ``pair``: the
+    CRBA pairs (i, j) of ``dof_anc`` as i | j << 8."""
+    nb, nv = plan.nb, plan.nv
+    if nv > 127:    # three packed fields in one positive int
+        raise ValueError("B2's packed tables take at most 127 dofs")
+    lvl_off = np.cumsum([0] + [len(lv) for lv in plan.levels]).tolist()
+    gat = [[b for b in lv if plan.children[b]] for lv in plan.levels]
+    gat_off = np.cumsum([0] + [len(g) for g in gat]).tolist()
+    child_off = np.cumsum([0] + [len(c) for c in plan.children]).tolist()
+    block_off = np.cumsum([0] + [len(b) for b in plan.blocks]).tolist()[:-1]
+    dof_block = [0] * nv
+    for blk, base in zip(plan.blocks, block_off):
+        for at, v in enumerate(blk):
+            dof_block[v] = base | len(blk) << 8 | at << 16
+    return dict(
+        lvl_body=[b for lv in plan.levels for b in lv], lvl_off=lvl_off,
+        gat_body=[b for g in gat for b in g], gat_off=gat_off,
+        child=[c for ch in plan.children for c in ch], child_off=child_off,
+        vadr=[d[0] if d else 0 for d in plan.body_dofs],
+        ndof=[len(d) for d in plan.body_dofs],
+        block_dofs=[v for blk in plan.blocks for v in blk],
+        block_off=block_off, block_size=[len(b) for b in plan.blocks],
+        dof_block=dof_block,
+        pair=[int(i) | int(j) << 8
+              for i, j in zip(*np.nonzero(plan.dof_anc))])
+
+
+def _b2_tables(plan: DynPlan, a0) -> list:
+    """Header lines of kernel B2: its launch layout, the tree levels and
+    H's blocks (:func:`b2_tables`), and the body constants again as device
+    arrays for the lanes that each take one body."""
+    t = b2_tables(plan)
+    lines = plan.layout().header_lines("B2") + [
+        f"constexpr int NLEV = {len(plan.levels)};",
+        f"constexpr int NBLK = {len(plan.blocks)};",
+        f"constexpr int MAXBLK = {max(t['block_size'])};",
+        f"constexpr int NPAIR = {len(t['pair'])};",
+    ] + [f"__device__ __forceinline__ int {name}(int L) {{ "
+         f"constexpr int t[{len(t[name])}] = "
+         f"{_c_list(t[name], str)}; return t[L]; }}"
+         for name in ("lvl_off", "gat_off")]
+    for name in ("lvl_body", "gat_body", "child_off", "child", "vadr", "ndof",
+                 "block_dofs", "block_off", "block_size", "dof_block",
+                 "pair"):
+        lines.append(_dev_array("int", f"b2_{name}", t[name]))
+    lines += [
+        _dev_array("int", "b2_parent", plan.parent.tolist()),
+        _dev_array("int", "b2_dof_body", plan.dof_body.tolist()),
+        _dev_array("float", "b2_mass", plan.mass),
+        _dev_array("float", "b2_com", plan.com.reshape(-1)),
+        _dev_array("float", "b2_inertia", plan.inertia.reshape(-1)),
+        _dev_array("float", "b2_a0", np.asarray(a0, np.float32).reshape(-1)),
+    ]
+    return lines
 
 
 # ---------------------------------------------------------------------------

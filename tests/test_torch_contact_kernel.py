@@ -145,8 +145,7 @@ def test_contact_header_bakes_the_plan():
                  "constexpr bool FRAMES = true;", "constexpr int NITER = 8;"):
         assert line in h
     import re
-    m = re.search(r"float mask_c\(int r, int v\) \{ constexpr float "
-                  r"t\[35\] = \{([^}]*)\}", h)
+    m = re.search(r"float dmask_c\[35\] = \{([^}]*)\}", h)
     vals = np.array([float(v.rstrip("f")) for v in m.group(1).split(",")],
                     np.float32)
     np.testing.assert_array_equal(vals, masks["c"].reshape(-1))
@@ -156,8 +155,7 @@ def test_contact_header_bakes_the_plan():
                     for u in (masks["a"] != 0).any(0)]
     # an empty group still compiles: a one-entry table and no used dofs
     h0 = plan_of({"c": masks["c"]}, False).header()
-    assert "constexpr int A = 0;" in h0 and "float mask_g(int r, int v) { " \
-        "constexpr float t[1]" in h0
+    assert "constexpr int A = 0;" in h0 and "float dmask_g[1] = " in h0
     assert (_build.lib_dir("contact_solve", h)
             != _build.lib_dir("contact_solve", h0))
 

@@ -1,0 +1,236 @@
+"""The plan-side tables and launch layouts of the team kernels B2
+(csrc/dyn_forward.cu) and B4 (csrc/contact_solve.cu), on the CPU.
+
+The kernels themselves run only on the card (chip_smoke.py holds them
+against their twins there); what they read is built here in Python and
+checked without one: H's diagonal blocks and the block-wise sweep (against
+the dense port sweep bit for bit, and against the JAX package's sweep),
+B2's level, child and block tables, both generated headers, the
+shared-memory size of every plan the port builds, and the rows each lane of
+B4's team owns.
+
+Scenes: Ant and BallBalance (both contact routes' plans), FrankaReachMA at
+its committed capture's warmed-up state (16 envs x 2 arms), and a seeded
+contact plan with every row group (the synthetic grab plan of
+chip_smoke.py: nv 14, P 8, A 2, G 2, frames).
+"""
+import os
+import re
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from isaacgymenvs_ma_tpu.physics.engine import _sweep_inverse_batchlast
+from isaacgymenvs_ma_tpu_torch.physics import contact_kernel as ck
+from isaacgymenvs_ma_tpu_torch.physics import dyn_kernel as dk
+from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
+from isaacgymenvs_ma_tpu_torch.utils import parity
+from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                    "torch_port")
+SCENES = ("Ant", "BallBalance", "FrankaReachMA")
+BLOCK_SIZES = {"Ant": [14],               # the torso's free joint ties all
+               "BallBalance": [12, 6],    # tray + legs, ball
+               "FrankaReachMA": [9, 9, 6, 6]}   # two arms, two cubes
+CONTACT_PLANS = ("Ant", "BallBalance", "grab")
+
+
+def _task(name, n, kernel_route):
+    cls, cfg, _ = parity.TASKS[name]
+    cfg = deep_merge(cfg, {"env": {"numEnvs": n}})
+    params = parse_sim_params(cfg["sim"])._replace(
+        use_contact_kernel=kernel_route)
+    return cls(cfg, device="cpu", seed=1, sim_params=params)
+
+
+@pytest.fixture(scope="module")
+def tasks():
+    return {"Ant": _task("Ant", 4, True),
+            "BallBalance": _task("BallBalance", 4, True),
+            "FrankaReachMA": _task("FrankaReachMA", 16, False)}
+
+
+def grab_plan():
+    g = np.random.default_rng(5)
+    masks = {k: g.choice([-1.0, 0.0, 0.0, 1.0], (r, 14)).astype(np.float32)
+             for k, r in (("c", 8), ("a", 2), ("g", 2))}
+    return ck.ContactPlan(masks, 14, num_iterations=8, relaxation=0.35,
+                          has_frames=True)
+
+
+def contact_plan(tasks, name):
+    return grab_plan() if name == "grab" else tasks[name].engine.cplan
+
+
+def _root(plan, b):
+    while plan.parent[b] != -1:
+        b = int(plan.parent[b])
+    return b
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_dyn_blocks_partition_the_dofs(tasks, name):
+    """The blocks cover every dof once, dof_anc couples no two blocks, and
+    each block is the dofs under one root body."""
+    plan = tasks[name].engine.plan
+    assert [len(b) for b in plan.blocks] == BLOCK_SIZES[name]
+    flat = sorted(v for b in plan.blocks for v in b)
+    assert flat == list(range(plan.nv))
+    label = np.empty(plan.nv, int)
+    for i, blk in enumerate(plan.blocks):
+        label[blk] = i
+        assert blk == sorted(blk)
+        assert len({_root(plan, int(plan.dof_body[v])) for v in blk}) == 1
+    i, j = np.nonzero(plan.dof_anc)
+    assert (label[i] == label[j]).all()
+    roots = [_root(plan, int(plan.dof_body[b[0]])) for b in plan.blocks]
+    assert len(set(roots)) == len(roots)
+
+
+def test_block_sweep_equals_dense_sweep_at_franka_capture(tasks):
+    """At the capture's warmed-up state, sweeping H block by block gives
+    the dense sweep exactly (torch.equal: the dense sweep may write -0.0
+    where the block sweep leaves 0.0), the dense result is exactly zero off
+    the blocks, and both agree with the JAX package's sweep."""
+    eng = tasks["FrankaReachMA"].engine
+    plan = eng.plan
+    d = np.load(os.path.join(DATA, "franka_reach_ma_golden.npz"))
+    q = torch.as_tensor(d["init_q"]).t().contiguous()
+    bx, bq, S = dk._fk_motion_bl(plan, q)
+    I_O = dk.spatial_inertia_bl(plan, plan.consts("cpu"), bx, bq)
+    M = dk.mass_matrix_bl(plan, plan.consts("cpu"), S, I_O)
+    H = M + dk._eye_bl(plan.nv, S) * (eng.dof_armature[:, None] + 0.1)
+    dense = dk.sweep_inverse_bl(H)
+    blocks = torch.zeros_like(H)
+    for blk in plan.blocks:
+        idx = torch.as_tensor(blk)
+        blocks[idx[:, None], idx[None, :]] = dk.sweep_inverse_bl(
+            H[idx[:, None], idx[None, :]])
+    assert torch.equal(dense, blocks)
+    on = torch.zeros((plan.nv, plan.nv), dtype=torch.bool)
+    for blk in plan.blocks:
+        idx = torch.as_tensor(blk)
+        on[idx[:, None], idx[None, :]] = True
+    assert bool((dense[~on] == 0).all())
+    assert bool((dense[on] != 0).any())
+    ref = np.asarray(_sweep_inverse_batchlast(jnp.asarray(H.numpy())))
+    np.testing.assert_allclose(blocks.numpy(), ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_b2_tables_are_consistent(tasks, name):
+    plan = tasks[name].engine.plan
+    t = dk.b2_tables(plan)
+    depth = [len(lv) for lv in plan.levels]
+    assert t["lvl_off"] == np.cumsum([0] + depth).tolist()
+    assert sorted(t["lvl_body"]) == list(range(plan.nb))
+    for L in range(len(plan.levels)):
+        for b in t["lvl_body"][t["lvl_off"][L]:t["lvl_off"][L + 1]]:
+            assert plan._depth(b) == L
+        gat = t["gat_body"][t["gat_off"][L]:t["gat_off"][L + 1]]
+        assert gat == [b for b in plan.levels[L] if plan.children[b]]
+    for b in range(plan.nb):
+        kids = t["child"][t["child_off"][b]:t["child_off"][b + 1]]
+        assert kids == [c for c in range(plan.nb) if plan.parent[c] == b]
+        dofs = list(range(t["vadr"][b], t["vadr"][b] + t["ndof"][b]))
+        assert dofs == plan.body_dofs[b]
+    for v in range(plan.nv):
+        base, size, at = (t["dof_block"][v] & 255,
+                          t["dof_block"][v] >> 8 & 255,
+                          t["dof_block"][v] >> 16)
+        assert t["block_dofs"][base + at] == v
+        assert v in t["block_dofs"][base:base + size]
+    pairs = {(p & 255, p >> 8) for p in t["pair"]}
+    assert pairs == set(zip(*map(lambda a: a.tolist(),
+                                 np.nonzero(plan.dof_anc))))
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_scene_header_bakes_b2_layout_and_tables(tasks, name):
+    plan = tasks[name].engine.plan
+    h = plan.header()
+    lay = plan.layout()
+    t = dk.b2_tables(plan)
+    for line in (f"constexpr int B2_TEAM = {lay.team};",
+                 f"constexpr int B2_ENVS = {lay.envs};",
+                 f"constexpr int B2_FLOATS = {lay.floats};",
+                 f"constexpr int B2_SMEM_BYTES = {lay.smem_bytes};",
+                 f"constexpr int NBLK = {len(plan.blocks)};",
+                 f"constexpr int MAXBLK = {max(BLOCK_SIZES[name])};",
+                 f"constexpr int NLEV = {len(plan.levels)};",
+                 f"constexpr int NPAIR = {int(plan.dof_anc.sum())};"):
+        assert line in h
+    for tab in ("block_dofs", "dof_block", "lvl_body", "gat_body", "pair"):
+        m = re.search(rf"const int b2_{tab}\[\d+\] = \{{([^}}]*)\}}", h)
+        vals = [int(v) for v in m.group(1).split(",")]
+        assert vals == (t[tab] or [0])
+    m = re.search(r"const float b2_mass\[\d+\] = \{([^}]*)\}", h)
+    np.testing.assert_array_equal(
+        np.array([float(v.rstrip("f")) for v in m.group(1).split(",")],
+                 np.float32), plan.mass)
+
+
+@pytest.mark.parametrize("name", CONTACT_PLANS)
+def test_contact_header_bakes_b4_layout(tasks, name):
+    plan = contact_plan(tasks, name)
+    lay = plan.layout()
+    h = plan.header()
+    for key in ("TEAM", "ENVS", "FLOATS", "SMEM_BYTES"):
+        assert f"constexpr int B4_{key} = {getattr(lay, key.lower())};" in h
+    assert f"constexpr int B4_JS = {dk.quad_odd(plan.nv)};" in h
+    # the float4 reads of the kernel need 16-byte aligned arrays
+    for k, off in lay.offsets.items():
+        assert off % 4 == 0, k
+        assert f"constexpr int B4_{k} = {off};" in h
+    assert lay.floats % 4 == 0 and (lay.floats // 4) % 2 == 1
+    m = re.search(r"const float dmask_c\[\d+\] = \{([^}]*)\}", h)
+    np.testing.assert_array_equal(
+        np.array([float(v.rstrip("f")) for v in m.group(1).split(",")],
+                 np.float32), plan.masks["c"].reshape(-1))
+
+
+@pytest.mark.parametrize("kind,name", [("B2", s) for s in SCENES]
+                         + [("B4", s) for s in CONTACT_PLANS])
+def test_block_shared_memory_fits(tasks, kind, name):
+    """Every plan the port builds asks for at most one block's shared
+    memory (232,448 B on the H100), with teams that never span warps."""
+    plan = (tasks[name].engine.plan if kind == "B2"
+            else contact_plan(tasks, name))
+    lay = plan.layout()
+    assert lay.smem_bytes == lay.envs * lay.floats * 4
+    assert lay.smem_bytes <= 232448
+    assert lay.team in (8, 16, 32) and lay.envs >= 1
+    assert lay.team * lay.envs <= 256
+
+
+@pytest.mark.parametrize("name", CONTACT_PLANS)
+def test_row_partition_covers_each_row_once(tasks, name):
+    plan = contact_plan(tasks, name)
+    team = plan.layout().team
+    for group in ck.GROUPS:
+        lanes = plan.row_lanes(group)
+        assert len(lanes) == team
+        rows = sorted(r for lane in lanes for r in lane)
+        assert rows == list(range(plan.masks[group].shape[0]))
+        for lane, owned in enumerate(lanes):
+            assert all(r % team == lane for r in owned)
+
+
+def test_layout_rules():
+    """Team sizes, alignment helpers and the shared-memory limit."""
+    assert [dk.KernelLayout(w, {}, 1).team for w in (1, 8, 9, 16, 17, 40)] \
+        == [8, 8, 16, 16, 32, 32]
+    assert dk.KernelLayout(14, {}, 10).floats == 11
+    assert [dk.quad_odd(n) for n in (1, 4, 5, 8, 14, 30)] == \
+        [4, 4, 12, 12, 20, 36]
+    offsets, total = dk.packed_offsets([("a", 3), ("b", 5), ("c", 1)], 4)
+    assert offsets == {"a": 0, "b": 4, "c": 12} and total == 16
+    # a block that would pass the limit holds fewer envs; one env too big
+    # for a block raises
+    big = dk.KernelLayout(32, {}, 20000)
+    assert big.envs == 2 and big.smem_bytes <= 232448
+    with pytest.raises(ValueError, match="shared memory"):
+        dk.KernelLayout(32, {}, 60000)
