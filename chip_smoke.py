@@ -7,30 +7,34 @@ Phases, each printing its own lines; any failure exits non-zero
 (``--kernels-only`` stops after phase 3 and prints no result line):
   1. device: torch/CUDA versions, the card's name and power limit
   2. build: nvcc builds kernels B1-B3 for the Ant, BallBalance and
-     FrankaReachMA scenes, B4 for the Ant and BallBalance contact plans and
-     for a synthetic plan with grab rows, B5 for n = 6, 7 and 14, all
-     compilers started together; each kernel's ptxas registers and spills
+     FrankaReachMA scenes, B4 for the Ant, BallBalance and FrankaReachMA
+     contact plans and for a synthetic plan with grab rows, B5 for n = 6,
+     7 and 14, all compilers started together; each kernel's ptxas
+     registers and spills
   3. kernels: each kernel against its plain PyTorch twin on the card, with
      kernel and twin times: B1-B3 at Ant-4096 shapes on a generic state and
      at BallBalance-4096 and FrankaReachMA-8192 shapes on warmed-up states;
-     B4 on the inputs the main path hands it at Ant-4096 (no frames) and
-     BallBalance-4096 (frames, attractors), and on the synthetic grab plan;
-     B5 on the two OSC inverses of a warmed-up FrankaReachMA-8192 step
-     ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and on
-     seeded SPD matrices at (16384, 7, 7) and (4096, 14, 14), with
-     torch.linalg.inv's time beside it; for the team kernels B2 and B4, per
-     scene, the device time per launch by CUPTI beside the bound and the
-     one-thread kernels' recorded time, ptxas's registers and spills, and
-     the launch layout (team, envs per block, shared memory)
+     B4 on the inputs the main path hands it at Ant-4096 (no frames),
+     BallBalance-4096 (frames, attractors) and FrankaReachMA-8192 (41 rows
+     with frames), and on the synthetic grab plan; B5 on the two OSC
+     inverses of a warmed-up FrankaReachMA-8192 step ((16384, 7, 7) arm
+     mass matrices, (16384, 6, 6) J M^-1 J^T) and on seeded SPD matrices
+     at (16384, 7, 7) and (4096, 14, 14), with torch.linalg.inv's time
+     beside it; for the team kernels B1-B4, per scene, the device time per
+     launch by CUPTI beside the bound (B3: also with only H^-1's block
+     entries read) and the one-thread
+     kernels' recorded time, ptxas's registers and spills, and the launch
+     layout (team, envs per block, shared memory)
   4. golden: the committed JAX captures replayed through the kernels: Ant
      and BallBalance, each on the default loop and on B4; FrankaReachMA on
-     the default loop (compaction and row reuse)
+     the default loop (compaction and row reuse) and, from its own
+     capture, on B4 (all 41 candidate rows, no compaction or reuse)
   5. main path, each phase with the launch counts set to 0 just before it:
      Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
-     FrankaReachMA at 8192 envs x 2 arms, 100 steps each, tanh(obs @ W)
-     actions; env-steps/s (and agent-steps/s), stream ms per step by CUDA
-     events (the kernels and the device's idle gaps between them),
-     launches per kernel
+     FrankaReachMA at 8192 envs x 2 arms on the default loop and on B4,
+     100 steps each, tanh(obs @ W) actions; env-steps/s (and
+     agent-steps/s), stream ms per step by CUDA events (the kernels and
+     the device's idle gaps between them), launches per kernel
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Needs a CUDA device; never falls back to
 the CPU and never imports jax.
@@ -51,6 +55,7 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("ball_balance", "BallBalance", False, 100, N_ENVS),
     ("ball_balance_b4", "BallBalance", True, 100, N_ENVS),
     ("franka_reach_ma", "FrankaReachMA", False, 100, 8192),
+    ("franka_reach_ma_b4", "FrankaReachMA", True, 100, 8192),
 )
 DYN = ("fk_motion", "dyn_forward", "dyn_cached")
 # kernel name -> scene of its kernels-JSON row (where it runs first)
@@ -73,14 +78,21 @@ KERNELS = {  # kernel name -> (CUDA source, TPU kernel replaced)
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
-# The team kernels B2 and B4: device us per launch of their one-thread
-# predecessors, by CUPTI inside the step (PERF.md: B4 PR 3, B2 at Ant and
-# BallBalance PR 3, at FrankaReachMA PR 4; one H100 80GB HBM3, 700 W)
-RECORDED_US = {("ant", "dyn_forward"): 48.51,
+# The team kernels B1-B4: device us per launch of their one-thread
+# predecessors, by CUPTI inside the step (PERF.md §6; one H100 80GB HBM3,
+# 700 W); None: no one-thread time on that plan
+RECORDED_US = {("ant", "fk_motion"): 5.02,
+               ("ball_balance", "fk_motion"): 4.26,
+               ("franka_reach_ma", "fk_motion"): 16.22,
+               ("ant", "dyn_forward"): 48.51,
                ("ball_balance", "dyn_forward"): 72.08,
                ("franka_reach_ma", "dyn_forward"): 1069.51,
+               ("ant", "dyn_cached"): 11.74,
+               ("ball_balance", "dyn_cached"): 12.66,
+               ("franka_reach_ma", "dyn_cached"): 190.53,
                ("ant", "contact_solve"): 269.60,
                ("ball_balance", "contact_solve"): 634.54,
+               ("franka_reach_ma", "contact_solve"): None,
                ("grab", "contact_solve"): None}
 
 
@@ -120,23 +132,25 @@ def gpu_ms(torch, fn, batches=5, per_batch=20):
 def device_us(torch, fn, kernel, calls=20):
     """Mean device time (us) per launch of the CUDA kernel whose name holds
     ``kernel``, by CUPTI (torch.profiler) over the launches it records of
-    ``calls`` calls of ``fn`` after a warm-up (it may miss the first): the
-    kernel alone, without the host's share."""
+    ``calls`` calls of ``fn`` after a warm-up (it may miss the first; a
+    window in which it saw none is taken again): the kernel alone, without
+    the host's share."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e.device_time_total for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.name]
-    if not calls // 2 <= len(hits) <= calls:
-        raise RuntimeError(f"profiler saw {len(hits)} launches of {kernel} "
-                           f"in {calls} calls")
-    return sum(hits) / len(hits)
+    for _ in range(3):     # the profiler now and then records no launch
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e.device_time_total for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name]
+        if calls // 2 <= len(hits) <= calls:
+            return sum(hits) / len(hits)
+    raise RuntimeError(f"profiler saw {len(hits)} launches of {kernel} "
+                       f"in {calls} calls, three times")
 
 
 def ptxas_report(log, kernel):
@@ -343,9 +357,11 @@ def run_steps(torch, task, state, obs, act, steps):
 
 def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
     """B1-B3 against their twins on one scene's state; returns per kernel
-    {max_abs_err, ms, plain_ms, bytes, flops}.  ``widen``: names of the B2
-    and B3 outputs ("qdd", "Hinv") held per env against the twin's float32
-    rounding noise as ``hold`` says; the others at fixed bounds."""
+    {max_abs_err, ms, plain_ms, device_us, bytes, flops}; for B3 also the
+    bytes with only H^-1's block entries read (``block_bytes``).
+    ``widen``: names of the
+    B2 and B3 outputs ("qdd", "Hinv") held per env against the twin's
+    float32 rounding noise as ``hold`` says; the others at fixed bounds."""
     plan = task.engine.plan
     N = q_bl.shape[-1]
     g = torch.Generator(device=dev).manual_seed(3)
@@ -375,6 +391,8 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
     report["fk_motion"] = dict(
         max_abs_err=err, ms=gpu_ms(torch, lambda: dk.fk_motion(plan, q_bl)),
         plain_ms=gpu_ms(torch, lambda: dk._fk_motion_bl(plan, q_bl)),
+        device_us=device_us(torch, lambda: dk.fk_motion(plan, q_bl),
+                            "fk_motion_kernel"),
         bytes=nbytes(q_bl, bx, bq, S), flops=flops_fk(plan) * N)
 
     args = (rbx, rbq, rS, qd_bl, rhs_bl, diag_bl)
@@ -412,13 +430,17 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
     cargs = (rS, qd_bl, rhs_bl, rio, rhinv, fg)
     qdd_c = dk.dyn_cached(plan, *cargs)
     rqdd_c = dk.dyn_cached_bl(plan, consts, *cargs)
+    nz = noise(dk.dyn_cached_bl, ("qdd",), *cargs).get("qdd")
+    err = close("dyn_cached qdd", qdd_c, rqdd_c, 2e-4, 2e-4, nz)
+    n_hb = len(dk.tree_lists(plan)["hb_row"])
     report["dyn_cached"] = dict(
-        max_abs_err=close(
-            "dyn_cached qdd", qdd_c, rqdd_c, 2e-4, 2e-4,
-            noise(dk.dyn_cached_bl, ("qdd",), *cargs).get("qdd")),
+        max_abs_err=err,
         ms=gpu_ms(torch, lambda: dk.dyn_cached(plan, *cargs)),
         plain_ms=gpu_ms(torch, lambda: dk.dyn_cached_bl(plan, consts, *cargs)),
-        bytes=nbytes(*cargs, qdd_c), flops=flops_dyn_cached(plan) * N)
+        device_us=device_us(torch, lambda: dk.dyn_cached(plan, *cargs),
+                            "dyn_cached_kernel"),
+        bytes=nbytes(*cargs, qdd_c), flops=flops_dyn_cached(plan) * N,
+        block_bytes=nbytes(*cargs, qdd_c) - nbytes(rhinv) + 4 * n_hb * N)
     return report
 
 
@@ -618,11 +640,12 @@ def build_all(_build, plans):
                           flush=True)
 
 
-def check_franka_kernels(torch, dk, sk, ctl, task, dev):
+def check_franka_kernels(torch, dk, sk, ck, ctl, task, task_b4, dev):
     """B1-B3 at FrankaReachMA-8192 shapes on a state 30 steps in (cubes on
-    the table, arms moving), qdd and H^-1 held per env; B5 on that state's
-    two OSC inverses (held per matrix) and on seeded SPD stacks at
-    (16384, 7, 7) and (4096, 14, 14) (fixed bounds)."""
+    the table, arms moving), qdd and H^-1 held per env; B4 on the inputs
+    the B4 route hands it 30 steps in (41 rows with frames, held per env);
+    B5 on the first state's two OSC inverses (held per matrix) and on
+    seeded SPD stacks at (16384, 7, 7) and (4096, 14, 14) (fixed bounds)."""
     st, _ = run_steps(torch, task, task.initial_state(),
                       zero_obs(torch, task, dev), policy(torch, task, dev), 30)
     gq = torch.Generator(device=dev).manual_seed(13)
@@ -631,6 +654,9 @@ def check_franka_kernels(torch, dk, sk, ctl, task, dev):
     rep = check_dyn_kernels(torch, dk, task, st.sim.q.t().contiguous(),
                             qd.t().contiguous(), dev, "franka_reach_ma",
                             ("qdd", "Hinv"))
+    rep["contact_solve"] = check_contact_kernel(
+        torch, ck, capture_contact_inputs(torch, ck, task_b4, dev, 30),
+        "franka_reach_ma", True)
     mm, m_eef_inv = capture_osc_inputs(torch, ctl, task, st, dev)
 
     def spd(label, H, widen):
@@ -689,12 +715,12 @@ def main():
     # ---- 2. build: every distinct kernel and header, compilers in parallel
     tasks = {tag: make(name, route, n) for tag, name, route, _, n in PHASES}
     grab = synthetic_grab_call(torch, np, ck, dev)
+    dyn_scenes = ("ant", "ball_balance", "franka_reach_ma")
     build_all(_build, [
-        ("ant", tasks["ant"].engine.plan),
-        ("ball_balance", tasks["ball_balance"].engine.plan),
-        ("franka_reach_ma", tasks["franka_reach_ma"].engine.plan),
+        *((scene, tasks[scene].engine.plan) for scene in dyn_scenes),
         ("ant", tasks["ant_b4"].engine.cplan),
         ("ball_balance", tasks["ball_balance_b4"].engine.cplan),
+        ("franka_reach_ma", tasks["franka_reach_ma_b4"].engine.cplan),
         ("grab", grab[0]),
         *((f"spd n={n}", sk.get_plan(n)) for n in (6, 7, 14))])
 
@@ -720,7 +746,8 @@ def main():
     report["grab"] = {"contact_solve": check_contact_kernel(
         torch, ck, grab, "grab", False)}
     report["franka_reach_ma"], spd_extra = check_franka_kernels(
-        torch, dk, sk, ctl, tasks["franka_reach_ma"], dev)
+        torch, dk, sk, ck, ctl, tasks["franka_reach_ma"],
+        tasks["franka_reach_ma_b4"], dev)
     report["franka_reach_ma spd"] = spd_extra
     for scene, r in report.items():
         for name, e in r.items():
@@ -732,22 +759,27 @@ def main():
                   plain_ms=f"{e['plain_ms']:.5f}", bound_ms=f"{b_ms:.5f}",
                   bound_by=b_by, bytes=e["bytes"], flops=str(e["flops"]) + lib)
     # the team kernels: device time beside the bound and the one-thread
-    # kernels' recorded time, ptxas report and launch layout per scene
-    team_plans = {("ant", "dyn_forward"): tasks["ant"].engine.plan,
-                  ("ball_balance", "dyn_forward"):
-                      tasks["ball_balance"].engine.plan,
-                  ("franka_reach_ma", "dyn_forward"):
-                      tasks["franka_reach_ma"].engine.plan,
-                  ("ant", "contact_solve"): tasks["ant_b4"].engine.cplan,
-                  ("ball_balance", "contact_solve"):
-                      tasks["ball_balance_b4"].engine.cplan,
-                  ("grab", "contact_solve"): grab[0]}
+    # kernels' recorded time, ptxas report and launch layout per scene;
+    # for B3 also the bound with only H^-1's block entries read
+    team_plans = {(scene, name): tasks[scene].engine.plan
+                  for scene in dyn_scenes for name in DYN}
+    team_plans.update({
+        ("ant", "contact_solve"): tasks["ant_b4"].engine.cplan,
+        ("ball_balance", "contact_solve"):
+            tasks["ball_balance_b4"].engine.cplan,
+        ("franka_reach_ma", "contact_solve"):
+            tasks["franka_reach_ma_b4"].engine.cplan,
+        ("grab", "contact_solve"): grab[0]})
     for (scene, name), p in team_plans.items():
         e = report[scene][name]
         b_us = bound(e["bytes"], e["flops"])[0] * 1e3
         was = RECORDED_US[(scene, name)]
-        lay = p.layout()
+        lay = p.layout(name)
         px = ptxas_report(p.build_log.get(name, ""), name + "_kernel")
+        extra = {}
+        if name == "dyn_cached":
+            b_blk = bound(e["block_bytes"], e["flops"])[0] * 1e3
+            extra = dict(block_bound_us=f"{b_blk:.2f}")
         phase("team_kernel", scene=scene, name=name,
               device_us=f"{e['device_us']:.2f}", bound_us=f"{b_us:.2f}",
               x_bound=f"{e['device_us'] / b_us:.1f}",
@@ -755,15 +787,18 @@ def main():
               speedup="-" if was is None else f"{was / e['device_us']:.2f}",
               regs=px.get("regs"), stack=px.get("stack"),
               spill_st=px.get("spill_st"), spill_ld=px.get("spill_ld"),
-              smem_bytes=lay.smem_bytes, team=lay.team, envs=lay.envs)
+              smem_bytes=lay.smem_bytes, team=lay.team, envs=lay.envs,
+              **extra)
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
-    # ---- 4. golden JAX captures replayed through the kernels (B4 takes
-    # no compacted or reused rows: FrankaReachMA on the default loop only)
+    # ---- 4. golden JAX captures replayed through the kernels; the B4 route
+    # solves all candidate rows uncompacted, so FrankaReachMA has a capture
+    # of each route
     for fname, routes in (("ant_golden.npz", (False, True)),
                           ("ball_balance_golden.npz", (False, True)),
-                          ("franka_reach_ma_golden.npz", (False,))):
+                          ("franka_reach_ma_golden.npz", (False,)),
+                          ("franka_reach_ma_b4_golden.npz", (True,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]

@@ -84,8 +84,10 @@ class ContactPlan:
     def header(self) -> str:
         return contact_header(self)
 
-    def layout(self) -> KernelLayout:
+    def layout(self, name: str = "contact_solve") -> KernelLayout:
         """Launch layout of kernel B4 (team, envs per block, shared memory)."""
+        if name != "contact_solve":
+            raise ValueError(f"a contact plan has no kernel {name!r}")
         return contact_layout(self)
 
     def row_lanes(self, group: str) -> list:
@@ -94,6 +96,13 @@ class ContactPlan:
         team = self.layout().team
         rows = self.masks[group].shape[0]
         return [list(range(lane, rows, team)) for lane in range(team)]
+
+    def cols_in_registers(self) -> bool:
+        """Whether each lane of B4 keeps its dofs' contact-row J columns in
+        registers (with its H^-1 rows: at most 128 floats), or reads them
+        from J in shared memory (wide plans)."""
+        rd = -(-self.nv // self.layout().team)
+        return rd * (3 * self.P + self.nv) <= 128
 
     def mask_nonzeros(self) -> dict:
         """Nonzero mask entries per group (the kernel's work per pass)."""
@@ -146,6 +155,8 @@ def contact_header(plan: ContactPlan) -> str:
         f"constexpr bool FRAMES = {'true' if plan.has_frames else 'false'};",
         f"constexpr int NITER = {plan.num_iterations};",
         f"constexpr float RELAX = {_c_float(plan.relaxation)};",
+        "constexpr bool B4_JREG = "
+        f"{'true' if plan.cols_in_registers() else 'false'};",
     ] + plan.layout().header_lines("B4")
     for k in GROUPS:
         m = plan.masks[k]

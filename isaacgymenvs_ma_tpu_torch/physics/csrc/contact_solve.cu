@@ -49,7 +49,10 @@
 //     what the team exchanges: qd, J's rows, one group's impulse deltas and
 //     the dof impulse x, read as float4 (J's row stride B4_JS is a multiple
 //     of four floats and an odd number of float4s, so the lanes' row reads
-//     hit distinct banks).
+//     hit distinct banks).  A plan too wide for that (B4_JREG false:
+//     FrankaReachMA's 41 contact rows over 30 dofs, 123 column entries a
+//     lane) reads its dofs' contact-row columns from J in shared memory
+//     instead, in the same order of sums.
 //   * Within a group every row reads the same qd (Jacobi), so the rows'
 //     velocities J_r qd and impulse deltas run one row per lane; then each
 //     dof's lane sums x_d = sum over the group's rows of J_rd dlam_r from
@@ -70,6 +73,10 @@ constexpr int T = cs::B4_TEAM, E = cs::B4_ENVS, W = cs::B4_FLOATS;
 constexpr int JS = cs::B4_JS;        // row stride of J
 constexpr int kBlock = T * E;
 constexpr int RD = (NV + T - 1) / T;  // dofs per lane
+// the lane keeps its dofs' contact-row J columns in registers, or (wide
+// plans) reads them from J in shared memory
+constexpr bool JREG = cs::B4_JREG;
+constexpr int JCOLS = JREG ? 3 * P : 1;
 static_assert(32 % T == 0, "a team never spans two warps");
 static_assert(W % 4 == 0 && JS % 4 == 0 && cs::B4_QD % 4 == 0 &&
                   cs::B4_JC % 4 == 0 && cs::B4_JA % 4 == 0 &&
@@ -122,6 +129,33 @@ __device__ __forceinline__ float col_dot(const float (&col)[RC],
       if (4 * q + c < RC) acc[c] += col[4 * q + c] * lv[c];
   }
   return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// the same sum with col[rc] = Jd[rc * JS], a column of J in shared memory
+template <int RC>
+__device__ __forceinline__ float col_dot_smem(const float* Jd,
+                                              const float* L) {
+  const float4* l4 = reinterpret_cast<const float4*>(L);
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int q = 0; q < (RC + 3) / 4; ++q) {
+    const float4 l = l4[q];
+    const float lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (4 * q + c < RC) acc[c] += Jd[(4 * q + c) * JS] * lv[c];
+  }
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
+}
+
+// sum over rc < RC of J(rc, d) L[rc]: from the lane's registers (CC == RC)
+// or from column d of J in shared memory (CC == 1)
+template <int RC, int CC>
+__device__ __forceinline__ float cols_dot(const float (&col)[CC],
+                                          const float* J, int d,
+                                          const float* L) {
+  if constexpr (CC == RC) return col_dot<RC>(col, L);
+  else return col_dot_smem<RC>(J + d, L);
 }
 
 // J of a group's ROWS rows into shared memory, one (row, dof) entry per
@@ -198,16 +232,18 @@ __device__ __forceinline__ void apply_hinv(float* env,
   __syncwarp();
 }
 
-// x = J^T DL from the lane's columns, then qd += H^-1 x
-template <int GROUP, int RC>
-__device__ __forceinline__ void apply(float* env, const float (&col)[RD][RC],
+// x = J^T DL from the lane's columns (or J's, see cols_dot), then
+// qd += H^-1 x
+template <int GROUP, int RC, int CC>
+__device__ __forceinline__ void apply(float* env, const float (&col)[RD][CC],
+                                      const float* J,
                                       const float (&hi)[RD][NV], int lane) {
   const float* DL = env + cs::B4_DL;
   float* X = env + cs::B4_X;
 #pragma unroll
   for (int k = 0; k < RD; ++k) {
     const int d = lane + k * T;
-    if (d < NV) X[d] = col_dot<RC>(col[k], DL);
+    if (d < NV) X[d] = cols_dot<RC, CC>(col[k], J, d, DL);
   }
   __syncwarp();
   apply_hinv<GROUP>(env, hi, lane);
@@ -257,7 +293,7 @@ struct Bilateral {
       }
     }
     __syncwarp();
-    apply<GROUP, 3 * ROWS>(env, col, hi, lane);
+    apply<GROUP, 3 * ROWS>(env, col, J, hi, lane);
   }
 };
 
@@ -329,9 +365,9 @@ contact_solve_kernel(
 
   // ---- the lane's registers: its dofs' columns, H^-1 rows and limits,
   // its rows' constants and impulses
-  float jc[RD][3 * P], hi[RD][NV];
+  float jc[RD][JCOLS], hi[RD][NV];
   float blo[RD], bhi[RD], alo[RD], ahi[RD], hd[RD], llo[RD], lhi[RD];
-  load_columns<3 * P>(JC, lane, jc);
+  if constexpr (JREG) load_columns<JCOLS>(JC, lane, jc);
 #pragma unroll
   for (int k = 0; k < RD; ++k) {
     const int d = min(lane + k * T, NV - 1);
@@ -395,7 +431,7 @@ contact_solve_kernel(
       }
     }
     __syncwarp();
-    apply<kContact, 3 * P>(env, jc, hi, lane);
+    apply<kContact, 3 * P>(env, jc, JC, hi, lane);
     // ---- joint limits (J = e_v)
 #pragma unroll
     for (int k = 0; k < RD; ++k) {
@@ -428,7 +464,8 @@ contact_solve_kernel(
 #pragma unroll
   for (int k = 0; k < RD; ++k) {
     const int d = lane + k * T;
-    if (d < NV) X[d] = col_dot<3 * P>(jc[k], LAM) + (llo[k] - lhi[k]);
+    if (d < NV)
+      X[d] = cols_dot<3 * P, JCOLS>(jc[k], JC, d, LAM) + (llo[k] - lhi[k]);
   }
   __syncthreads();
   team::store<E, W, kBlock>(qd_out, NV, n0, N, smem, cs::B4_QD);

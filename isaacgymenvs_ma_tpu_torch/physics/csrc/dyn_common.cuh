@@ -1,20 +1,19 @@
-// Shared device code of the batch-last dynamics kernels B1-B3.
+// Shared device code of the batch-last dynamics kernels B1-B3: quaternion
+// and spatial-vector arithmetic on small arrays in registers.
 //
 // Compiled with the per-scene header (namespace `scene`, generated by
 // isaacgymenvs_ma_tpu_torch/physics/dyn_kernel.py:scene_header) force-included
-// ahead of this file, so NB/NV/NQ and the tree tables are compile-time
-// constants.  Every loop over bodies or dofs has a constant trip count and is
-// unrolled, which turns each table lookup into an immediate.
-//
-// Layout: every global array is batch-last, element (i, n) of an (M, N)
-// array at p[i * N + n]; one thread owns env n.
+// ahead of this file.  Every global array is batch-last, element (i, n) of
+// an (M, N) array at p[i * N + n].
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace dyn {
 
-constexpr int kThreads = 32;   // one warp per block: 4096 envs -> 128 blocks
+// A read of a scene table in device memory (through the read-only cache).
+template <typename V>
+__device__ __forceinline__ V tab(const V* p, int i) { return __ldg(p + i); }
 
 __device__ __forceinline__ void qmul(const float a[4], const float b[4],
                                      float o[4]) {
@@ -79,97 +78,6 @@ __device__ __forceinline__ void matvec6(const float A[36], const float x[6],
 #pragma unroll
     for (int j = 0; j < 6; ++j) acc += A[i * 6 + j] * x[j];
     y[i] = acc;
-  }
-}
-
-// Top-down root-to-body path sums of per-body 6-vectors, in place.
-__device__ __forceinline__ void path_sum6(float (&x)[scene::NB][6]) {
-#pragma unroll
-  for (int i = 0; i < scene::NB; ++i) {
-    const int b = scene::bottom_up(scene::NB - 1 - i);   // parents first
-    const int p = scene::parent(b);
-    if (p >= 0) {
-#pragma unroll
-      for (int k = 0; k < 6; ++k) x[b][k] += x[p][k];
-    }
-  }
-}
-
-// Bottom-up subtree sums of per-body K-vectors, in place.
-template <int K>
-__device__ __forceinline__ void subtree_sum(float (&x)[scene::NB][K]) {
-#pragma unroll
-  for (int i = 0; i < scene::NB; ++i) {
-    const int b = scene::bottom_up(i);                    // children first
-    const int p = scene::parent(b);
-    if (p >= 0) {
-#pragma unroll
-      for (int k = 0; k < K; ++k) x[p][k] += x[b][k];
-    }
-  }
-}
-
-// RNEA bias force C (qdd = 0) about the world origin.
-//   kFreshGravity: gravity rides the a0 = -g trick through io (fresh I_O);
-//   otherwise it comes from the fresh per-body wrench fg(b, k) (cached I_O).
-// io(b, k) returns element k of body b's row-major 6x6 spatial inertia.
-template <bool kFreshGravity, typename IO, typename FG>
-__device__ __forceinline__ void bias_force(const float (&S)[scene::NV][6],
-                                           const float (&qd)[scene::NV],
-                                           const IO& io, const FG& fg,
-                                           float (&C)[scene::NV]) {
-  constexpr int NB = scene::NB, NV = scene::NV;
-  float V[NB][6], A[NB][6], F[NB][6];
-#pragma unroll
-  for (int b = 0; b < NB; ++b)
-#pragma unroll
-    for (int k = 0; k < 6; ++k) V[b][k] = A[b][k] = 0.0f;
-  // body velocities: own joint motion, then root-to-body path sums
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int b = scene::dof_body(v);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) V[b][k] += S[v][k] * qd[v];
-  }
-  path_sum6(V);
-  // velocity-product accelerations xi = V_body x (S qd), path-summed
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int b = scene::dof_body(v);
-    float sqd[6], xi[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) sqd[k] = S[v][k] * qd[v];
-    cross_motion(V[b], sqd, xi);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) A[b][k] += xi[k];
-  }
-  path_sum6(A);
-  // per-body force I a + V x* (I V), then subtree sums
-#pragma unroll
-  for (int b = 0; b < NB; ++b) {
-    float I[36], a[6], Iv[6], Ia[6], cf[6];
-#pragma unroll
-    for (int k = 0; k < 36; ++k) I[k] = io(b, k);
-#pragma unroll
-    for (int k = 0; k < 6; ++k)
-      a[k] = kFreshGravity ? scene::a0(b, k) + A[b][k] : A[b][k];
-    matvec6(I, V[b], Iv);
-    matvec6(I, a, Ia);
-    cross_force(V[b], Iv, cf);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      F[b][k] = Ia[k] + cf[k];
-      if (!kFreshGravity) F[b][k] += fg(b, k);
-    }
-  }
-  subtree_sum<6>(F);
-#pragma unroll
-  for (int v = 0; v < NV; ++v) {
-    const int b = scene::dof_body(v);
-    float acc = 0.0f;
-#pragma unroll
-    for (int k = 0; k < 6; ++k) acc += S[v][k] * F[b][k];
-    C[v] = acc;
   }
 }
 

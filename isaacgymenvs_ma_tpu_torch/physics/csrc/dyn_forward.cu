@@ -31,12 +31,13 @@
 //     written back with consecutive threads on consecutive envs, so every
 //     global access is a coalesced run of B2_ENVS floats per row; I_O is
 //     written once, before its composite sums overwrite it in place.
-//   * Spatial inertia, the per-body RNEA forces and the CRBA column forces
-//     take one lane per body or dof.  Path sums (velocities, accelerations)
-//     go level by level over the tree, and subtree sums (forces and
-//     composite inertias, 42 components in one run) over the bodies that
-//     have children, one (body, component) per lane, from the compile-time
-//     tables lvl_off / gat_off and the lanes' device tables (b2_*).
+//   * Spatial inertia, the per-body RNEA forces (rnea.cuh, shared with B3)
+//     and the CRBA column forces take one lane per body or dof.  Path sums
+//     (velocities, accelerations) go level by level over the tree, and
+//     subtree sums (forces and composite inertias, 42 components in one
+//     run) over the bodies that have children, one (body, component) per
+//     lane, from the compile-time tables lvl_off / gat_off and the lanes'
+//     device tables (b2_*).
 //   * H is block diagonal: FrankaReachMA's 30 x 30 is two 9-dof arms and
 //     two 6-dof cubes.  CRBA fills only the dof_anc pairs (one per lane).
 //     The sweep runs every block at once: each lane holds its dof's row of
@@ -49,6 +50,7 @@
 //     sums over the row's block.
 // Only the order of float sums differs from the one-thread kernel.
 #include "dyn_common.cuh"
+#include "rnea.cuh"
 #include "team.cuh"
 
 namespace {
@@ -63,45 +65,12 @@ static_assert(32 % T == 0, "a team never spans two warps");
 static_assert(sc::B2_FB == sc::B2_IO + 36 * NB,
               "I_O and F form one run of 42 components");
 
-template <typename V>
-__device__ __forceinline__ V tab(const V* p, int i) { return __ldg(p + i); }
+using dyn::tab;
 
 __device__ __forceinline__ void stage(float* smem, int off,
                                       const float* __restrict__ g, int M,
                                       int n0, int N) {
   team::stage<E, W, kBlock>(smem, off, g, M, n0, N);
-}
-
-// Root-to-body path sums of a component-major (6, NB) array, level by level.
-__device__ __forceinline__ void path_sum(float* X, int lane) {
-#pragma unroll
-  for (int L = 1; L < sc::NLEV; ++L) {
-    const int lo = sc::lvl_off(L), cnt = sc::lvl_off(L + 1) - lo;
-    for (int it = lane; it < 6 * cnt; it += T) {
-      const int b = tab(sc::b2_lvl_body, lo + it % cnt), k = it / cnt;
-      X[k * NB + b] += X[k * NB + tab(sc::b2_parent, b)];
-    }
-    __syncwarp();
-  }
-}
-
-// Subtree sums of a component-major (K, NB) array, leaves up: each body of
-// level L that has children gathers them (level L + 1).
-template <int K>
-__device__ __forceinline__ void subtree_sum(float* X, int lane) {
-#pragma unroll
-  for (int L = sc::NLEV - 2; L >= 0; --L) {
-    const int lo = sc::gat_off(L), cnt = sc::gat_off(L + 1) - lo;
-    for (int it = lane; it < K * cnt; it += T) {
-      const int b = tab(sc::b2_gat_body, lo + it % cnt), k = it / cnt;
-      const int c1 = tab(sc::b2_child_off, b + 1);
-      float s = X[k * NB + b];
-      for (int c = tab(sc::b2_child_off, b); c < c1; ++c)
-        s += X[k * NB + tab(sc::b2_child, c)];
-      X[k * NB + b] = s;
-    }
-    __syncwarp();
-  }
 }
 
 // World spatial inertia of body b about the origin into IO(k, b).
@@ -234,53 +203,16 @@ dyn_forward_kernel(const float* __restrict__ bx, const float* __restrict__ bq,
                     [](int i) { return (i % 36) * NB + i / 36; });
 
   // ---- RNEA bias force against the fresh I_O (gravity through a0)
-  for (int it = lane; it < 6 * NB; it += T) {     // own joint motion
-    const int k = it / NB, b = it % NB;
-    const int v0 = tab(sc::b2_vadr, b), nd = tab(sc::b2_ndof, b);
-    float acc = 0.0f;
-    for (int d = v0; d < v0 + nd; ++d) acc += S[d * 6 + k] * QD[d];
-    V[it] = acc;
-  }
+  const rnea::GlobalTables tb;
+  rnea::own_motion<T>(S, QD, V, tb, lane);
   __syncwarp();
-  path_sum(V, lane);
-  for (int b = lane; b < NB; b += T) {            // xi = V_body x (S qd)
-    const int v0 = tab(sc::b2_vadr, b), nd = tab(sc::b2_ndof, b);
-    float Vb[6], acc[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      Vb[k] = V[k * NB + b];
-      acc[k] = 0.0f;
-    }
-    for (int d = v0; d < v0 + nd; ++d) {
-      float sqd[6], xi[6];
-#pragma unroll
-      for (int k = 0; k < 6; ++k) sqd[k] = S[d * 6 + k] * QD[d];
-      dyn::cross_motion(Vb, sqd, xi);
-#pragma unroll
-      for (int k = 0; k < 6; ++k) acc[k] += xi[k];
-    }
-#pragma unroll
-    for (int k = 0; k < 6; ++k) A[k * NB + b] = acc[k];
-  }
+  rnea::path_sum_levels<T>(V, tb, lane);
+  rnea::velocity_products<T>(S, QD, V, A, tb, lane);
   __syncwarp();
-  path_sum(A, lane);
-  for (int b = lane; b < NB; b += T) {            // I (a0 + a) + V x* (I V)
-    float I[36], Vb[6], a[6], Iv[6], Ia[6], cf[6];
-#pragma unroll
-    for (int k = 0; k < 36; ++k) I[k] = IO[k * NB + b];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) {
-      Vb[k] = V[k * NB + b];
-      a[k] = tab(sc::b2_a0, b * 6 + k) + A[k * NB + b];
-    }
-    dyn::matvec6(I, Vb, Iv);
-    dyn::matvec6(I, a, Ia);
-    dyn::cross_force(Vb, Iv, cf);
-#pragma unroll
-    for (int k = 0; k < 6; ++k) FB[k * NB + b] = Ia[k] + cf[k];
-  }
+  rnea::path_sum_levels<T>(A, tb, lane);
+  rnea::body_forces<T, true>(IO, V, A, nullptr, FB, tb, lane);
   __syncthreads();   // the I_O store is done reading: sum in place
-  subtree_sum<42>(IO, lane);                       // composite I_O and F
+  rnea::subtree_sum_levels<T, 42>(IO, tb, lane);   // composite I_O and F
 
   // ---- C, rhs - C, CRBA column forces F_v = Icomp(body v) S_v; zero H
   for (int v = lane; v < NV; v += T) {

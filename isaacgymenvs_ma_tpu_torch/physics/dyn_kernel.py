@@ -2,15 +2,15 @@
 
 Port of isaacgymenvs_ma_tpu/physics/dyn_kernel.py.  Every array at the
 kernel boundary is laid out ``(..., N)`` with the env batch minor, so
-neighbouring threads read neighbouring addresses.  B1 and B3 run one thread
-per env; B2 runs a team of lanes per env over the env's working set staged
-in shared memory (:func:`dyn_forward_layout` sizes the team, the envs per
-block and the shared memory).  The static kinematic tree is baked into the
-kernels: the JAX code unrolls it in Python while tracing, the CUDA sources
-unroll it at compile time against a per-scene header of ``constexpr``
-tables, and read B2's per-lane tables (tree levels, children, H's
-diagonal blocks) from device arrays, all generated here from
-:class:`DynPlan` (:func:`scene_header`).
+neighbouring threads read neighbouring addresses.  All three kernels run a
+team of lanes per env (one lane per body or dof) over the env's working set
+staged in shared memory; :meth:`DynPlan.layout` sizes each kernel's team,
+envs per block and shared memory.  The static kinematic tree is baked into
+the kernels: the JAX code unrolls it in Python while tracing, the CUDA
+sources read it from a per-scene header of sizes, level offsets and device
+tables (tree levels, children, ancestor and subtree lists, H's diagonal
+blocks, the joint constants), all generated here from :class:`DynPlan`
+(:func:`scene_header`).
 
 Three kernels, each with a plain twin in this module and a dispatching
 wrapper that runs the twin for CPU tensors and launches the kernel for CUDA
@@ -29,6 +29,7 @@ Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -87,9 +88,11 @@ class DynPlan:
     def header(self) -> str:
         return scene_header(self)
 
-    def layout(self) -> "KernelLayout":
-        """Launch layout of kernel B2 (team, envs per block, shared memory)."""
-        return dyn_forward_layout(self)
+    def layout(self, name: str = "dyn_forward") -> "KernelLayout":
+        """Launch layout (team, envs per block, shared memory) of the team
+        kernel ``name``: B1 ``fk_motion``, B2 ``dyn_forward`` or B3
+        ``dyn_cached``."""
+        return _LAYOUTS[name](self)
 
     def _depth(self, b):
         d = 0
@@ -178,27 +181,32 @@ class KernelLayout:
     ``envs`` envs per block, ``floats`` per env in shared memory (odd, or
     with ``quad`` a multiple of four that is an odd number of float4s: in
     either case consecutive envs start in different banks), ``offsets`` of
-    the env's arrays (in floats) and the block's ``smem_bytes``."""
+    the env's arrays (in floats), ``shared`` floats ahead of the envs' that
+    the whole block shares (the kernel's scene tables, a multiple of four)
+    and the block's ``smem_bytes``."""
 
     def __init__(self, work: int, offsets: dict, floats: int,
-                 quad: bool = False, threads: int = 256):
+                 quad: bool = False, threads: int = 256, shared: int = 0):
         self.team = min(32, max(8, 1 << max(0, int(work) - 1).bit_length()))
         self.offsets = dict(offsets)
         self.floats = quad_odd(floats) if quad else int(floats) | 1
+        self.shared = -(-int(shared) // 4) * 4
         env_bytes = 4 * self.floats
+        room = MAX_SMEM_BYTES - 4 * self.shared
         envs = max(1, threads // self.team)
-        while envs > 1 and envs * env_bytes > MAX_SMEM_BYTES:
+        while envs > 1 and envs * env_bytes > room:
             envs //= 2
-        if envs * env_bytes > MAX_SMEM_BYTES:
+        if envs * env_bytes > room:
             raise ValueError(f"one env needs {env_bytes} B of shared memory; "
                              f"a block has {MAX_SMEM_BYTES}")
         self.envs = envs
-        self.smem_bytes = envs * env_bytes
+        self.smem_bytes = 4 * self.shared + envs * env_bytes
 
     def header_lines(self, prefix: str) -> list:
         return [f"constexpr int {prefix}_TEAM = {self.team};",
                 f"constexpr int {prefix}_ENVS = {self.envs};",
                 f"constexpr int {prefix}_FLOATS = {self.floats};",
+                f"constexpr int {prefix}_SHARED = {self.shared};",
                 f"constexpr int {prefix}_SMEM_BYTES = {self.smem_bytes};"] + [
                     f"constexpr int {prefix}_{k} = {v};"
                     for k, v in self.offsets.items()]
@@ -248,6 +256,50 @@ def dyn_forward_layout(plan: "DynPlan") -> KernelLayout:
     offsets.update({k: offsets["FB"] + v for k, v in inputs.items()})
     offsets["HS"] = odd(nv)
     return KernelLayout(max(nb, nv), offsets, total)
+
+
+def fk_motion_layout(plan: "DynPlan") -> KernelLayout:
+    """B1's layout: a small team per env that poses the tree level by
+    level, one lane per body of a level (8 lanes while no level is wider
+    than 16 bodies), so that a warp carries several envs and the lanes of
+    a level do the same work; blocks of 256 threads.  The block shares its
+    scene tables (:func:`kernel_tables`).  Per env: q, each body's
+    joint-local rotation and translation (LOC, 8 floats a body), then the
+    outputs body_x, body_q and S in their global row order."""
+    nb, nv = plan.nb, plan.nv
+    offsets, total = packed_offsets([
+        ("Q", plan.nq), ("LOC", 8 * nb), ("BX", 3 * nb), ("BQ", 4 * nb),
+        ("S", 6 * nv)])
+    ints, floats = kernel_tables(plan, "fk_motion")
+    widest = max(len(lv) for lv in plan.levels)
+    return KernelLayout(-(-widest // 2), offsets, total,
+                        shared=_table_size(ints) + _table_size(floats))
+
+
+def dyn_cached_layout(plan: "DynPlan") -> KernelLayout:
+    """B3's layout: a team of the power of two nearest the wider of NB and
+    NV (a lane per body or dof, some taking two: 16 at Ant and
+    BallBalance, 32 at FrankaReachMA), in blocks of 256 threads; of the
+    layouts timed on the H100 (scripts/time_team_layouts.py) these ran
+    fastest at all three scenes.  The block shares its scene tables
+    (:func:`kernel_tables`).  Per env: I_O and the gravity wrench (then
+    the body forces) component-major (element (k, b) at k * NB + b), the
+    body velocities and accelerations, the dofs' velocity products, S, qd,
+    rhs (then rhs - C), H^-1's block entries only (:func:`tree_lists`) and
+    qdd."""
+    nb, nv = plan.nb, plan.nv
+    n_hb = len(tree_lists(plan)["hb_row"])
+    offsets, total = packed_offsets([
+        ("IO", 36 * nb), ("FG", 6 * nb), ("V", 6 * nb), ("A", 6 * nb),
+        ("XD", 6 * nv), ("S", 6 * nv), ("QD", nv), ("RHS", nv),
+        ("HB", n_hb), ("QDD", nv)])
+    ints, _ = kernel_tables(plan, "dyn_cached")
+    team = 1 << round(math.log2(max(nb, nv)))
+    return KernelLayout(team, offsets, total, shared=_table_size(ints))
+
+
+_LAYOUTS = {"fk_motion": fk_motion_layout, "dyn_forward": dyn_forward_layout,
+            "dyn_cached": dyn_cached_layout}
 
 
 def _np_qapply(q, v):
@@ -602,41 +654,15 @@ def _c_float(x) -> str:
 
 
 def scene_header(plan: DynPlan) -> str:
-    """C++ header baking the static tree into the CUDA kernels.
+    """C++ header baking the static tree into the CUDA kernels B1-B3.
 
-    Each table is a ``constexpr`` array local to a ``__device__`` accessor
-    (nvcc does not let device code index namespace-scope constexpr arrays);
-    the kernels call the accessors inside fully unrolled loops, so every
-    index is a compile-time constant and each lookup folds to an
-    immediate."""
+    Sizes and the level offsets are ``constexpr`` (the level loops are
+    unrolled at compile time, so each lookup folds to an immediate); every
+    table that the lanes of a team index at run time, each with its own
+    body or dof, is a device array (:func:`_dev_array`)."""
     nb, nv = plan.nb, plan.nv
-    fk = plan.fk
     a0 = np.concatenate([np.zeros(3, np.float32), -plan.gravity])
     a0 = (a0[None, :] * plan.grav_mask[:, None]).astype(np.float32)
-    ndof = [len(plan.body_dofs[b]) for b in range(nb)]
-    ints = {
-        "parent": [c["parent"] for c in fk],
-        "jtype": [c["type"] for c in fk],
-        "qadr": [c["qa"] for c in fk],
-        "vadr": [c["va"] for c in fk],
-        "ndof": ndof,
-        "bottom_up": list(plan.bottom_up),
-    }
-    floats = {
-        "pitch": [c["pitch"] for c in fk],
-        "mass": list(plan.mass),
-    }
-    vecs = {  # name -> (nb, k) table, accessed as name(b, k)
-        "body_pos": np.stack([c["bp"] for c in fk]),
-        "body_quat": np.stack([c["bq"] for c in fk]),
-        "axis": np.stack([c["axis"] for c in fk]),
-        "anchor": np.stack([c["anchor"] for c in fk]),
-        "tl0": np.stack([c["tl0"] for c in fk]),
-        "awb": np.stack([c["awb"] for c in fk]),
-        "com": plan.com,
-        "inertia": plan.inertia.reshape(nb, 9),
-        "a0": a0,
-    }
     lines = [
         "// Generated by isaacgymenvs_ma_tpu_torch.physics.dyn_kernel."
         "scene_header: do not edit.",
@@ -648,34 +674,8 @@ def scene_header(plan: DynPlan) -> str:
         f"constexpr int FREE = {md.FREE}, HINGE = {md.HINGE}, "
         f"SLIDE = {md.SLIDE}, FIXED = {md.FIXED}, SCREW = {md.SCREW};",
     ]
-    for name, vals in ints.items():
-        lines.append(
-            f"__device__ __forceinline__ int {name}(int i) {{ "
-            f"constexpr int t[{len(vals)}] = {_c_list(vals, str)}; "
-            "return t[i]; }")
-    lines.append(
-        "__device__ __forceinline__ int dof_body(int v) { "
-        f"constexpr int t[{nv}] = {_c_list(plan.dof_body.tolist(), str)}; "
-        "return t[v]; }")
-    anc = plan.dof_anc.astype(int).reshape(-1).tolist()
-    lines.append(
-        "__device__ __forceinline__ bool anc(int i, int j) { "
-        f"constexpr bool t[{nv * nv}] = "
-        f"{_c_list(anc, lambda v: 'true' if v else 'false')}; "
-        f"return t[i * {nv} + j]; }}")
-    for name, vals in floats.items():
-        lines.append(
-            f"__device__ __forceinline__ float {name}(int i) {{ "
-            f"constexpr float t[{len(vals)}] = {_c_list(vals, _c_float)}; "
-            "return t[i]; }")
-    for name, tab in vecs.items():
-        k = tab.shape[1]
-        lines.append(
-            f"__device__ __forceinline__ float {name}(int b, int k) {{ "
-            f"constexpr float t[{nb * k}] = "
-            f"{_c_list(np.asarray(tab, np.float32).reshape(-1), _c_float)}; "
-            f"return t[b * {k} + k]; }}")
     lines += _b2_tables(plan, a0)
+    lines += _b1_b3_tables(plan)
     lines += ["}  // namespace scene", ""]
     return "\n".join(lines)
 
@@ -724,6 +724,111 @@ def b2_tables(plan: DynPlan) -> dict:
         dof_block=dof_block,
         pair=[int(i) | int(j) << 8
               for i, j in zip(*np.nonzero(plan.dof_anc))])
+
+
+def tree_lists(plan: DynPlan) -> dict:
+    """The per-lane lists of kernel B3, as plain lists.
+
+    ``act``: the bodies whose motion or force reaches a dof, those with a
+    dof on their path from the root (a fixed root with no dof below it,
+    such as FrankaReachMA's table, or a fixed base above its arm's first
+    joint moves nothing and no C_v sums its force); B3 takes only these,
+    one lane each (FrankaReachMA: 32 of 35).  ``anc``: body b's path from
+    its root down to b itself, only its active bodies, at
+    ``anc_off[b]:anc_off[b + 1]``, root first as the twins' path sums add
+    (an inactive ancestor only adds exact zeros); ``desc``: b's subtree, b
+    first and then its descendants depth first, at
+    ``desc_off[b]:desc_off[b + 1]``; ``hb_row``: the rows ``i * NV + j`` of
+    H^-1's diagonal-block entries, block after block, each block row-major
+    (B3 stages only these: H^-1 is exactly zero off the blocks);
+    ``dof_hb[v]``: where dof v's row of its block starts among them."""
+    paths = []
+    for b in range(plan.nb):
+        path = [b]
+        while plan.parent[path[-1]] != -1:
+            path.append(int(plan.parent[path[-1]]))
+        paths.append(path[::-1])
+    active = [any(plan.body_dofs[a] for a in paths[b])
+              for b in range(plan.nb)]
+    anc, anc_off, desc, desc_off = [], [0], [], [0]
+    for b in range(plan.nb):
+        anc += [a for a in paths[b] if active[a]]
+        anc_off.append(len(anc))
+        stack = [b]
+        while stack:
+            c = stack.pop()
+            desc.append(c)
+            stack += plan.children[c][::-1]
+        desc_off.append(len(desc))
+    hb_row, dof_hb = [], [0] * plan.nv
+    for blk in plan.blocks:
+        for i in blk:
+            dof_hb[i] = len(hb_row)
+            hb_row += [i * plan.nv + j for j in blk]
+    return dict(act=[b for b in range(plan.nb) if active[b]], anc=anc,
+                anc_off=anc_off, desc=desc, desc_off=desc_off,
+                hb_row=hb_row, dof_hb=dof_hb)
+
+
+def kernel_tables(plan: DynPlan, name: str) -> tuple:
+    """The scene tables kernel B1 (``fk_motion``) or B3 (``dyn_cached``)
+    copies into shared memory at the start of each block, as ({table: int
+    list}, {table: float list}): every lookup of a lane, each lane with its
+    own body or dof, is then a shared-memory read and not a dependent
+    device-memory read (:func:`tree_lists`, :func:`b2_tables` and the
+    joint constants of :meth:`DynPlan._fk_body`)."""
+    t, b2 = tree_lists(plan), b2_tables(plan)
+    if name == "fk_motion":
+        fk = plan.fk
+        ints = {"type": [c["type"] for c in fk], "qadr": [c["qa"] for c in fk],
+                "vadr": [c["va"] for c in fk], "parent": plan.parent.tolist(),
+                "lvl_body": b2["lvl_body"]}
+        floats = {"pitch": [c["pitch"] for c in fk]}
+        for key in ("bp", "bq", "axis", "anchor", "tl0", "awb"):
+            floats[key] = np.stack([c[key] for c in fk]).reshape(-1).tolist()
+        return ints, floats
+    if name == "dyn_cached":
+        ints = {k: b2[k] for k in ("vadr", "ndof", "dof_block", "block_dofs")}
+        ints.update(dof_body=plan.dof_body.tolist(),
+                    **{k: t[k] for k in ("act", "anc", "anc_off", "desc",
+                                         "desc_off", "dof_hb")})
+        return ints, {}
+    raise ValueError(f"no scene tables for kernel {name!r}")
+
+
+def _table_size(tables: dict) -> int:
+    return sum(len(v) for v in tables.values())
+
+
+def _packed_tables(prefix: str, tables: dict, ctype: str) -> list:
+    """Header lines of one kernel's tables of one C type, end to end in one
+    device array ``<prefix>_<c>tab`` (c the type's initial; at least one
+    entry), with each table's offset as ``<PREFIX>T_<TABLE>`` and the total
+    as ``<PREFIX>T_N<C>``."""
+    P = prefix.upper() + "T"
+    lines, flat = [], []
+    for name, vals in tables.items():
+        lines.append(f"constexpr int {P}_{name.upper()} = {len(flat)};")
+        flat += list(vals)
+    lines.append(f"constexpr int {P}_N{ctype[0].upper()} = {len(flat)};")
+    lines.append(_dev_array(ctype, f"{prefix}_{ctype[0]}tab", flat))
+    return lines
+
+
+def _b1_b3_tables(plan: DynPlan) -> list:
+    """Header lines of kernels B1 and B3: their launch layouts, their
+    packed scene tables (:func:`kernel_tables`; B1's ints then floats, B3's
+    ints, at the start of each block's shared memory) and H^-1's
+    block-entry rows that B3 stages."""
+    b1_ints, b1_floats = kernel_tables(plan, "fk_motion")
+    b3_ints, _ = kernel_tables(plan, "dyn_cached")
+    return (plan.layout("fk_motion").header_lines("B1")
+            + _packed_tables("b1", b1_ints, "int")
+            + _packed_tables("b1", b1_floats, "float")
+            + plan.layout("dyn_cached").header_lines("B3")
+            + _packed_tables("b3", b3_ints, "int")
+            + [f"constexpr int B3_NACT = {len(b3_ints['act'])};",
+               _dev_array("int", "b3_hb_row", tree_lists(plan)["hb_row"])])
 
 
 def _b2_tables(plan: DynPlan, a0) -> list:

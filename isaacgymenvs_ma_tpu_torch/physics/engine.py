@@ -18,7 +18,8 @@ Ported so far: what the Ant, BallBalance and FrankaReachMA steps run
 tangent frames, rigid-body attractors, joint limits, effort and PD
 actuation with position targets, mass-matrix reuse, active-set compaction
 and contact-row reuse with impulse continuation on the batched-product
-loop, the controller readouts).  Every feature the JAX engine has beyond
+loop (the B4 route ignores both, as the JAX kernel route does), the
+controller readouts).  Every feature the JAX engine has beyond
 that raises ``NotImplementedError`` when a model or config asks for it,
 instead of computing something else.  Entry points run on the card unless the
 caller passes ``device="cpu"``.
@@ -148,11 +149,6 @@ def _check_supported(model, params: SimParams, grabs, n_rows: int):
         _unsupported("a scene without contact rows (_limit_solve)")
     if params.warm_start > 0:
         _unsupported("contact warm start (warm_start > 0)")
-    if params.use_contact_kernel and (params.contact_capacity is not None
-                                      or params.reuse_contact_rows):
-        _unsupported("kernel B4 with active-set compaction or contact-row "
-                     "reuse (use_contact_kernel with contact_capacity or "
-                     "reuse_contact_rows)")
     if params.mass_splitting:
         _unsupported("Jacobi mass splitting (mass_splitting)")
     if params.plane_restitution != 0.0:
@@ -818,8 +814,12 @@ class PhysicsEngine:
         ``h J qd_geom`` (``qd_geom``: the velocity the previous substep
         integrated with) and, with ``contact_continuation``, seeds the loop
         from the cached impulses on still-active rows (engine.py:1582-1651,
-        :1837-1842).  Returns (qd, world impulses (N, P, 3), contact points
-        (N, P, 3), J^T lambda (N, nv), the row cache or None)."""
+        :1837-1842).  The B4 route takes neither option, as the JAX
+        engine's kernel route does not (engine.py:1304-1305, :1524, :1558):
+        it solves every candidate row from zero impulses in every substep
+        and returns no row cache.  Returns (qd, world impulses (N, P, 3),
+        contact points (N, P, 3), J^T lambda (N, nv), the row cache or
+        None)."""
         pr = self.params
         h = self.h
         N, nv = qd.shape[0], self.nv

@@ -64,7 +64,11 @@ BB_GOLDEN_TOL = {"q": 2e-4, "qd": 1e-2, "obs": 2e-3, "rew": 2e-4}
 # q <= 1.7e-6, qd <= 8.1e-5, obs <= 7.9e-7, reward <= 9.5e-7; resets exact.
 # The arms' joints are damped and most cubes rest, so float32 differences
 # do not grow step by step as at Ant; each bound is about ten times the
-# largest error seen, for the card's other summation orders.
+# largest error seen, for the card's other summation orders.  The same
+# bounds hold the kernel-route capture (franka_reach_ma_b4_golden.npz, 128
+# envs x 2 arms, all 41 rows through B4): on the CPU twins q <= 5.5e-6,
+# qd <= 2.8e-4, obs <= 3.8e-6, reward <= 2.9e-6; through the kernels on an
+# H100 q <= 2.1e-6, qd <= 3.4e-4, obs <= 1.5e-6, reward <= 1.2e-6.
 FRANKA_GOLDEN_TOL = {"q": 2e-5, "qd": 1e-3, "obs": 1e-5, "rew": 1e-5}
 TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
               "FrankaReachMA": FRANKA_GOLDEN_TOL}

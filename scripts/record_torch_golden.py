@@ -12,7 +12,17 @@ quarter of the envs flagged to reset on the first recorded step and the
 JAX reset draws stored for every step.  Multi-agent tasks record actions,
 obs, rewards and resets per agent row (num_envs * num_agents rows).
 
+``--kernel-route`` records the JAX contact-kernel route instead: the
+warm-up stays on the default path (jitted), then the 6 steps run eagerly
+with the Pallas kernels in interpret mode (``dyn_kernel._FORCE_INTERPRET``,
+read at trace time), at 128 envs, the fewest at which the JAX engine takes
+its dynamics kernels and with them kernel B4 (its lane blocks divide N by
+128): ``--task FrankaReachMA --kernel-route`` ->
+franka_reach_ma_b4_golden.npz.  That route solves every candidate row
+without compaction or row reuse (engine.py:1304-1305, :1524).
+
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
+        [--kernel-route]
 """
 import argparse
 import os
@@ -22,10 +32,13 @@ import jax
 import jax.numpy as jnp
 
 from isaacgymenvs_ma_tpu.ops import rng as rng_ops
+from isaacgymenvs_ma_tpu.physics import contact_kernel as jck
+from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
 from isaacgymenvs_ma_tpu.tasks import ant, ball_balance, franka_reach_ma
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 
 WARMUP, T = 20, 6
+KERNEL_ROUTE_ENVS = 128
 DATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "tests", "data", "torch_port")
 
@@ -73,8 +86,13 @@ TASKS = {  # name -> (class, config, draws, envs, file)
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant", choices=sorted(TASKS))
+    ap.add_argument("--kernel-route", action="store_true",
+                    help="record the steps on the JAX contact-kernel route")
     args = ap.parse_args()
     cls, task_cfg, draws_of, n, fname = TASKS[args.task]
+    if args.kernel_route:
+        n = KERNEL_ROUTE_ENVS
+        fname = fname.replace("_golden", "_b4_golden")
     task = cls(deep_merge(task_cfg, {"env": {"numEnvs": n}}))
     A, B = task.num_actions, task.rl_games_batch
     step = jax.jit(task.step)
@@ -95,6 +113,14 @@ def main():
         rec[f"init_{f}"] = np.asarray(getattr(st.task, f))
     actions = rng.uniform(-1, 1, (T, B, A)).astype(np.float32)
     fields = {k: [] for k in ("obs", "rew", "reset", "q", "qd")}
+    if args.kernel_route:
+        jdk._FORCE_INTERPRET = True
+        eng = task.engine
+        P = eng.n_ground + eng.n_pair_rows
+        assert jdk.supports(eng, n, jnp.float32) and jck.supports(
+            eng, n, jnp.float32, P, len(eng.attractors), len(eng.grabs),
+            bool(eng.pairs)), "the JAX engine would not take its kernels"
+        step = task.step        # eager: the flag is read while tracing
     for t in range(T):
         k_reset = jax.random.split(st.rng, 6)[1]   # VecTaskBase.step's key
         for k, v in draws_of(k_reset, task).items():
@@ -105,6 +131,7 @@ def main():
         fields["reset"].append(np.asarray(res.reset))
         fields["q"].append(np.asarray(st.sim.q))
         fields["qd"].append(np.asarray(st.sim.qd))
+    jdk._FORCE_INTERPRET = False
     rec["actions"] = actions
     for k, v in fields.items():
         rec[k] = np.stack(v)

@@ -13,7 +13,9 @@ progress term is a difference of two potentials of ~6e4 (one ulp there is
 3.9e-3), so a one-ulp difference in a potential shows in the reward.  The
 contact-kernel route (``use_contact_kernel``: kernel B4's twin on the CPU)
 is held against the JAX kernel route in interpret mode at the same q, qd
-and obs bounds (the JAX package's, tests/test_dyn_kernel.py:112-136).
+and obs bounds (the JAX package's, tests/test_dyn_kernel.py:112-136), also
+with ``contact_capacity`` or ``reuse_contact_rows`` set, which that route
+ignores.
 """
 import numpy as np
 import jax
@@ -149,12 +151,13 @@ def test_engine_step_matches_jax(ant_pair):
             atol=2e-3 * max(1.0, float(np.abs(ref).max())), err_msg=name)
 
 
-def test_ant_kernel_route_matches_jax_interpret():
-    """Ant with use_contact_kernel against the JAX kernel route in
-    interpret mode, from the setup of the JAX package's
-    test_full_step_parity_interpret (128 envs, PRNGKey(5) state, PRNGKey(6)
-    actions) advanced 5 steps so that the feet are on the ground, with a
-    quarter of the envs flagged to reset."""
+@pytest.fixture(scope="module")
+def ant_kernel_route():
+    """The JAX kernel route in interpret mode, from the setup of the JAX
+    package's test_full_step_parity_interpret (128 envs, PRNGKey(5) state,
+    PRNGKey(6) actions) advanced 5 steps so that the feet are on the
+    ground, with a quarter of the envs flagged to reset: the state, the
+    actions, the reset draws and the JAX step's result."""
     n = 128
     jt = JAnt(deep_merge(JCFG, {"env": {"numEnvs": n}}))
     st = jt.initial_state(jax.random.PRNGKey(5))
@@ -171,12 +174,21 @@ def test_ant_kernel_route_matches_jax_interpret():
         st2, res = jt.step(st, jnp.asarray(acts))
     finally:
         jdk._FORCE_INTERPRET = False
+    draws = tuple(torch.as_tensor(d) for d in jax_reset_draws(st, n))
+    return n, st, acts, draws, st2, res
+
+
+def _port_kernel_route_step(ant_kernel_route, **overrides):
+    n, st, acts, draws, _, _ = ant_kernel_route
     cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": n}})
     tt = Ant(cfg, device="cpu", sim_params=parse_sim_params(cfg["sim"])
-             ._replace(use_contact_kernel=True))
-    draws = tuple(torch.as_tensor(d) for d in jax_reset_draws(st, n))
-    ts2, tres = tt.step(env_state_from_jax(jax_state_arrays(st), "cpu"),
-                        torch.as_tensor(acts), reset_draws=draws)
+             ._replace(use_contact_kernel=True, **overrides))
+    return tt.step(env_state_from_jax(jax_state_arrays(st), "cpu"),
+                   torch.as_tensor(acts), reset_draws=draws)
+
+
+def _assert_matches_jax_kernel_route(ant_kernel_route, ts2, tres):
+    st2, res = ant_kernel_route[4:]
     np.testing.assert_allclose(ts2.sim.q.numpy(), np.asarray(st2.sim.q),
                                rtol=2e-4, atol=2e-5)
     np.testing.assert_allclose(ts2.sim.qd.numpy(), np.asarray(st2.sim.qd),
@@ -184,7 +196,38 @@ def test_ant_kernel_route_matches_jax_interpret():
     np.testing.assert_allclose(tres.obs.numpy(), np.asarray(res.obs),
                                rtol=2e-3, atol=2e-3)
     np.testing.assert_array_equal(tres.reset.numpy(), np.asarray(res.reset))
+
+
+def test_ant_kernel_route_matches_jax_interpret(ant_kernel_route):
+    """Ant with use_contact_kernel against the JAX kernel route in
+    interpret mode (the ``ant_kernel_route`` setup)."""
+    ts2, tres = _port_kernel_route_step(ant_kernel_route)
+    _assert_matches_jax_kernel_route(ant_kernel_route, ts2, tres)
+    res = ant_kernel_route[5]
     assert float(np.abs(np.asarray(res.obs)[:, 28:52]).max()) > 0.1
+
+
+_KERNEL_ROUTE_OPTIONS = {"capacity": {"contact_capacity": 8},
+                         "reuse": {"reuse_contact_rows": True},
+                         "capacity_reuse": {"contact_capacity": 8,
+                                            "reuse_contact_rows": True}}
+
+
+@pytest.mark.parametrize("case", list(_KERNEL_ROUTE_OPTIONS))
+def test_kernel_route_ignores_compaction_and_reuse(ant_kernel_route, case):
+    """On the B4 route the JAX engine neither compacts nor reuses contact
+    rows (engine.py:1304-1305, :1524, :1558): with ``contact_capacity``
+    and/or ``reuse_contact_rows`` set, the port's step is the step without
+    them, bit for bit, and matches the JAX kernel route in interpret mode
+    at the bounds above.  Capacity 8 is below the 25 candidate rows, so on
+    the batched-product loop it would compact."""
+    ts2, tres = _port_kernel_route_step(ant_kernel_route,
+                                        **_KERNEL_ROUTE_OPTIONS[case])
+    ref, ref_res = _port_kernel_route_step(ant_kernel_route)
+    assert torch.equal(ts2.sim.q, ref.sim.q)
+    assert torch.equal(ts2.sim.qd, ref.sim.qd)
+    assert torch.equal(tres.obs, ref_res.obs)
+    _assert_matches_jax_kernel_route(ant_kernel_route, ts2, tres)
 
 
 def test_env_state_from_jax_roundtrip(ant_pair):
@@ -212,12 +255,8 @@ def test_generator_reset_draws_are_seeded():
     assert torch.isfinite(out[0]).all()
 
 
-# compaction and row reuse are ported on the batched-product loop; kernel
-# B4 does not take them yet
 _UNPORTED = [
     {"warm_start": 0.5},
-    {"contact_capacity": 8, "use_contact_kernel": True},
-    {"reuse_contact_rows": True, "use_contact_kernel": True},
     {"mass_splitting": True}, {"solver_rows_bf16": True},
     {"plane_restitution": 0.5},
 ]

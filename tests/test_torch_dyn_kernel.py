@@ -184,14 +184,25 @@ def test_scene_header_bakes_the_tree(scene):
     assert "constexpr int NB = 9;" in h and "constexpr int NV = 14;" in h
     assert "constexpr int NQ = 15;" in h
     parent = ", ".join(str(int(p)) for p in plan.parent)
-    assert f"int parent(int i) {{ constexpr int t[9] = {{{parent}}};" in h
-    # every float table round-trips to the plan's float32 constants
+    assert f"__device__ const int b2_parent[9] = {{{parent}}};" in h
+    # the float tables round-trip to the plan's float32 constants: B2's
+    # masses, and B1's joint constants packed end to end
     import re
-    m = re.search(r"float mass\(int i\) \{ constexpr float t\[9\] = "
-                  r"\{([^}]*)\}", h)
-    vals = np.array([float(v.rstrip("f")) for v in m.group(1).split(",")],
-                    np.float32)
-    np.testing.assert_array_equal(vals, plan.mass)
+
+    def floats(name):
+        m = re.search(rf"const float {name}\[\d+\] = \{{([^}}]*)\}}", h)
+        return np.array([float(v.rstrip("f")) for v in m.group(1).split(",")],
+                        np.float32)
+
+    np.testing.assert_array_equal(floats("b2_mass"), plan.mass)
+    b1 = floats("b1_ftab")
+    for name, vals in (("TL0", [c["tl0"] for c in plan.fk]),
+                       ("PITCH", [c["pitch"] for c in plan.fk])):
+        vals = np.asarray(vals, np.float32).reshape(-1)
+        off = int(re.search(rf"constexpr int B1T_{name} = (\d+);",
+                            h).group(1))
+        np.testing.assert_array_equal(b1[off:off + vals.size], vals,
+                                      err_msg=name)
     # the build key follows the header
     assert (_build.lib_dir("fk_motion", h)
             != _build.lib_dir("fk_motion", h + "// other scene\n"))

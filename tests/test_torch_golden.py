@@ -5,8 +5,11 @@ franka_reach_ma_golden.npz (scripts/record_torch_golden.py): the task at 64
 envs (FrankaReachMA: 16 envs x 2 arms), 6 steps of fixed actions from a
 warmed-up state (Ant's feet on the ground, BallBalance's balls on the
 trays, FrankaReachMA's cubes on the table), a quarter of the envs reset on
-step 1 with the recorded JAX reset draws.  chip_smoke.py replays the same
-files through the CUDA kernels.
+step 1 with the recorded JAX reset draws; franka_reach_ma_b4_golden.npz
+(``--kernel-route``) the same for FrankaReachMA at 128 envs x 2 arms on
+the JAX contact-kernel route (Pallas interpret mode: all 41 candidate rows,
+no compaction or row reuse), replayed on the port's B4 route.
+chip_smoke.py replays the same files through the CUDA kernels.
 
 The per-step tolerances and their reasons are parity.GOLDEN_TOL's (Ant),
 parity.BB_GOLDEN_TOL's (BallBalance) and parity.FRANKA_GOLDEN_TOL's
@@ -26,6 +29,7 @@ DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
 GOLDEN = os.path.join(DATA, "ant_golden.npz")
 BB_GOLDEN = os.path.join(DATA, "ball_balance_golden.npz")
 FRANKA_GOLDEN = os.path.join(DATA, "franka_reach_ma_golden.npz")
+FRANKA_B4_GOLDEN = os.path.join(DATA, "franka_reach_ma_b4_golden.npz")
 
 
 def test_golden_capture_format():
@@ -93,6 +97,27 @@ def test_franka_reach_ma_golden_capture_format():
 
 def test_franka_reach_ma_golden_replay_on_cpu_twins():
     e = replay(FRANKA_GOLDEN, "cpu")
+    assert e.finite
+    for k, tol in FRANKA_GOLDEN_TOL.items():
+        errs = getattr(e, k)
+        assert (errs <= tol).all(), f"{k} per-step errors {errs} > {tol}"
+    assert int(e.reset_mismatches.sum()) == 0
+
+
+def test_franka_reach_ma_b4_golden_capture_format():
+    d = np.load(FRANKA_B4_GOLDEN)
+    T, B = d["actions"].shape[:2]
+    N = d["init_q"].shape[0]
+    assert (T, N, B) == (6, 128, 256) and str(d["task"]) == "FrankaReachMA"
+    assert d["obs"].shape == (T, B, 19) and d["q"].shape == (T, N, 32)
+    assert d["dof_noise"].shape == (T, N, 2, 9)
+    assert int(d["init_reset_buf"].sum()) == N // 4
+    assert os.path.getsize(FRANKA_B4_GOLDEN) < 500_000
+
+
+def test_franka_reach_ma_b4_golden_replay_on_cpu_twins():
+    """On the B4 route (its twin on the CPU), at FRANKA_GOLDEN_TOL."""
+    e = replay(FRANKA_B4_GOLDEN, "cpu", use_contact_kernel=True)
     assert e.finite
     for k, tol in FRANKA_GOLDEN_TOL.items():
         errs = getattr(e, k)

@@ -1,18 +1,20 @@
-"""The plan-side tables and launch layouts of the team kernels B2
-(csrc/dyn_forward.cu) and B4 (csrc/contact_solve.cu), on the CPU.
+"""The plan-side tables and launch layouts of the team kernels B1
+(csrc/fk_motion.cu), B2 (csrc/dyn_forward.cu), B3 (csrc/dyn_cached.cu) and
+B4 (csrc/contact_solve.cu), on the CPU.
 
 The kernels themselves run only on the card (chip_smoke.py holds them
 against their twins there); what they read is built here in Python and
 checked without one: H's diagonal blocks and the block-wise sweep (against
 the dense port sweep bit for bit, and against the JAX package's sweep),
-B2's level, child and block tables, both generated headers, the
-shared-memory size of every plan the port builds, and the rows each lane of
-B4's team owns.
+B3's block-restricted H^-1 (rhs - C), B2's level, child and block tables,
+the ancestor and subtree lists and packed scene tables of B1 and B3, the
+generated headers, the shared-memory size of every plan the port builds,
+and the rows each lane of B4's team owns.
 
 Scenes: Ant and BallBalance (both contact routes' plans), FrankaReachMA at
-its committed capture's warmed-up state (16 envs x 2 arms), and a seeded
-contact plan with every row group (the synthetic grab plan of
-chip_smoke.py: nv 14, P 8, A 2, G 2, frames).
+its committed capture's warmed-up state (16 envs x 2 arms; its B4 plan from
+the kernel route), and a seeded contact plan with every row group (the
+synthetic grab plan of chip_smoke.py: nv 14, P 8, A 2, G 2, frames).
 """
 import os
 import re
@@ -35,7 +37,7 @@ SCENES = ("Ant", "BallBalance", "FrankaReachMA")
 BLOCK_SIZES = {"Ant": [14],               # the torso's free joint ties all
                "BallBalance": [12, 6],    # tray + legs, ball
                "FrankaReachMA": [9, 9, 6, 6]}   # two arms, two cubes
-CONTACT_PLANS = ("Ant", "BallBalance", "grab")
+CONTACT_PLANS = ("Ant", "BallBalance", "FrankaReachMA", "grab")
 
 
 def _task(name, n, kernel_route):
@@ -50,7 +52,7 @@ def _task(name, n, kernel_route):
 def tasks():
     return {"Ant": _task("Ant", 4, True),
             "BallBalance": _task("BallBalance", 4, True),
-            "FrankaReachMA": _task("FrankaReachMA", 16, False)}
+            "FrankaReachMA": _task("FrankaReachMA", 16, True)}
 
 
 def grab_plan():
@@ -192,16 +194,20 @@ def test_contact_header_bakes_b4_layout(tasks, name):
                  np.float32), plan.masks["c"].reshape(-1))
 
 
-@pytest.mark.parametrize("kind,name", [("B2", s) for s in SCENES]
-                         + [("B4", s) for s in CONTACT_PLANS])
+DYN_KERNELS = ("fk_motion", "dyn_forward", "dyn_cached")
+
+
+@pytest.mark.parametrize("kind,name", [(k, s) for k in DYN_KERNELS
+                                       for s in SCENES]
+                         + [("contact_solve", s) for s in CONTACT_PLANS])
 def test_block_shared_memory_fits(tasks, kind, name):
     """Every plan the port builds asks for at most one block's shared
     memory (232,448 B on the H100), with teams that never span warps."""
-    plan = (tasks[name].engine.plan if kind == "B2"
-            else contact_plan(tasks, name))
-    lay = plan.layout()
-    assert lay.smem_bytes == lay.envs * lay.floats * 4
-    assert lay.smem_bytes <= 232448
+    plan = (contact_plan(tasks, name) if kind == "contact_solve"
+            else tasks[name].engine.plan)
+    lay = plan.layout(kind)
+    assert lay.smem_bytes == 4 * (lay.shared + lay.envs * lay.floats)
+    assert lay.smem_bytes <= 232448 and lay.shared % 4 == 0
     assert lay.team in (8, 16, 32) and lay.envs >= 1
     assert lay.team * lay.envs <= 256
 
@@ -234,3 +240,153 @@ def test_layout_rules():
     assert big.envs == 2 and big.smem_bytes <= 232448
     with pytest.raises(ValueError, match="shared memory"):
         dk.KernelLayout(32, {}, 60000)
+    # block-shared tables: rounded to float4s, ahead of the envs, and they
+    # count against the limit
+    tab = dk.KernelLayout(32, {}, 20000, shared=9)
+    assert tab.shared == 12 and tab.smem_bytes == 4 * (12 + 2 * 20001)
+    assert dk.KernelLayout(32, {}, 20000, shared=20000).envs == 1
+
+
+# ---- B1, B3 and B4's wide plan
+
+TEAMS = {"fk_motion": {"Ant": 8, "BallBalance": 8, "FrankaReachMA": 8},
+         "dyn_cached": {"Ant": 16, "BallBalance": 16, "FrankaReachMA": 32}}
+
+
+@pytest.mark.parametrize("kernel", list(TEAMS))
+@pytest.mark.parametrize("name", SCENES)
+def test_b1_b3_layouts(tasks, kernel, name):
+    """B1 poses the tree level by level with 8 lanes an env (no level is
+    wider than 16 bodies); B3 takes the power of two nearest max(NB, NV);
+    both in blocks of 256 threads with their scene tables shared."""
+    plan = tasks[name].engine.plan
+    lay = plan.layout(kernel)
+    assert lay.team == TEAMS[kernel][name]
+    assert lay.team * lay.envs == 256
+    ints, floats = dk.kernel_tables(plan, kernel)
+    assert lay.shared == -(-(sum(map(len, ints.values()))
+                             + sum(map(len, floats.values()))) // 4) * 4
+    if kernel == "fk_motion":
+        assert max(len(lv) for lv in plan.levels) <= 2 * lay.team
+
+
+def test_franka_contact_plan_fits(tasks):
+    """FrankaReachMA's B4 plan: all 41 candidate rows (24 ground, 17 pair
+    rows with frames), no attractor or grab rows, nv 30; a team of 32 with
+    4 envs in a 107,200 B block, and J's columns read from shared memory
+    (3 * 41 + 30 floats a lane would not fit beside the rest in registers);
+    the other plans keep them in registers."""
+    plan = contact_plan(tasks, "FrankaReachMA")
+    assert (plan.P, plan.A, plan.G, plan.nv, plan.has_frames) == \
+        (41, 0, 0, 30, True)
+    lay = plan.layout()
+    assert (lay.team, lay.envs, lay.smem_bytes) == (32, 4, 107200)
+    assert not plan.cols_in_registers()
+    assert "constexpr bool B4_JREG = false;" in plan.header()
+    for name in ("Ant", "BallBalance", "grab"):
+        other = contact_plan(tasks, name)
+        assert other.cols_in_registers()
+        assert "constexpr bool B4_JREG = true;" in other.header()
+
+
+def test_block_restricted_qdd_equals_dense_at_franka_capture(tasks):
+    """B3's qdd = H^-1 (rhs - C) summed over each dof's block (the entries
+    it stages, in dof order) equals the sum over all 30 dofs in the same
+    order bit for bit, at the capture's warmed-up state with the dense
+    sweep's H^-1: the terms off the blocks are exact zeros."""
+    eng = tasks["FrankaReachMA"].engine
+    plan = eng.plan
+    consts = plan.consts("cpu")
+    d = np.load(os.path.join(DATA, "franka_reach_ma_golden.npz"))
+    q = torch.as_tensor(d["init_q"]).t().contiguous()
+    qd = torch.as_tensor(d["init_qd"]).t().contiguous()
+    bx, bq, S = dk._fk_motion_bl(plan, q)
+    rhs = torch.as_tensor(np.random.default_rng(0).normal(
+        size=qd.shape).astype(np.float32))
+    diag = (eng.dof_armature[:, None] + 0.1).expand_as(qd).contiguous()
+    _, hinv, io = dk.dyn_full_bl(plan, consts, bx, bq, S, qd, rhs, diag)
+    fg = eng.gravity_wrench(bx.permute(2, 0, 1), bq.permute(2, 0, 1)
+                            ).permute(1, 2, 0)
+    r = rhs - dk.bias_force_bl(plan, consts, S, qd, io, fg=fg)
+    t = dk.tree_lists(plan)
+    hb = hinv.reshape(plan.nv * plan.nv, -1)[t["hb_row"]]
+    dense = torch.zeros_like(r)
+    block = torch.zeros_like(r)
+    for v in range(plan.nv):
+        for j in range(plan.nv):
+            dense[v] = dense[v] + hinv[v, j] * r[j]
+        blk = next(b for b in plan.blocks if v in b)
+        for c, j in enumerate(blk):
+            block[v] = block[v] + hb[t["dof_hb"][v] + c] * r[j]
+    assert torch.equal(block, dense)
+    assert len(t["hb_row"]) == 234 and float(block.abs().max()) > 1.0
+    torch.testing.assert_close(
+        block, dk.dyn_cached_bl(plan, consts, S, qd, rhs, io, hinv, fg),
+        rtol=1e-5, atol=1e-4)
+
+
+ACTIVE = {"Ant": 9, "BallBalance": 8, "FrankaReachMA": 32}
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_tree_lists_match_the_tree(tasks, name):
+    """The active bodies are those with a dof on their root path
+    (FrankaReachMA: all but the table and the two fixed arm bases); each
+    body's ancestor list is the active part of its path from its root,
+    root first; its subtree list is itself then every descendant once;
+    H^-1's block entries are each block's rows in dof order, dof v's row at
+    dof_hb[v]."""
+    plan = tasks[name].engine.plan
+    t = dk.tree_lists(plan)
+
+    def path(b):
+        p = [b]
+        while plan.parent[p[-1]] != -1:
+            p.append(int(plan.parent[p[-1]]))
+        return p[::-1]
+
+    act = [b for b in range(plan.nb)
+           if any(plan.body_dofs[a] for a in path(b))]
+    assert t["act"] == act and len(act) == ACTIVE[name]
+    for b in range(plan.nb):
+        anc = t["anc"][t["anc_off"][b]:t["anc_off"][b + 1]]
+        assert anc == [a for a in path(b) if a in act]
+        sub = t["desc"][t["desc_off"][b]:t["desc_off"][b + 1]]
+        assert sub[0] == b and len(set(sub)) == len(sub)
+        assert set(sub) == {c for c in range(plan.nb) if b in path(c)}
+    # every dof's body is active, and so is its whole subtree
+    for v in range(plan.nv):
+        b = int(plan.dof_body[v])
+        assert set(t["desc"][t["desc_off"][b]:t["desc_off"][b + 1]]) <= \
+            set(act)
+    rows = [i * plan.nv + j for blk in plan.blocks for i in blk for j in blk]
+    assert t["hb_row"] == rows
+    for blk in plan.blocks:
+        for i in blk:
+            at = t["dof_hb"][i]
+            assert t["hb_row"][at:at + len(blk)] == [i * plan.nv + j
+                                                     for j in blk]
+
+
+@pytest.mark.parametrize("kernel,prefix", [("fk_motion", "b1"),
+                                           ("dyn_cached", "b3")])
+def test_scene_header_packs_b1_b3_tables(tasks, kernel, prefix):
+    """Each kernel's tables sit end to end in one int and (B1) one float
+    device array, at the offsets the header names."""
+    plan = tasks["FrankaReachMA"].engine.plan
+    h = plan.header()
+    ints, floats = dk.kernel_tables(plan, kernel)
+    for ctype, tables in (("int", ints), ("float", floats)):
+        if not tables:
+            continue
+        m = re.search(rf"const {ctype} {prefix}_{ctype[0]}tab\[\d+\] = "
+                      r"\{([^}]*)\}", h)
+        vals = np.array([float(v.rstrip("f")) for v in m.group(1).split(",")])
+        for tname, tab in tables.items():
+            off = int(re.search(rf"constexpr int {prefix.upper()}T_"
+                                rf"{tname.upper()} = (\d+);", h).group(1))
+            np.testing.assert_array_equal(
+                vals[off:off + len(tab)].astype(np.float32),
+                np.asarray(tab, np.float32), err_msg=tname)
+    n_act = len(dk.tree_lists(plan)["act"])
+    assert f"constexpr int B3_NACT = {n_act};" in h

@@ -3,7 +3,8 @@
 Runs in a subprocess because tests/conftest.py imports jax into this one:
 import every module of isaacgymenvs_ma_tpu_torch, build and step Ant and
 BallBalance at 8 envs on the CPU (default loop and contact-kernel route)
-and FrankaReachMA at 4 envs x 2 arms (OSC, compaction, row reuse), call
+and FrankaReachMA at 4 envs x 2 arms (OSC; compaction and row reuse on
+the default loop, and the contact-kernel route), call
 ``spd_inverse``, then check that neither ``jax*`` nor
 ``isaacgymenvs_ma_tpu`` / ``isaacgymenvs_ma_tpu.*`` was loaded.
 """
@@ -43,12 +44,15 @@ SCRIPT = textwrap.dedent("""
     from isaacgymenvs_ma_tpu_torch.tasks.franka_reach_ma import (
         FrankaReachMA, TASK_CFG as FR_CFG)
     from isaacgymenvs_ma_tpu_torch.physics.engine import spd_inverse
-    task = FrankaReachMA(deep_merge(FR_CFG, {"env": {"numEnvs": 4}}),
-                         device="cpu")
-    state = task.initial_state()
-    for _ in range(2):
-        state, res = task.step(state, torch.tanh(torch.randn(8, 6)))
-    assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 19)
+    for kernel_route in (False, True):
+        cfg = deep_merge(FR_CFG, {"env": {"numEnvs": 4}})
+        params = parse_sim_params(cfg["sim"])._replace(
+            use_contact_kernel=kernel_route)
+        task = FrankaReachMA(cfg, device="cpu", sim_params=params)
+        state = task.initial_state()
+        for _ in range(2):
+            state, res = task.step(state, torch.tanh(torch.randn(8, 6)))
+        assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 19)
     A = torch.randn(5, 7, 7)
     Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
     assert torch.isfinite(Hinv).all()
