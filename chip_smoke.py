@@ -6,35 +6,38 @@
 Phases, each printing its own lines; any failure exits non-zero
 (``--kernels-only`` stops after phase 3 and prints no result line):
   1. device: torch/CUDA versions, the card's name and power limit
-  2. build: nvcc builds kernels B1-B3 for the Ant, BallBalance and
-     FrankaReachMA scenes, B4 for the Ant, BallBalance and FrankaReachMA
-     contact plans and for a synthetic plan with grab rows, B5 for n = 6,
-     7 and 14, all compilers started together; each kernel's ptxas
-     registers and spills
+  2. build: nvcc builds kernels B1-B3 for the Ant, BallBalance,
+     FrankaReachMA and Cartpole scenes, B4 for the Ant, BallBalance and
+     FrankaReachMA contact plans and for a synthetic plan with grab rows,
+     B5 for n = 6, 7, 14, 30 and 48, all compilers started together; each
+     kernel's ptxas registers and spills
   3. kernels: each kernel against its plain PyTorch twin on the card, with
      kernel and twin times: B1-B3 at Ant-4096 shapes on a generic state and
-     at BallBalance-4096 and FrankaReachMA-8192 shapes on warmed-up states;
-     B4 on the inputs the main path hands it at Ant-4096 (no frames),
-     BallBalance-4096 (frames, attractors) and FrankaReachMA-8192 (41 rows
-     with frames), and on the synthetic grab plan; B5 on the two OSC
-     inverses of a warmed-up FrankaReachMA-8192 step ((16384, 7, 7) arm
-     mass matrices, (16384, 6, 6) J M^-1 J^T) and on seeded SPD matrices
-     at (16384, 7, 7) and (4096, 14, 14), with torch.linalg.inv's time
-     beside it; for the team kernels B1-B4, per scene, the device time per
-     launch by CUPTI beside the bound (B3: also with only H^-1's block
-     entries read) and the one-thread
-     kernels' recorded time, ptxas's registers and spills, and the launch
-     layout (team, envs per block, shared memory)
+     at BallBalance-4096, FrankaReachMA-8192 and Cartpole-512 shapes on
+     warmed-up states; B4 on the inputs the main path hands it at Ant-4096
+     (no frames), BallBalance-4096 (frames, attractors) and
+     FrankaReachMA-8192 (41 rows with frames), and on the synthetic grab
+     plan; B5 on the two OSC inverses of a warmed-up FrankaReachMA-8192
+     step ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and
+     on seeded SPD matrices at (16384, 7, 7), (4096, 14, 14), (1024, 30,
+     30) and (256, 48, 48), with torch.linalg.inv's time beside it; for
+     the team kernels B1-B4, per scene, and for B5 per shape, the device
+     time per launch by CUPTI beside the bound (B3: also with only H^-1's
+     block entries read), the one-thread kernels' recorded time (B1-B4),
+     ptxas's registers and spills, and the launch layout (team, envs or
+     matrices per block, shared memory)
   4. golden: the committed JAX captures replayed through the kernels: Ant
      and BallBalance, each on the default loop and on B4; FrankaReachMA on
      the default loop (compaction and row reuse) and, from its own
-     capture, on B4 (all 41 candidate rows, no compaction or reuse)
+     capture, on B4 (all 41 candidate rows, no compaction or reuse);
+     Cartpole's 101-step rollout (the contact-free path)
   5. main path, each phase with the launch counts set to 0 just before it:
      Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
      FrankaReachMA at 8192 envs x 2 arms on the default loop and on B4,
-     100 steps each, tanh(obs @ W) actions; env-steps/s (and
-     agent-steps/s), stream ms per step by CUDA events (the kernels and
-     the device's idle gaps between them), launches per kernel
+     Cartpole-512 (B1-B3 only: no contact rows, no OSC), 100 steps each,
+     tanh(obs @ W) actions; env-steps/s (and agent-steps/s), stream ms per
+     step by CUDA events (the kernels and the device's idle gaps between
+     them), launches per kernel
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Needs a CUDA device; never falls back to
 the CPU and never imports jax.
@@ -56,6 +59,7 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("ball_balance_b4", "BallBalance", True, 100, N_ENVS),
     ("franka_reach_ma", "FrankaReachMA", False, 100, 8192),
     ("franka_reach_ma_b4", "FrankaReachMA", True, 100, 8192),
+    ("cartpole", "Cartpole", False, 100, 512),
 )
 DYN = ("fk_motion", "dyn_forward", "dyn_cached")
 # kernel name -> scene of its kernels-JSON row (where it runs first)
@@ -93,7 +97,13 @@ RECORDED_US = {("ant", "fk_motion"): 5.02,
                ("ant", "contact_solve"): 269.60,
                ("ball_balance", "contact_solve"): 634.54,
                ("franka_reach_ma", "contact_solve"): None,
-               ("grab", "contact_solve"): None}
+               ("grab", "contact_solve"): None,
+               ("cartpole", "fk_motion"): None,
+               ("cartpole", "dyn_forward"): None,
+               ("cartpole", "dyn_cached"): None}
+# B5's seeded stacks, (B, n, seed): the OSC sizes, the JAX kernel's own
+# measured size (engine.py:249-250) and two rows a lane
+SPD_SEEDED = ((16384, 7, 21), (4096, 14, 22), (1024, 30, 23), (256, 48, 24))
 
 
 def phase(tag, **fields):
@@ -576,7 +586,9 @@ def check_spd_kernel(torch, sk, dk, H, label, widen):
     return dict(max_abs_err=err, ms=gpu_ms(torch, lambda: sk.sweep_inverse(H)),
                 plain_ms=gpu_ms(torch, lambda: dk.sweep_inverse_bl(H_bl)),
                 library_ms=gpu_ms(torch, lambda: torch.linalg.inv(H)),
-                bytes=nbytes(H, out), flops=flops_spd(n) * B)
+                device_us=device_us(torch, lambda: sk.sweep_inverse(H),
+                                    "spd_inverse_kernel"),
+                bytes=nbytes(H, out), flops=flops_spd(n) * B, n=n)
 
 
 def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
@@ -645,7 +657,7 @@ def check_franka_kernels(torch, dk, sk, ck, ctl, task, task_b4, dev):
     the table, arms moving), qdd and H^-1 held per env; B4 on the inputs
     the B4 route hands it 30 steps in (41 rows with frames, held per env);
     B5 on the first state's two OSC inverses (held per matrix) and on
-    seeded SPD stacks at (16384, 7, 7) and (4096, 14, 14) (fixed bounds)."""
+    the seeded SPD stacks of ``SPD_SEEDED`` (fixed bounds)."""
     st, _ = run_steps(torch, task, task.initial_state(),
                       zero_obs(torch, task, dev), policy(torch, task, dev), 30)
     gq = torch.Generator(device=dev).manual_seed(13)
@@ -667,11 +679,10 @@ def check_franka_kernels(torch, dk, sk, ck, ctl, task, task_b4, dev):
 
     # the kernels JSON row of B5: the arm mass matrices of the main path
     rep["spd_inverse"] = spd("osc_mm", mm, True)
-    extra = {"osc_m_eef_inv": spd("osc_m_eef_inv", m_eef_inv, True),
-             "seeded_7": spd("seeded_7", seeded_spd(torch, 16384, 7, 21, dev),
-                             False),
-             "seeded_14": spd("seeded_14",
-                              seeded_spd(torch, 4096, 14, 22, dev), False)}
+    extra = {"osc_m_eef_inv": spd("osc_m_eef_inv", m_eef_inv, True)}
+    for B, n, seed in SPD_SEEDED:
+        extra[f"seeded_{n}"] = spd(f"seeded_{n}",
+                                   seeded_spd(torch, B, n, seed, dev), False)
     return rep, extra
 
 
@@ -715,14 +726,15 @@ def main():
     # ---- 2. build: every distinct kernel and header, compilers in parallel
     tasks = {tag: make(name, route, n) for tag, name, route, _, n in PHASES}
     grab = synthetic_grab_call(torch, np, ck, dev)
-    dyn_scenes = ("ant", "ball_balance", "franka_reach_ma")
+    dyn_scenes = ("ant", "ball_balance", "franka_reach_ma", "cartpole")
     build_all(_build, [
         *((scene, tasks[scene].engine.plan) for scene in dyn_scenes),
         ("ant", tasks["ant_b4"].engine.cplan),
         ("ball_balance", tasks["ball_balance_b4"].engine.cplan),
         ("franka_reach_ma", tasks["franka_reach_ma_b4"].engine.cplan),
         ("grab", grab[0]),
-        *((f"spd n={n}", sk.get_plan(n)) for n in (6, 7, 14))])
+        *((f"spd n={n}", sk.get_plan(n))
+          for n in sorted({6, *(n for _, n, _ in SPD_SEEDED)}))])
 
     # ---- 3. kernels against their twins
     q_np, qd_np = generic_ant_state(np, tasks["ant"], seed=7)
@@ -749,6 +761,14 @@ def main():
         torch, dk, sk, ck, ctl, tasks["franka_reach_ma"],
         tasks["franka_reach_ma_b4"], dev)
     report["franka_reach_ma spd"] = spd_extra
+    cp = tasks["cartpole"]
+    st, _ = run_steps(torch, cp, cp.initial_state(), zero_obs(torch, cp, dev),
+                      policy(torch, cp, dev), 30)
+    gq = torch.Generator(device=dev).manual_seed(12)
+    qd_cp = st.sim.qd + torch.randn(st.sim.qd.shape, generator=gq, device=dev)
+    report["cartpole"] = check_dyn_kernels(
+        torch, dk, cp, st.sim.q.t().contiguous(), qd_cp.t().contiguous(), dev,
+        "cartpole")
     for scene, r in report.items():
         for name, e in r.items():
             b_ms, b_by = bound(e["bytes"], e["flops"])
@@ -789,6 +809,22 @@ def main():
               spill_st=px.get("spill_st"), spill_ld=px.get("spill_ld"),
               smem_bytes=lay.smem_bytes, team=lay.team, envs=lay.envs,
               **extra)
+    # B5 per shape: the OSC inverses and the seeded stacks
+    spd_rows = {"osc_mm": report["franka_reach_ma"]["spd_inverse"],
+                **spd_extra}
+    for label, e in spd_rows.items():
+        p = sk.get_plan(e["n"])
+        lay = p.layout()
+        px = ptxas_report(p.build_log.get("spd_inverse", ""),
+                          "spd_inverse_kernel")
+        b_us = bound(e["bytes"], e["flops"])[0] * 1e3
+        phase("spd_kernel", shape=label, n=e["n"],
+              device_us=f"{e['device_us']:.2f}", bound_us=f"{b_us:.2f}",
+              x_bound=f"{e['device_us'] / b_us:.1f}",
+              library_ms=f"{e['library_ms']:.5f}", regs=px.get("regs"),
+              stack=px.get("stack"), spill_st=px.get("spill_st"),
+              spill_ld=px.get("spill_ld"), smem_bytes=lay.smem_bytes,
+              team=lay.team, rows=p.rows, matrices_per_block=lay.envs)
     if "--kernels-only" in sys.argv[1:]:
         return 0
 
@@ -798,7 +834,8 @@ def main():
     for fname, routes in (("ant_golden.npz", (False, True)),
                           ("ball_balance_golden.npz", (False, True)),
                           ("franka_reach_ma_golden.npz", (False,)),
-                          ("franka_reach_ma_b4_golden.npz", (True,))):
+                          ("franka_reach_ma_b4_golden.npz", (True,)),
+                          ("cartpole_golden.npz", (False,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]

@@ -180,16 +180,19 @@ class KernelLayout:
     power of two up to a warp, so a team never spans two warps),
     ``envs`` envs per block, ``floats`` per env in shared memory (odd, or
     with ``quad`` a multiple of four that is an odd number of float4s: in
-    either case consecutive envs start in different banks), ``offsets`` of
-    the env's arrays (in floats), ``shared`` floats ahead of the envs' that
-    the whole block shares (the kernel's scene tables, a multiple of four)
-    and the block's ``smem_bytes``."""
+    either case consecutive envs start in different banks; with ``pad``
+    False exactly as given, envs end to end as in device memory),
+    ``offsets`` of the env's arrays (in floats), ``shared`` floats ahead of
+    the envs' that the whole block shares (the kernel's scene tables, a
+    multiple of four) and the block's ``smem_bytes``."""
 
     def __init__(self, work: int, offsets: dict, floats: int,
-                 quad: bool = False, threads: int = 256, shared: int = 0):
+                 quad: bool = False, threads: int = 256, shared: int = 0,
+                 pad: bool = True):
         self.team = min(32, max(8, 1 << max(0, int(work) - 1).bit_length()))
         self.offsets = dict(offsets)
-        self.floats = quad_odd(floats) if quad else int(floats) | 1
+        self.floats = (int(floats) if not pad else
+                       quad_odd(floats) if quad else int(floats) | 1)
         self.shared = -(-int(shared) // 4) * 4
         env_bytes = 4 * self.floats
         room = MAX_SMEM_BYTES - 4 * self.shared

@@ -13,16 +13,17 @@ B4, engine.py:1708-1735); otherwise it is a loop of batched products.
 :func:`spd_inverse` (OSC's two inverses) runs through kernel B5
 (:mod:`.spd_kernel`).
 
-Ported so far: what the Ant, BallBalance and FrankaReachMA steps run
-(ground contact rows, body-pair contact rows against primitive SDFs with
-tangent frames, rigid-body attractors, joint limits, effort and PD
+Ported so far: what the Ant, BallBalance, FrankaReachMA and Cartpole steps
+run (ground contact rows, body-pair contact rows against primitive SDFs
+with tangent frames, rigid-body attractors, joint limits, effort and PD
 actuation with position targets, mass-matrix reuse, active-set compaction
 and contact-row reuse with impulse continuation on the batched-product
 loop (the B4 route ignores both, as the JAX kernel route does), the
-controller readouts).  Every feature the JAX engine has beyond
-that raises ``NotImplementedError`` when a model or config asks for it,
-instead of computing something else.  Entry points run on the card unless the
-caller passes ``device="cpu"``.
+controller readouts, and for a scene without contact rows the joint-limit
+solve :meth:`PhysicsEngine._limit_solve`).  Every feature the JAX engine
+has beyond that raises ``NotImplementedError`` when a model or config asks
+for it, instead of computing something else.  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -145,8 +146,6 @@ def _check_supported(model, params: SimParams, grabs, n_rows: int):
     """Reject every engine feature the port does not implement yet."""
     if grabs:
         _unsupported("grab constraints")
-    if not n_rows:
-        _unsupported("a scene without contact rows (_limit_solve)")
     if params.warm_start > 0:
         _unsupported("contact warm start (warm_start > 0)")
     if params.mass_splitting:
@@ -255,9 +254,13 @@ class PhysicsEngine:
         self.gravity = f32(params.gravity)
         self.h = params.dt / params.substeps
         self.plan = dk.get_plan(self)
+        # a scene without ground or pair rows takes the joint-limit solve,
+        # whatever use_contact_kernel says (engine.py:966-978); the JAX
+        # engine then ignores its attractors too
+        self.has_contact_rows = bool(self.n_ground or self.pairs)
         # kernel B4's static plan: row masks per group, loop constants
         self.cplan = None
-        if params.use_contact_kernel:
+        if params.use_contact_kernel and self.has_contact_rows:
             masks = {"c": self.row_masks_np}
             if self.attractors:
                 masks["a"] = np.stack([a["mask"] for a in self.attractors])
@@ -628,14 +631,52 @@ class PhysicsEngine:
         qdd = qdd_bl.t()
         qd_new = qd + h * qdd
 
-        qd_new, impulse_pts, p_w, imp_dof, ccache_out = self._contact_solve(
-            qd_new, body_x, body_q, S, Hinv, qpos_dof, S_bl, hinv_bl,
-            ccache=contact_cache, qd_geom=qd)
+        if self.has_contact_rows:
+            qd_new, impulse_pts, p_w, imp_dof, ccache_out = \
+                self._contact_solve(qd_new, body_x, body_q, S, Hinv,
+                                    qpos_dof, S_bl, hinv_bl,
+                                    ccache=contact_cache, qd_geom=qd)
+        else:
+            qd_new = self._limit_solve(qd_new, Hinv, qpos_dof)
+            impulse_pts = p_w = ccache_out = None
+            imp_dof = torch.zeros_like(qd_new)
         qd_new = torch.clamp(qd_new, -self.dof_velocity_limit,
                              self.dof_velocity_limit)
         q_new = self._integrate(q, qd_new)
         return q_new, qd_new, (body_x, body_q, qdd, impulse_pts, p_w,
                                imp_dof, cache_out, ccache_out)
+
+    def _limit_solve(self, qd, Hinv, qpos_dof):
+        """Joint-limit-only solve of a scene without contact rows
+        (engine.py:1927-1953, e.g. Cartpole): 4 projected-Jacobi sweeps over
+        the dofs past a lower or upper limit, with Baumgarte targets and
+        H^-1's diagonal (clamped at 1e-8) as the row masses; each sweep
+        adds H^-1 times the impulse change to qd.  A batched product, as
+        the JAX package computes it outside any Pallas kernel."""
+        if not bool(np.any(np.asarray(self.model.dof_has_limit))):
+            return qd
+        pr, h = self.params, self.h
+        lo_gap = qpos_dof - self.dof_lower
+        hi_gap = self.dof_upper - qpos_dof
+        hinv_diag = torch.clamp(torch.diagonal(Hinv, dim1=-2, dim2=-1),
+                                min=1e-8)
+        b_lo = -pr.baumgarte / h * torch.clamp(lo_gap, max=0.0)
+        b_hi = -pr.baumgarte / h * torch.clamp(hi_gap, max=0.0)
+        act_lo = self.dof_has_limit & (lo_gap < 0.0)
+        act_hi = self.dof_has_limit & (hi_gap < 0.0)
+        lam_lo = torch.zeros_like(qd)
+        lam_hi = torch.zeros_like(qd)
+        for _ in range(4):
+            lam_lo_new = torch.where(
+                act_lo, torch.clamp(lam_lo + (b_lo - qd) / hinv_diag,
+                                    min=0.0), 0.0)
+            lam_hi_new = torch.where(
+                act_hi, torch.clamp(lam_hi + (b_hi + qd) / hinv_diag,
+                                    min=0.0), 0.0)
+            dlim = (lam_lo_new - lam_lo) - (lam_hi_new - lam_hi)
+            qd = qd + torch.einsum("nvw,nw->nv", Hinv, dlim)
+            lam_lo, lam_hi = lam_lo_new, lam_hi_new
+        return qd
 
     def _contact_points(self, body_x, body_q):
         """World ground-candidate positions p (N, n_ground, 3)."""
@@ -1004,8 +1045,9 @@ class PhysicsEngine:
                 cache = aux[6]
             if self.params.reuse_contact_rows:
                 ccache = aux[7]
-            impulse_accum = (aux[3] if impulse_accum is None
-                             else impulse_accum + aux[3])
+            if aux[3] is not None:
+                impulse_accum = (aux[3] if impulse_accum is None
+                                 else impulse_accum + aux[3])
             imp_dof_accum = imp_dof_accum + aux[5]
         qdd, p_w = aux[2], aux[4]
         # refresh kinematic outputs at the new state (kernel B1)
@@ -1020,12 +1062,14 @@ class PhysicsEngine:
         """Readouts incl. net contact forces (+f on a row's body a, -f on its
         body b) and force sensors with the wrenches of both ends
         (engine.py:2023-2080; Ant's obs[28:52], BallBalance's tray
-        sensors)."""
+        sensors).  A scene without contact rows reads zeros."""
         w = V[..., 0:3]
         v_lin = V[..., 3:6] + _cross(w, body_x)
+        N = body_x.shape[0]
+        if impulses is None:        # no contact rows: zero rows to sum
+            impulses = p_w = body_x.new_zeros((N, 0, 3))
         force_rows = impulses / self.params.dt                  # world frame
         contact_force = torch.einsum("npk,pb->nbk", force_rows, self.seg)
-        N = body_x.shape[0]
         if len(self.sensor_body):
             # wrench about each sensor point, rotated into the body frame
             xa = body_x[:, self.row_body_a]

@@ -3,9 +3,10 @@
 Port of the TPU kernel ``_spd_inverse_pallas`` of
 isaacgymenvs_ma_tpu/physics/engine.py (a Gauss-Jordan sweep, no pivoting,
 over batch-last lanes).  The CUDA kernel reads the batch-first ``(B, n, n)``
-stack directly, one matrix per thread, with ``n`` compiled in through a
-per-size header (:class:`SpdPlan`).  Its plain twin is the one the B2 twin
-already uses, :func:`.dyn_kernel.sweep_inverse_bl`.
+stack directly: a team of lanes per matrix, a lane per row, several
+matrices per block staged through shared memory, with ``n`` and the launch
+layout compiled in through a per-size header (:class:`SpdPlan`).  Its plain
+twin is the one the B2 twin already uses, :func:`.dyn_kernel.sweep_inverse_bl`.
 
 ==============  ==========================  ===============================
 wrapper         CUDA source (csrc/)         replaces (TPU Pallas kernel)
@@ -25,12 +26,13 @@ import ctypes
 
 import torch
 
-from .dyn_kernel import (_check_kernel_input, _launch, _on_cpu, _ptr,
-                         sweep_inverse_bl)
+from .dyn_kernel import (KernelLayout, _check_kernel_input, _launch, _on_cpu,
+                         _ptr, sweep_inverse_bl)
 
 
 class SpdPlan:
-    """The static part of B5: the matrix size, baked in as ``spd::N``."""
+    """The static part of B5: the matrix size ``n`` and its launch layout,
+    baked in as ``spd::N`` and the ``B5_*`` constants."""
 
     kernel_names = ("spd_inverse",)
 
@@ -39,12 +41,36 @@ class SpdPlan:
         self.libs = {}          # kernel name -> loaded ctypes library
         self.build_log = {}     # kernel name -> nvcc/ptxas report
 
+    def layout(self) -> KernelLayout:
+        """B5's layout: a team of the power of two >= n lanes (8 to 32, so
+        a team never spans two warps) per matrix, as many matrices as a
+        256-thread block holds, each in shared memory as it lies in H
+        (n^2 floats, end to end), so that a warp copies its matrices 16
+        bytes at a time."""
+        n = self.n
+        return KernelLayout(n, {}, n * n, pad=False)
+
+    @property
+    def rows(self) -> int:
+        """Rows each lane holds in registers: ceil(n / team)."""
+        return -(-self.n // self.layout().team)
+
+    def lane_rows(self) -> list:
+        """The matrix rows each lane of the team owns: row r goes to lane
+        r % team."""
+        team = self.layout().team
+        return [list(range(lane, self.n, team)) for lane in range(team)]
+
     def header(self) -> str:
         return "\n".join([
             "// Generated by isaacgymenvs_ma_tpu_torch.physics.spd_kernel."
             "SpdPlan.header: do not edit.",
             "#pragma once",
-            f"namespace spd {{ constexpr int N = {self.n}; }}", ""])
+            "namespace spd {",
+            f"constexpr int N = {self.n};",
+            f"constexpr int B5_ROWS = {self.rows};",
+            *self.layout().header_lines("B5"),
+            "}  // namespace spd", ""])
 
 
 _PLANS = {}

@@ -1,7 +1,8 @@
 """Where the time goes in a PyTorch port task step on one GPU.
 
-    python3 scripts/profile_torch_ant.py [--task Ant|BallBalance|FrankaReachMA]
-        [--contact-kernel] [--envs N] [--steps 20] [--table PATH]
+    python3 scripts/profile_torch_ant.py
+        [--task Ant|BallBalance|FrankaReachMA|Cartpole] [--contact-kernel]
+        [--envs N] [--steps 20] [--table PATH]
 
 Runs the port's step of the task (Ant by default, at its configuration's
 env count unless ``--envs``; ``--contact-kernel`` routes the contact loop
@@ -9,8 +10,11 @@ through kernel B4) with tanh(obs @ W) actions, as chip_smoke.py does, under
 torch.profiler after a warm-up, and prints: host wall time per step, device
 kernel time per step (the sum over CUDA kernels), the device busy share
 (kernel time / wall time), kernel launches per step, the top kernels by
-device time and the port's kernels B1-B5.  ``--table`` writes
-torch.profiler's full table to PATH.
+device time and the port's kernels B1-B5.  B5's launches are also reported
+per matrix size: FrankaReachMA's OSC inverts the arm mass matrices (n = 7)
+and then J M^-1 J^T (n = 6) every step, so in time order its launches
+alternate between the two.  ``--table`` writes torch.profiler's full table
+to PATH.
 """
 import argparse
 import os
@@ -23,7 +27,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant",
-                    choices=("Ant", "BallBalance", "FrankaReachMA"))
+                    choices=("Ant", "BallBalance", "FrankaReachMA",
+                             "Cartpole"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
     ap.add_argument("--envs", type=int, default=None,
@@ -97,6 +102,14 @@ def main():
         c = sum(h[1] for h in hits)
         print(f"  port kernel {kname}: launches/step={c / args.steps:.1f} "
               f"us/launch={t / max(c, 1):.2f}")
+    if args.task == "FrankaReachMA":
+        b5 = sorted((e for e in events if "spd_inverse_kernel" in e.name),
+                    key=lambda e: e.time_range.start)
+        for i, n in enumerate((7, 6)):
+            us = [e.device_time_total for e in b5[i::2]]
+            print(f"  port kernel spd_inverse_kernel n={n}: "
+                  f"launches/step={len(us) / args.steps:.1f} "
+                  f"us/launch={sum(us) / max(len(us), 1):.2f}")
     return 0
 
 

@@ -11,6 +11,10 @@ table), then 6 steps are recorded under fixed seeded actions, with a
 quarter of the envs flagged to reset on the first recorded step and the
 JAX reset draws stored for every step.  Multi-agent tasks record actions,
 obs, rewards and resets per agent row (num_envs * num_agents rows).
+``--task Cartpole`` -> cartpole_golden.npz records instead the rollout of
+tests/test_golden_cartpole.py: 64 envs from ``initial_state(PRNGKey(1234))``
+(every env reset on step 1), 101 steps of the action sin(0.1 t), no
+warm-up, each step jitted on its own.
 
 ``--kernel-route`` records the JAX contact-kernel route instead: the
 warm-up stays on the default path (jitted), then the 6 steps run eagerly
@@ -34,7 +38,8 @@ import jax.numpy as jnp
 from isaacgymenvs_ma_tpu.ops import rng as rng_ops
 from isaacgymenvs_ma_tpu.physics import contact_kernel as jck
 from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
-from isaacgymenvs_ma_tpu.tasks import ant, ball_balance, franka_reach_ma
+from isaacgymenvs_ma_tpu.tasks import (ant, ball_balance, cartpole,
+                                       franka_reach_ma)
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 
 WARMUP, T = 20, 6
@@ -73,6 +78,19 @@ def franka_reach_ma_draws(k_reset, task):
             "cube_z_u": jax.random.uniform(k3, (n, t))}
 
 
+def cartpole_draws(k_reset, task):
+    """Cartpole.reset_idx's draws (cartpole.py:124-129): dof positions and
+    velocities, each (N, 2)."""
+    n = task.num_envs
+    k1, k2 = jax.random.split(k_reset)
+    return {"reset_pos": 0.2 * (jax.random.uniform(k1, (n, 2)) - 0.5),
+            "reset_vel": 0.5 * (jax.random.uniform(k2, (n, 2)) - 0.5)}
+
+
+# tasks recorded from a golden rollout of the JAX tests instead of a
+# warmed-up state: name -> (PRNG seed, steps)
+ROLLOUTS = {"Cartpole": (1234, 101)}
+
 TASKS = {  # name -> (class, config, draws, envs, file)
     "Ant": (ant.Ant, ant.TASK_CFG, ant_draws, 64, "ant_golden.npz"),
     "BallBalance": (ball_balance.BallBalance, ball_balance.TASK_CFG,
@@ -80,6 +98,8 @@ TASKS = {  # name -> (class, config, draws, envs, file)
     "FrankaReachMA": (franka_reach_ma.FrankaReachMA,
                       franka_reach_ma.TASK_CFG, franka_reach_ma_draws, 16,
                       "franka_reach_ma_golden.npz"),
+    "Cartpole": (cartpole.Cartpole, cartpole.TASK_CFG, cartpole_draws, 64,
+                 "cartpole_golden.npz"),
 }
 
 
@@ -97,21 +117,28 @@ def main():
     A, B = task.num_actions, task.rl_games_batch
     step = jax.jit(task.step)
     rng = np.random.default_rng(2024)
-    st = task.initial_state(jax.random.PRNGKey(2024))
-    for _ in range(WARMUP):
-        st, _ = step(st, jnp.asarray(rng.uniform(-1, 1, (B, A)), jnp.float32))
-    flags = np.asarray(st.reset_buf).copy()
-    flags[: n // 4] = 1
-    st = st._replace(reset_buf=jnp.asarray(flags, jnp.int32))
+    if args.task in ROLLOUTS:
+        seed, steps = ROLLOUTS[args.task]
+        st = task.initial_state(jax.random.PRNGKey(seed))
+        a = jnp.sin(0.1 * jnp.arange(steps, dtype=jnp.float32))
+        actions = np.repeat(np.asarray(a)[:, None, None], B, axis=1)
+    else:
+        st = task.initial_state(jax.random.PRNGKey(2024))
+        for _ in range(WARMUP):
+            st, _ = step(st, jnp.asarray(rng.uniform(-1, 1, (B, A)),
+                                         jnp.float32))
+        flags = np.asarray(st.reset_buf).copy()
+        flags[: n // 4] = 1
+        st = st._replace(reset_buf=jnp.asarray(flags, jnp.int32))
+        actions = rng.uniform(-1, 1, (T, B, A)).astype(np.float32)
     rec = {
         "task": np.asarray(args.task), "atol": np.float32(2e-3),
         "init_q": np.asarray(st.sim.q), "init_qd": np.asarray(st.sim.qd),
         "init_progress": np.asarray(st.progress),
         "init_reset_buf": np.asarray(st.reset_buf),
     }
-    for f in st.task._fields:
+    for f in st.task._fields if st.task is not None else ():
         rec[f"init_{f}"] = np.asarray(getattr(st.task, f))
-    actions = rng.uniform(-1, 1, (T, B, A)).astype(np.float32)
     fields = {k: [] for k in ("obs", "rew", "reset", "q", "qd")}
     if args.kernel_route:
         jdk._FORCE_INTERPRET = True
@@ -121,7 +148,7 @@ def main():
             eng, n, jnp.float32, P, len(eng.attractors), len(eng.grabs),
             bool(eng.pairs)), "the JAX engine would not take its kernels"
         step = task.step        # eager: the flag is read while tracing
-    for t in range(T):
+    for t in range(len(actions)):
         k_reset = jax.random.split(st.rng, 6)[1]   # VecTaskBase.step's key
         for k, v in draws_of(k_reset, task).items():
             fields.setdefault(k, []).append(np.asarray(v))

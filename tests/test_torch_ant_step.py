@@ -278,17 +278,43 @@ def test_unported_options_raise(override):
                                     {"grabs": [(0, (0, 0, 0), 1, (0, 0, 0))]}],
                          ids=["no_ground", "pairs", "attractors", "grabs"])
 def test_unported_scene_features_raise(kwargs):
-    """Still unported: a scene with no contact rows at all (the JAX engine's
-    _limit_solve, which also ignores attractors), SDF-grid pair targets,
-    grab constraints."""
+    """Still unported, and raising: SDF-grid pair targets and grab
+    constraints.  A scene with no contact rows at all (no ground, or only
+    attractors, which the JAX engine then ignores) raised until the
+    joint-limit solve was ported: now it builds without B4's plan, and one
+    step of the falling Ant with a hip pushed past its upper limit matches
+    the JAX engine's (q rtol 2e-4 / atol 2e-5, qd 2e-3)."""
     import dataclasses
     from isaacgymenvs_ma_tpu.models.model import GEOM_SDF
     from isaacgymenvs_ma_tpu.models.robots import build_ant
+    from isaacgymenvs_ma_tpu.physics.engine import (
+        Control as JControl, PhysicsEngine as JEngine,
+        SimParams as JSimParams, SimState as JSimState)
     m = build_ant()
     if kwargs.pop("sdf", False):
         m.geoms[1] = dataclasses.replace(m.geoms[1], gtype=GEOM_SDF)
-    with pytest.raises(NotImplementedError):
-        PhysicsEngine(m, SimParams(), device="cpu", **kwargs)
+    if "pair_specs" in kwargs or "grabs" in kwargs:
+        with pytest.raises(NotImplementedError):
+            PhysicsEngine(m, SimParams(), device="cpu", **kwargs)
+        return
+    te = PhysicsEngine(m, SimParams(), device="cpu", **kwargs)
+    assert not te.has_contact_rows and te.cplan is None
+    je = JEngine(m, JSimParams(), **kwargs)
+    n = 4
+    q = np.array(je.default_state(n).q)
+    q[:, 7] = float(m.dof_upper[6]) + 0.05
+    qd = np.random.default_rng(1).normal(0, 1, (n, m.nv)).astype(np.float32)
+    qd[:, 6] = 1.0                              # moving further out
+    tau = np.zeros((n, m.nv), np.float32)
+    js, _ = je.step(JSimState(jnp.asarray(q), jnp.asarray(qd)),
+                    JControl(tau=jnp.asarray(tau)))
+    ts, _ = te.step(SimState(torch.as_tensor(q), torch.as_tensor(qd)),
+                    Control(tau=torch.as_tensor(tau)))
+    np.testing.assert_allclose(ts.q.numpy(), np.asarray(js.q), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(ts.qd.numpy(), np.asarray(js.qd), rtol=2e-3,
+                               atol=2e-3)
+    assert (ts.qd.numpy()[:, 6] < 1.0).all()     # the limit row pushed back
 
 
 def test_terrain_and_phys_raise():

@@ -8,21 +8,30 @@ trays, FrankaReachMA's cubes on the table), a quarter of the envs reset on
 step 1 with the recorded JAX reset draws; franka_reach_ma_b4_golden.npz
 (``--kernel-route``) the same for FrankaReachMA at 128 envs x 2 arms on
 the JAX contact-kernel route (Pallas interpret mode: all 41 candidate rows,
-no compaction or row reuse), replayed on the port's B4 route.
-chip_smoke.py replays the same files through the CUDA kernels.
+no compaction or row reuse), replayed on the port's B4 route;
+cartpole_golden.npz (``--task Cartpole``) the rollout of
+tests/test_golden_cartpole.py: 64 envs from its initial state (every env
+reset on step 1), 101 steps of the action sin(0.1 t), with every step's
+JAX reset draws.  chip_smoke.py replays the same files through the CUDA
+kernels.
 
 The per-step tolerances and their reasons are parity.GOLDEN_TOL's (Ant),
-parity.BB_GOLDEN_TOL's (BallBalance) and parity.FRANKA_GOLDEN_TOL's
-(FrankaReachMA).
+parity.BB_GOLDEN_TOL's (BallBalance), parity.FRANKA_GOLDEN_TOL's
+(FrankaReachMA) and parity.CARTPOLE_GOLDEN_TOL's (Cartpole).
 """
 import os
 
 import numpy as np
 
 import pytest
+import torch
 
+from isaacgymenvs_ma_tpu_torch.convert import env_state_from_jax
+from isaacgymenvs_ma_tpu_torch.tasks.cartpole import Cartpole, TASK_CFG
+from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.utils.parity import (
-    BB_GOLDEN_TOL, FRANKA_GOLDEN_TOL, GOLDEN_TOL, replay)
+    BB_GOLDEN_TOL, CARTPOLE_GOLDEN_TOL, FRANKA_GOLDEN_TOL, GOLDEN_TOL, replay)
+from test_golden_cartpole import GOLDEN as CARTPOLE_GOLDEN_OBS
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
@@ -30,6 +39,7 @@ GOLDEN = os.path.join(DATA, "ant_golden.npz")
 BB_GOLDEN = os.path.join(DATA, "ball_balance_golden.npz")
 FRANKA_GOLDEN = os.path.join(DATA, "franka_reach_ma_golden.npz")
 FRANKA_B4_GOLDEN = os.path.join(DATA, "franka_reach_ma_b4_golden.npz")
+CARTPOLE_GOLDEN = os.path.join(DATA, "cartpole_golden.npz")
 
 
 def test_golden_capture_format():
@@ -123,3 +133,60 @@ def test_franka_reach_ma_b4_golden_replay_on_cpu_twins():
         errs = getattr(e, k)
         assert (errs <= tol).all(), f"{k} per-step errors {errs} > {tol}"
     assert int(e.reset_mismatches.sum()) == 0
+
+
+def test_cartpole_golden_capture_format():
+    """The capture is tests/test_golden_cartpole.py's rollout: its env-0
+    obs at steps 10, 50 and 100 are that test's GOLDEN, bit for bit."""
+    d = np.load(CARTPOLE_GOLDEN)
+    T, N = d["actions"].shape[:2]
+    assert (T, N) == (101, 64) and str(d["task"]) == "Cartpole"
+    assert d["obs"].shape == (T, N, 4) and d["q"].shape == (T, N, 2)
+    assert d["reset_pos"].shape == d["reset_vel"].shape == (T, N, 2)
+    assert int(d["init_reset_buf"].sum()) == N and not d["init_q"].any()
+    np.testing.assert_allclose(d["actions"][:, :, 0],
+                               np.sin(0.1 * np.arange(T))[:, None]
+                               * np.ones((1, N)), atol=1e-6)
+    np.testing.assert_array_equal(d["obs"][[10, 50, 100], 0],
+                                  CARTPOLE_GOLDEN_OBS)
+    # poles fall and carts leave +-resetDist: the rollout resets envs
+    assert int(d["reset"].sum()) > N
+    assert os.path.getsize(CARTPOLE_GOLDEN) < 400_000
+
+
+def test_cartpole_golden_replay_on_cpu_twins():
+    """All 101 steps, every env, at CARTPOLE_GOLDEN_TOL; resets exact."""
+    e = replay(CARTPOLE_GOLDEN, "cpu")
+    assert e.finite
+    for k, tol in CARTPOLE_GOLDEN_TOL.items():
+        errs = getattr(e, k)
+        assert (errs <= tol).all(), f"{k} per-step errors {errs} > {tol}"
+    assert int(e.reset_mismatches.sum()) == 0
+
+
+def test_cartpole_golden_trajectory():
+    """The port's env-0 obs at steps 10, 50 and 100 of the rollout (the
+    JAX reset draws injected) against tests/test_golden_cartpole.py's
+    GOLDEN with that test's own check, ``np.allclose(got, GOLDEN,
+    atol=1e-4)`` (whose default rtol 1e-5 is part of it).  The port
+    rounds otherwise than the JAX XLA path (a sweep where JAX has the
+    closed-form 2x2 inverse, other summation orders) and Cartpole is
+    unstable about its upright pose, so the two drift apart over the
+    rollout: on the CPU twins env 0 is 1.04e-4 from GOLDEN at step 50 (its
+    pole velocity, |GOLDEN| 3.33), inside that check's 1.33e-4 there."""
+    d = np.load(CARTPOLE_GOLDEN)
+    task = Cartpole(deep_merge(TASK_CFG, {"env": {"numEnvs": 64}}),
+                    device="cpu")
+    state = env_state_from_jax(
+        {"sim.q": d["init_q"], "sim.qd": d["init_qd"],
+         "progress": d["init_progress"], "reset_buf": d["init_reset_buf"]},
+        "cpu")
+    obs0 = []
+    for t in range(101):
+        draws = (torch.as_tensor(d["reset_pos"][t]),
+                 torch.as_tensor(d["reset_vel"][t]))
+        state, res = task.step(state, torch.as_tensor(d["actions"][t]),
+                               reset_draws=draws)
+        obs0.append(res.obs[0].numpy())
+    got = np.stack(obs0)[[10, 50, 100]]
+    assert np.allclose(got, CARTPOLE_GOLDEN_OBS, atol=1e-4), got

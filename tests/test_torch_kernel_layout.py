@@ -13,8 +13,10 @@ and the rows each lane of B4's team owns.
 
 Scenes: Ant and BallBalance (both contact routes' plans), FrankaReachMA at
 its committed capture's warmed-up state (16 envs x 2 arms; its B4 plan from
-the kernel route), and a seeded contact plan with every row group (the
-synthetic grab plan of chip_smoke.py: nv 14, P 8, A 2, G 2, frames).
+the kernel route), Cartpole (the smallest tree B1-B3 take: a fixed root, a
+SLIDE and a HINGE, nv 2; no contact plan), and a seeded contact plan with
+every row group (the synthetic grab plan of chip_smoke.py: nv 14, P 8, A 2,
+G 2, frames).
 """
 import os
 import re
@@ -33,10 +35,11 @@ from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
-SCENES = ("Ant", "BallBalance", "FrankaReachMA")
+SCENES = ("Ant", "BallBalance", "FrankaReachMA", "Cartpole")
 BLOCK_SIZES = {"Ant": [14],               # the torso's free joint ties all
                "BallBalance": [12, 6],    # tray + legs, ball
-               "FrankaReachMA": [9, 9, 6, 6]}   # two arms, two cubes
+               "FrankaReachMA": [9, 9, 6, 6],   # two arms, two cubes
+               "Cartpole": [2]}           # cart and pole under the slider
 CONTACT_PLANS = ("Ant", "BallBalance", "FrankaReachMA", "grab")
 
 
@@ -52,7 +55,8 @@ def _task(name, n, kernel_route):
 def tasks():
     return {"Ant": _task("Ant", 4, True),
             "BallBalance": _task("BallBalance", 4, True),
-            "FrankaReachMA": _task("FrankaReachMA", 16, True)}
+            "FrankaReachMA": _task("FrankaReachMA", 16, True),
+            "Cartpole": _task("Cartpole", 4, True)}
 
 
 def grab_plan():
@@ -249,8 +253,10 @@ def test_layout_rules():
 
 # ---- B1, B3 and B4's wide plan
 
-TEAMS = {"fk_motion": {"Ant": 8, "BallBalance": 8, "FrankaReachMA": 8},
-         "dyn_cached": {"Ant": 16, "BallBalance": 16, "FrankaReachMA": 32}}
+TEAMS = {"fk_motion": {"Ant": 8, "BallBalance": 8, "FrankaReachMA": 8,
+                       "Cartpole": 8},
+         "dyn_cached": {"Ant": 16, "BallBalance": 16, "FrankaReachMA": 32,
+                        "Cartpole": 8}}
 
 
 @pytest.mark.parametrize("kernel", list(TEAMS))
@@ -325,7 +331,7 @@ def test_block_restricted_qdd_equals_dense_at_franka_capture(tasks):
         rtol=1e-5, atol=1e-4)
 
 
-ACTIVE = {"Ant": 9, "BallBalance": 8, "FrankaReachMA": 32}
+ACTIVE = {"Ant": 9, "BallBalance": 8, "FrankaReachMA": 32, "Cartpole": 2}
 
 
 @pytest.mark.parametrize("name", SCENES)
@@ -368,12 +374,7 @@ def test_tree_lists_match_the_tree(tasks, name):
                                                      for j in blk]
 
 
-@pytest.mark.parametrize("kernel,prefix", [("fk_motion", "b1"),
-                                           ("dyn_cached", "b3")])
-def test_scene_header_packs_b1_b3_tables(tasks, kernel, prefix):
-    """Each kernel's tables sit end to end in one int and (B1) one float
-    device array, at the offsets the header names."""
-    plan = tasks["FrankaReachMA"].engine.plan
+def _assert_packed_tables(plan, kernel, prefix):
     h = plan.header()
     ints, floats = dk.kernel_tables(plan, kernel)
     for ctype, tables in (("int", ints), ("float", floats)):
@@ -390,3 +391,30 @@ def test_scene_header_packs_b1_b3_tables(tasks, kernel, prefix):
                 np.asarray(tab, np.float32), err_msg=tname)
     n_act = len(dk.tree_lists(plan)["act"])
     assert f"constexpr int B3_NACT = {n_act};" in h
+
+
+@pytest.mark.parametrize("kernel,prefix", [("fk_motion", "b1"),
+                                           ("dyn_cached", "b3")])
+def test_scene_header_packs_b1_b3_tables(tasks, kernel, prefix):
+    """Each kernel's tables sit end to end in one int and (B1) one float
+    device array, at the offsets the header names."""
+    _assert_packed_tables(tasks["FrankaReachMA"].engine.plan, kernel, prefix)
+
+
+def test_cartpole_plan_at_the_smallest_tree(tasks):
+    """Cartpole's plan: three levels of one body, the fixed slider inactive
+    (no dof on its path), one H block of both dofs, B2's and B3's teams of
+    3 and 4 lanes' work clamped up to 8, and B1's and B3's packed tables
+    at the offsets the header names."""
+    plan = tasks["Cartpole"].engine.plan
+    assert (plan.nb, plan.nq, plan.nv) == (3, 2, 2)
+    assert plan.levels == [[0], [1], [2]] and plan.blocks == [[0, 1]]
+    t = dk.tree_lists(plan)
+    assert t["act"] == [1, 2] and t["hb_row"] == [0, 1, 2, 3]
+    assert dk.b2_tables(plan)["gat_body"] == [0, 1]
+    for kernel in DYN_KERNELS:
+        lay = plan.layout(kernel)
+        assert lay.team == 8 and lay.team * lay.envs == 256
+    for kernel, prefix in (("fk_motion", "b1"), ("dyn_cached", "b3")):
+        _assert_packed_tables(plan, kernel, prefix)
+    assert tasks["Cartpole"].engine.cplan is None

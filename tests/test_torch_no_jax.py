@@ -2,10 +2,11 @@
 
 Runs in a subprocess because tests/conftest.py imports jax into this one:
 import every module of isaacgymenvs_ma_tpu_torch, build and step Ant and
-BallBalance at 8 envs on the CPU (default loop and contact-kernel route)
-and FrankaReachMA at 4 envs x 2 arms (OSC; compaction and row reuse on
-the default loop, and the contact-kernel route), call
-``spd_inverse``, then check that neither ``jax*`` nor
+BallBalance at 8 envs on the CPU (default loop and contact-kernel route),
+FrankaReachMA at 4 envs x 2 arms (OSC; compaction and row reuse on the
+default loop, and the contact-kernel route) and Cartpole at 8 envs (the
+contact-free path, which no route option changes), call ``spd_inverse``,
+then check that neither ``jax*`` nor
 ``isaacgymenvs_ma_tpu`` / ``isaacgymenvs_ma_tpu.*`` was loaded.
 """
 import os
@@ -53,6 +54,18 @@ SCRIPT = textwrap.dedent("""
         for _ in range(2):
             state, res = task.step(state, torch.tanh(torch.randn(8, 6)))
         assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 19)
+    from isaacgymenvs_ma_tpu_torch.tasks.cartpole import (
+        Cartpole, TASK_CFG as CP_CFG)
+    for kernel_route in (False, True):
+        cfg = deep_merge(CP_CFG, {"env": {"numEnvs": 8}})
+        params = parse_sim_params(cfg["sim"])._replace(
+            use_contact_kernel=kernel_route)
+        task = Cartpole(cfg, device="cpu", sim_params=params)
+        assert task.engine.cplan is None
+        state = task.initial_state()
+        for _ in range(3):
+            state, res = task.step(state, torch.tanh(torch.randn(8, 1)))
+        assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 4)
     A = torch.randn(5, 7, 7)
     Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
     assert torch.isfinite(Hinv).all()
@@ -73,6 +86,6 @@ def test_port_imports_and_steps_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
     # every module of the package was imported (scaffold, models, ops,
-    # physics, tasks, utils, convert)
+    # physics, tasks, utils, convert), models.urdf and tasks.cartpole too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 19, proc.stdout
+    assert n_mods >= 21, proc.stdout

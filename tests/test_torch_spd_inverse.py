@@ -2,7 +2,9 @@
 
 ``isaacgymenvs_ma_tpu_torch.physics.engine.spd_inverse`` against the JAX
 package on the same seeded SPD matrices (A A^T + 3 I, as
-tests/test_contact_opt.py:88-89), for n in {1, 2, 3, 6, 7, 14}:
+tests/test_contact_opt.py:88-89), for n in {1, 2, 3, 6, 7, 14, 30, 48}
+(30: the JAX kernel's own measured size, engine.py:249-250; 48: two rows
+a lane of kernel B5's team):
 
 * against the JAX sweep ``_sweep_inverse_batchlast`` (the body of the TPU
   kernel B5 replaces): rtol 1e-5, atol 1e-6.  For n >= 3 the port runs the
@@ -12,8 +14,9 @@ tests/test_contact_opt.py:88-89), for n in {1, 2, 3, 6, 7, 14}:
   algorithms round differently.
 
 The kernel itself is held against its twin on the card by chip_smoke.py;
-here: the wrapper's CPU dispatch, the per-size header, the registration of
-B5 and that a missing nvcc raises.
+here: the wrapper's CPU dispatch, B5's launch layout (a team of lanes per
+matrix, a lane per row) and per-size header, the registration of B5 and
+that a missing nvcc raises.
 """
 import numpy as np
 import jax.numpy as jnp
@@ -26,7 +29,7 @@ from isaacgymenvs_ma_tpu_torch.physics import KERNEL_WRAPPERS, _build
 from isaacgymenvs_ma_tpu_torch.physics import spd_kernel
 from isaacgymenvs_ma_tpu_torch.physics.engine import spd_inverse
 
-SIZES = [1, 2, 3, 6, 7, 14]
+SIZES = [1, 2, 3, 6, 7, 14, 30, 48]
 
 
 def spd_batch(n, B=32, seed=0):
@@ -90,6 +93,43 @@ def test_b5_plan_header_and_registration():
     assert len(_build._ARGTYPES["spd_inverse"]) == 5
     assert (_build.lib_dir("spd_inverse", p7.header())
             != _build.lib_dir("spd_inverse", spd_kernel.get_plan(6).header()))
+
+
+# n -> (team, rows a lane, matrices per 256-thread block)
+B5_LAYOUTS = {3: (8, 1, 32), 6: (8, 1, 32), 7: (8, 1, 32), 14: (16, 1, 16),
+              30: (32, 1, 8), 48: (32, 2, 8)}
+
+
+@pytest.mark.parametrize("n", sorted(B5_LAYOUTS))
+def test_b5_layout(n):
+    """B5's launch layout from ``KernelLayout``: a team of the power of two
+    >= n lanes (8 to 32), as many matrices as 256 threads hold, each in
+    shared memory as in H (n^2 floats, no padding); the header bakes it in;
+    every row of the matrix is owned by exactly one lane, row r by lane
+    r % team, at most ``rows`` rows a lane."""
+    plan = spd_kernel.SpdPlan(n)
+    lay = plan.layout()
+    team, rows, mats = B5_LAYOUTS[n]
+    assert (lay.team, plan.rows, lay.envs) == (team, rows, mats)
+    assert lay.team * lay.envs == 256
+    assert lay.offsets == {} and lay.floats == n * n
+    assert lay.shared == 0 and lay.smem_bytes == 4 * lay.envs * lay.floats
+    h = plan.header()
+    for line in (f"constexpr int N = {n};",
+                 f"constexpr int B5_ROWS = {rows};",
+                 f"constexpr int B5_TEAM = {team};",
+                 f"constexpr int B5_ENVS = {mats};",
+                 f"constexpr int B5_FLOATS = {lay.floats};",
+                 f"constexpr int B5_SMEM_BYTES = {lay.smem_bytes};"):
+        assert line in h
+    lanes = plan.lane_rows()
+    assert len(lanes) == team
+    assert sorted(r for owned in lanes for r in owned) == list(range(n))
+    assert max(len(owned) for owned in lanes) == rows
+    for lane, owned in enumerate(lanes):
+        assert all(r % team == lane for r in owned)
+    # above 48 KB the launch opts in to dynamic shared memory (n = 48)
+    assert (lay.smem_bytes > 48 * 1024) == (n == 48)
 
 
 def test_b5_build_without_nvcc_raises(monkeypatch):
