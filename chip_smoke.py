@@ -38,17 +38,28 @@ Phases, each printing its own lines; any failure exits non-zero
      tanh(obs @ W) actions; env-steps/s (and agent-steps/s), stream ms per
      step by CUDA events (the kernels and the device's idle gaps between
      them), launches per kernel
+  6. train, each run with the launch counts set to 0 just before it: PPO
+     (``learning/ppo.py``) on Ant-4096 with the Ant train config (1
+     warm-up epoch, 3 timed) and on FrankaReachMA at 8192 envs x 2 arms
+     with its config (1 warm-up, 1 timed; B5 exactly twice a step), each
+     epoch's seconds, rollout and update ms (CUDA events), training
+     frames/s and losses; then Cartpole-512 through the ``train`` entry
+     point until its mean return passes 100, failing if it has not by
+     epoch 100 (the config's max_epochs)
 The line before the last is the kernels JSON, the last line
 {"ok": true, "device": {...}}.  Needs a CUDA device; never falls back to
 the CPU and never imports jax.
 """
+import collections
 import json
+import math
 import os
 import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_ENVS = 4096
@@ -62,6 +73,12 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("cartpole", "Cartpole", False, 100, 512),
 )
 DYN = ("fk_motion", "dyn_forward", "dyn_cached")
+# phase 6: tag, task, warm-up epochs, timed epochs (the main phases' tasks)
+TRAIN_RUNS = (("train_ant", "ant", 1, 3),
+              ("train_franka_reach_ma", "franka_reach_ma", 1, 1))
+# learn_cartpole: the bar of tests/test_ppo_cartpole.py within the Cartpole
+# config's max_epochs
+LEARN_BAR, LEARN_EPOCHS = 100.0, 100
 # kernel name -> scene of its kernels-JSON row (where it runs first)
 JSON_SCENE = {"fk_motion": "ant", "dyn_forward": "ant", "dyn_cached": "ant",
               "contact_solve": "ant", "spd_inverse": "franka_reach_ma"}
@@ -624,15 +641,83 @@ def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
         raise RuntimeError("main path produced non-finite values")
     if tuple(obs.shape) != (task.rl_games_batch, task.num_obs):
         raise RuntimeError(f"obs shape {tuple(obs.shape)}")
-    missing = [k for k in expected if launches[k] <= 0]
-    if missing:
-        raise RuntimeError(f"main path never launched kernels {missing}")
-    stray = [k for k in forbidden if launches[k]]
-    if stray:
-        raise RuntimeError(f"main path launched kernels {stray} off their "
-                           "path")
+    check_launches(launches, expected, forbidden, "main path")
     return dict(seconds=seconds, stream_ms=start.elapsed_time(end) / steps,
                 resets=int(resets), launches=launches)
+
+
+def check_launches(launches, expected, forbidden, what):
+    missing = [k for k in expected if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{what} never launched kernels {missing}")
+    stray = [k for k in forbidden if launches[k]]
+    if stray:
+        raise RuntimeError(f"{what} launched kernels {stray} off their path")
+
+
+def train_run(torch, wrappers, agent, warm, epochs, expected, forbidden):
+    """One training run: ``warm`` epochs, every launch count set to 0, then
+    ``epochs`` timed epochs, each by CUDA events split at the start of the
+    update (rollout + GAE | normalisers + minibatch SGD) and by the host
+    clock to a synchronize, its host waits for the card counted by file
+    and line (CUDA sync debug mode).  Fails on a non-finite loss or
+    parameter, parameters unchanged by an epoch, a wrong obs shape or a
+    kernel outside its set."""
+    task = agent.task
+    marks = []
+    update = agent._update
+
+    def timed_update(*a, **k):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+        return update(*a, **k)
+
+    agent._update = timed_update
+    agent.init()
+    for _ in range(warm):
+        agent.train_epoch()
+    for w in wrappers.values():
+        w.launches = 0
+    rows = []
+    for _ in range(epochs):
+        before = [p.detach().clone() for p in agent.net.parameters()]
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        # count the epoch's host waits for the card (CUDA sync debug mode)
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                start.record()
+                m = agent.train_epoch()
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        m = {k: float(v) for k, v in m.items()}
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad or not all(bool(torch.isfinite(p).all())
+                          for p in agent.net.parameters()):
+            raise RuntimeError(f"non-finite training values {bad or 'params'}")
+        if all(torch.equal(a, b) for a, b in zip(before,
+                                                 agent.net.parameters())):
+            raise RuntimeError("an epoch left the parameters unchanged")
+        sync_at = collections.Counter(
+            "/".join(w.filename.split(os.sep)[-2:]) + f":{w.lineno}"
+            for w in syncs)
+        rows.append(dict(seconds=seconds,
+                         rollout_ms=start.elapsed_time(marks[-1]),
+                         update_ms=marks[-1].elapsed_time(end), m=m,
+                         host_syncs=len(syncs), sync_at=sync_at))
+    shape = tuple(agent.last_obs.shape)
+    if shape != (task.rl_games_batch, task.num_obs):
+        raise RuntimeError(f"obs shape {shape}")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check_launches(launches, expected, forbidden, "training")
+    return rows, launches
 
 
 def build_all(_build, plans):
@@ -882,6 +967,67 @@ def main():
               **agents, stream_ms_per_step=f"{r['stream_ms']:.4f}",
               resets=r["resets"],
               launches=json.dumps(r["launches"]).replace(" ", ""))
+
+    # ---- 6. train: PPO epochs on the main phases' tasks, then Cartpole
+    # learning through the train entry point
+    from isaacgymenvs_ma_tpu_torch import train as train_cli
+    from isaacgymenvs_ma_tpu_torch.learning.configs import (
+        train_default_config)
+    from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
+    for tag, scene, warm, epochs in TRAIN_RUNS:
+        task = tasks[scene]
+        expected = DYN + (("spd_inverse",) if task.num_agents > 1 else ())
+        forbidden = [k for k in KERNEL_WRAPPERS if k not in expected]
+        tcfg = train_default_config(type(task).__name__)
+        agent = PPOAgent(task, tcfg, seed=42)
+        rows, launches = train_run(torch, KERNEL_WRAPPERS, agent, warm, epochs,
+                                   expected, forbidden)
+        steps = agent.horizon * epochs
+        n_b5 = launches["spd_inverse"]
+        if "spd_inverse" in expected and n_b5 != 2 * steps:
+            raise RuntimeError(f"OSC launched B5 {n_b5} times in {steps} "
+                               "steps, not twice a step")
+        for k, c in launches.items():
+            total[k] += c
+        for i, r in enumerate(rows):
+            m, sec = r["m"], r["seconds"]
+            rows_per_s = agent.batch * agent.horizon / sec
+            agents = ({} if task.num_agents == 1 else dict(
+                agents=task.num_agents, agent_steps_per_s=f"{rows_per_s:.1f}"))
+            phase("train", run=tag, epoch=i + 1, envs=task.num_envs,
+                  horizon=agent.horizon, minibatches=agent.num_minibatches,
+                  mini_epochs=agent.cfg.mini_epochs, seconds=f"{sec:.4f}",
+                  rollout_ms=f"{r['rollout_ms']:.3f}",
+                  update_ms=f"{r['update_ms']:.3f}",
+                  host_syncs=r["host_syncs"],
+                  sync_at=json.dumps(dict(r["sync_at"])).replace(" ", ""),
+                  env_steps_per_s=f"{task.num_envs * agent.horizon / sec:.1f}",
+                  **agents, **{k: f"{m[k]:.6g}" for k in (
+                      "loss", "a_loss", "c_loss", "kl", "lr", "sigma",
+                      "mean_return", "episodes_done")})
+        phase("train", run=tag, epochs=epochs,
+              launches=json.dumps(launches).replace(" ", ""))
+
+    for w in KERNEL_WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    agent = train_cli.launch([
+        "task=Cartpole", "num_envs=512", f"max_iterations={LEARN_EPOCHS}",
+        "sim_device=cuda:0", "log_interval=1",
+        f"train.params.config.score_to_win={LEARN_BAR}"])
+    seconds = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in KERNEL_WRAPPERS.items()}
+    ret = float(agent.mean_return)
+    if not ret > LEARN_BAR:
+        raise RuntimeError(f"Cartpole-512 mean return {ret} after "
+                           f"{agent.epoch} epochs, not above {LEARN_BAR}")
+    check_launches(launches, DYN, ("contact_solve", "spd_inverse"),
+                   "learn_cartpole")
+    for k, c in launches.items():
+        total[k] += c
+    phase("train", run="learn_cartpole", passed_at_epoch=agent.epoch,
+          mean_return=f"{ret:.2f}", seconds=f"{seconds:.2f}",
+          launches=json.dumps(launches).replace(" ", ""))
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,8 +1,54 @@
-"""Config helpers of the port (copy of ``deep_merge`` from
-isaacgymenvs_ma_tpu/utils/config.py)."""
+"""Config system of the port (counterpart of
+isaacgymenvs_ma_tpu/utils/config.py).
+
+Every task and train config is a nested dict registered in Python, merged
+as global defaults < task defaults < CLI overrides, with the same
+dotted-override grammar: ``task.env.numEnvs=4096``,
+``train.params.config.horizon_length=32``, the ``num_envs=512`` shorthand.
+
+The JAX package parses each override value with ``yaml.safe_load``; the
+port has no PyYAML, so ``_parse_value`` resolves the scalar forms a command
+line takes by PyYAML's own YAML 1.1 rules (bool, null, int, float, plain
+and quoted strings) and flow lists ``[a, b]``.  A user YAML file
+(``user_yaml``) is not supported.
+"""
 from __future__ import annotations
 
 import copy
+import re
+from typing import Any, Dict, List, Optional
+
+# mirror of the root config surface (reference cfg/config.yaml); the port
+# runs on the card unless the caller asks for the CPU
+GLOBAL_DEFAULTS: Dict[str, Any] = {
+    "task_name": "Cartpole",
+    "experiment": "",
+    "num_envs": "",
+    "seed": 42,
+    "torch_deterministic": False,
+    "max_iterations": "",
+    "sim_device": "cuda:0",
+    "rl_device": "cuda:0",
+    "graphics_device_id": 0,
+    "pipeline": "gpu",
+    "multi_gpu": False,
+    "test": False,
+    "checkpoint": "",
+    "sigma": "",
+    "headless": True,
+    "capture_video": False,
+    "capture_video_freq": 1464,
+    "capture_video_len": 100,
+    "force_render": False,
+    "wandb_activate": False,
+    "wandb_group": "",
+    "wandb_name": "",
+    "wandb_entity": "",
+    "wandb_project": "isaacgymenvs_ma_tpu",
+    "wandb_tags": [],
+    "wandb_logcode_dir": "",
+    "pbt": {"enabled": False},
+}
 
 
 def deep_merge(base: dict, override: dict) -> dict:
@@ -15,3 +61,127 @@ def deep_merge(base: dict, override: dict) -> dict:
         else:
             out[k] = copy.deepcopy(v)
     return out
+
+
+# PyYAML's implicit resolvers (yaml/resolver.py, YAML 1.1); sexagesimal
+# numbers (1:30) and timestamps are left as strings
+_BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False"
+                   r"|FALSE|on|On|ON|off|Off|OFF)$")
+_NULL = re.compile(r"^(?:~|null|Null|NULL|)$")
+_INT = re.compile(r"^(?:[-+]?0b[0-1_]+|[-+]?0[0-7_]+|[-+]?(?:0|[1-9][0-9_]*)"
+                  r"|[-+]?0x[0-9a-fA-F_]+)$")
+_FLOAT = re.compile(r"^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|\.[0-9][0-9_]*(?:[eE][-+][0-9]+)?"
+                    r"|[-+]?\.(?:inf|Inf|INF)|\.(?:nan|NaN|NAN))$")
+
+
+def _scalar(s: str) -> Any:
+    if _NULL.match(s):
+        return None
+    if _BOOL.match(s):
+        return s.lower() in ("yes", "true", "on")
+    if _INT.match(s):
+        v = s.replace("_", "")
+        sign = -1 if v[0] == "-" else 1
+        v = v.lstrip("+-")
+        if v.startswith("0b"):
+            return sign * int(v[2:], 2)
+        if v.startswith("0x"):
+            return sign * int(v[2:], 16)
+        if v != "0" and v.startswith("0"):
+            return sign * int(v, 8)
+        return sign * int(v)
+    if _FLOAT.match(s):
+        v = s.replace("_", "").lower()
+        if v.endswith(".inf"):
+            return float("-inf") if v[0] == "-" else float("inf")
+        if v.endswith(".nan"):
+            return float("nan")
+        return float(v)
+    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+        return s[1:-1]
+    return s
+
+
+def _split_flow(body: str) -> Optional[List[str]]:
+    """Items of a flow list's body at bracket depth 0; None if unbalanced."""
+    items, depth, start = [], 0, 0
+    for i, c in enumerate(body):
+        if c == "[":
+            depth += 1
+        elif c == "]":
+            depth -= 1
+            if depth < 0:
+                return None
+        elif c == "," and depth == 0:
+            items.append(body[start:i])
+            start = i + 1
+    if depth != 0:
+        return None
+    items.append(body[start:])
+    if items[-1].strip() == "":        # "[]" and a trailing comma
+        items.pop()
+    return items
+
+
+def _parse_value(s: str) -> Any:
+    """A CLI override value as ``yaml.safe_load`` reads it; a value it would
+    reject stays the raw string, as in the JAX package."""
+    t = s.strip()
+    if t.startswith("["):
+        if not t.endswith("]"):
+            return s
+        items = _split_flow(t[1:-1])
+        if items is None:
+            return s
+        return [_parse_value(x) for x in items]
+    return _scalar(t)
+
+
+def apply_overrides(cfg: dict, overrides: Optional[List[str]]) -> dict:
+    """Dotted CLI overrides: ``a.b.c=value`` (Hydra grammar; +/++ prefixes ok)."""
+    if not overrides:
+        return cfg
+    cfg = copy.deepcopy(cfg)
+    for ov in overrides:
+        if "=" not in ov:
+            raise ValueError(f"override '{ov}' is not key=value")
+        key, val = ov.split("=", 1)
+        key = key.lstrip("+")
+        parts = key.split(".")
+        node = cfg
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = _parse_value(val)
+    return cfg
+
+
+def resolve_default(default, value):
+    """The reference's ``${resolve_default:X,${...}}`` resolver semantics."""
+    return default if value in ("", None) else value
+
+
+def load_task_config(task_name: str, overrides: Optional[List[str]] = None
+                     ) -> dict:
+    """Resolve a full task config dict (the reference's ``cfg.task`` subtree)."""
+    from ..tasks import registry
+
+    cfg = copy.deepcopy(registry.task_default_config(task_name))
+    return apply_overrides(cfg, overrides)
+
+
+def load_train_config(task_name: str, overrides: Optional[List[str]] = None
+                      ) -> dict:
+    from ..learning import configs as train_configs
+
+    cfg = copy.deepcopy(train_configs.train_default_config(task_name))
+    return apply_overrides(cfg, overrides)
+
+
+def print_dict(d: dict, prefix: str = ""):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            print(f"{prefix}{k}:")
+            print_dict(v, prefix + "  ")
+        else:
+            print(f"{prefix}{k}: {v}")

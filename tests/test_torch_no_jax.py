@@ -6,7 +6,7 @@ BallBalance at 8 envs on the CPU (default loop and contact-kernel route),
 FrankaReachMA at 4 envs x 2 arms (OSC; compaction and row reuse on the
 default loop, and the contact-kernel route) and Cartpole at 8 envs (the
 contact-free path, which no route option changes), call ``spd_inverse``,
-then check that neither ``jax*`` nor
+run one PPO ``train_epoch`` of Cartpole at 16 envs, then check that neither ``jax*`` nor
 ``isaacgymenvs_ma_tpu`` / ``isaacgymenvs_ma_tpu.*`` was loaded.
 """
 import os
@@ -66,6 +66,19 @@ SCRIPT = textwrap.dedent("""
         for _ in range(3):
             state, res = task.step(state, torch.tanh(torch.randn(8, 1)))
         assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 4)
+    from isaacgymenvs_ma_tpu_torch.learning.configs import (
+        train_default_config)
+    from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
+    cfg = deep_merge(CP_CFG, {"env": {"numEnvs": 16}})
+    tcfg = train_default_config("Cartpole")
+    tcfg["params"]["config"]["minibatch_size"] = 128
+    agent = PPOAgent(Cartpole(cfg, device="cpu"), tcfg, seed=1)
+    agent.init()
+    before = [p.detach().clone() for p in agent.net.parameters()]
+    m = agent.train_epoch()
+    assert all(torch.isfinite(torch.as_tensor(v)).all() for v in m.values())
+    assert any(not torch.equal(a, b)
+               for a, b in zip(before, agent.net.parameters()))
     A = torch.randn(5, 7, 7)
     Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
     assert torch.isfinite(Hinv).all()
@@ -86,6 +99,7 @@ def test_port_imports_and_steps_without_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
     # every module of the package was imported (scaffold, models, ops,
-    # physics, tasks, utils, convert), models.urdf and tasks.cartpole too
+    # physics, tasks, utils, convert), the learner (learning/*, train, api,
+    # tasks.registry) too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 21, proc.stdout
+    assert n_mods >= 38, proc.stdout
