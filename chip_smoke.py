@@ -7,17 +7,23 @@ Phases, each printing its own lines; any failure exits non-zero
 (``--kernels-only`` stops after phase 3 and prints no result line):
   1. device: torch/CUDA versions, the card's name and power limit
   2. build: nvcc builds kernels B1-B3 for the Ant, BallBalance,
-     FrankaReachMA and Cartpole scenes, B4 for the Ant, BallBalance and
-     FrankaReachMA contact plans and for a synthetic plan with grab rows,
-     B5 for n = 6, 7, 14, 30 and 48, all compilers started together; each
-     kernel's ptxas registers and spills
+     FrankaReachMA, Cartpole, FrankaCollectMA, FrankaPPMA and
+     FrankaCombineMA scenes, B4 for the Ant, BallBalance, FrankaReachMA,
+     FrankaCollectMA and FrankaPPMA contact plans (the last two with their
+     grab group) and for a synthetic plan with grab rows, B5 for n = 6, 7,
+     14, 30 and 48, all compilers started together; each kernel's ptxas
+     registers and spills
   3. kernels: each kernel against its plain PyTorch twin on the card, with
      kernel and twin times: B1-B3 at Ant-4096 shapes on a generic state and
      at BallBalance-4096, FrankaReachMA-8192 and Cartpole-512 shapes on
      warmed-up states; B4 on the inputs the main path hands it at Ant-4096
      (no frames), BallBalance-4096 (frames, attractors) and
      FrankaReachMA-8192 (41 rows with frames), and on the synthetic grab
-     plan; B5 on the two OSC inverses of a warmed-up FrankaReachMA-8192
+     plan; B1-B3 at FrankaCollectMA-8192 and FrankaPPMA-8192 on warmed-up
+     states and B4 on their routes' inputs (65 / 73 rows with frames and 4
+     grab rows) with live grabs in a quarter of the envs (each agent's cube
+     moved onto its grip site, its gripper action negative); B5 on the two
+     OSC inverses of a warmed-up FrankaReachMA-8192
      step ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and
      on seeded SPD matrices at (16384, 7, 7), (4096, 14, 14), (1024, 30,
      30) and (256, 48, 48), with torch.linalg.inv's time beside it; for
@@ -30,25 +36,33 @@ Phases, each printing its own lines; any failure exits non-zero
      and BallBalance, each on the default loop and on B4; FrankaReachMA on
      the default loop (compaction and row reuse) and, from its own
      capture, on B4 (all 41 candidate rows, no compaction or reuse);
-     Cartpole's 101-step rollout (the contact-free path)
+     Cartpole's 101-step rollout (the contact-free path); FrankaCollectMA
+     on the default loop and (128 envs) on B4, FrankaPPMA on the default
+     loop, each with live grabs in half of the envs
   5. main path, each phase with the launch counts set to 0 just before it:
      Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
      FrankaReachMA at 8192 envs x 2 arms on the default loop and on B4,
-     Cartpole-512 (B1-B3 only: no contact rows, no OSC), 100 steps each,
-     tanh(obs @ W) actions; env-steps/s (and agent-steps/s), stream ms per
-     step by CUDA events (the kernels and the device's idle gaps between
-     them), launches per kernel
+     Cartpole-512 (B1-B3 only: no contact rows, no OSC), FrankaCollectMA
+     and FrankaPPMA at 8192 x 2 on both routes and FrankaCombineMA at
+     8192 x 2 on the default loop, 100 steps each, tanh(obs @ W) actions;
+     env-steps/s (and agent-steps/s), stream ms per step by CUDA events
+     (the kernels and the device's idle gaps between them), launches per
+     kernel, and for the tasks with grabs the share of agent rows with a
+     grab live
   6. train, each run with the launch counts set to 0 just before it: PPO
      (``learning/ppo.py``) on Ant-4096 with the Ant train config (1
      warm-up epoch, 3 timed) and on FrankaReachMA at 8192 envs x 2 arms
-     with its config (1 warm-up, 1 timed; B5 exactly twice a step), each
-     epoch's seconds, rollout and update ms (CUDA events), training
-     frames/s and losses; then Cartpole-512 through the ``train`` entry
-     point until its mean return passes 100, failing if it has not by
-     epoch 100 (the config's max_epochs)
-The line before the last is the kernels JSON, the last line
-{"ok": true, "device": {...}}.  Needs a CUDA device; never falls back to
-the CPU and never imports jax.
+     with its config (1 warm-up, 1 timed; B5 exactly twice a step), and
+     the same on FrankaCollectMA at 8192 x 2 (its FSM occupancy extras
+     printed), each epoch's seconds, rollout and update ms (CUDA events),
+     training frames/s and losses; then Cartpole-512 through the ``train``
+     entry point until its mean return passes 100, failing if it has not
+     by epoch 100 (the config's max_epochs)
+The line before the last is the kernels JSON (a row per kernel at the
+scene where it runs first, launches summed over every phase, then a row
+per kernel at FrankaCollectMA and FrankaPPMA, launches summed over that
+task's main phases), the last line {"ok": true, "device": {...}}.  Needs a
+CUDA device; never falls back to the CPU and never imports jax.
 """
 import collections
 import json
@@ -71,11 +85,23 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("franka_reach_ma", "FrankaReachMA", False, 100, 8192),
     ("franka_reach_ma_b4", "FrankaReachMA", True, 100, 8192),
     ("cartpole", "Cartpole", False, 100, 512),
+    ("franka_collect_ma", "FrankaCollectMA", False, 100, 8192),
+    ("franka_collect_ma_b4", "FrankaCollectMA", True, 100, 8192),
+    ("franka_ppma", "FrankaPPMA", False, 100, 8192),
+    ("franka_ppma_b4", "FrankaPPMA", True, 100, 8192),
+    ("franka_combine_ma", "FrankaCombineMA", False, 100, 8192),
 )
+# the multi-arm Franka tasks: OSC (kernel B5) every step
+OSC_TASKS = ("FrankaReachMA", "FrankaCollectMA", "FrankaPPMA",
+             "FrankaCombineMA")
+# the MA scenes with grab constraints whose kernels phase 3 checks: B1-B3
+# on a warmed-up state, B4 on its route's inputs with live grabs
+GRAB_SCENES = ("franka_collect_ma", "franka_ppma")
 DYN = ("fk_motion", "dyn_forward", "dyn_cached")
 # phase 6: tag, task, warm-up epochs, timed epochs (the main phases' tasks)
 TRAIN_RUNS = (("train_ant", "ant", 1, 3),
-              ("train_franka_reach_ma", "franka_reach_ma", 1, 1))
+              ("train_franka_reach_ma", "franka_reach_ma", 1, 1),
+              ("train_franka_collect_ma", "franka_collect_ma", 1, 1))
 # learn_cartpole: the bar of tests/test_ppo_cartpole.py within the Cartpole
 # config's max_epochs
 LEARN_BAR, LEARN_EPOCHS = 100.0, 100
@@ -115,6 +141,10 @@ RECORDED_US = {("ant", "fk_motion"): 5.02,
                ("ball_balance", "contact_solve"): 634.54,
                ("franka_reach_ma", "contact_solve"): None,
                ("grab", "contact_solve"): None,
+               **{(scene, name): None
+                  for scene in ("franka_collect_ma", "franka_ppma")
+                  for name in ("fk_motion", "dyn_forward", "dyn_cached",
+                               "contact_solve")},
                ("cartpole", "fk_motion"): None,
                ("cartpole", "dyn_forward"): None,
                ("cartpole", "dyn_cached"): None}
@@ -471,9 +501,15 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
     return report
 
 
-def capture_contact_inputs(torch, ck, task, dev, steps):
+def capture_contact_inputs(torch, ck, task, dev, steps, grabs=False):
     """Run ``steps`` steps of a B4-route task and return the batch-last
-    arguments of its last kernel-B4 launch (the main path's inputs)."""
+    arguments of its last kernel-B4 launch (the main path's inputs).  With
+    ``grabs`` (an MA task with grab constraints) the last step starts with
+    live grabs in the first quarter of the envs (``parity.live_grabs``:
+    each agent's cube on its grip site and at rest, its gripper action
+    negative): a tanh policy almost never closes a gripper within 2.25 cm
+    of a cube, so the grab rows would hold nothing otherwise."""
+    from isaacgymenvs_ma_tpu_torch.utils.parity import live_grabs
     box = {}
     launch = ck.solve_kernel
 
@@ -481,12 +517,26 @@ def capture_contact_inputs(torch, ck, task, dev, steps):
         box["call"] = (plan, a, k)
         return launch(plan, *a, **k)
 
+    act = policy(torch, task, dev)
+    state, obs = run_steps(torch, task, task.initial_state(),
+                           zero_obs(torch, task, dev), act, steps - 1)
+    actions = act(obs)
+    if grabs:
+        state = live_grabs(task, state, actions,
+                           torch.arange(task.num_envs // 4, device=dev))
     ck.solve_kernel = spy
     try:
-        run_steps(torch, task, task.initial_state(),
-                  zero_obs(torch, task, dev), policy(torch, task, dev), steps)
+        task.step(state, actions)
     finally:
         ck.solve_kernel = launch
+    if grabs:
+        g_act = box["call"][2]["g_act"]
+        live = float(g_act.sum())
+        print(f"[check] {type(task).__name__} live grab rows in the "
+              f"captured B4 launch: {live:.0f} of {g_act.numel()}",
+              flush=True)
+        if not live:
+            raise RuntimeError("no grab live in the captured B4 launch")
     return box["call"]
 
 
@@ -612,13 +662,26 @@ def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
     """One main-path phase: warm up, set every launch count to 0, drive
     ``steps`` steps, read the counts.  Fails on non-finite output, a wrong
     shape, a kernel of ``expected`` never launched or one of ``forbidden``
-    launched."""
+    launched.  For a task with grab constraints it also sums, on the card,
+    the agent rows with a grab live in each step's control."""
     act = policy(torch, task, dev)
     state = task.initial_state()
     obs = zero_obs(torch, task, dev)
     state, obs = run_steps(torch, task, state, obs, act, 10)   # warm-up
     finite = torch.ones((), dtype=torch.bool, device=dev)
     resets = torch.zeros((), dtype=torch.int64, device=dev)
+    grab_rows = torch.zeros((), dtype=torch.float32, device=dev)
+    if task.engine.grabs:
+        pre = task.pre_physics
+
+        def counted(*a, **k):
+            nonlocal grab_rows
+            ctrl = pre(*a, **k)
+            grab_rows = grab_rows + ctrl.grab_active.reshape(
+                task.num_envs, task.num_agents, -1).amax(-1).sum()
+            return ctrl
+
+        task.pre_physics = counted
     for w in wrappers.values():
         w.launches = 0
     torch.cuda.synchronize()
@@ -634,6 +697,8 @@ def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
     end.record()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
+    if task.engine.grabs:
+        del task.pre_physics
     launches = {name: w.launches for name, w in wrappers.items()}
     finite &= (torch.isfinite(state.sim.q).all()
                & torch.isfinite(state.sim.qd).all())
@@ -643,7 +708,8 @@ def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
         raise RuntimeError(f"obs shape {tuple(obs.shape)}")
     check_launches(launches, expected, forbidden, "main path")
     return dict(seconds=seconds, stream_ms=start.elapsed_time(end) / steps,
-                resets=int(resets), launches=launches)
+                resets=int(resets), launches=launches,
+                grab_share=float(grab_rows) / (steps * task.rl_games_batch))
 
 
 def check_launches(launches, expected, forbidden, what):
@@ -771,6 +837,24 @@ def check_franka_kernels(torch, dk, sk, ck, ctl, task, task_b4, dev):
     return rep, extra
 
 
+def check_ma_kernels(torch, dk, ck, task, task_b4, dev, scene):
+    """B1-B3 at an MA scene's 8192-env shapes on a state 30 steps in, qdd
+    and H^-1 held per env as at FrankaReachMA; B4 on the inputs its route
+    hands it 30 steps in with live grabs in a quarter of the envs (contact
+    rows with frames and the grab group, held per env)."""
+    st, _ = run_steps(torch, task, task.initial_state(),
+                      zero_obs(torch, task, dev), policy(torch, task, dev), 30)
+    gq = torch.Generator(device=dev).manual_seed(14)
+    qd = st.sim.qd + 0.3 * torch.randn(st.sim.qd.shape, generator=gq,
+                                       device=dev)
+    rep = check_dyn_kernels(torch, dk, task, st.sim.q.t().contiguous(),
+                            qd.t().contiguous(), dev, scene, ("qdd", "Hinv"))
+    rep["contact_solve"] = check_contact_kernel(
+        torch, ck, capture_contact_inputs(torch, ck, task_b4, dev, 30,
+                                          grabs=True), scene, True)
+    return rep
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -811,12 +895,12 @@ def main():
     # ---- 2. build: every distinct kernel and header, compilers in parallel
     tasks = {tag: make(name, route, n) for tag, name, route, _, n in PHASES}
     grab = synthetic_grab_call(torch, np, ck, dev)
-    dyn_scenes = ("ant", "ball_balance", "franka_reach_ma", "cartpole")
+    dyn_scenes = ("ant", "ball_balance", "franka_reach_ma", "cartpole",
+                  "franka_collect_ma", "franka_ppma", "franka_combine_ma")
+    b4_scenes = ("ant", "ball_balance", "franka_reach_ma", *GRAB_SCENES)
     build_all(_build, [
         *((scene, tasks[scene].engine.plan) for scene in dyn_scenes),
-        ("ant", tasks["ant_b4"].engine.cplan),
-        ("ball_balance", tasks["ball_balance_b4"].engine.cplan),
-        ("franka_reach_ma", tasks["franka_reach_ma_b4"].engine.cplan),
+        *((scene, tasks[scene + "_b4"].engine.cplan) for scene in b4_scenes),
         ("grab", grab[0]),
         *((f"spd n={n}", sk.get_plan(n))
           for n in sorted({6, *(n for _, n, _ in SPD_SEEDED)}))])
@@ -854,6 +938,9 @@ def main():
     report["cartpole"] = check_dyn_kernels(
         torch, dk, cp, st.sim.q.t().contiguous(), qd_cp.t().contiguous(), dev,
         "cartpole")
+    for scene in GRAB_SCENES:
+        report[scene] = check_ma_kernels(torch, dk, ck, tasks[scene],
+                                         tasks[scene + "_b4"], dev, scene)
     for scene, r in report.items():
         for name, e in r.items():
             b_ms, b_by = bound(e["bytes"], e["flops"])
@@ -867,14 +954,10 @@ def main():
     # kernels' recorded time, ptxas report and launch layout per scene;
     # for B3 also the bound with only H^-1's block entries read
     team_plans = {(scene, name): tasks[scene].engine.plan
-                  for scene in dyn_scenes for name in DYN}
-    team_plans.update({
-        ("ant", "contact_solve"): tasks["ant_b4"].engine.cplan,
-        ("ball_balance", "contact_solve"):
-            tasks["ball_balance_b4"].engine.cplan,
-        ("franka_reach_ma", "contact_solve"):
-            tasks["franka_reach_ma_b4"].engine.cplan,
-        ("grab", "contact_solve"): grab[0]})
+                  for scene in dyn_scenes for name in DYN if scene in report}
+    team_plans.update({(scene, "contact_solve"): tasks[scene + "_b4"].engine
+                       .cplan for scene in b4_scenes})
+    team_plans[("grab", "contact_solve")] = grab[0]
     for (scene, name), p in team_plans.items():
         e = report[scene][name]
         b_us = bound(e["bytes"], e["flops"])[0] * 1e3
@@ -920,7 +1003,10 @@ def main():
                           ("ball_balance_golden.npz", (False, True)),
                           ("franka_reach_ma_golden.npz", (False,)),
                           ("franka_reach_ma_b4_golden.npz", (True,)),
-                          ("cartpole_golden.npz", (False,))):
+                          ("cartpole_golden.npz", (False,)),
+                          ("franka_collect_ma_golden.npz", (False,)),
+                          ("franka_collect_ma_b4_golden.npz", (True,)),
+                          ("franka_ppma_golden.npz", (False,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]
@@ -938,22 +1024,34 @@ def main():
             if int(e.reset_mismatches.sum()):
                 raise RuntimeError(f"{fname} replay reset mismatches "
                                    f"{e.reset_mismatches}")
+            grabs = {}
+            if "grab_envs" in np.load(path):
+                # half the envs start holding their cubes: two live grabs
+                # an env in step 1, and grabs live in every step
+                held = 2 * len(np.load(path)["grab_envs"])
+                if e.grabs_live[0] != held or not (e.grabs_live > 0).all():
+                    raise RuntimeError(f"{fname} replay grabs live per step "
+                                       f"{e.grabs_live}")
+                grabs = dict(grabs_live="/".join(
+                    f"{v:.0f}" for v in e.grabs_live))
             phase("golden", task=name, b4=kernel_route, steps=len(e.q),
                   **{f"{k}_err": "/".join(f"{v:.2g}" for v in getattr(e, k))
-                     for k in tol})
+                     for k in tol}, **grabs)
 
     # ---- 5. main path: each phase with the counts set to 0 just before it
     total = {name: 0 for name in KERNEL_WRAPPERS}
+    scene_launches = collections.defaultdict(collections.Counter)
     for tag, name, kernel_route, steps, n_envs in PHASES:
         task = tasks[tag]
         expected = DYN + (("contact_solve",) if kernel_route else ())
-        if name == "FrankaReachMA":
+        if name in OSC_TASKS:
             expected += ("spd_inverse",)
         forbidden = [k for k in KERNEL_WRAPPERS if k not in expected]
         r = main_phase(torch, KERNEL_WRAPPERS, task, dev, steps, expected,
                        forbidden)
+        scene_launches[tag.replace("_b4", "")].update(r["launches"])
         n_b5 = r["launches"]["spd_inverse"]
-        if name == "FrankaReachMA" and n_b5 != 2 * steps:
+        if name in OSC_TASKS and n_b5 != 2 * steps:
             raise RuntimeError(f"OSC launched B5 {n_b5} times in {steps} "
                                "steps, not twice a step")
         for k, c in r["launches"].items():
@@ -961,6 +1059,8 @@ def main():
         rows_per_s = task.rl_games_batch * steps / r["seconds"]
         agents = ({} if task.num_agents == 1 else dict(
             agents=task.num_agents, agent_steps_per_s=f"{rows_per_s:.1f}"))
+        if task.engine.grabs:
+            agents["grab_live_share"] = f"{r['grab_share']:.6f}"
         phase("main", phase=tag, envs=n_envs, steps=steps,
               seconds=f"{r['seconds']:.4f}",
               env_steps_per_s=f"{n_envs * steps / r['seconds']:.1f}",
@@ -979,6 +1079,8 @@ def main():
         expected = DYN + (("spd_inverse",) if task.num_agents > 1 else ())
         forbidden = [k for k in KERNEL_WRAPPERS if k not in expected]
         tcfg = train_default_config(type(task).__name__)
+        if tag == "train_franka_collect_ma" and task.num_obs != 28:
+            raise RuntimeError(f"FrankaCollectMA obs width {task.num_obs}")
         agent = PPOAgent(task, tcfg, seed=42)
         rows, launches = train_run(torch, KERNEL_WRAPPERS, agent, warm, epochs,
                                    expected, forbidden)
@@ -1004,7 +1106,9 @@ def main():
                   env_steps_per_s=f"{task.num_envs * agent.horizon / sec:.1f}",
                   **agents, **{k: f"{m[k]:.6g}" for k in (
                       "loss", "a_loss", "c_loss", "kl", "lr", "sigma",
-                      "mean_return", "episodes_done")})
+                      "mean_return", "episodes_done")},
+                  **{k.split("/")[-1]: f"{v:.6g}" for k, v in m.items()
+                     if "fsm" in k.lower()})
         phase("train", run=tag, epochs=epochs,
               launches=json.dumps(launches).replace(" ", ""))
 
@@ -1030,14 +1134,18 @@ def main():
           launches=json.dumps(launches).replace(" ", ""))
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        e = report[JSON_SCENE[name]][name]
+    rows = [(name, JSON_SCENE[name], total[name]) for name in KERNELS]
+    rows += [(name, scene, scene_launches[scene][name])
+             for scene in GRAB_SCENES for name in report[scene]]
+    for name, scene, launches in rows:
+        source, replaces = KERNELS[name]
+        e = report[scene][name]
         b_ms, b_by = bound(e["bytes"], e["flops"])
         kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=total[name], max_abs_err=e["max_abs_err"], ms=e["ms"],
-            plain_ms=e["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-            library_ms=e.get("library_ms")))
+            name=name, scene=scene, route="cuda", source=source,
+            replaces=replaces, launches=launches,
+            max_abs_err=e["max_abs_err"], ms=e["ms"], plain_ms=e["plain_ms"],
+            bound_ms=b_ms, bound_by=b_by, library_ms=e.get("library_ms")))
     print(f"nvidia-smi: {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ numpy arrays under flat dotted names, e.g. from a JAX ``EnvState`` ``st``::
 
 The ``task.*`` keys name the fields of one task's state class (Ant's
 ``AntTaskState``, BallBalance's ``BBTaskState``, FrankaReachMA's
-``FrankaMATaskState``); the class is picked by its field names.
+``FrankaMATaskState``, the other MA tasks' ``CollectTaskState``); the class
+is picked by its field names.  A field keeps its kind: integer arrays (the
+MA tasks' FSM states) become int32 tensors, the others float32.
 
 ``ppo_state_from_jax`` converts the learner part of a JAX ``PPOState``
 (flax parameters, optax Adam moments, the normalisers, ``lr``) into the
@@ -29,9 +31,11 @@ from .physics.engine import SimState
 from .tasks.ant import AntTaskState
 from .tasks.ball_balance import BBTaskState
 from .tasks.base import EnvState
+from .tasks.franka_collect_ma import CollectTaskState
 from .tasks.franka_reach_ma import FrankaMATaskState
 
-TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState)
+TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState,
+               CollectTaskState)
 
 
 def env_state_from_jax(arrays: dict, device) -> EnvState:
@@ -52,7 +56,9 @@ def env_state_from_jax(arrays: dict, device) -> EnvState:
         if cls is None:
             raise KeyError(f"task state keys {sorted(task_keys)} match no "
                            f"task state in {[c.__name__ for c in TASK_STATES]}")
-        task = cls(*(f32(f"task.{f}") for f in cls._fields))
+        task = cls(*(i32(k) if np.issubdtype(np.asarray(arrays[k]).dtype,
+                                             np.integer) else f32(k)
+                     for k in (f"task.{f}" for f in cls._fields)))
     return EnvState(sim=SimState(f32("sim.q"), f32("sim.qd")),
                     progress=i32("progress"), reset_buf=i32("reset_buf"),
                     task=task)

@@ -13,16 +13,18 @@ B4, engine.py:1708-1735); otherwise it is a loop of batched products.
 :func:`spd_inverse` (OSC's two inverses) runs through kernel B5
 (:mod:`.spd_kernel`).
 
-Ported so far: what the Ant, BallBalance, FrankaReachMA and Cartpole steps
-run (ground contact rows, body-pair contact rows against primitive SDFs
-with tangent frames, rigid-body attractors, joint limits, effort and PD
-actuation with position targets, mass-matrix reuse, active-set compaction
-and contact-row reuse with impulse continuation on the batched-product
-loop (the B4 route ignores both, as the JAX kernel route does), the
-controller readouts, and for a scene without contact rows the joint-limit
-solve :meth:`PhysicsEngine._limit_solve`).  Every feature the JAX engine
-has beyond that raises ``NotImplementedError`` when a model or config asks
-for it, instead of computing something else.  Entry points run on the card
+Ported so far: what the Ant, BallBalance, Cartpole and the four
+multi-arm Franka steps run (ground contact rows, body-pair contact rows
+against primitive SDFs with tangent frames, rigid-body attractors,
+conditional grab constraints switched per env by ``Control.grab_active``,
+joint limits, effort and PD actuation with position targets, mass-matrix
+reuse, active-set compaction and contact-row reuse with impulse
+continuation on the batched-product loop (the B4 route ignores both, as
+the JAX kernel route does), the controller readouts, and for a scene
+without contact rows or grabs the joint-limit solve
+:meth:`PhysicsEngine._limit_solve`).  Every feature the JAX engine has
+beyond that raises ``NotImplementedError`` when a model or config asks for
+it, instead of computing something else.  Entry points run on the card
 unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -70,8 +72,10 @@ class SimParams(NamedTuple):
 
 class Control(NamedTuple):
     """Per-step actuation inputs: ``tau`` (N, nv) dof effort, optional PD
-    ``pos_target``/``vel_target`` (N, nv).  ``f_ext`` and ``grab_active`` are
-    not ported yet (they raise)."""
+    ``pos_target``/``vel_target`` (N, nv) and ``grab_active`` (N, G), 1
+    where a grab constraint is on (None: every grab off; ignored by a scene
+    without grabs, as in the JAX engine).  ``f_ext`` is not ported yet (it
+    raises)."""
 
     tau: torch.Tensor
     pos_target: Optional[torch.Tensor] = None
@@ -142,10 +146,8 @@ def solver_rows_bf16(model, params: SimParams, n_rows: int) -> bool:
     return rows * int(model.nv) >= 1024 and not params.use_contact_kernel
 
 
-def _check_supported(model, params: SimParams, grabs, n_rows: int):
+def _check_supported(model, params: SimParams, n_rows: int):
     """Reject every engine feature the port does not implement yet."""
-    if grabs:
-        _unsupported("grab constraints")
     if params.warm_start > 0:
         _unsupported("contact warm start (warm_start > 0)")
     if params.mass_splitting:
@@ -249,21 +251,26 @@ class PhysicsEngine:
 
         self._build_contact_set(m, ground, pair_specs or [])
         self._build_attractors(m, attractors or [])
-        _check_supported(m, params, grabs,
-                         self.n_ground + self.n_pair_rows)
+        self._build_grabs(m, grabs or [])
+        _check_supported(m, params, self.n_ground + self.n_pair_rows)
         self.gravity = f32(params.gravity)
         self.h = params.dt / params.substeps
         self.plan = dk.get_plan(self)
-        # a scene without ground or pair rows takes the joint-limit solve,
-        # whatever use_contact_kernel says (engine.py:966-978); the JAX
-        # engine then ignores its attractors too
-        self.has_contact_rows = bool(self.n_ground or self.pairs)
+        # a scene without ground rows, pair rows or grabs takes the
+        # joint-limit solve, whatever use_contact_kernel says
+        # (engine.py:966-978); the JAX engine then ignores its attractors
+        # too.  Grabs alone run the batched loop with no contact rows: B4
+        # needs one (engine.py:1297, ContactPlan)
+        self.has_contact_rows = bool(self.n_ground or self.pairs
+                                     or self.grabs)
         # kernel B4's static plan: row masks per group, loop constants
         self.cplan = None
-        if params.use_contact_kernel and self.has_contact_rows:
+        if params.use_contact_kernel and (self.n_ground or self.pairs):
             masks = {"c": self.row_masks_np}
             if self.attractors:
                 masks["a"] = np.stack([a["mask"] for a in self.attractors])
+            if self.grabs:
+                masks["g"] = np.stack([g["mask"] for g in self.grabs])
             self.cplan = ck.ContactPlan(
                 masks, self.nv, params.num_iterations, params.relaxation,
                 has_frames=bool(self.pairs))
@@ -334,6 +341,9 @@ class PhysicsEngine:
             row_mask = dbm[:, self.pts_body[idx]].T - dbm[:, gB.body][None, :]
             self.pairs.append(dict(
                 pt_idx=idx, tgt_body=int(gB.body), tgt_type=int(gB.gtype),
+                # the candidates' bodies as an index on the device: a numpy
+                # index would copy to the card and wait, every narrowphase
+                pt_body=torch.as_tensor(self.pts_body[idx], device=dev),
                 tgt_size=torch.as_tensor(np.asarray(gB.size, np.float32),
                                          device=dev),
                 tgt_pos=torch.as_tensor(np.asarray(gB.pos, np.float32),
@@ -388,6 +398,50 @@ class PhysicsEngine:
             self.att_mask = torch.as_tensor(
                 np.stack([a["mask"] for a in self.attractors]),
                 device=self.device)                              # (A, nv)
+
+    def _build_grabs(self, m, grabs):
+        """Grab constraints (engine.py:526-535): conditional bilateral pins
+        of a point on body a to a point on body b, in spec order; the row
+        mask is body a's ancestor dofs minus body b's."""
+        dbm = np.asarray(m.dof_body_mask, np.float32)
+        dev = self.device
+        self.grabs = [dict(
+            body_a=int(ba), body_b=int(bb),
+            off_a=torch.as_tensor(np.asarray(oa, np.float32), device=dev),
+            off_b=torch.as_tensor(np.asarray(ob, np.float32), device=dev),
+            mask=dbm[:, int(ba)] - dbm[:, int(bb)])
+            for ba, oa, bb, ob in grabs]
+        if self.grabs:
+            self.grab_mask = torch.as_tensor(
+                np.stack([g["mask"] for g in self.grabs]), device=dev)
+            self._grab_a = torch.as_tensor(
+                [g["body_a"] for g in self.grabs], device=dev)
+            self._grab_b = torch.as_tensor(
+                [g["body_b"] for g in self.grabs], device=dev)
+            self._grab_off_a = torch.stack([g["off_a"] for g in self.grabs])
+            self._grab_off_b = torch.stack([g["off_b"] for g in self.grabs])
+
+    def _grab_rows(self, body_x, body_q, S, Hinv, grab_active):
+        """The grab rows of one solve (engine.py:1652-1682), rebuilt every
+        substep (they sit outside the contact-row cache): the world points
+        pa, pb of each grab, its rows' Jacobian at their midpoint pm
+        (N, 3G, nv), H^-1 J, the Delassus diagonal W (N, G, 3), the target
+        velocity b = -baumgarte / h (pa - pb) and the gate (N, G), zero
+        everywhere without ``grab_active``."""
+        pr, h = self.params, self.h
+        N, G = body_x.shape[0], len(self.grabs)
+        pa = body_x[:, self._grab_a] + maths.quat_apply(
+            body_q[:, self._grab_a], self._grab_off_a)          # (N, G, 3)
+        pb = body_x[:, self._grab_b] + maths.quat_apply(
+            body_q[:, self._grab_b], self._grab_off_b)
+        pm = 0.5 * (pa + pb)
+        J = self._build_J_flat(S, pm, self.grab_mask)           # (N, 3G, nv)
+        HJ = torch.bmm(J, Hinv)
+        W = self._w_diag(J, HJ, N, G)
+        b = -pr.baumgarte / h * (pa - pb)
+        g_act = (torch.zeros((N, G), dtype=body_x.dtype, device=body_x.device)
+                 if grab_active is None else grab_active.to(body_x.dtype))
+        return pm, J, HJ, W, b, g_act
 
     # ------------------------------------------------------------------
     # kinematics
@@ -588,8 +642,8 @@ class PhysicsEngine:
             _unsupported("terrain heightfields")
         if phys is not None:
             _unsupported("per-env physics scales (domain randomization)")
-        if ctrl.f_ext is not None or ctrl.grab_active is not None:
-            _unsupported("external wrenches / grab activation in Control")
+        if ctrl.f_ext is not None:
+            _unsupported("external wrenches (Control.f_ext)")
         h = self.h
         N = q.shape[0]
         body_x, body_q, S, (bx_bl, bq_bl, S_bl) = self.kinematics(q)
@@ -635,7 +689,8 @@ class PhysicsEngine:
             qd_new, impulse_pts, p_w, imp_dof, ccache_out = \
                 self._contact_solve(qd_new, body_x, body_q, S, Hinv,
                                     qpos_dof, S_bl, hinv_bl,
-                                    ccache=contact_cache, qd_geom=qd)
+                                    ccache=contact_cache, qd_geom=qd,
+                                    grab_active=ctrl.grab_active)
         else:
             qd_new = self._limit_solve(qd_new, Hinv, qpos_dof)
             impulse_pts = p_w = ccache_out = None
@@ -745,7 +800,7 @@ class PhysicsEngine:
         normals n (N, K, 3)."""
         ps, phis, mus, ns = [], [], [], []
         for pr_ in self.pairs:
-            bodies = self.pts_body[pr_["pt_idx"]]
+            bodies = pr_["pt_body"]
             xb, qb = body_x[:, bodies], body_q[:, bodies]
             p = xb + maths.quat_apply(qb, pr_["pts_off"])
             tb = pr_["tgt_body"]
@@ -798,8 +853,12 @@ class PhysicsEngine:
         """Narrowphase of every candidate row, ground rows first
         (engine.py:1306-1397): points p (N, P, 3), gaps phi (N, P),
         friction mu (N, P) and, when pairs exist, row frames (N, P, 3, 3)
-        (identity on the ground rows), else None."""
+        (identity on the ground rows), else None.  A scene with grabs and
+        no candidate rows gets an empty row set (engine.py:1392-1398)."""
         pr = self.params
+        if not (self.n_ground or self.pairs):
+            z = body_x.new_zeros((N, 0))
+            return body_x.new_zeros((N, 0, 3)), z, z, None
         ps, phis, mus, frames = [], [], [], None
         if self.n_ground:
             p = self._contact_points(body_x, body_q)            # (N, G, 3)
@@ -829,10 +888,16 @@ class PhysicsEngine:
         return active, torch.clamp(b_n, max=pr.max_depenetration_velocity)
 
     def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, S_bl,
-                       hinv_bl, ccache=None, qd_geom=None):
-        """Projected-Jacobi impulse solve over ground rows, body-pair rows,
-        attractors and joint limits (engine.py:1248-1925 without warm start,
-        grabs, terrain or restitution).
+                       hinv_bl, ccache=None, qd_geom=None, grab_active=None):
+        """Projected-Jacobi impulse solve over grabs, attractors, ground
+        rows, body-pair rows and joint limits, in that order in each
+        iteration (engine.py:1248-1925 without warm start, terrain or
+        restitution).
+
+        Grab rows (:meth:`_grab_rows`) are bilateral world-axis rows gated
+        per env by ``grab_active``; they are rebuilt every substep, their
+        impulses start at zero in every solve and enter neither ``imp_dof``
+        nor the world impulses (engine.py:1897-1899).
 
         Rows are speculative (active at phi < contact_margin, approach speed
         capped at phi/h).  Pair rows carry tangent frames; when pairs exist
@@ -884,17 +949,26 @@ class PhysicsEngine:
             aHJ = torch.bmm(aJ, Hinv)
             att_W = self._w_diag(aJ, aHJ, N, A)
 
+        G = len(self.grabs)
+        if G:
+            g_pts, gJ, gHJ, g_W, g_b, g_act = self._grab_rows(
+                body_x, body_q, S, Hinv, grab_active)
+
         if self.cplan is not None:
             p, phi, mu, frames = self._contact_rows(body_x, body_q, N)
             active, b_n = self._normal_targets(phi)
             J_flat = self._build_J_flat(S, p, self.row_masks, frames)
             w_diag = self._w_diag(J_flat, torch.bmm(J_flat, Hinv), N,
                                   p.shape[1])
+            groups = {}
+            if A:
+                groups.update(pts_a=pa, b_a=att_b, w_a=att_W)
+            if G:
+                groups.update(pts_g=g_pts, b_g=g_b, g_act=g_act, w_g=g_W)
             qd, lam, imp_dof = ck.solve(
                 self.cplan, S_bl, hinv_bl, qd, p, b_n, mu, active.to(qd.dtype),
                 frames, w_diag, b_lo, b_hi, act_lo.to(qd.dtype),
-                act_hi.to(qd.dtype),
-                **(dict(pts_a=pa, b_a=att_b, w_a=att_W) if A else {}))
+                act_hi.to(qd.dtype), **groups)
             return qd, self._to_world(lam, frames), p, imp_dof, None
 
         reuse_rows = pr.reuse_contact_rows and pr.substeps > 1
@@ -949,6 +1023,10 @@ class PhysicsEngine:
                                 min=1e-8)
         relax = pr.relaxation
         for _ in range(pr.num_iterations):
+            if G:
+                v_g = torch.bmm(gJ, qd[..., None])[..., 0].reshape(N, G, 3)
+                dl_g = relax * (g_b - v_g) / g_W * g_act[..., None]
+                qd = qd + torch.bmm(dl_g.reshape(N, 1, 3 * G), gHJ)[:, 0]
             if A:
                 v_a = torch.bmm(aJ, qd[..., None])[..., 0].reshape(N, A, 3)
                 dl_a = relax * (att_b - v_a) / att_W

@@ -139,7 +139,8 @@ class FrankaReachMA(VecTaskBase):
             np.asarray(self._arm_dof_lists[k][7:9]) for k in range(K)])
         self.hand_bodies = np.asarray(self._hand_bodies)                 # (K,)
         self.grip_bodies = np.asarray(self._grip_bodies)                 # (K,)
-        self.cube_q_adr = np.asarray(self._cube_q_adr)                   # (T,)
+        self.cube_bodies = np.asarray(self._cube_bodies)                 # (T,)
+        self.cube_q_adr = np.asarray(self._cube_q_adr)
         self.cube_v_adr = np.asarray(self._cube_v_adr)
         # the same as index tensors on the device
         self._arm_dofs_t = idx(self.arm_dofs)
@@ -194,23 +195,7 @@ class FrankaReachMA(VecTaskBase):
                           (0, 0, 0, 1)))
 
         m = compose_scene(parts)
-
-        # static index bookkeeping
-        names = m.body_names
-        self._hand_bodies = [i for i, n in enumerate(names)
-                             if n == "panda_hand"][:K]
-        self._grip_bodies = [i for i, n in enumerate(names)
-                             if n == "panda_grip_site"][:K]
-        link0_idx = [i for i, n in enumerate(names) if n == "panda_link0"]
-        self._arm_dof_lists = []
-        for k in range(K):
-            # dofs of this arm: all dofs whose body is in this franka subtree
-            sub = [i for i in range(m.nb) if m.body_ancestor[link0_idx[k], i]]
-            self._arm_dof_lists.append(
-                [d for d in range(m.nv) if m.dof_body[d] in sub])
-        cubes = [i for i, n in enumerate(names) if n == "cubeA"]
-        self._cube_q_adr = [int(m.q_adr[i]) for i in cubes]
-        self._cube_v_adr = [int(m.v_adr[i]) for i in cubes]
+        self._index_model(m)
         # gripper drives: position-held (ref dof props: kp 800 / kd 40)
         for k in range(K):
             for d in self._arm_dof_lists[k][7:9]:
@@ -218,6 +203,27 @@ class FrankaReachMA(VecTaskBase):
                 m.dof_stiffness[d] = 800.0
                 m.dof_drive_damping[d] = 40.0
         return m, True
+
+    def _index_model(self, m):
+        """Static index bookkeeping of a composed scene (the JAX
+        subclasses' ``_index_model``, franka_collect_ma.py:81-99): the
+        hands, grip sites and dofs of each arm, the cubes' bodies and their
+        q / qd addresses.  A subclass that composes more actors into the
+        scene re-indexes it with this."""
+        names = m.body_names
+        self._hand_bodies = [i for i, n in enumerate(names)
+                             if n == "panda_hand"]
+        self._grip_bodies = [i for i, n in enumerate(names)
+                             if n == "panda_grip_site"]
+        self._arm_dof_lists = []
+        for root in (i for i, n in enumerate(names) if n == "panda_link0"):
+            # dofs of this arm: all dofs whose body is in this franka subtree
+            sub = [i for i in range(m.nb) if m.body_ancestor[root, i]]
+            self._arm_dof_lists.append(
+                [d for d in range(m.nv) if m.dof_body[d] in sub])
+        self._cube_bodies = [i for i, n in enumerate(names) if n == "cubeA"]
+        self._cube_q_adr = [int(m.q_adr[i]) for i in self._cube_bodies]
+        self._cube_v_adr = [int(m.v_adr[i]) for i in self._cube_bodies]
 
     def build_engine(self, model, ground):
         # pair specs: each cube against the table top; the hand spheres of

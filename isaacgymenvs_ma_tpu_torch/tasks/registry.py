@@ -19,11 +19,13 @@ _TASKS: Dict[str, Tuple[str, str]] = {
     "Ant": (".ant", "Ant"),
     "BallBalance": (".ball_balance", "BallBalance"),
     "FrankaReachMA": (".franka_reach_ma", "FrankaReachMA"),
+    "FrankaCollectMA": (".franka_collect_ma", "FrankaCollectMA"),
+    "FrankaPPMA": (".franka_ppma", "FrankaPPMA"),
+    "FrankaCombineMA": (".franka_combine_ma", "FrankaCombineMA"),
 }
 
 # the JAX registry's other names -> ROADMAP queue-A item that ports them
 _QUEUE_A = {
-    "4": ("FrankaCollectMA", "FrankaPPMA", "FrankaCombineMA"),
     "5": ("Humanoid", "Anymal", "Ingenuity", "Quadcopter"),
     "6": ("AnymalTerrain",),
     "7": ("ShadowHand", "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM",

@@ -56,7 +56,8 @@ def _unported_flags(cfg: dict) -> None:
 
 # diagnostics of the epoch line that the ported tasks report: (metric key,
 # label); the JAX loop also prints its other tasks' keys
-_LINE_EXTRAS = (("episode/episode/coverage", "cov"), ("sigma", "sig"))
+_LINE_EXTRAS = (("episode/episode/coverage", "cov"),
+                ("episode/episode/fsm_mean", "fsm"), ("sigma", "sig"))
 
 
 def epoch_line(ep: int, max_epochs: int, m: dict, fps: float) -> str:

@@ -2,7 +2,8 @@
 GPU.
 
     python3 scripts/profile_torch_ant.py
-        [--task Ant|BallBalance|FrankaReachMA|Cartpole] [--contact-kernel]
+        [--task Ant|BallBalance|FrankaReachMA|Cartpole|FrankaCollectMA|
+                FrankaPPMA|FrankaCombineMA] [--contact-kernel]
         [--envs N] [--steps 20] [--train] [--table PATH]
 
 Runs the port's step of the task (Ant by default, at its configuration's
@@ -12,9 +13,9 @@ torch.profiler after a warm-up, and prints: host wall time per step, device
 kernel time per step (the sum over CUDA kernels), the device busy share
 (kernel time / wall time), kernel launches per step, the top kernels by
 device time and the port's kernels B1-B5.  B5's launches are also reported
-per matrix size: FrankaReachMA's OSC inverts the arm mass matrices (n = 7)
-and then J M^-1 J^T (n = 6) every step, so in time order its launches
-alternate between the two.  ``--table`` writes torch.profiler's full table
+per matrix size: the multi-arm Franka tasks' OSC inverts the arm mass
+matrices (n = 7) and then J M^-1 J^T (n = 6) every step, so in time order
+its launches alternate between the two.  ``--table`` writes torch.profiler's full table
 to PATH.
 
 ``--train`` profiles one PPO epoch (``learning/ppo.py``) of the task with
@@ -82,7 +83,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant",
                     choices=("Ant", "BallBalance", "FrankaReachMA",
-                             "Cartpole"))
+                             "Cartpole", "FrankaCollectMA", "FrankaPPMA",
+                             "FrankaCombineMA"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
     ap.add_argument("--envs", type=int, default=None,
@@ -149,7 +151,7 @@ def main():
 
     events = report(torch, profile, ProfilerActivity, step, args.steps,
                     f"{head} steps={args.steps}", args.table, "step")
-    if args.task == "FrankaReachMA":
+    if task.num_agents > 1:
         b5 = sorted((e for e in events if "spd_inverse_kernel" in e.name),
                     key=lambda e: e.time_range.start)
         for i, n in enumerate((7, 6)):

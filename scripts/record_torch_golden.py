@@ -25,11 +25,24 @@ its dynamics kernels and with them kernel B4 (its lane blocks divide N by
 franka_reach_ma_b4_golden.npz.  That route solves every candidate row
 without compaction or row reuse (engine.py:1304-1305, :1524).
 
+``--task FrankaCollectMA`` -> franka_collect_ma_golden.npz and ``--task
+FrankaPPMA`` -> franka_ppma_golden.npz (16 envs x 2 arms) record 10 steps
+from the warmed-up state with live grabs in half of the envs (after the
+quarter flagged to reset): each agent's cube moved onto its grip site
+(the JAX ``engine.fk``) at rest, and those agents' gripper actions
+negative in every step; ``--task FrankaCollectMA --kernel-route`` ->
+franka_collect_ma_b4_golden.npz records 6 steps so at 128 envs.  JAX
+compile times on an 8-core CPU, three recordings side by side: the
+FrankaCollectMA / FrankaPPMA step's jit and 20 warm-up steps ~220 s each
+(FrankaReachMA alone: ~100 s); on the kernel route each eager
+interpret-mode step ~4 min (the kernel-route capture ~25 min in all).
+
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
         [--kernel-route]
 """
 import argparse
 import os
+import time
 
 import numpy as np
 import jax
@@ -39,6 +52,7 @@ from isaacgymenvs_ma_tpu.ops import rng as rng_ops
 from isaacgymenvs_ma_tpu.physics import contact_kernel as jck
 from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
 from isaacgymenvs_ma_tpu.tasks import (ant, ball_balance, cartpole,
+                                       franka_collect_ma, franka_ppma,
                                        franka_reach_ma)
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 
@@ -91,6 +105,27 @@ def cartpole_draws(k_reset, task):
 # warmed-up state: name -> (PRNG seed, steps)
 ROLLOUTS = {"Cartpole": (1234, 101)}
 
+def live_grabs(st, task, actions, envs):
+    """Make the grab constraints of the MA tasks live in ``envs``: each
+    agent k's cube k moved onto agent k's grip site (world position from
+    the JAX ``engine.fk``) and at rest, and those agents' gripper actions
+    (column 6) negative in every recorded step.  A random policy almost
+    never closes a gripper within 2.25 cm of a cube, so without this the
+    grab rows would do no work in the capture."""
+    K = task.num_agents
+    bx, _ = task.engine.fk(st.sim.q)
+    grip = np.asarray(bx)[:, task.grip_bodies]                 # (N, K, 3)
+    q, qd = np.array(st.sim.q), np.array(st.sim.qd)
+    for k in range(K):
+        qa, va = int(task.cube_q_adr[k]), int(task.cube_v_adr[k])
+        q[envs, qa: qa + 3] = grip[envs, k]
+        qd[envs, va: va + 6] = 0.0
+    rows = (np.asarray(envs)[:, None] * K + np.arange(K)).reshape(-1)
+    actions[:, rows, 6] = -np.abs(actions[:, rows, 6])
+    return st._replace(sim=st.sim._replace(q=jnp.asarray(q),
+                                           qd=jnp.asarray(qd)))
+
+
 TASKS = {  # name -> (class, config, draws, envs, file)
     "Ant": (ant.Ant, ant.TASK_CFG, ant_draws, 64, "ant_golden.npz"),
     "BallBalance": (ball_balance.BallBalance, ball_balance.TASK_CFG,
@@ -98,9 +133,20 @@ TASKS = {  # name -> (class, config, draws, envs, file)
     "FrankaReachMA": (franka_reach_ma.FrankaReachMA,
                       franka_reach_ma.TASK_CFG, franka_reach_ma_draws, 16,
                       "franka_reach_ma_golden.npz"),
+    "FrankaCollectMA": (franka_collect_ma.FrankaCollectMA,
+                        franka_collect_ma.TASK_CFG, franka_reach_ma_draws, 16,
+                        "franka_collect_ma_golden.npz"),
+    "FrankaPPMA": (franka_ppma.FrankaPPMA, franka_ppma.TASK_CFG,
+                   franka_reach_ma_draws, 16, "franka_ppma_golden.npz"),
     "Cartpole": (cartpole.Cartpole, cartpole.TASK_CFG, cartpole_draws, 64,
                  "cartpole_golden.npz"),
 }
+# tasks with grab constraints: recorded with live grabs in half of the
+# envs (those after the first quarter, which resets), for GRAB_STEPS steps
+# on the default loop; on the kernel route (128 envs) for T steps, which
+# keeps the capture under 400 KB
+GRAB_TASKS = ("FrankaCollectMA", "FrankaPPMA")
+GRAB_STEPS = 10
 
 
 def main():
@@ -124,13 +170,21 @@ def main():
         actions = np.repeat(np.asarray(a)[:, None, None], B, axis=1)
     else:
         st = task.initial_state(jax.random.PRNGKey(2024))
+        t_w = time.perf_counter()
         for _ in range(WARMUP):
             st, _ = step(st, jnp.asarray(rng.uniform(-1, 1, (B, A)),
                                          jnp.float32))
+        print(f"warm-up (jit + {WARMUP} steps) "
+              f"{time.perf_counter() - t_w:.1f} s", flush=True)
         flags = np.asarray(st.reset_buf).copy()
         flags[: n // 4] = 1
         st = st._replace(reset_buf=jnp.asarray(flags, jnp.int32))
-        actions = rng.uniform(-1, 1, (T, B, A)).astype(np.float32)
+        steps = (GRAB_STEPS if args.task in GRAB_TASKS
+                 and not args.kernel_route else T)
+        actions = rng.uniform(-1, 1, (steps, B, A)).astype(np.float32)
+        if args.task in GRAB_TASKS:
+            grab_envs = np.arange(n // 4, n // 4 + n // 2)
+            st = live_grabs(st, task, actions, grab_envs)
     rec = {
         "task": np.asarray(args.task), "atol": np.float32(2e-3),
         "init_q": np.asarray(st.sim.q), "init_qd": np.asarray(st.sim.qd),
@@ -139,6 +193,8 @@ def main():
     }
     for f in st.task._fields if st.task is not None else ():
         rec[f"init_{f}"] = np.asarray(getattr(st.task, f))
+    if args.task in GRAB_TASKS:
+        rec["grab_envs"] = grab_envs
     fields = {k: [] for k in ("obs", "rew", "reset", "q", "qd")}
     if args.kernel_route:
         jdk._FORCE_INTERPRET = True
@@ -148,7 +204,11 @@ def main():
             eng, n, jnp.float32, P, len(eng.attractors), len(eng.grabs),
             bool(eng.pairs)), "the JAX engine would not take its kernels"
         step = task.step        # eager: the flag is read while tracing
+    t0 = time.perf_counter()
     for t in range(len(actions)):
+        if t == 1:
+            print(f"first step (jit or interpret) "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
         k_reset = jax.random.split(st.rng, 6)[1]   # VecTaskBase.step's key
         for k, v in draws_of(k_reset, task).items():
             fields.setdefault(k, []).append(np.asarray(v))

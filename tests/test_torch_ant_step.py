@@ -278,12 +278,14 @@ def test_unported_options_raise(override):
                                     {"grabs": [(0, (0, 0, 0), 1, (0, 0, 0))]}],
                          ids=["no_ground", "pairs", "attractors", "grabs"])
 def test_unported_scene_features_raise(kwargs):
-    """Still unported, and raising: SDF-grid pair targets and grab
-    constraints.  A scene with no contact rows at all (no ground, or only
-    attractors, which the JAX engine then ignores) raised until the
-    joint-limit solve was ported: now it builds without B4's plan, and one
-    step of the falling Ant with a hip pushed past its upper limit matches
-    the JAX engine's (q rtol 2e-4 / atol 2e-5, qd 2e-3)."""
+    """Still unported, and raising: SDF-grid pair targets.  A scene with no
+    contact rows at all (no ground, or only attractors, which the JAX
+    engine then ignores) raised until the joint-limit solve was ported, and
+    grab constraints until they were: now each builds (the first two
+    without B4's plan), and one step of the falling Ant with a hip pushed
+    past its upper limit (and, with the grab, the torso's origin pinned to
+    body 1's, live in every env) matches the JAX engine's
+    (q rtol 2e-4 / atol 2e-5, qd 2e-3)."""
     import dataclasses
     from isaacgymenvs_ma_tpu.models.model import GEOM_SDF
     from isaacgymenvs_ma_tpu.models.robots import build_ant
@@ -293,12 +295,13 @@ def test_unported_scene_features_raise(kwargs):
     m = build_ant()
     if kwargs.pop("sdf", False):
         m.geoms[1] = dataclasses.replace(m.geoms[1], gtype=GEOM_SDF)
-    if "pair_specs" in kwargs or "grabs" in kwargs:
+    if "pair_specs" in kwargs:
         with pytest.raises(NotImplementedError):
             PhysicsEngine(m, SimParams(), device="cpu", **kwargs)
         return
     te = PhysicsEngine(m, SimParams(), device="cpu", **kwargs)
-    assert not te.has_contact_rows and te.cplan is None
+    grab = "grabs" in kwargs
+    assert te.has_contact_rows == grab and te.cplan is None
     je = JEngine(m, JSimParams(), **kwargs)
     n = 4
     q = np.array(je.default_state(n).q)
@@ -306,15 +309,26 @@ def test_unported_scene_features_raise(kwargs):
     qd = np.random.default_rng(1).normal(0, 1, (n, m.nv)).astype(np.float32)
     qd[:, 6] = 1.0                              # moving further out
     tau = np.zeros((n, m.nv), np.float32)
+    act = np.ones((n, 1), np.float32) if grab else None
     js, _ = je.step(JSimState(jnp.asarray(q), jnp.asarray(qd)),
-                    JControl(tau=jnp.asarray(tau)))
+                    JControl(tau=jnp.asarray(tau),
+                             grab_active=None if act is None
+                             else jnp.asarray(act)))
     ts, _ = te.step(SimState(torch.as_tensor(q), torch.as_tensor(qd)),
-                    Control(tau=torch.as_tensor(tau)))
+                    Control(tau=torch.as_tensor(tau),
+                            grab_active=None if act is None
+                            else torch.as_tensor(act)))
     np.testing.assert_allclose(ts.q.numpy(), np.asarray(js.q), rtol=2e-4,
                                atol=2e-5)
     np.testing.assert_allclose(ts.qd.numpy(), np.asarray(js.qd), rtol=2e-3,
                                atol=2e-3)
-    assert (ts.qd.numpy()[:, 6] < 1.0).all()     # the limit row pushed back
+    if not grab:
+        assert (ts.qd.numpy()[:, 6] < 1.0).all()  # the limit row pushed back
+        return
+    # the live grab moved the Ant: the step differs from the one without
+    free, _ = te.step(SimState(torch.as_tensor(q), torch.as_tensor(qd)),
+                      Control(tau=torch.as_tensor(tau)))
+    assert float((free.qd - ts.qd).abs().max()) > 0.1
 
 
 def test_terrain_and_phys_raise():
@@ -327,8 +341,11 @@ def test_terrain_and_phys_raise():
         t.engine.step(st.sim, ctrl, phys=object())
     with pytest.raises(NotImplementedError):
         t.engine.step(st.sim, ctrl._replace(f_ext=torch.zeros(4, 9, 6)))
-    with pytest.raises(NotImplementedError):
-        t.engine.step(st.sim, ctrl._replace(grab_active=torch.zeros(4, 1)))
+    # grab activation is ported: a scene without grabs ignores it, as the
+    # JAX engine does
+    ref, _ = t.engine.step(st.sim, ctrl)
+    got, _ = t.engine.step(st.sim, ctrl._replace(grab_active=torch.ones(4, 1)))
+    assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
 
 
 def test_domain_randomization_raises():

@@ -12,12 +12,18 @@ no compaction or row reuse), replayed on the port's B4 route;
 cartpole_golden.npz (``--task Cartpole``) the rollout of
 tests/test_golden_cartpole.py: 64 envs from its initial state (every env
 reset on step 1), 101 steps of the action sin(0.1 t), with every step's
-JAX reset draws.  chip_smoke.py replays the same files through the CUDA
-kernels.
+JAX reset draws; franka_collect_ma_golden.npz and franka_ppma_golden.npz
+(16 envs x 2 arms, default loop) and franka_collect_ma_b4_golden.npz (128
+envs x 2 arms, the JAX kernel route) 10 steps each (6 on the kernel
+route) from a warmed-up state
+in which half of the envs hold their cubes (each agent's cube on its grip
+site, its gripper action negative: live grab constraints).  chip_smoke.py
+replays the same files through the CUDA kernels.
 
 The per-step tolerances and their reasons are parity.GOLDEN_TOL's (Ant),
 parity.BB_GOLDEN_TOL's (BallBalance), parity.FRANKA_GOLDEN_TOL's
-(FrankaReachMA) and parity.CARTPOLE_GOLDEN_TOL's (Cartpole).
+(FrankaReachMA), parity.FRANKA_GRAB_GOLDEN_TOL's (the captures with live
+grabs) and parity.CARTPOLE_GOLDEN_TOL's (Cartpole).
 """
 import os
 
@@ -30,7 +36,8 @@ from isaacgymenvs_ma_tpu_torch.convert import env_state_from_jax
 from isaacgymenvs_ma_tpu_torch.tasks.cartpole import Cartpole, TASK_CFG
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.utils.parity import (
-    BB_GOLDEN_TOL, CARTPOLE_GOLDEN_TOL, FRANKA_GOLDEN_TOL, GOLDEN_TOL, replay)
+    BB_GOLDEN_TOL, CARTPOLE_GOLDEN_TOL, FRANKA_GOLDEN_TOL,
+    FRANKA_GRAB_GOLDEN_TOL, GOLDEN_TOL, replay)
 from test_golden_cartpole import GOLDEN as CARTPOLE_GOLDEN_OBS
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -40,6 +47,13 @@ BB_GOLDEN = os.path.join(DATA, "ball_balance_golden.npz")
 FRANKA_GOLDEN = os.path.join(DATA, "franka_reach_ma_golden.npz")
 FRANKA_B4_GOLDEN = os.path.join(DATA, "franka_reach_ma_b4_golden.npz")
 CARTPOLE_GOLDEN = os.path.join(DATA, "cartpole_golden.npz")
+# the MA captures with live grabs: file -> (task, envs, steps, obs width,
+# route)
+GRAB_GOLDEN = {
+    "franka_collect_ma_golden.npz": ("FrankaCollectMA", 16, 10, 28, False),
+    "franka_collect_ma_b4_golden.npz": ("FrankaCollectMA", 128, 6, 28, True),
+    "franka_ppma_golden.npz": ("FrankaPPMA", 16, 10, 50, False),
+}
 
 
 def test_golden_capture_format():
@@ -190,3 +204,49 @@ def test_cartpole_golden_trajectory():
         obs0.append(res.obs[0].numpy())
     got = np.stack(obs0)[[10, 50, 100]]
     assert np.allclose(got, CARTPOLE_GOLDEN_OBS, atol=1e-4), got
+
+
+@pytest.mark.parametrize("fname", sorted(GRAB_GOLDEN))
+def test_grab_golden_capture_format(fname):
+    """10 steps (the B4-route capture at 128 envs 6); a quarter of the
+    envs reset on step 1; in the next half each agent's cube sits on its
+    grip site and its gripper action is negative in every step, so that
+    agent holds its cube (FSM stage 2 or more after step 1, and in 99% of
+    its rows over the capture: an arm that presses its cube into the
+    table can pull its grip site off it)."""
+    task, n, steps, n_obs, _ = GRAB_GOLDEN[fname]
+    path = os.path.join(DATA, fname)
+    d = np.load(path)
+    T, B = d["actions"].shape[:2]
+    assert (T, d["init_q"].shape[0], B) == (steps, n, 2 * n)
+    assert str(d["task"]) == task
+    assert d["obs"].shape == (T, B, n_obs) and d["q"].shape == (T, n, 32)
+    assert d["init_actions"].shape == (B, 7)
+    assert d["init_fsm"].shape == (n, 2) and d["init_fsm"].dtype == np.int32
+    assert d["dof_noise"].shape == (T, n, 2, 9)
+    assert int(d["init_reset_buf"].sum()) == n // 4
+    np.testing.assert_array_equal(d["grab_envs"],
+                                  np.arange(n // 4, n // 4 + n // 2))
+    rows = (d["grab_envs"][:, None] * 2 + np.arange(2)).reshape(-1)
+    assert (d["actions"][:, rows, 6] < 0).all()
+    fsm_col = n_obs - (2 if task == "FrankaCollectMA" else 3)
+    assert (d["obs"][0, rows, fsm_col] >= 2).all()
+    assert (d["obs"][:, rows, fsm_col] >= 2).mean() >= 0.99
+    assert os.path.getsize(path) < 400_000
+
+
+@pytest.mark.parametrize("fname", sorted(GRAB_GOLDEN))
+def test_grab_golden_replay_on_cpu_twins(fname):
+    """At FRANKA_GRAB_GOLDEN_TOL, the B4-route capture through B4's twin;
+    in step 1 exactly the holding agents' grabs are on (one an agent),
+    and grabs are on in every step."""
+    task, n, steps, _, kernel_route = GRAB_GOLDEN[fname]
+    e = replay(os.path.join(DATA, fname), "cpu",
+               use_contact_kernel=kernel_route)
+    assert e.finite
+    for k, tol in FRANKA_GRAB_GOLDEN_TOL.items():
+        errs = getattr(e, k)
+        assert (errs <= tol).all(), f"{k} per-step errors {errs} > {tol}"
+    assert int(e.reset_mismatches.sum()) == 0
+    assert e.grabs_live.shape == (steps,) and e.grabs_live[0] == n
+    assert (e.grabs_live > 0).all()

@@ -4,7 +4,9 @@ Runs in a subprocess because tests/conftest.py imports jax into this one:
 import every module of isaacgymenvs_ma_tpu_torch, build and step Ant and
 BallBalance at 8 envs on the CPU (default loop and contact-kernel route),
 FrankaReachMA at 4 envs x 2 arms (OSC; compaction and row reuse on the
-default loop, and the contact-kernel route) and Cartpole at 8 envs (the
+default loop, and the contact-kernel route), FrankaCollectMA at 4 envs x 2
+arms with live grabs (each agent's cube on its grip site, its gripper
+closing; both routes) and Cartpole at 8 envs (the
 contact-free path, which no route option changes), call ``spd_inverse``,
 run one PPO ``train_epoch`` of Cartpole at 16 envs, then check that neither ``jax*`` nor
 ``isaacgymenvs_ma_tpu`` / ``isaacgymenvs_ma_tpu.*`` was loaded.
@@ -54,6 +56,26 @@ SCRIPT = textwrap.dedent("""
         for _ in range(2):
             state, res = task.step(state, torch.tanh(torch.randn(8, 6)))
         assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 19)
+    from isaacgymenvs_ma_tpu_torch.tasks.franka_collect_ma import (
+        FrankaCollectMA, TASK_CFG as FC_CFG)
+    from isaacgymenvs_ma_tpu_torch.utils.parity import live_grabs
+    torch.manual_seed(0)
+    for kernel_route in (False, True):
+        cfg = deep_merge(FC_CFG, {"env": {"numEnvs": 4}})
+        params = parse_sim_params(cfg["sim"])._replace(
+            use_contact_kernel=kernel_route)
+        task = FrankaCollectMA(cfg, device="cpu", sim_params=params)
+        # two steps: the first resets every env on the second (the initial
+        # state's OSC torques are not finite, so the first step flags all)
+        state = task.initial_state()
+        for _ in range(2):
+            state, _ = task.step(state, torch.zeros(8, 7))
+        actions = torch.tanh(torch.randn(8, 7))
+        state = live_grabs(task, state, actions, [0, 2])
+        assert float(task.pre_physics(state, actions).grab_active.sum()) == 4
+        state, res = task.step(state, actions)
+        assert torch.isfinite(res.obs).all() and res.obs.shape == (8, 28)
+        assert (state.task.fsm[[0, 2]] >= 2).all()   # holding, or more
     from isaacgymenvs_ma_tpu_torch.tasks.cartpole import (
         Cartpole, TASK_CFG as CP_CFG)
     for kernel_route in (False, True):
@@ -100,6 +122,7 @@ def test_port_imports_and_steps_without_jax():
     assert "LOADED []" in proc.stdout
     # every module of the package was imported (scaffold, models, ops,
     # physics, tasks, utils, convert), the learner (learning/*, train, api,
-    # tasks.registry) too
+    # tasks.registry) and the MA tasks with grabs (franka_collect_ma,
+    # franka_ppma, franka_combine_ma) too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 38, proc.stdout
+    assert n_mods >= 41, proc.stdout
