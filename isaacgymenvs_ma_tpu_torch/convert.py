@@ -13,9 +13,12 @@ numpy arrays under flat dotted names, e.g. from a JAX ``EnvState`` ``st``::
 
 The ``task.*`` keys name the fields of one task's state class (Ant's
 ``AntTaskState``, BallBalance's ``BBTaskState``, FrankaReachMA's
-``FrankaMATaskState``, the other MA tasks' ``CollectTaskState``); the class
-is picked by its field names.  A field keeps its kind: integer arrays (the
-MA tasks' FSM states) become int32 tensors, the others float32.
+``FrankaMATaskState``, the other MA tasks' ``CollectTaskState``,
+Anymal's, AnymalTerrain's, Ingenuity's and Quadcopter's); the class is
+picked by its field names, or given (Humanoid's ``HumanoidTaskState`` has
+Ant's fields).  A field keeps its kind: integer arrays (the MA tasks' FSM
+states, AnymalTerrain's levels, types and step counter) become int32
+tensors, the others float32.
 
 ``ppo_state_from_jax`` converts the learner part of a JAX ``PPOState``
 (flax parameters, optax Adam moments, the normalisers, ``lr``) into the
@@ -29,19 +32,25 @@ import torch
 from .device import DTYPE
 from .physics.engine import SimState
 from .tasks.ant import AntTaskState
+from .tasks.anymal import AnymalTaskState
+from .tasks.anymal_terrain import ATTaskState
 from .tasks.ball_balance import BBTaskState
 from .tasks.base import EnvState
 from .tasks.franka_collect_ma import CollectTaskState
 from .tasks.franka_reach_ma import FrankaMATaskState
+from .tasks.ingenuity import IngenuityTaskState
+from .tasks.quadcopter import QuadTaskState
 
 TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState,
-               CollectTaskState)
+               CollectTaskState, AnymalTaskState, ATTaskState,
+               IngenuityTaskState, QuadTaskState)
 
 
-def env_state_from_jax(arrays: dict, device) -> EnvState:
+def env_state_from_jax(arrays: dict, device, state_cls=None) -> EnvState:
     """The port's ``EnvState`` from a JAX ``EnvState`` turned into numpy
     (keys as in the module docstring).  The ``task.*`` keys must be exactly
-    the fields of one class in ``TASK_STATES``."""
+    the fields of ``state_cls`` or, without it, of one class in
+    ``TASK_STATES``."""
     # torch.tensor copies: the port's state never aliases the caller's arrays
     f32 = lambda k: torch.tensor(  # noqa: E731
         np.asarray(arrays[k], np.float32), dtype=DTYPE, device=device)
@@ -52,7 +61,7 @@ def env_state_from_jax(arrays: dict, device) -> EnvState:
     if task_keys:
         by_fields = {frozenset(f"task.{f}" for f in cls._fields): cls
                      for cls in TASK_STATES}
-        cls = by_fields.get(frozenset(task_keys))
+        cls = state_cls or by_fields.get(frozenset(task_keys))
         if cls is None:
             raise KeyError(f"task state keys {sorted(task_keys)} match no "
                            f"task state in {[c.__name__ for c in TASK_STATES]}")

@@ -13,15 +13,17 @@ B4, engine.py:1708-1735); otherwise it is a loop of batched products.
 :func:`spd_inverse` (OSC's two inverses) runs through kernel B5
 (:mod:`.spd_kernel`).
 
-Ported so far: what the Ant, BallBalance, Cartpole and the four
-multi-arm Franka steps run (ground contact rows, body-pair contact rows
-against primitive SDFs with tangent frames, rigid-body attractors,
-conditional grab constraints switched per env by ``Control.grab_active``,
-joint limits, effort and PD actuation with position targets, mass-matrix
-reuse, active-set compaction and contact-row reuse with impulse
-continuation on the batched-product loop (the B4 route ignores both, as
-the JAX kernel route does), the controller readouts, and for a scene
-without contact rows or grabs the joint-limit solve
+Ported so far: what the Ant, BallBalance, Cartpole, the four
+multi-arm Franka, the Humanoid, Anymal, AnymalTerrain, Ingenuity and
+Quadcopter steps run (ground contact rows, on a flat plane or on a
+heightfield terrain, body-pair contact rows against primitive SDFs with
+tangent frames, rigid-body attractors, conditional grab constraints
+switched per env by ``Control.grab_active``, external body wrenches
+``Control.f_ext``, joint limits, effort and PD actuation with position
+targets, mass-matrix reuse, active-set compaction and contact-row reuse
+with impulse continuation on the batched-product loop (the B4 route
+ignores both, as the JAX kernel route does), the controller readouts, and
+for a scene without contact rows or grabs the joint-limit solve
 :meth:`PhysicsEngine._limit_solve`).  Every feature the JAX engine has
 beyond that raises ``NotImplementedError`` when a model or config asks for
 it, instead of computing something else.  Entry points run on the card
@@ -72,10 +74,11 @@ class SimParams(NamedTuple):
 
 class Control(NamedTuple):
     """Per-step actuation inputs: ``tau`` (N, nv) dof effort, optional PD
-    ``pos_target``/``vel_target`` (N, nv) and ``grab_active`` (N, G), 1
-    where a grab constraint is on (None: every grab off; ignored by a scene
-    without grabs, as in the JAX engine).  ``f_ext`` is not ported yet (it
-    raises)."""
+    ``pos_target``/``vel_target`` (N, nv), ``f_ext`` (N, nb, 6) external
+    wrenches [torque, force] on each body about its own origin, in world
+    axes, and ``grab_active`` (N, G), 1 where a grab constraint is on
+    (None: every grab off; ignored by a scene without grabs, as in the JAX
+    engine)."""
 
     tau: torch.Tensor
     pos_target: Optional[torch.Tensor] = None
@@ -244,6 +247,13 @@ class PhysicsEngine:
         self.dof_qid = dof_qid                            # (nv,) q index
         self.scalar_dofs = np.nonzero(dof_qid >= 0)[0]
         self.scalar_qids = dof_qid[self.scalar_dofs]
+        # the index and constant tensors of the step, on the device once:
+        # a numpy index or a torch.tensor(...) constant would copy to the
+        # card and wait for it on every use
+        self.scalar_dofs_t = torch.as_tensor(self.scalar_dofs, device=dev)
+        self._scalar_qids_t = torch.as_tensor(self.scalar_qids, device=dev)
+        self._quat_id = f32([0.0, 0.0, 0.0, 1.0])
+        self._ez = f32([0.0, 0.0, 1.0])
         q2d = np.zeros((m.nv, m.nq), np.float32)
         for d, qid in zip(self.scalar_dofs, self.scalar_qids):
             q2d[d, qid] = 1.0
@@ -382,6 +392,12 @@ class PhysicsEngine:
             seg_a[:, self.sensor_body], device=dev)
         self.sens_b = torch.as_tensor(seg_b[:, self.sensor_body], device=dev)
         self.actor_root_body = np.asarray(m.actor_root_body, np.int64)
+        idx = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        self._gnd_body_t = idx(self.gnd_body)
+        self._row_a_t = idx(self.row_body_a)
+        self._row_b_t = idx(np.maximum(self.row_body_b, 0))
+        self._sensor_body_t = idx(self.sensor_body)
+        self._root_body_t = idx(self.actor_root_body)
 
     def _build_attractors(self, m, attractors):
         """Rigid-body attractors (engine.py:537-546): soft pins of a body
@@ -462,8 +478,7 @@ class PhysicsEngine:
             if self.parent[b] == -1:
                 xp = torch.zeros(q.shape[:-1] + (3,), dtype=q.dtype,
                                  device=q.device)
-                qp = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=q.dtype,
-                                  device=q.device).expand(q.shape[:-1] + (4,))
+                qp = self._quat_id.expand(q.shape[:-1] + (4,))
             else:
                 xp, qp = xs[self.parent[b]], qs[self.parent[b]]
             if t == md.FREE:
@@ -636,14 +651,23 @@ class PhysicsEngine:
         the control step (SimParams.reuse_mass_matrix); given, the cached
         chain B3 runs instead of the full chain B2.  ``contact_cache``: the
         contact-row cache of the first substep (SimParams.
-        reuse_contact_rows, see :meth:`_contact_solve`).  ``terrain`` and
-        ``phys`` (domain-randomization scales) are not ported yet."""
+        reuse_contact_rows, see :meth:`_contact_solve`).  ``terrain``: a
+        :class:`.terrain.TerrainGrid` the ground rows stand on instead of
+        the plane z = 0 (its surface normals, SimParams.
+        terrain_normal_frames, are not ported).  ``phys`` (domain-
+        randomization scales) is not ported yet."""
         if terrain is not None:
-            _unsupported("terrain heightfields")
+            if self.params.terrain_normal_frames:
+                _unsupported("terrain surface normals (terrain_normal_frames)")
+            if self.n_ground != len(self.pts_body):
+                raise ValueError(
+                    "ground-candidate pruning assumed a flat z=0 plane, but "
+                    "this scene steps with a terrain heightfield and has "
+                    "pruned candidates on a fixed-base tree; rebuild the "
+                    "engine without fixed-base trees or disable pruning for "
+                    "this scene")
         if phys is not None:
             _unsupported("per-env physics scales (domain randomization)")
-        if ctrl.f_ext is not None:
-            _unsupported("external wrenches (Control.f_ext)")
         h = self.h
         N = q.shape[0]
         body_x, body_q, S, (bx_bl, bq_bl, S_bl) = self.kinematics(q)
@@ -665,6 +689,14 @@ class PhysicsEngine:
         drive_sat = torch.abs(drive) > eff_lim
         rhs = rhs + torch.clamp(drive, -eff_lim, eff_lim)
         imp = torch.where(drive_sat, 0.0, 1.0)
+        if ctrl.f_ext is not None:
+            # each body's wrench moved to the world origin, then onto the
+            # dofs that move the body (engine.py:905-911)
+            f_b = ctrl.f_ext[..., 3:]
+            f_o = torch.cat([ctrl.f_ext[..., :3] + _cross(body_x, f_b), f_b],
+                            -1)                                 # (N, nb, 6)
+            rhs = rhs + torch.einsum("nvd,vb,nbd->nv", S,
+                                     self.dof_body_mask_f, f_o)
         diag = (self.dof_armature + h * self.dof_damping + h * h * self.dof_spring
                 + imp * (h * self.kd_drive + h * h * self.kp_drive))
 
@@ -690,7 +722,8 @@ class PhysicsEngine:
                 self._contact_solve(qd_new, body_x, body_q, S, Hinv,
                                     qpos_dof, S_bl, hinv_bl,
                                     ccache=contact_cache, qd_geom=qd,
-                                    grab_active=ctrl.grab_active)
+                                    grab_active=ctrl.grab_active,
+                                    terrain=terrain)
         else:
             qd_new = self._limit_solve(qd_new, Hinv, qpos_dof)
             impulse_pts = p_w = ccache_out = None
@@ -735,8 +768,8 @@ class PhysicsEngine:
 
     def _contact_points(self, body_x, body_q):
         """World ground-candidate positions p (N, n_ground, 3)."""
-        return (body_x[:, self.gnd_body]
-                + maths.quat_apply(body_q[:, self.gnd_body], self.gnd_off))
+        return (body_x[:, self._gnd_body_t]
+                + maths.quat_apply(body_q[:, self._gnd_body_t], self.gnd_off))
 
     @staticmethod
     def _sdf_local(gtype: int, size, p):
@@ -785,9 +818,10 @@ class PhysicsEngine:
     def _tangent_frame(n):
         """(t1, t2, n) columns (..., 3, 3) from normals (..., 3)
         (engine.py:1038-1046)."""
-        ez = torch.tensor([0.0, 0.0, 1.0], dtype=n.dtype, device=n.device)
-        ex = torch.tensor([1.0, 0.0, 0.0], dtype=n.dtype, device=n.device)
-        ref = torch.where(torch.abs(n[..., 2:3]) < 0.9, ez, ex)
+        # the reference axis: ez, or ex where the normal is near z (built
+        # from n: a constant tensor would be copied to the card each call)
+        near_z = (~(torch.abs(n[..., 2:3]) < 0.9)).to(n.dtype)
+        ref = torch.cat([near_z, torch.zeros_like(near_z), 1.0 - near_z], -1)
         t1 = _cross(n, ref)
         t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1,
                                                        keepdim=True), min=1e-9)
@@ -849,12 +883,14 @@ class PhysicsEngine:
             torch.sum(J_flat * HinvJ_flat, dim=-1).reshape(N, R_rows, 3),
             min=1e-8)
 
-    def _contact_rows(self, body_x, body_q, N):
+    def _contact_rows(self, body_x, body_q, N, terrain=None):
         """Narrowphase of every candidate row, ground rows first
         (engine.py:1306-1397): points p (N, P, 3), gaps phi (N, P),
         friction mu (N, P) and, when pairs exist, row frames (N, P, 3, 3)
-        (identity on the ground rows), else None.  A scene with grabs and
-        no candidate rows gets an empty row set (engine.py:1392-1398)."""
+        (identity on the ground rows), else None.  Ground rows measure
+        their gap from z = 0 or, with ``terrain``, from the heightfield's
+        bilinear height under the point.  A scene with grabs and no
+        candidate rows gets an empty row set (engine.py:1392-1398)."""
         pr = self.params
         if not (self.n_ground or self.pairs):
             z = body_x.new_zeros((N, 0))
@@ -863,7 +899,11 @@ class PhysicsEngine:
         if self.n_ground:
             p = self._contact_points(body_x, body_q)            # (N, G, 3)
             ps.append(p)
-            phis.append(p[..., 2] - self.gnd_rad)                # flat z = 0
+            if terrain is None:
+                phis.append(p[..., 2] - self.gnd_rad)            # flat z = 0
+            else:
+                phis.append(p[..., 2] - self.gnd_rad
+                            - terrain.height_at(p[..., 0], p[..., 1]))
             mus.append((self.gnd_mu * pr.plane_friction).expand(N, -1))
         if self.pairs:
             pp, pphi, pmu, pn = self._pair_rows(body_x, body_q)
@@ -888,11 +928,14 @@ class PhysicsEngine:
         return active, torch.clamp(b_n, max=pr.max_depenetration_velocity)
 
     def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, S_bl,
-                       hinv_bl, ccache=None, qd_geom=None, grab_active=None):
+                       hinv_bl, ccache=None, qd_geom=None, grab_active=None,
+                       terrain=None):
         """Projected-Jacobi impulse solve over grabs, attractors, ground
         rows, body-pair rows and joint limits, in that order in each
-        iteration (engine.py:1248-1925 without warm start, terrain or
-        restitution).
+        iteration (engine.py:1248-1925 without warm start, terrain normals
+        or restitution).  With ``terrain`` the ground rows' gaps are taken
+        from the heightfield (:meth:`_contact_rows`); B4 sees terrain only
+        through those gaps, as the JAX kernel route does.
 
         Grab rows (:meth:`_grab_rows`) are bilateral world-axis rows gated
         per env by ``grab_active``; they are rebuilt every substep, their
@@ -918,7 +961,9 @@ class PhysicsEngine:
         ``ccache``, a later substep reuses selection, Jacobians, Delassus
         diagonals, frames and friction, advances the gaps by
         ``h J qd_geom`` (``qd_geom``: the velocity the previous substep
-        integrated with) and, with ``contact_continuation``, seeds the loop
+        integrated with; on terrain the ground rows' points move by that
+        velocity and their gaps are read from the heightfield again,
+        engine.py:1607-1625) and, with ``contact_continuation``, seeds the loop
         from the cached impulses on still-active rows (engine.py:1582-1651,
         :1837-1842).  The B4 route takes neither option, as the JAX
         engine's kernel route does not (engine.py:1304-1305, :1524, :1558):
@@ -955,7 +1000,8 @@ class PhysicsEngine:
                 body_x, body_q, S, Hinv, grab_active)
 
         if self.cplan is not None:
-            p, phi, mu, frames = self._contact_rows(body_x, body_q, N)
+            p, phi, mu, frames = self._contact_rows(body_x, body_q, N,
+                                                    terrain)
             active, b_n = self._normal_targets(phi)
             J_flat = self._build_J_flat(S, p, self.row_masks, frames)
             w_diag = self._w_diag(J_flat, torch.bmm(J_flat, Hinv), N,
@@ -973,10 +1019,19 @@ class PhysicsEngine:
 
         reuse_rows = pr.reuse_contact_rows and pr.substeps > 1
         if ccache is None:
-            p, phi, mu, frames = self._contact_rows(body_x, body_q, N)
+            p, phi, mu, frames = self._contact_rows(body_x, body_q, N,
+                                                    terrain)
             sel = None
             phi_r, p_r, mu_r, masks_r, frames_r = (phi, p, mu, self.row_masks,
                                                    frames)
+            terr_r = None
+            if reuse_rows and terrain is not None:
+                # per row: its radius and whether it stands on the ground
+                # (the rows the later substeps read the heightfield for)
+                terr_r = torch.cat([
+                    torch.stack([self.gnd_rad, torch.ones_like(self.gnd_rad)],
+                                -1),
+                    phi.new_zeros((self.n_pair_rows, 2))]).expand(N, -1, -1)
             K = pr.contact_capacity
             if K is not None and p.shape[1] > K:
                 # the K deepest rows per env; a stable ascending sort puts
@@ -987,6 +1042,8 @@ class PhysicsEngine:
                 masks_r = self.row_masks[sel]                   # (N, K, nv)
                 if frames is not None:
                     frames_r = frames[env, sel]
+                if terr_r is not None:
+                    terr_r = terr_r[env, sel]
             R = p_r.shape[1]
             active, b_n = self._normal_targets(phi_r)
             J_flat = self._build_J_flat(S, p_r, masks_r, frames_r)  # (N,3R,nv)
@@ -1000,11 +1057,20 @@ class PhysicsEngine:
             sel, J_flat, HinvJ_flat, w_diag = (
                 cc["sel"], cc["J_flat"], cc["HinvJ_flat"], cc["w_diag"])
             frames_r, mu_r, p = cc["frames_r"], cc["mu"], cc["p_full"]
+            p_r, terr_r = cc["p_rows"], cc["terr_rows"]
             R = w_diag.shape[1]
             # gaps advanced by the normal velocity through the cached rows
-            v_n = torch.bmm(J_flat, qd_geom[..., None])[..., 0].reshape(
-                N, R, 3)[..., 2]
-            phi_r = cc["phi_rows"] + h * v_n
+            v3 = torch.bmm(J_flat, qd_geom[..., None])[..., 0].reshape(
+                N, R, 3)
+            phi_r = cc["phi_rows"] + h * v3[..., 2]
+            if terr_r is not None:
+                # terrain rows: advance the points by the world velocity
+                # and read the heightfield there (no normal frames: the
+                # ground rows' frames are the identity)
+                p_r = p_r + h * self._to_world(v3, frames_r)
+                gz = terrain.height_at(p_r[..., 0], p_r[..., 1])
+                phi_g = p_r[..., 2] - gz - terr_r[..., 0]
+                phi_r = torch.where(terr_r[..., 1] > 0.5, phi_g, phi_r)
             active, b_n = self._normal_targets(phi_r)
             if pr.contact_continuation:
                 lam = torch.where(active[..., None], cc["lam"], 0.0)
@@ -1064,9 +1130,9 @@ class PhysicsEngine:
         if reuse_rows:
             ccache_out = (dict(ccache) if ccache is not None else dict(
                 sel=sel, J_flat=J_flat, HinvJ_flat=HinvJ_flat, w_diag=w_diag,
-                frames_r=frames_r, mu=mu_r, p_full=p))
-            ccache_out.update(phi_rows=phi_r, lam=lam, lam_lo=lam_lo,
-                              lam_hi=lam_hi)
+                frames_r=frames_r, mu=mu_r, p_full=p, terr_rows=terr_r))
+            ccache_out.update(p_rows=p_r, phi_rows=phi_r, lam=lam,
+                              lam_lo=lam_lo, lam_hi=lam_hi)
         if sel is not None:
             # compacted impulses back to their candidate rows
             lam_w = torch.zeros_like(p).scatter(
@@ -1087,7 +1153,7 @@ class PhysicsEngine:
         map (engine.py:1961-1981)."""
         h = self.h
         segs = []
-        up = torch.tensor([0.0, 0.0, 1.0], dtype=q.dtype, device=q.device)
+        up = self._ez
         for b in range(self.nb):
             t = int(self.jnt_type_np[b])
             qa, va = int(self.q_adr[b]), int(self.v_adr[b])
@@ -1150,15 +1216,15 @@ class PhysicsEngine:
         contact_force = torch.einsum("npk,pb->nbk", force_rows, self.seg)
         if len(self.sensor_body):
             # wrench about each sensor point, rotated into the body frame
-            xa = body_x[:, self.row_body_a]
-            xb = body_x[:, np.maximum(self.row_body_b, 0)]
+            xa = body_x[:, self._row_a_t]
+            xb = body_x[:, self._row_b_t]
             tq_a = _cross(p_w - xa, force_rows)
             tq_b = _cross(p_w - xb, force_rows)
             f_b = (torch.einsum("npk,ps->nsk", force_rows, self.sens_a)
                    - torch.einsum("npk,ps->nsk", force_rows, self.sens_b))
             n_o = (torch.einsum("npk,ps->nsk", tq_a, self.sens_a)
                    - torch.einsum("npk,ps->nsk", tq_b, self.sens_b))
-            qs = body_q[:, self.sensor_body]
+            qs = body_q[:, self._sensor_body_t]
             r_s = maths.quat_apply(qs, self.sensor_pos)
             n_b = n_o - _cross(r_s, f_b)
             sensor_forces = torch.cat([maths.quat_rotate_inverse(qs, f_b),
@@ -1174,7 +1240,7 @@ class PhysicsEngine:
             qdd=qdd, dof_force=dof_force)
 
     def _root_states(self, body_x, body_q, v_lin, w):
-        rb = self.actor_root_body
+        rb = self._root_body_t
         return torch.cat([body_x[:, rb], body_q[:, rb], v_lin[:, rb],
                           w[:, rb]], dim=-1)
 
@@ -1234,19 +1300,19 @@ class PhysicsEngine:
 
     def dof_pos(self, state: SimState):
         """Scalar-dof positions (N, n_scalar_dofs)."""
-        return state.q[:, self.scalar_qids]
+        return state.q[:, self._scalar_qids_t]
 
     def dof_vel(self, state: SimState):
-        return state.qd[:, self.scalar_dofs]
+        return state.qd[:, self.scalar_dofs_t]
 
     def set_dof_pos(self, state: SimState, pos):
         q = state.q.clone()
-        q[:, self.scalar_qids] = pos
+        q[:, self._scalar_qids_t] = pos
         return state._replace(q=q)
 
     def set_dof_vel(self, state: SimState, vel):
         qd = state.qd.clone()
-        qd[:, self.scalar_dofs] = vel
+        qd[:, self.scalar_dofs_t] = vel
         return state._replace(qd=qd)
 
 

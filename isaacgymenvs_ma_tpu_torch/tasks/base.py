@@ -8,9 +8,13 @@ starts at 1, so the first step resets every env after physics (before
 physics for tasks with ``reset_in_pre_physics``, as BallBalance).
 
 The JAX version threads a PRNG key through ``EnvState``; here each task
-owns a ``torch.Generator`` (``task.generator``) for its reset draws, and
-``step`` also accepts explicit ``reset_draws`` so tests can inject the
-reference's draws.
+owns a ``torch.Generator`` (``task.generator``) for its random draws, and
+``step`` also accepts explicit ``reset_draws`` (``reset_idx``'s) and
+``step_draws`` (``post_physics``'s, for the tasks that draw there:
+AnymalTerrain's pushes and observation noise, Ingenuity's new targets) so
+tests can inject the reference's draws.  A task whose ``post_physics``
+changes the physics state (AnymalTerrain's pushes) returns the new
+``SimState`` as a seventh value; the step carries it on.
 
 Multi-agent tasks (``numAgents`` K > 1, the MA fork) fold the agents into
 the batch: actions, obs, rewards, resets and time-outs have
@@ -113,7 +117,7 @@ class VecTaskBase:
         self.sim_params = (parse_sim_params(cfg.get("sim", {}))
                            if sim_params is None else sim_params)
         self.dt = self.sim_params.dt
-        self.terrain = None            # set by terrain tasks (not ported)
+        self.terrain = None            # a TerrainGrid (AnymalTerrain)
         if (cfg.get("task", {}) or {}).get("randomize"):
             raise NotImplementedError(
                 "domain randomization is not ported yet (see ROADMAP.md)")
@@ -136,11 +140,18 @@ class VecTaskBase:
     def initial_task_state(self) -> Any:
         return None
 
+    def step_terrain(self, sim: SimState):
+        """Terrain the control step's physics stands on (base.py:169-175);
+        the JAX AnymalTerrain returns per-env windows of it here, the port
+        the global grid itself."""
+        return self.terrain
+
     def pre_physics(self, state: EnvState, actions) -> Control:
         raise NotImplementedError
 
     def post_physics(self, state: EnvState, out: SimOutput, actions):
-        """Return (obs, states, rew, reset, task_state, extras)."""
+        """Return (obs, states, rew, reset, task_state, extras) and, where
+        it changes the physics state, the new ``SimState``."""
         raise NotImplementedError
 
     def reset_idx(self, sim: SimState, task: Any, mask, draws=None):
@@ -164,7 +175,8 @@ class VecTaskBase:
                                   dtype=DTYPE, device=self.device)
 
     def step(self, state: EnvState, actions: torch.Tensor,
-             reset_draws=None) -> Tuple[EnvState, StepResult]:
+             reset_draws=None, step_draws=None
+             ) -> Tuple[EnvState, StepResult]:
         actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
         reset_mask = state.reset_buf > 0
         if self.reset_in_pre_physics:
@@ -173,9 +185,10 @@ class VecTaskBase:
             state = state._replace(sim=sim, task=task)
         ctrl = self.pre_physics(state, actions)
         sim = state.sim
+        terrain = self.step_terrain(sim)
         out = None
         for _ in range(self.control_freq_inv):
-            sim, out = self.engine.step(sim, ctrl, terrain=self.terrain,
+            sim, out = self.engine.step(sim, ctrl, terrain=terrain,
                                         phys=state.phys)
 
         # ---- sim-health safety net (base.py:254-267): sanitize exploded
@@ -198,8 +211,12 @@ class VecTaskBase:
         out = self.engine.forward(sim, prev_out=out)
 
         mid = state._replace(sim=sim, progress=progress, task=task)
-        obs, states, rew, reset, task, extras = self.post_physics(
-            mid, out, actions)
+        post = self.post_physics(
+            mid, out, actions,
+            **({} if step_draws is None else {"draws": step_draws}))
+        obs, states, rew, reset, task, extras = post[:6]
+        if len(post) == 7:
+            sim = post[6]
 
         timeout = (progress >= self.max_episode_length - 1) & (reset != 0)
         extras = dict(extras)

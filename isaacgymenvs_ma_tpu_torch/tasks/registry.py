@@ -22,12 +22,15 @@ _TASKS: Dict[str, Tuple[str, str]] = {
     "FrankaCollectMA": (".franka_collect_ma", "FrankaCollectMA"),
     "FrankaPPMA": (".franka_ppma", "FrankaPPMA"),
     "FrankaCombineMA": (".franka_combine_ma", "FrankaCombineMA"),
+    "Humanoid": (".humanoid", "Humanoid"),
+    "Anymal": (".anymal", "Anymal"),
+    "AnymalTerrain": (".anymal_terrain", "AnymalTerrain"),
+    "Ingenuity": (".ingenuity", "Ingenuity"),
+    "Quadcopter": (".quadcopter", "Quadcopter"),
 }
 
 # the JAX registry's other names -> ROADMAP queue-A item that ports them
 _QUEUE_A = {
-    "5": ("Humanoid", "Anymal", "Ingenuity", "Quadcopter"),
-    "6": ("AnymalTerrain",),
     "7": ("ShadowHand", "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM",
           "ShadowHandTest", "AllegroHand", "AllegroHandLSTM", "AllegroHandFF",
           "AllegroHandLSTM_Big", "AllegroHandDextremeManualDR",

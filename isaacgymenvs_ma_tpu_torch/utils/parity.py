@@ -15,7 +15,10 @@ between the two packages:
                                         (none for Cartpole, which has no
                                         task state)
     <draw>                              (T, N, ...) the reset draws of every
-                                        step, named in RESET_DRAWS
+                                        step, named in RESET_DRAWS, and of
+                                        the tasks that draw in
+                                        post_physics those draws, named in
+                                        STEP_DRAWS
     q, qd                               (T, N, nq|nv) f32  per-step state
 
 ``scripts/record_torch_golden.py`` writes such files from the JAX package.
@@ -30,8 +33,9 @@ import torch
 from .config import deep_merge
 
 from ..convert import env_state_from_jax
-from ..tasks import (ant, ball_balance, cartpole, franka_collect_ma,
-                     franka_combine_ma, franka_ppma, franka_reach_ma)
+from ..tasks import (anymal, anymal_terrain, ant, ball_balance, cartpole,
+                     franka_collect_ma, franka_combine_ma, franka_ppma,
+                     franka_reach_ma, humanoid, ingenuity, quadcopter)
 
 # name -> (task class, configuration, task-state class or None)
 TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
@@ -48,7 +52,17 @@ TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
          "FrankaCombineMA": (franka_combine_ma.FrankaCombineMA,
                              franka_combine_ma.TASK_CFG,
                              franka_collect_ma.CollectTaskState),
-         "Cartpole": (cartpole.Cartpole, cartpole.TASK_CFG, None)}
+         "Cartpole": (cartpole.Cartpole, cartpole.TASK_CFG, None),
+         "Humanoid": (humanoid.Humanoid, humanoid.TASK_CFG,
+                      humanoid.HumanoidTaskState),
+         "Anymal": (anymal.Anymal, anymal.TASK_CFG, anymal.AnymalTaskState),
+         "AnymalTerrain": (anymal_terrain.AnymalTerrain,
+                           anymal_terrain.TASK_CFG,
+                           anymal_terrain.ATTaskState),
+         "Ingenuity": (ingenuity.Ingenuity, ingenuity.TASK_CFG,
+                       ingenuity.IngenuityTaskState),
+         "Quadcopter": (quadcopter.Quadcopter, quadcopter.TASK_CFG,
+                        quadcopter.QuadTaskState)}
 # capture keys of each task's reset draws, in reset_idx's order
 RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                "BallBalance": ("reset_dists", "reset_dirs", "reset_hspeeds",
@@ -57,7 +71,17 @@ RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                "FrankaCollectMA": ("dof_noise", "cube_xy_u", "cube_z_u"),
                "FrankaPPMA": ("dof_noise", "cube_xy_u", "cube_z_u"),
                "FrankaCombineMA": ("dof_noise", "cube_xy_u", "cube_z_u"),
-               "Cartpole": ("reset_pos", "reset_vel")}
+               "Cartpole": ("reset_pos", "reset_vel"),
+               "Humanoid": ("reset_pos", "reset_vel"),
+               "Anymal": ("reset_pos_u", "reset_vel", "cmd_x", "cmd_y",
+                          "cmd_yaw"),
+               "AnymalTerrain": ("reset_pos_u", "reset_vel", "xy_noise",
+                                 "cmd_x", "cmd_y", "cmd_yaw"),
+               "Ingenuity": ("off_xy", "off_z", "target_xy_u", "target_z_u"),
+               "Quadcopter": ("off_xy", "off_z", "reset_dof")}
+# capture keys of the draws post_physics makes, in its order
+STEP_DRAWS = {"AnymalTerrain": ("push_vel", "noise_u"),
+              "Ingenuity": ("retarget_xy_u", "retarget_z_u")}
 
 # Per-step max abs error bounds of the Ant golden replay
 # (tests/data/torch_port/ant_golden.npz).  Measured on the CPU twins over
@@ -114,12 +138,49 @@ FRANKA_GRAB_GOLDEN_TOL = {"q": 2e-4, "qd": 3e-2, "obs": 2e-4, "rew": 2e-5}
 # motion; each bound is 10-15 times the largest error seen, for the card's
 # other summation orders.
 CARTPOLE_GOLDEN_TOL = {"q": 1e-4, "qd": 2e-3, "obs": 2e-3, "rew": 2e-4}
+# Humanoid (humanoid_golden.npz, 32 envs, 6 steps, compaction to 16 of 35
+# rows) is held at GOLDEN_TOL: on the CPU twins q <= 1.5e-5, qd <= 7.1e-4,
+# obs <= 1.7e-4 (default loop and B4), and the reward differs by one or two
+# float32 ulps of its ~6e4 potential (<= 5.4e-3), as Ant's (ROADMAP C4).
+# Per-step bounds of the Anymal replay (anymal_golden.npz, 32 envs, 6
+# steps, compaction to 16 of 68 rows; B4 solves all 68).  Measured on the
+# CPU twins: q <= 1.2e-6, qd <= 1.1e-4, obs <= 9.3e-6, reward <= 1.8e-8;
+# resets exact.  Each bound is ten to twenty times the largest error seen.
+ANYMAL_GOLDEN_TOL = {"q": 2e-5, "qd": 2e-3, "obs": 1e-4, "rew": 1e-6}
+# Per-step bounds of the aerial replays (ingenuity_golden.npz and
+# quadcopter_golden.npz, 32 envs, 6 steps, the rotors' thrust through
+# f_ext).  Measured on the CPU twins: Ingenuity q <= 6.0e-7, qd <= 2.7e-5,
+# obs <= 8.7e-6, reward <= 4.8e-7; Quadcopter (kp 1000 drives on 0.01 kg
+# rotor arms) q <= 1.6e-5, qd <= 6.0e-4, obs <= 1.9e-4, reward <= 2.9e-5;
+# resets exact.  Both are held at about ten times Quadcopter's errors.
+AERIAL_GOLDEN_TOL = {"q": 2e-4, "qd": 1e-2, "obs": 2e-3, "rew": 3e-4}
+# AnymalTerrain (anymal_terrain_golden.npz, 32 envs, 6 steps, a push of
+# every base in step 3) is held one step at a time with each env's error
+# taken beyond four times the reference's own spread under one-ulp noise
+# on q and qd, and the median over the envs held at these bounds (Ant's).
+# The published map puts the robots 30-180 m from the world origin, where
+# the engine's world-origin dynamics cancel: one ulp on q moves the JAX
+# step's q by ~1e-3 in the median env and by up to 1e-1 (or flips a
+# reset) in a few (ROADMAP C8).  On the CPU twins the port's error is about
+# that spread (err / spread: median 0.8-1.5, largest 3.5-8.6 over the
+# envs) and the median excess is 0; resets differ in at most one held env
+# a step.  Tight parity on terrain is held near the world origin instead
+# (tests/test_torch_anymal.py).
+ANYMAL_TERRAIN_GOLDEN_TOL = GOLDEN_TOL
 TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
               "FrankaReachMA": FRANKA_GOLDEN_TOL,
               "FrankaCollectMA": FRANKA_GRAB_GOLDEN_TOL,
               "FrankaPPMA": FRANKA_GRAB_GOLDEN_TOL,
               "FrankaCombineMA": FRANKA_GRAB_GOLDEN_TOL,
-              "Cartpole": CARTPOLE_GOLDEN_TOL}
+              "Cartpole": CARTPOLE_GOLDEN_TOL, "Humanoid": GOLDEN_TOL,
+              "Anymal": ANYMAL_GOLDEN_TOL,
+              "AnymalTerrain": ANYMAL_TERRAIN_GOLDEN_TOL,
+              "Ingenuity": AERIAL_GOLDEN_TOL,
+              "Quadcopter": AERIAL_GOLDEN_TOL}
+# one-step captures: the most held envs per step whose reset may differ
+# (a base contact force at the 1 N threshold, where the reference's noise
+# reaches)
+ONE_STEP_RESET_MISMATCHES = 2
 
 
 def live_grabs(task, state, actions, envs):
@@ -144,8 +205,15 @@ def live_grabs(task, state, actions, envs):
     return state._replace(sim=state.sim._replace(q=q, qd=qd))
 
 
+# a one-step capture's start_<key> -> env_state_from_jax's key prefix
+_STATE_PREFIX = {"q": "sim.", "qd": "sim.", "progress": "", "reset_buf": ""}
+
+
 class StepErrors(NamedTuple):
-    """Per-step max abs errors of the replay against the capture."""
+    """Per-step max abs errors of the replay against the capture; of a
+    one-step capture (``spread_*`` keys), per step the median over the
+    held envs of each env's error beyond four times the reference's own
+    one-ulp spread there (``raw``: the largest errors themselves)."""
 
     q: np.ndarray          # (T,)
     qd: np.ndarray
@@ -154,14 +222,28 @@ class StepErrors(NamedTuple):
     reset_mismatches: np.ndarray   # (T,) int
     finite: bool
     grabs_live: np.ndarray         # (T,) grab constraints on in each step
+    raw: dict = None               # one-step captures: k -> (T,) max error
+    wild_envs: np.ndarray = None   # (T,) envs the reference's noise makes
+                                   # non-finite or flips the reset of
 
 
 def replay(npz_path: str, device, use_contact_kernel: bool = False
            ) -> StepErrors:
-    """Replay a capture on ``device`` with the recorded reset draws; with
-    ``use_contact_kernel`` the contact loop runs through kernel B4.  For a
-    task with grab constraints it also counts the grabs its control turns
-    on in each step."""
+    """Replay a capture on ``device`` with the recorded reset draws (and
+    ``post_physics`` draws); with ``use_contact_kernel`` the contact loop
+    runs through kernel B4.  For a task with grab constraints it also
+    counts the grabs its control turns on in each step.
+
+    A capture with ``spread_*`` keys (AnymalTerrain's, see
+    scripts/record_torch_golden.py ``ONE_STEP``) is replayed one step at a
+    time, each step from the recorded state it started from; each env's
+    error is taken beyond four times the reference's own move under
+    one-ulp noise on q and qd there (the widening of chip_smoke.py's
+    ``hold``), and the median of that over the envs is reported, since
+    the reference's noise there is heavy-tailed (see
+    ANYMAL_TERRAIN_GOLDEN_TOL).  Envs whose reference goes non-finite or
+    flips its reset under that noise are not held (``wild_envs`` counts
+    them)."""
     d = np.load(npz_path, allow_pickle=False)
     name = str(d["task"])
     if name not in TASKS:
@@ -180,9 +262,12 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
     if state_cls is not None:
         arrays.update({f"task.{f}": d[f"init_{f}"]
                        for f in state_cls._fields})
-    state = env_state_from_jax(arrays, device)
+    state = env_state_from_jax(arrays, device, state_cls)
+    one_step = "spread_q" in d
     t_ = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
     errs = {k: np.zeros(T) for k in ("q", "qd", "obs", "rew")}
+    raw = {k: np.zeros(T) for k in errs}
+    wild = np.zeros(T, np.int64)
     mism = np.zeros(T, np.int64)
     grabs = torch.zeros(T, device=device)
     finite = True
@@ -196,15 +281,36 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
 
         task.pre_physics = counted
     for t in range(T):
+        if one_step:
+            start = {k[len("start_"):]: d[k][t] for k in d.files
+                     if k.startswith("start_")}
+            state = env_state_from_jax(
+                {(_STATE_PREFIX.get(k, "task.") + k): v
+                 for k, v in start.items()}, device, state_cls)
         draws = tuple(t_(d[k][t]) for k in RESET_DRAWS[name])
-        state, res = task.step(state, t_(d["actions"][t]), reset_draws=draws)
+        step_draws = (tuple(t_(d[k][t]) for k in STEP_DRAWS[name])
+                      if name in STEP_DRAWS else None)
+        state, res = task.step(state, t_(d["actions"][t]), reset_draws=draws,
+                               step_draws=step_draws)
         got = {"q": state.sim.q, "qd": state.sim.qd, "obs": res.obs,
                "rew": res.rew}
+        held = np.ones(N, bool)
+        if one_step:
+            held = ~d["spread_reset"][t] & np.all(
+                [np.isfinite(d[f"spread_{k}"][t]) for k in errs], axis=0)
+            wild[t] = int((~held).sum())
         for k, v in got.items():
-            v = v.detach().cpu().numpy()
-            finite &= bool(np.isfinite(v).all())
-            errs[k][t] = float(np.abs(v - d[k][t]).max())
-        mism[t] = int((res.reset.cpu().numpy() != d["reset"][t]).sum())
+            v = v.detach().cpu().numpy().reshape(N, -1)
+            finite &= bool(np.isfinite(v[held]).all())
+            e = np.abs(v - d[k][t].reshape(N, -1)).max(1)[held]
+            raw[k][t] = float(e.max(initial=0.0))
+            errs[k][t] = (float(np.median(np.maximum(
+                e - 4.0 * d[f"spread_{k}"][t][held], 0.0))) if one_step
+                else raw[k][t])
+        mism[t] = int((res.reset.cpu().numpy() != d["reset"][t]).reshape(
+            N, -1)[held].sum())
     return StepErrors(q=errs["q"], qd=errs["qd"], obs=errs["obs"],
                       rew=errs["rew"], reset_mismatches=mism, finite=finite,
-                      grabs_live=grabs.cpu().numpy())
+                      grabs_live=grabs.cpu().numpy(),
+                      raw=raw if one_step else None,
+                      wild_envs=wild if one_step else None)

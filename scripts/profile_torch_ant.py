@@ -3,7 +3,8 @@ GPU.
 
     python3 scripts/profile_torch_ant.py
         [--task Ant|BallBalance|FrankaReachMA|Cartpole|FrankaCollectMA|
-                FrankaPPMA|FrankaCombineMA] [--contact-kernel]
+                FrankaPPMA|FrankaCombineMA|Humanoid|Anymal|AnymalTerrain|
+                Ingenuity|Quadcopter] [--contact-kernel]
         [--envs N] [--steps 20] [--train] [--table PATH]
 
 Runs the port's step of the task (Ant by default, at its configuration's
@@ -84,7 +85,8 @@ def main():
     ap.add_argument("--task", default="Ant",
                     choices=("Ant", "BallBalance", "FrankaReachMA",
                              "Cartpole", "FrankaCollectMA", "FrankaPPMA",
-                             "FrankaCombineMA"))
+                             "FrankaCombineMA", "Humanoid", "Anymal",
+                             "AnymalTerrain", "Ingenuity", "Quadcopter"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
     ap.add_argument("--envs", type=int, default=None,

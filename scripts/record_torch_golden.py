@@ -25,6 +25,18 @@ its dynamics kernels and with them kernel B4 (its lane blocks divide N by
 franka_reach_ma_b4_golden.npz.  That route solves every candidate row
 without compaction or row reuse (engine.py:1304-1305, :1524).
 
+``--task Humanoid``, ``Anymal``, ``AnymalTerrain``, ``Ingenuity`` and
+``Quadcopter`` -> humanoid_golden.npz, anymal_golden.npz,
+anymal_terrain_golden.npz, ingenuity_golden.npz and quadcopter_golden.npz
+at 32 envs, warmed up and recorded as Ant is; AnymalTerrain's and
+Ingenuity's captures also store each step's ``post_physics`` draws (the
+pushes and observation noise; the new targets), and AnymalTerrain's push
+counter is set so that every base is pushed in the third recorded step.
+AnymalTerrain's capture also stores the state each step starts from
+(``start_*``) and, per env, how far the JAX step moves under one-ulp noise
+on q and qd (``spread_*``, eight runs): ``parity.replay`` holds it one
+step at a time (see ``ONE_STEP``).
+
 ``--task FrankaCollectMA`` -> franka_collect_ma_golden.npz and ``--task
 FrankaPPMA`` -> franka_ppma_golden.npz (16 envs x 2 arms) record 10 steps
 from the warmed-up state with live grabs in half of the envs (after the
@@ -51,9 +63,11 @@ import jax.numpy as jnp
 from isaacgymenvs_ma_tpu.ops import rng as rng_ops
 from isaacgymenvs_ma_tpu.physics import contact_kernel as jck
 from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
-from isaacgymenvs_ma_tpu.tasks import (ant, ball_balance, cartpole,
+from isaacgymenvs_ma_tpu.tasks import (anymal, anymal_terrain, ant,
+                                       ball_balance, cartpole,
                                        franka_collect_ma, franka_ppma,
-                                       franka_reach_ma)
+                                       franka_reach_ma, humanoid, ingenuity,
+                                       quadcopter)
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 
 WARMUP, T = 20, 6
@@ -101,6 +115,143 @@ def cartpole_draws(k_reset, task):
             "reset_vel": 0.5 * (jax.random.uniform(k2, (n, 2)) - 0.5)}
 
 
+def humanoid_draws(k_reset, task):
+    """Humanoid.reset_idx's draws (humanoid.py:144-146)."""
+    n = task.num_envs
+    k1, k2 = jax.random.split(k_reset)
+    return {"reset_pos": jax.random.uniform(k1, (n, 21), minval=-0.2,
+                                            maxval=0.2),
+            "reset_vel": jax.random.uniform(k2, (n, 21), minval=-0.1,
+                                            maxval=0.1)}
+
+
+def anymal_draws(k_reset, task):
+    """Anymal.reset_idx's draws (anymal.py:178-205): dof position factors,
+    dof velocities and the three commands."""
+    n = task.num_envs
+    k1, k2, k3, k4, k5 = jax.random.split(k_reset, 5)
+    u = jax.random.uniform
+    return {"reset_pos_u": u(k1, (n, 12), minval=0.5, maxval=1.5),
+            "reset_vel": u(k2, (n, 12), minval=-0.1, maxval=0.1),
+            "cmd_x": u(k3, (n,), minval=task.command_x_range[0],
+                       maxval=task.command_x_range[1]),
+            "cmd_y": u(k4, (n,), minval=task.command_y_range[0],
+                       maxval=task.command_y_range[1]),
+            "cmd_yaw": u(k5, (n,), minval=task.command_yaw_range[0],
+                         maxval=task.command_yaw_range[1])}
+
+
+def anymal_terrain_draws(k_reset, task):
+    """AnymalTerrain.reset_idx's draws (anymal_terrain.py:307-356)."""
+    n, cr = task.num_envs, task.command_ranges
+    ks = jax.random.split(k_reset, 7)
+    u = jax.random.uniform
+    return {"reset_pos_u": u(ks[0], (n, 12), minval=0.5, maxval=1.5),
+            "reset_vel": u(ks[1], (n, 12), minval=-0.1, maxval=0.1),
+            "xy_noise": u(ks[2], (n, 2), minval=-0.5, maxval=0.5),
+            "cmd_x": u(ks[3], (n,), minval=cr["linear_x"][0],
+                       maxval=cr["linear_x"][1]),
+            "cmd_y": u(ks[4], (n,), minval=cr["linear_y"][0],
+                       maxval=cr["linear_y"][1]),
+            "cmd_yaw": u(ks[5], (n,), minval=cr["yaw"][0],
+                         maxval=cr["yaw"][1])}
+
+
+def anymal_terrain_step_draws(k_step, task):
+    """AnymalTerrain.post_physics's draws: the pushes (fold_in 17) and the
+    observation noise (fold_in 23), anymal_terrain.py:372-377, :423."""
+    n = task.num_envs
+    return {"push_vel": jax.random.uniform(jax.random.fold_in(k_step, 17),
+                                           (n, 2), minval=-1.0, maxval=1.0),
+            "noise_u": jax.random.uniform(jax.random.fold_in(k_step, 23),
+                                          (n, 188))}
+
+
+def _ingenuity_targets(key, n):
+    k1, k2 = jax.random.split(key)
+    return jax.random.uniform(k1, (n, 2)), jax.random.uniform(k2, (n, 1))
+
+
+def ingenuity_draws(k_reset, task):
+    """Ingenuity.reset_idx's draws (ingenuity.py:126-154): the chassis
+    offsets, then the new targets' uniforms."""
+    n = task.num_envs
+    k1, k2, k3 = jax.random.split(k_reset, 3)
+    t_xy, t_z = _ingenuity_targets(k3, n)
+    return {"off_xy": jax.random.uniform(k1, (n, 2), minval=-1.5,
+                                         maxval=1.5),
+            "off_z": jax.random.uniform(k2, (n, 1), minval=-0.2, maxval=1.5),
+            "target_xy_u": t_xy, "target_z_u": t_z}
+
+
+def ingenuity_step_draws(k_step, task):
+    """Ingenuity.post_physics's new targets (fold_in 31, ingenuity.py:
+    157-160)."""
+    t_xy, t_z = _ingenuity_targets(jax.random.fold_in(k_step, 31),
+                                   task.num_envs)
+    return {"retarget_xy_u": t_xy, "retarget_z_u": t_z}
+
+
+def quadcopter_draws(k_reset, task):
+    """Quadcopter.reset_idx's draws (quadcopter.py:146-163)."""
+    n = task.num_envs
+    k1, k2, k3 = jax.random.split(k_reset, 3)
+    u = jax.random.uniform
+    return {"off_xy": u(k1, (n, 2), minval=-1.5, maxval=1.5),
+            "off_z": u(k2, (n, 1), minval=-0.2, maxval=1.5),
+            "reset_dof": u(k3, (n, 8), minval=-0.2, maxval=0.2)}
+
+
+# post_physics draws of the tasks that draw there: name -> draws(k_step)
+STEP_DRAWS = {"AnymalTerrain": anymal_terrain_step_draws,
+              "Ingenuity": ingenuity_step_draws}
+# AnymalTerrain: the push counter set so that the third recorded step
+# pushes every base (its pushInterval_s is 750 steps)
+PUSH_AT = 2
+# tasks whose steps are held one at a time (each from the recorded state
+# it started from) with each env's bound widened by the reference's own
+# spread under one-ulp input noise: on AnymalTerrain's stairs, obstacles
+# and stepping stones one ulp of q and qd moves the JAX step's q by up to
+# 1e-1 (a foot on a stone's edge reads a 10 m bilinear cliff), so neither
+# package can follow the other over several steps
+ONE_STEP = ("AnymalTerrain",)
+SPREAD_RUNS = 8
+
+
+def state_arrays(st):
+    """The env state a step starts from, as flat numpy arrays."""
+    out = {"q": st.sim.q, "qd": st.sim.qd, "progress": st.progress,
+           "reset_buf": st.reset_buf}
+    for f in st.task._fields if st.task is not None else ():
+        out[f] = getattr(st.task, f)
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def one_ulp_spread(step, st, action, res, new, rng):
+    """Per env, the largest move of the step's q, qd, obs and reward over
+    SPREAD_RUNS runs from q and qd each moved by one rounding step
+    (x (1 +- 2^-23), signs from ``rng``), and whether any run flips the
+    env's reset; a non-finite run counts as an infinite move."""
+    n = st.sim.q.shape[0]
+    spread = {k: np.zeros(n, np.float32) for k in ("q", "qd", "obs", "rew")}
+    flips = np.zeros(n, bool)
+    ref = {"q": np.asarray(new.sim.q), "qd": np.asarray(new.sim.qd),
+           "obs": np.asarray(res.obs), "rew": np.asarray(res.rew)}
+    for _ in range(SPREAD_RUNS):
+        nudge = lambda x: jnp.asarray(np.asarray(x) * (  # noqa: E731
+            1 + rng.choice([-1.0, 1.0], x.shape) * 2.0 ** -23), jnp.float32)
+        s2 = st._replace(sim=st.sim._replace(q=nudge(st.sim.q),
+                                             qd=nudge(st.sim.qd)))
+        s2, r2 = step(s2, action)
+        got = {"q": np.asarray(s2.sim.q), "qd": np.asarray(s2.sim.qd),
+               "obs": np.asarray(r2.obs), "rew": np.asarray(r2.rew)}
+        for k, v in got.items():
+            dv = np.abs(v - ref[k]).reshape(n, -1).max(1)
+            spread[k] = np.maximum(spread[k], np.where(np.isfinite(dv), dv,
+                                                       np.inf))
+        flips |= np.asarray(r2.reset) != np.asarray(res.reset)
+    return spread, flips
+
 # tasks recorded from a golden rollout of the JAX tests instead of a
 # warmed-up state: name -> (PRNG seed, steps)
 ROLLOUTS = {"Cartpole": (1234, 101)}
@@ -140,6 +291,17 @@ TASKS = {  # name -> (class, config, draws, envs, file)
                    franka_reach_ma_draws, 16, "franka_ppma_golden.npz"),
     "Cartpole": (cartpole.Cartpole, cartpole.TASK_CFG, cartpole_draws, 64,
                  "cartpole_golden.npz"),
+    "Humanoid": (humanoid.Humanoid, humanoid.TASK_CFG, humanoid_draws, 32,
+                 "humanoid_golden.npz"),
+    "Anymal": (anymal.Anymal, anymal.TASK_CFG, anymal_draws, 32,
+               "anymal_golden.npz"),
+    "AnymalTerrain": (anymal_terrain.AnymalTerrain, anymal_terrain.TASK_CFG,
+                      anymal_terrain_draws, 32,
+                      "anymal_terrain_golden.npz"),
+    "Ingenuity": (ingenuity.Ingenuity, ingenuity.TASK_CFG, ingenuity_draws,
+                  32, "ingenuity_golden.npz"),
+    "Quadcopter": (quadcopter.Quadcopter, quadcopter.TASK_CFG,
+                   quadcopter_draws, 32, "quadcopter_golden.npz"),
 }
 # tasks with grab constraints: recorded with live grabs in half of the
 # envs (those after the first quarter, which resets), for GRAB_STEPS steps
@@ -185,6 +347,9 @@ def main():
         if args.task in GRAB_TASKS:
             grab_envs = np.arange(n // 4, n // 4 + n // 2)
             st = live_grabs(st, task, actions, grab_envs)
+        if args.task == "AnymalTerrain":
+            st = st._replace(task=st.task._replace(common_step=jnp.asarray(
+                task.push_interval - 1 - PUSH_AT, jnp.int32)))
     rec = {
         "task": np.asarray(args.task), "atol": np.float32(2e-3),
         "init_q": np.asarray(st.sim.q), "init_qd": np.asarray(st.sim.qd),
@@ -209,10 +374,24 @@ def main():
         if t == 1:
             print(f"first step (jit or interpret) "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-        k_reset = jax.random.split(st.rng, 6)[1]   # VecTaskBase.step's key
-        for k, v in draws_of(k_reset, task).items():
+        # VecTaskBase.step's keys: reset_idx's, and post_physics's rng
+        _, k_reset, k_step = jax.random.split(st.rng, 6)[:3]
+        draws = draws_of(k_reset, task)
+        if args.task in STEP_DRAWS:
+            draws.update(STEP_DRAWS[args.task](k_step, task))
+        for k, v in draws.items():
             fields.setdefault(k, []).append(np.asarray(v))
+        start = st
         st, res = step(st, jnp.asarray(actions[t]))
+        if args.task in ONE_STEP:
+            for k, v in state_arrays(start).items():
+                fields.setdefault(f"start_{k}", []).append(v)
+            spread, flips = one_ulp_spread(step, start,
+                                           jnp.asarray(actions[t]), res, st,
+                                           rng)
+            for k, v in spread.items():
+                fields.setdefault(f"spread_{k}", []).append(v)
+            fields.setdefault("spread_reset", []).append(flips)
         fields["obs"].append(np.asarray(res.obs))
         fields["rew"].append(np.asarray(res.rew))
         fields["reset"].append(np.asarray(res.reset))

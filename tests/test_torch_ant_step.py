@@ -332,18 +332,28 @@ def test_unported_scene_features_raise(kwargs):
 
 
 def test_terrain_and_phys_raise():
+    """Still unported, and raising: per-env physics scales and terrain
+    surface normals (``terrain_normal_frames``).  Terrain heightfields and
+    external wrenches raised until they were ported: now a zero wrench
+    leaves the step unchanged (the wrench parity is
+    tests/test_torch_aerial.py's, the terrain's tests/test_torch_terrain.py's)."""
+    from isaacgymenvs_ma_tpu_torch.physics.engine import PhysicsEngine
+    from isaacgymenvs_ma_tpu_torch.physics.terrain import TerrainGrid
     t = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": 4}}), device="cpu")
     st = t.initial_state()
     ctrl = t.pre_physics(st, t.zero_actions())
+    flat = TerrainGrid(torch.zeros(4, 4), 1.0, (-2.0, -2.0))
+    normals = PhysicsEngine(t.model, t.sim_params._replace(
+        terrain_normal_frames=True), device="cpu")
     with pytest.raises(NotImplementedError):
-        t.engine.step(st.sim, ctrl, terrain=object())
+        normals.step(st.sim, ctrl, terrain=flat)
     with pytest.raises(NotImplementedError):
         t.engine.step(st.sim, ctrl, phys=object())
-    with pytest.raises(NotImplementedError):
-        t.engine.step(st.sim, ctrl._replace(f_ext=torch.zeros(4, 9, 6)))
+    ref, _ = t.engine.step(st.sim, ctrl)
+    got, _ = t.engine.step(st.sim, ctrl._replace(f_ext=torch.zeros(4, 9, 6)))
+    assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
     # grab activation is ported: a scene without grabs ignores it, as the
     # JAX engine does
-    ref, _ = t.engine.step(st.sim, ctrl)
     got, _ = t.engine.step(st.sim, ctrl._replace(grab_active=torch.ones(4, 1)))
     assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
 

@@ -245,11 +245,32 @@ def _assert_models_equal(a, b):
                                           err_msg=f.name)
 
 
-@pytest.mark.parametrize("which", ["ant", "balance_bot"])
+@pytest.mark.parametrize("which", ["ant", "balance_bot", "humanoid", "anymal",
+                                   "ingenuity", "quadcopter"])
 def test_copied_model_builders_match_jax(which):
-    """The port's copies of build_ant / build_balance_bot give the JAX
-    package's models field by field."""
-    if which == "ant":
+    """The port's copies of build_ant / build_balance_bot, of the humanoid
+    and anymal specs and of build_ingenuity / build_quadcopter give the
+    JAX package's models (and rotor bodies) field by field."""
+    if which in ("humanoid", "anymal"):
+        import importlib
+        from isaacgymenvs_ma_tpu.models.model import model_from_spec as jmfs
+        from isaacgymenvs_ma_tpu_torch.models.model import model_from_spec
+        jspec = importlib.import_module(
+            f"isaacgymenvs_ma_tpu.models.specs.{which}").SPEC
+        tspec = importlib.import_module(
+            f"isaacgymenvs_ma_tpu_torch.models.specs.{which}").SPEC
+        assert tspec == jspec
+        _assert_models_equal(model_from_spec(tspec), jmfs(jspec))
+    elif which in ("ingenuity", "quadcopter"):
+        import importlib
+        jb = getattr(importlib.import_module(
+            f"isaacgymenvs_ma_tpu.tasks.{which}"), f"build_{which}")
+        tb = getattr(importlib.import_module(
+            f"isaacgymenvs_ma_tpu_torch.tasks.{which}"), f"build_{which}")
+        (tm, trot), (jm, jrot) = tb(), jb()
+        _assert_models_equal(tm, jm)
+        assert list(trot) == list(jrot)
+    elif which == "ant":
         from isaacgymenvs_ma_tpu.models.robots import build_ant as jbuild
         from isaacgymenvs_ma_tpu_torch.models.robots import build_ant as tbuild
         _assert_models_equal(tbuild(), jbuild())

@@ -17,8 +17,12 @@ JAX reset draws; franka_collect_ma_golden.npz and franka_ppma_golden.npz
 envs x 2 arms, the JAX kernel route) 10 steps each (6 on the kernel
 route) from a warmed-up state
 in which half of the envs hold their cubes (each agent's cube on its grip
-site, its gripper action negative: live grab constraints).  chip_smoke.py
-replays the same files through the CUDA kernels.
+site, its gripper action negative: live grab constraints);
+humanoid_golden.npz, anymal_golden.npz, anymal_terrain_golden.npz,
+ingenuity_golden.npz and quadcopter_golden.npz 6 steps of 32 envs each
+from a warmed-up state (AnymalTerrain with a push of every base in step
+3, held one step at a time: see parity.ANYMAL_TERRAIN_GOLDEN_TOL).
+chip_smoke.py replays the same files through the CUDA kernels.
 
 The per-step tolerances and their reasons are parity.GOLDEN_TOL's (Ant),
 parity.BB_GOLDEN_TOL's (BallBalance), parity.FRANKA_GOLDEN_TOL's
@@ -37,7 +41,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.cartpole import Cartpole, TASK_CFG
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.utils.parity import (
     BB_GOLDEN_TOL, CARTPOLE_GOLDEN_TOL, FRANKA_GOLDEN_TOL,
-    FRANKA_GRAB_GOLDEN_TOL, GOLDEN_TOL, replay)
+    FRANKA_GRAB_GOLDEN_TOL, GOLDEN_TOL, ONE_STEP_RESET_MISMATCHES,
+    RESET_DRAWS, TOLERANCES, replay)
 from test_golden_cartpole import GOLDEN as CARTPOLE_GOLDEN_OBS
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
@@ -250,3 +255,65 @@ def test_grab_golden_replay_on_cpu_twins(fname):
     assert int(e.reset_mismatches.sum()) == 0
     assert e.grabs_live.shape == (steps,) and e.grabs_live[0] == n
     assert (e.grabs_live > 0).all()
+
+
+# the legged and aerial captures (32 envs, 6 steps): file -> (task, nq,
+# obs width, routes replayed, post_physics draw keys)
+LOCO_GOLDEN = {
+    "humanoid_golden.npz": ("Humanoid", 28, 108, (False, True), ()),
+    "anymal_golden.npz": ("Anymal", 19, 48, (False, True), ()),
+    "anymal_terrain_golden.npz": ("AnymalTerrain", 19, 188, (False, True),
+                                  ("push_vel", "noise_u")),
+    "ingenuity_golden.npz": ("Ingenuity", 7, 13, (False, True),
+                             ("retarget_xy_u", "retarget_z_u")),
+    "quadcopter_golden.npz": ("Quadcopter", 15, 21, (False,), ()),
+}
+
+
+@pytest.mark.parametrize("fname", sorted(LOCO_GOLDEN))
+def test_loco_golden_capture_format(fname):
+    """6 steps of 32 envs from a warmed-up state, a quarter of the envs
+    flagged to reset on step 1, every step's reset draws (and
+    post_physics draws) stored; Humanoid's foot sensors read contact;
+    AnymalTerrain pushes every base in step 3 and stores each step's
+    start state and the reference's one-ulp spread."""
+    task, nq, n_obs, _, step_keys = LOCO_GOLDEN[fname]
+    path = os.path.join(DATA, fname)
+    d = np.load(path)
+    T, N = d["actions"].shape[:2]
+    assert (T, N) == (6, 32) and str(d["task"]) == task
+    assert d["obs"].shape == (T, N, n_obs) and d["q"].shape == (T, N, nq)
+    assert d["init_reset_buf"][: N // 4].all()
+    for k in RESET_DRAWS[task] + step_keys:
+        assert d[k].shape[:2] == (T, N), k
+    assert os.path.getsize(path) < 400_000
+    if task == "Humanoid":
+        assert float(np.abs(d["obs"][:, :, 54:66]).max()) > 1.0
+    if task == "AnymalTerrain":
+        np.testing.assert_array_equal(d["start_common_step"],
+                                      747 + np.arange(T))   # 750 pushes
+        assert d["spread_q"].shape == (T, N) and d["start_q"].shape == (
+            T, N, nq)
+
+
+@pytest.mark.parametrize("fname,kernel_route", [
+    (f, r) for f in sorted(LOCO_GOLDEN) for r in LOCO_GOLDEN[f][3]])
+def test_loco_golden_replay_on_cpu_twins(fname, kernel_route):
+    """Each capture through the CPU twins on the default loop and (except
+    Quadcopter, which has no contact rows) on the B4 route, at
+    parity.TOLERANCES; resets exact.  AnymalTerrain's is held one step at
+    a time against the reference's own one-ulp spread (parity.
+    ANYMAL_TERRAIN_GOLDEN_TOL), at most ONE_STEP_RESET_MISMATCHES resets
+    apart a step and a few envs not held."""
+    task = LOCO_GOLDEN[fname][0]
+    e = replay(os.path.join(DATA, fname), "cpu",
+               use_contact_kernel=kernel_route)
+    assert e.finite
+    for k, tol in TOLERANCES[task].items():
+        errs = getattr(e, k)
+        assert (errs <= tol).all(), f"{k} per-step errors {errs} > {tol}"
+    if e.raw is None:
+        assert int(e.reset_mismatches.sum()) == 0
+    else:
+        assert (e.reset_mismatches <= ONE_STEP_RESET_MISMATCHES).all()
+        assert (e.wild_envs <= 4).all(), e.wild_envs

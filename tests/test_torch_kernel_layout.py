@@ -14,9 +14,10 @@ and the rows each lane of B4's team owns.
 Scenes: Ant and BallBalance (both contact routes' plans), FrankaReachMA at
 its committed capture's warmed-up state (16 envs x 2 arms; its B4 plan from
 the kernel route), Cartpole (the smallest tree B1-B3 take: a fixed root, a
-SLIDE and a HINGE, nv 2; no contact plan), and a seeded contact plan with
-every row group (the synthetic grab plan of chip_smoke.py: nv 14, P 8, A 2,
-G 2, frames).
+SLIDE and a HINGE, nv 2; no contact plan), Humanoid (one 27-dof block),
+Anymal, Ingenuity and Quadcopter (no contact plan), and a seeded contact
+plan with every row group (the synthetic grab plan of chip_smoke.py: nv
+14, P 8, A 2, G 2, frames).
 """
 import os
 import re
@@ -35,12 +36,16 @@ from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
-SCENES = ("Ant", "BallBalance", "FrankaReachMA", "Cartpole")
+SCENES = ("Ant", "BallBalance", "FrankaReachMA", "Cartpole", "Humanoid",
+          "Anymal", "Ingenuity", "Quadcopter")
 BLOCK_SIZES = {"Ant": [14],               # the torso's free joint ties all
                "BallBalance": [12, 6],    # tray + legs, ball
                "FrankaReachMA": [9, 9, 6, 6],   # two arms, two cubes
-               "Cartpole": [2]}           # cart and pole under the slider
-CONTACT_PLANS = ("Ant", "BallBalance", "FrankaReachMA", "grab")
+               "Cartpole": [2],           # cart and pole under the slider
+               "Humanoid": [27],          # a free base ties every dof
+               "Anymal": [18], "Ingenuity": [6], "Quadcopter": [14]}
+CONTACT_PLANS = ("Ant", "BallBalance", "FrankaReachMA", "Humanoid",
+                 "Anymal", "Ingenuity", "grab")
 
 
 def _task(name, n, kernel_route):
@@ -56,7 +61,10 @@ def tasks():
     return {"Ant": _task("Ant", 4, True),
             "BallBalance": _task("BallBalance", 4, True),
             "FrankaReachMA": _task("FrankaReachMA", 16, True),
-            "Cartpole": _task("Cartpole", 4, True)}
+            "Cartpole": _task("Cartpole", 4, True),
+            **{name: _task(name, 4, True)
+               for name in ("Humanoid", "Anymal", "Ingenuity",
+                            "Quadcopter")}}
 
 
 def grab_plan():
@@ -254,9 +262,11 @@ def test_layout_rules():
 # ---- B1, B3 and B4's wide plan
 
 TEAMS = {"fk_motion": {"Ant": 8, "BallBalance": 8, "FrankaReachMA": 8,
-                       "Cartpole": 8},
+                       "Cartpole": 8, "Humanoid": 8, "Anymal": 8,
+                       "Ingenuity": 8, "Quadcopter": 8},
          "dyn_cached": {"Ant": 16, "BallBalance": 16, "FrankaReachMA": 32,
-                        "Cartpole": 8}}
+                        "Cartpole": 8, "Humanoid": 32, "Anymal": 16,
+                        "Ingenuity": 8, "Quadcopter": 16}}
 
 
 @pytest.mark.parametrize("kernel", list(TEAMS))
@@ -274,6 +284,35 @@ def test_b1_b3_layouts(tasks, kernel, name):
                              + sum(map(len, floats.values()))) // 4) * 4
     if kernel == "fk_motion":
         assert max(len(lv) for lv in plan.levels) <= 2 * lay.team
+
+
+# (team, envs a block, shared-memory bytes) of the legged and aerial
+# scenes' plans
+LOCO_LAYOUTS = {
+    ("Humanoid", "fk_motion"): (8, 32, 74832),
+    ("Humanoid", "dyn_forward"): (32, 8, 80352),
+    ("Humanoid", "dyn_cached"): (32, 8, 81504),
+    ("Humanoid", "contact_solve"): (32, 4, 72768),
+    ("Anymal", "dyn_forward"): (32, 8, 42656),
+    ("Anymal", "dyn_cached"): (16, 16, 83872),
+    ("Anymal", "contact_solve"): (32, 4, 90432),
+    ("Ingenuity", "contact_solve"): (8, 16, 34048),
+}
+
+
+@pytest.mark.parametrize("name,kernel", sorted(LOCO_LAYOUTS))
+def test_loco_plan_layouts(tasks, name, kernel):
+    """The launch layouts of the Humanoid, Anymal (AnymalTerrain's plans
+    are the same) and Ingenuity plans: Humanoid's B2 sweeps its one
+    27-dof block with a team of 32 lanes, 8 envs a block; B4 at Anymal (68
+    rows) fits two 90,432 B blocks an SM."""
+    plan = (contact_plan(tasks, name) if kernel == "contact_solve"
+            else tasks[name].engine.plan)
+    lay = plan.layout(kernel)
+    assert (lay.team, lay.envs, lay.smem_bytes) == LOCO_LAYOUTS[(name,
+                                                                 kernel)]
+    if kernel == "contact_solve":
+        assert 2 * lay.smem_bytes <= 232448 or name == "Humanoid"
 
 
 def test_franka_contact_plan_fits(tasks):
@@ -331,7 +370,9 @@ def test_block_restricted_qdd_equals_dense_at_franka_capture(tasks):
         rtol=1e-5, atol=1e-4)
 
 
-ACTIVE = {"Ant": 9, "BallBalance": 8, "FrankaReachMA": 32, "Cartpole": 2}
+ACTIVE = {"Ant": 9, "BallBalance": 8, "FrankaReachMA": 32, "Cartpole": 2,
+          # floating bases: every body is on the root's free joint
+          "Humanoid": 25, "Anymal": 13, "Ingenuity": 3, "Quadcopter": 9}
 
 
 @pytest.mark.parametrize("name", SCENES)

@@ -6,8 +6,10 @@ BallBalance at 8 envs on the CPU (default loop and contact-kernel route),
 FrankaReachMA at 4 envs x 2 arms (OSC; compaction and row reuse on the
 default loop, and the contact-kernel route), FrankaCollectMA at 4 envs x 2
 arms with live grabs (each agent's cube on its grip site, its gripper
-closing; both routes) and Cartpole at 8 envs (the
-contact-free path, which no route option changes), call ``spd_inverse``,
+closing; both routes), Cartpole at 8 envs (the
+contact-free path, which no route option changes) and Humanoid, Anymal,
+AnymalTerrain (on a 2 x 5 terrain map), Ingenuity and Quadcopter at 8 envs
+on both routes, call ``spd_inverse``,
 run one PPO ``train_epoch`` of Cartpole at 16 envs, then check that neither ``jax*`` nor
 ``isaacgymenvs_ma_tpu`` / ``isaacgymenvs_ma_tpu.*`` was loaded.
 """
@@ -101,6 +103,24 @@ SCRIPT = textwrap.dedent("""
     assert all(torch.isfinite(torch.as_tensor(v)).all() for v in m.values())
     assert any(not torch.equal(a, b)
                for a, b in zip(before, agent.net.parameters()))
+    from isaacgymenvs_ma_tpu_torch.tasks import registry
+    for name, over in (("Humanoid", {}), ("Anymal", {}),
+                       ("AnymalTerrain", {"terrain": {"numLevels": 2,
+                                                      "numTerrains": 5}}),
+                       ("Ingenuity", {}), ("Quadcopter", {})):
+        for kernel_route in (False, True):
+            cfg = deep_merge(registry.task_default_config(name),
+                             {"env": {"numEnvs": 8, **over}})
+            params = parse_sim_params(cfg["sim"])._replace(
+                use_contact_kernel=kernel_route)
+            task = registry.task_class(name)(cfg, device="cpu",
+                                             sim_params=params)
+            state = task.initial_state()
+            for _ in range(2):
+                state, res = task.step(
+                    state, torch.tanh(torch.randn(8, task.num_actions)))
+            assert torch.isfinite(res.obs).all()
+            assert res.obs.shape == (8, task.num_obs)
     A = torch.randn(5, 7, 7)
     Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
     assert torch.isfinite(Hinv).all()
@@ -122,7 +142,8 @@ def test_port_imports_and_steps_without_jax():
     assert "LOADED []" in proc.stdout
     # every module of the package was imported (scaffold, models, ops,
     # physics, tasks, utils, convert), the learner (learning/*, train, api,
-    # tasks.registry) and the MA tasks with grabs (franka_collect_ma,
-    # franka_ppma, franka_combine_ma) too
+    # tasks.registry), the MA tasks with grabs (franka_collect_ma,
+    # franka_ppma, franka_combine_ma) and the legged and aerial tasks with
+    # the terrain and their specs too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 41, proc.stdout
+    assert n_mods >= 49, proc.stdout
