@@ -9,10 +9,13 @@ Phases, each printing its own lines; any failure exits non-zero
   2. build: nvcc builds kernels B1-B3 for the Ant, BallBalance,
      FrankaReachMA, Cartpole, FrankaCollectMA, FrankaPPMA,
      FrankaCombineMA, Humanoid, Anymal (AnymalTerrain's is the same),
-     Ingenuity and Quadcopter scenes, B4 for the Ant, BallBalance,
-     FrankaReachMA, FrankaCollectMA and FrankaPPMA contact plans (the last
-     two with their grab group), the Humanoid, Anymal and Ingenuity plans
-     and a synthetic plan with grab rows, B5 for n = 6, 7, 14, 30 and 48,
+     Ingenuity, Quadcopter, FrankaReach, FrankaCabinet, FrankaCubeStack
+     (FrankaCubeStack2's is the same) and Trifinger scenes, B4 for the
+     Ant, BallBalance, FrankaReachMA, FrankaCollectMA and FrankaPPMA
+     contact plans (the last two with their grab group), the Humanoid,
+     Anymal and Ingenuity plans, the FrankaReach, FrankaCabinet (grab
+     group), FrankaCubeStack (grab group) and Trifinger plans and a
+     synthetic plan with grab rows, B5 for n = 6, 7, 14, 30 and 48,
      all compilers started together (a header shared by two plans is
      compiled once); each kernel's ptxas registers and spills
   3. kernels: each kernel against its plain PyTorch twin on the card, with
@@ -29,7 +32,16 @@ Phases, each printing its own lines; any failure exits non-zero
      and Quadcopter-4096 on warmed-up states, B4 on the route inputs of
      Humanoid (35 rows), AnymalTerrain (68 terrain rows, the bases 30-180 m
      from the world origin) and Ingenuity (8 rows, a quarter of the
-     chassis landed); B5 on the two
+     chassis landed); B1-B3 at FrankaReach-4096, FrankaCabinet-4096,
+     FrankaCubeStack-8192 and Trifinger-16384 on warmed-up states
+     (Trifinger's B2 with the mass and shape scales its randomizer drew, B3
+     with the gravity wrench they scale), B4 on their routes' inputs (the
+     cabinet's handle and cube A grabbed in a quarter of the envs;
+     Trifinger's per-env friction and shape-scaled pair rows) and B5 at
+     the OSC stacks of FrankaReach and FrankaCubeStack; B2 with per-env
+     mass and shape scales and B3 with the gravity wrench they scale at
+     Ant-4096 (seeded scales) and Trifinger-16384 (its drawn scales),
+     with B2's time beside its time without scales; B5 on the two
      OSC inverses of a warmed-up FrankaReachMA-8192
      step ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and
      on seeded SPD matrices at (16384, 7, 7), (4096, 14, 14), (1024, 30,
@@ -48,7 +60,11 @@ Phases, each printing its own lines; any failure exits non-zero
      loop, each with live grabs in half of the envs; Humanoid, Anymal,
      AnymalTerrain (one step at a time against the reference's own
      one-ulp spread, with a push) and Ingenuity on both routes, Quadcopter
-     on the loop
+     on the loop; FrankaReach and FrankaCabinet on both routes and
+     FrankaCabinet's kernel-route capture (128 envs) on B4, FrankaCubeStack
+     and FrankaCubeStack2 on the loop (beyond four times the reference's
+     own trajectory spread), Trifinger with its recorded randomization on
+     the loop and its kernel-route capture (128 envs) on B4
   5. main path, each phase with the launch counts set to 0 just before it:
      Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
      FrankaReachMA at 8192 envs x 2 arms on the default loop and on B4,
@@ -57,28 +73,37 @@ Phases, each printing its own lines; any failure exits non-zero
      8192 x 2 on the default loop, Humanoid-4096, Anymal-4096,
      AnymalTerrain-4096 (B2 on each of its 4 substeps; B3 forbidden) and
      Ingenuity-4096 on both routes and Quadcopter-4096 on the loop (B4
-     forbidden: no contact rows), 100 steps each, tanh(obs @ W) actions;
+     forbidden: no contact rows), FrankaReach-4096, FrankaCabinet-4096 (no
+     OSC: B5 forbidden), FrankaCubeStack-8192 and Trifinger-16384 (its
+     shipped randomization on) on both routes and FrankaCubeStack2-8192 on
+     the loop, 100 steps each, tanh(obs @ W) actions;
      env-steps/s (and agent-steps/s), stream ms per step by CUDA events
      (the kernels and the device's idle gaps between them), launches per
      kernel, the host waits of one more step (CUDA sync debug mode) by
      file and line, and for the tasks with grabs the share of agent rows
-     with a grab live
+     with a grab live; after Trifinger's, its randomization measured on
+     the path: the spread of the drawn scales, the share of envs whose
+     friction changed at a reset (every flagged env, no other) and the
+     noise std added to actions and observations against the config's
   6. train, each run with the launch counts set to 0 just before it: PPO
      (``learning/ppo.py``) on Ant-4096 with the Ant train config (1
      warm-up epoch, 3 timed) and on FrankaReachMA at 8192 envs x 2 arms
      with its config (1 warm-up, 1 timed; B5 exactly twice a step), and
      the same on FrankaCollectMA at 8192 x 2 (its FSM occupancy extras
-     printed), Humanoid-4096 and AnymalTerrain-4096 with their configs (1
-     warm-up, 1 timed), each epoch's seconds, rollout and update ms (CUDA events),
+     printed), Humanoid-4096, AnymalTerrain-4096 and FrankaCubeStack-8192
+     with their configs (1 warm-up, 1 timed), each epoch's seconds,
+     rollout and update ms (CUDA events),
      training frames/s and losses; then Cartpole-512 through the ``train``
      entry point until its mean return passes 100, failing if it has not
      by epoch 100 (the config's max_epochs)
 Each phase prints its seconds (``[phase_seconds]``).  The line before the
 last is the kernels JSON (a row per kernel at the scene where it runs
 first, launches summed over every phase, then a row per kernel at
-FrankaCollectMA, FrankaPPMA, Humanoid, Anymal, Ingenuity, Quadcopter and
-AnymalTerrain (Anymal's kernels), launches summed over that task's main
-phases), the last line {"ok": true, "device": {...}}.  Needs a CUDA
+FrankaCollectMA, FrankaPPMA, Humanoid, Anymal, Ingenuity, Quadcopter,
+FrankaReach, FrankaCabinet, FrankaCubeStack, Trifinger, AnymalTerrain
+(Anymal's kernels) and FrankaCubeStack2 (FrankaCubeStack's), launches
+summed over that task's main phases), the last line {"ok": true,
+"device": {...}}.  Needs a CUDA
 device; never falls back to the CPU and never imports jax.
 """
 import collections
@@ -116,10 +141,21 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("ingenuity", "Ingenuity", False, 100, N_ENVS),
     ("ingenuity_b4", "Ingenuity", True, 100, N_ENVS),
     ("quadcopter", "Quadcopter", False, 100, N_ENVS),
+    ("franka_reach", "FrankaReach", False, 100, N_ENVS),
+    ("franka_reach_b4", "FrankaReach", True, 100, N_ENVS),
+    ("franka_cabinet", "FrankaCabinet", False, 100, N_ENVS),
+    ("franka_cabinet_b4", "FrankaCabinet", True, 100, N_ENVS),
+    ("franka_cube_stack", "FrankaCubeStack", False, 100, 8192),
+    ("franka_cube_stack_b4", "FrankaCubeStack", True, 100, 8192),
+    ("franka_cube_stack2", "FrankaCubeStack2", False, 100, 8192),
+    ("trifinger", "Trifinger", False, 100, 16384),
+    ("trifinger_b4", "Trifinger", True, 100, 16384),
 )
-# the multi-arm Franka tasks: OSC (kernel B5) every step
+# the Franka tasks with OSC (kernel B5 twice every step); FrankaCabinet
+# drives its arm with joint torques
 OSC_TASKS = ("FrankaReachMA", "FrankaCollectMA", "FrankaPPMA",
-             "FrankaCombineMA")
+             "FrankaCombineMA", "FrankaReach", "FrankaCubeStack",
+             "FrankaCubeStack2")
 # the MA scenes with grab constraints whose kernels phase 3 checks: B1-B3
 # on a warmed-up state, B4 on its route's inputs with live grabs
 GRAB_SCENES = ("franka_collect_ma", "franka_ppma")
@@ -131,6 +167,14 @@ DYN = ("fk_motion", "dyn_forward", "dyn_cached")
 LOCO_SCENES = ("humanoid", "anymal", "ingenuity", "quadcopter")
 LOCO_B4 = {"humanoid": "humanoid_b4", "anymal": "anymal_terrain_b4",
            "ingenuity": "ingenuity_b4"}
+# the single-arm Franka scenes and Trifinger's: B1-B3 on a warmed-up state
+# (Trifinger's B2 with its drawn mass and shape scales, B3 with the scaled
+# gravity wrench), B4 on each route's inputs (the cabinet's handle grab and
+# cube A's grab live in a quarter of the envs, Trifinger's shape-scaled
+# pair rows and per-env friction), B5 at the OSC stacks; FrankaCubeStack2
+# runs FrankaCubeStack's scene and kernels
+SINGLE_SCENES = ("franka_reach", "franka_cabinet", "franka_cube_stack",
+                 "trifinger")
 # kernels a task's main phases must not launch: AnymalTerrain does not
 # reuse the mass matrix (B2 on every substep, never B3)
 NEVER = {"AnymalTerrain": ("dyn_cached",)}
@@ -139,7 +183,8 @@ TRAIN_RUNS = (("train_ant", "ant", 1, 3),
               ("train_franka_reach_ma", "franka_reach_ma", 1, 1),
               ("train_franka_collect_ma", "franka_collect_ma", 1, 1),
               ("train_humanoid", "humanoid", 1, 1),
-              ("train_anymal_terrain", "anymal_terrain", 1, 1))
+              ("train_anymal_terrain", "anymal_terrain", 1, 1),
+              ("train_franka_cube_stack", "franka_cube_stack", 1, 1))
 # learn_cartpole: the bar of tests/test_ppo_cartpole.py within the Cartpole
 # config's max_epochs
 LEARN_BAR, LEARN_EPOCHS = 100.0, 100
@@ -186,7 +231,8 @@ RECORDED_US = {("ant", "fk_motion"): 5.02,
                ("cartpole", "fk_motion"): None,
                ("cartpole", "dyn_forward"): None,
                ("cartpole", "dyn_cached"): None,
-               **{(scene, name): None for scene in LOCO_SCENES
+               **{(scene, name): None
+                  for scene in LOCO_SCENES + SINGLE_SCENES
                   for name in ("fk_motion", "dyn_forward", "dyn_cached",
                                "contact_solve")}}
 # B5's seeded stacks, (B, n, seed): the OSC sizes, the JAX kernel's own
@@ -245,7 +291,9 @@ def device_us(torch, fn, kernel, calls=20):
     ``kernel``, by CUPTI (torch.profiler) over the launches it records of
     ``calls`` calls of ``fn`` after a warm-up (it may miss the first; a
     window in which it saw none is taken again): the kernel alone, without
-    the host's share."""
+    the host's share.  Where CUPTI records no launch in three windows (it
+    can stop recording for the rest of a process), the time per call by
+    CUDA events stands in for it, and a ``[timer]`` line says so."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -260,8 +308,10 @@ def device_us(torch, fn, kernel, calls=20):
                 and kernel in e.name]
         if calls // 2 <= len(hits) <= calls:
             return sum(hits) / len(hits)
-    raise RuntimeError(f"profiler saw {len(hits)} launches of {kernel} "
-                       f"in {calls} calls, three times")
+    us = gpu_ms(torch, fn, per_batch=calls) * 1e3
+    phase("timer", kernel=kernel, cupti_launches=len(hits), calls=calls,
+          source="cuda_events", device_us=f"{us:.2f}")
+    return us
 
 
 def ptxas_report(log, kernel):
@@ -466,13 +516,17 @@ def run_steps(torch, task, state, obs, act, steps):
     return state, obs
 
 
-def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
+def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
+                      scales=None):
     """B1-B3 against their twins on one scene's state; returns per kernel
     {max_abs_err, ms, plain_ms, device_us, bytes, flops}; for B3 also the
     bytes with only H^-1's block entries read (``block_bytes``).
     ``widen``: names of the
     B2 and B3 outputs ("qdd", "Hinv") held per env against the twin's
-    float32 rounding noise as ``hold`` says; the others at fixed bounds."""
+    float32 rounding noise as ``hold`` says; the others at fixed bounds.
+    ``scales``: the main path's per-env (mass (N, nb), shape (N, nb, 3))
+    physics scales (Trifinger's domain randomization): B2 is held and
+    timed with them, and B3 with the gravity wrench they scale."""
     plan = task.engine.plan
     N = q_bl.shape[-1]
     g = torch.Generator(device=dev).manual_seed(3)
@@ -507,6 +561,9 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
         bytes=nbytes(q_bl, bx, bq, S), flops=flops_fk(plan) * N)
 
     args = (rbx, rbq, rS, qd_bl, rhs_bl, diag_bl)
+    if scales is not None:
+        args = (*args, scales[0].expand(N, plan.nb).t().contiguous(),
+                scales[1].permute(1, 2, 0).contiguous())
     qdd, hinv, io = dk.dyn_forward(plan, *args)
     rqdd, rhinv, rio = dk.dyn_full_bl(plan, consts, *args)
     # qdd goes through the bias force, which at BallBalance (balls rolling
@@ -522,9 +579,9 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
     # per-env mass and shape scales (the domain-randomization inputs)
     ms = torch.rand((plan.nb, N), generator=g, device=dev) + 0.5
     ss = torch.rand((plan.nb, 3, N), generator=g, device=dev) * 0.7 + 0.7
-    out_s = dk.dyn_forward(plan, *args, ms, ss)
-    ref_s = dk.dyn_full_bl(plan, consts, *args, ms, ss)
-    nz = noise(dk.dyn_full_bl, out3, *args, ms, ss)
+    out_s = dk.dyn_forward(plan, *args[:6], ms, ss)
+    ref_s = dk.dyn_full_bl(plan, consts, *args[:6], ms, ss)
+    nz = noise(dk.dyn_full_bl, out3, *args[:6], ms, ss)
     err = max(err, *(close(f"dyn_forward scaled {k}", a, b, *tol, nz.get(k))
                      for k, a, b, tol in zip(
                          out3, out_s, ref_s,
@@ -537,7 +594,8 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
         bytes=nbytes(*args, qdd, hinv, io), flops=flops_dyn_forward(plan) * N)
 
     body_x, body_q = rbx.permute(2, 0, 1), rbq.permute(2, 0, 1)
-    fg = task.engine.gravity_wrench(body_x, body_q).permute(1, 2, 0).contiguous()
+    fg = task.engine.gravity_wrench(body_x, body_q, *(scales or ())).permute(
+        1, 2, 0).contiguous()
     cargs = (rS, qd_bl, rhs_bl, rio, rhinv, fg)
     qdd_c = dk.dyn_cached(plan, *cargs)
     rqdd_c = dk.dyn_cached_bl(plan, consts, *cargs)
@@ -555,6 +613,64 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=()):
     return report
 
 
+def check_scaled_dyn(torch, dk, task, q_bl, qd_bl, mass, shape, dev, scene,
+                     widen):
+    """B2 with per-env ``mass`` (N, nb) and ``shape`` (N, nb, 3) scales
+    (batch-last (nb, N) and (nb, 3, N) for the kernel) against its twin
+    with the same scales, and B3 against its twin with the gravity wrench
+    those scales give (engine.gravity_wrench), at ``hold``'s B2 / B3
+    bounds (qdd and H^-1 widened per env with ``widen``).  Prints B2's
+    device us per launch with the scales beside its time without them;
+    returns {name: max_abs_err}."""
+    plan = task.engine.plan
+    N = q_bl.shape[-1]
+    g = torch.Generator(device=dev).manual_seed(4)
+    rhs_bl = torch.randn((plan.nv, N), generator=g, device=dev)
+    diag_bl = (task.engine.dof_armature[:, None] + 0.1).expand(
+        plan.nv, N).contiguous()
+    consts = plan.consts(dev)
+    c64 = {k: v.double() for k, v in consts.items()}
+    bx, bq, S = dk._fk_motion_bl(plan, q_bl)
+    ms_bl = mass.expand(N, plan.nb).t().contiguous()
+    ss_bl = shape.permute(1, 2, 0).contiguous()
+    args = (bx, bq, S, qd_bl, rhs_bl, diag_bl, ms_bl, ss_bl)
+    out = dk.dyn_forward(plan, *args)
+    ref = dk.dyn_full_bl(plan, consts, *args)
+    run = lambda f, c: lambda *x: f(plan, c, *x)  # noqa: E731
+    nz = (rounding_noise(torch, run(dk.dyn_full_bl, consts),
+                         run(dk.dyn_full_bl, c64), args) if widen
+          else (None,) * 3)
+    errs = {}
+    errs["dyn_forward"] = max(
+        hold(f"{scene} scaled dyn_forward {k}", a, b, *tol, z)
+        for k, a, b, tol, z in zip(
+            ("qdd", "Hinv", "I_O"), out, ref,
+            ((2e-4, 2e-4), (2e-4, 1e-5), (1e-5, 1e-5)),
+            (nz[0], nz[1], None)))
+    fg = task.engine.gravity_wrench(bx.permute(2, 0, 1), bq.permute(2, 0, 1),
+                                    mass, shape).permute(1, 2, 0).contiguous()
+    cargs = (S, qd_bl, rhs_bl, ref[2], ref[1], fg)
+    nzc = (rounding_noise(torch, run(dk.dyn_cached_bl, consts),
+                          run(dk.dyn_cached_bl, c64), cargs)[0] if widen
+           else None)
+    errs["dyn_cached"] = hold(f"{scene} scaled dyn_cached qdd",
+                              dk.dyn_cached(plan, *cargs),
+                              dk.dyn_cached_bl(plan, consts, *cargs),
+                              2e-4, 2e-4, nzc)
+    us = device_us(torch, lambda: dk.dyn_forward(plan, *args),
+                   "dyn_forward_kernel")
+    us0 = device_us(torch, lambda: dk.dyn_forward(plan, *args[:6]),
+                    "dyn_forward_kernel")
+    b_us = bound(nbytes(*args, *out), flops_dyn_forward(plan) * N)[0] * 1e3
+    phase("scaled_kernel", scene=scene, name="dyn_forward", envs=N,
+          device_us=f"{us:.2f}", unscaled_device_us=f"{us0:.2f}",
+          bound_us=f"{b_us:.2f}", max_abs_err=f"{errs['dyn_forward']:.3g}",
+          cached_max_abs_err=f"{errs['dyn_cached']:.3g}",
+          mass_range=f"{float(mass.min()):.4f}-{float(mass.max()):.4f}",
+          shape_range=f"{float(shape.min()):.4f}-{float(shape.max()):.4f}")
+    return errs
+
+
 def capture_contact_inputs(torch, ck, task, dev, steps, grabs=False,
                            landed_z=None):
     """Run ``steps`` steps of a B4-route task and return the batch-last
@@ -563,7 +679,9 @@ def capture_contact_inputs(torch, ck, task, dev, steps, grabs=False,
     live grabs in the first quarter of the envs (``parity.live_grabs``:
     each agent's cube on its grip site and at rest, its gripper action
     negative): a tanh policy almost never closes a gripper within 2.25 cm
-    of a cube, so the grab rows would hold nothing otherwise.  With
+    of a cube, so the grab rows would hold nothing otherwise; ``grabs`` may
+    also be the function that makes them live (FrankaCabinet's
+    ``parity.live_cabinet_grabs``).  With
     ``landed_z`` the last step starts with the root body of the first
     quarter of the envs at that height and at rest (Ingenuity: its box on
     the ground; the tanh policy keeps it in the air)."""
@@ -580,8 +698,9 @@ def capture_contact_inputs(torch, ck, task, dev, steps, grabs=False,
                            zero_obs(torch, task, dev), act, steps - 1)
     actions = act(obs)
     if grabs:
-        state = live_grabs(task, state, actions,
-                           torch.arange(task.num_envs // 4, device=dev))
+        make_live = (live_grabs if grabs is True else grabs)
+        state = make_live(task, state, actions,
+                          torch.arange(task.num_envs // 4, device=dev))
     if landed_z is not None:
         q, qd = state.sim.q.clone(), state.sim.qd.clone()
         q[: task.num_envs // 4, 2] = landed_z
@@ -784,6 +903,71 @@ def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
                 host_waits=waits)
 
 
+def dr_stats(torch, task, dev, steps=20):
+    """The domain randomization on a task's main path (Trifinger): ``steps``
+    steps of the tanh policy from a fresh state with the noise the step
+    adds to the actions and observations summed on the card (the
+    randomizer's methods wrapped), then one step with every other env
+    flagged to reset.  Fails unless the friction scales changed in every
+    flagged env and in no other, and the measured noise std is within 5%
+    of the configuration's (actions: white and correlated together).
+    Prints the spread of the drawn mass, shape and friction scales of the
+    randomized actor."""
+    dr = task.randomizer
+    acc = {k: torch.zeros(3, dtype=torch.float64, device=dev)
+           for k in ("actions", "observations")}
+
+    def wrap(key, f):
+        def noisy(x, noise, **k):
+            out = f(x, noise, **k)
+            dx = (out - x).double()
+            acc[key] += torch.stack([torch.ones_like(dx).sum(), dx.sum(),
+                                     (dx * dx).sum()])
+            return out
+        return noisy
+
+    dr.randomize_actions = wrap("actions", dr.randomize_actions)
+    dr.randomize_observations = wrap("observations",
+                                     dr.randomize_observations)
+    try:
+        act = policy(torch, task, dev)
+        st, obs = run_steps(torch, task, task.initial_state(),
+                            zero_obs(torch, task, dev), act, steps)
+        flags = (torch.arange(task.num_envs, device=dev) % 2 == 0).to(
+            torch.int32)
+        st2, _ = task.step(st._replace(reset_buf=flags), act(obs))
+    finally:
+        del dr.randomize_actions, dr.randomize_observations
+    changed = (st2.phys.friction != st.phys.friction).any(-1)
+    share = float(changed[flags == 1].double().mean())
+    stray = float(changed[flags == 0].double().mean())
+    stds = {}
+    for key, spec in (("actions", dr.act_spec), ("observations",
+                                                  dr.obs_spec)):
+        n, s1, s2 = (float(v) for v in acc[key])
+        var_w = float(spec["range"][1])
+        var_c = float(spec.get("range_correlated", [0, 0])[1])
+        stds[key] = ((s2 / n - (s1 / n) ** 2) ** 0.5,
+                     (var_w ** 2 + var_c ** 2) ** 0.5)
+    body = task.object_body
+    ph = st.phys
+    spread = lambda x: f"{float(x.min()):.4f}/{float(x.mean()):.4f}/" \
+        f"{float(x.max()):.4f}"  # noqa: E731
+    phase("dr", task=type(task).__name__, envs=task.num_envs,
+          mass=spread(ph.mass[:, body]), shape=spread(ph.shape[:, body]),
+          friction=spread(ph.friction), reset_changed_share=f"{share:.4f}",
+          unflagged_changed_share=f"{stray:.4f}",
+          **{f"{k}_noise_std": f"{v[0]:.6f}" for k, v in stds.items()},
+          **{f"{k}_config_std": f"{v[1]:.6f}" for k, v in stds.items()})
+    if share != 1.0 or stray != 0.0:
+        raise RuntimeError(f"friction resampled in {share} of the flagged "
+                           f"envs and {stray} of the others")
+    for k, (got, want) in stds.items():
+        if abs(got - want) > 0.05 * want:
+            raise RuntimeError(f"{k} noise std {got} against the "
+                               f"configuration's {want}")
+
+
 def check_launches(launches, expected, forbidden, what):
     missing = [k for k in expected if launches[k] <= 0]
     if missing:
@@ -939,6 +1123,47 @@ def check_loco_kernels(torch, dk, ck, task, task_b4, dev, scene):
     return rep
 
 
+def check_single_kernels(torch, dk, sk, ck, ctl, task, task_b4, dev, scene,
+                         parity):
+    """B1-B3 at a single-arm Franka or Trifinger scene's full-width shapes
+    on a state 30 steps in (qd nudged by N(0, 0.3)), qdd and H^-1 held per
+    env, Trifinger's B2 and B3 with the physics scales its randomizer drew
+    (B2 with its mass and shape scales, B3 with the gravity wrench they
+    scale); B4 on the inputs its route hands it 30 steps in, held per env
+    (FrankaCabinet with the handle grabbed and FrankaCubeStack with cube A
+    held in a quarter of the envs; Trifinger's rows with its per-env
+    friction and shape-scaled pair rows); B5 at the two OSC stacks of the
+    OSC tasks, held per matrix."""
+    st, _ = run_steps(torch, task, task.initial_state(),
+                      zero_obs(torch, task, dev), policy(torch, task, dev), 30)
+    gq = torch.Generator(device=dev).manual_seed(16)
+    qd = st.sim.qd + 0.3 * torch.randn(st.sim.qd.shape, generator=gq,
+                                       device=dev)
+    scales = (None if st.phys is None or st.phys.shape is None
+              else (st.phys.mass, st.phys.shape))
+    rep = check_dyn_kernels(torch, dk, task, st.sim.q.t().contiguous(),
+                            qd.t().contiguous(), dev, scene, ("qdd", "Hinv"),
+                            scales)
+    grabs = {"franka_cabinet": parity.live_cabinet_grabs,
+             "franka_cube_stack": True}.get(scene, False)
+    call = capture_contact_inputs(torch, ck, task_b4, dev, 30, grabs=grabs)
+    if scene == "trifinger":
+        mu = call[2]["mu"]
+        print(f"[check] trifinger B4 launch: per-env mu spread "
+              f"{float(mu.min()):.4f}-{float(mu.max()):.4f} over "
+              f"{tuple(mu.shape)}", flush=True)
+    rep["contact_solve"] = check_contact_kernel(torch, ck, call, scene, True)
+    extra = {}
+    if type(task).__name__ in OSC_TASKS:
+        mm, m_eef_inv = capture_osc_inputs(torch, ctl, task, st, dev)
+        for label, H in (("osc_mm", mm), ("osc_m_eef_inv", m_eef_inv)):
+            B, n = H.shape[0], H.shape[-1]
+            extra[label] = check_spd_kernel(
+                torch, sk, dk, H, f"{scene} {label} ({B},{n},{n})", True)
+        rep["spd_inverse"] = extra.pop("osc_mm")
+    return rep, extra
+
+
 def host_waits(torch, task, state, act, obs):
     """Host waits for the card in one ``task.step`` (CUDA sync debug
     mode), by file and line."""
@@ -1016,9 +1241,11 @@ def main():
     grab = synthetic_grab_call(torch, np, ck, dev)
     dyn_scenes = ("ant", "ball_balance", "franka_reach_ma", "cartpole",
                   "franka_collect_ma", "franka_ppma", "franka_combine_ma",
-                  *LOCO_SCENES, "anymal_terrain")
+                  *LOCO_SCENES, "anymal_terrain", *SINGLE_SCENES,
+                  "franka_cube_stack2")
     b4_scenes = ("ant", "ball_balance", "franka_reach_ma", *GRAB_SCENES,
-                 "humanoid", "anymal", "anymal_terrain", "ingenuity")
+                 "humanoid", "anymal", "anymal_terrain", "ingenuity",
+                 *SINGLE_SCENES)
     build_all(_build, [
         *((scene, tasks[scene].engine.plan) for scene in dyn_scenes),
         *((scene, tasks[scene + "_b4"].engine.cplan) for scene in b4_scenes),
@@ -1067,6 +1294,29 @@ def main():
         report[scene] = check_loco_kernels(
             torch, dk, ck, tasks[scene], tasks.get(LOCO_B4.get(scene)), dev,
             scene)
+    for scene in SINGLE_SCENES:
+        report[scene], extra = check_single_kernels(
+            torch, dk, sk, ck, ctl, tasks[scene], tasks[scene + "_b4"], dev,
+            scene, parity)
+        spd_extra.update({f"{scene} {k}": v for k, v in extra.items()})
+    # queue B item 7: B2 with per-env mass and shape scales and B3 with the
+    # gravity wrench they scale, at Ant-4096 (seeded scales in the ranges of
+    # tests/test_dyn_kernel.py:86) and at Trifinger-16384 (the scales its
+    # randomizer draws, on a state 30 steps in)
+    gs = np.random.default_rng(9)
+    ant_t = tasks["ant"]
+    nb = ant_t.engine.nb
+    t_ = lambda x: torch.as_tensor(x.astype(np.float32), device=dev)  # noqa: E731
+    check_scaled_dyn(torch, dk, ant_t, to_bl(q_np), to_bl(qd_np),
+                     t_(gs.uniform(0.6, 1.5, (N_ENVS, nb))),
+                     t_(gs.uniform(0.7, 1.4, (N_ENVS, nb, 3))), dev, "ant",
+                     False)
+    tri = tasks["trifinger"]
+    st, _ = run_steps(torch, tri, tri.initial_state(),
+                      zero_obs(torch, tri, dev), policy(torch, tri, dev), 30)
+    check_scaled_dyn(torch, dk, tri, st.sim.q.t().contiguous(),
+                     st.sim.qd.t().contiguous(), st.phys.mass,
+                     st.phys.shape, dev, "trifinger", True)
     for scene, r in report.items():
         for name, e in r.items():
             b_ms, b_by = bound(e["bytes"], e["flops"])
@@ -1105,6 +1355,9 @@ def main():
               **extra)
     # B5 per shape: the OSC inverses and the seeded stacks
     spd_rows = {"osc_mm": report["franka_reach_ma"]["spd_inverse"],
+                **{f"{scene} osc_mm": report[scene]["spd_inverse"]
+                   for scene in SINGLE_SCENES
+                   if "spd_inverse" in report[scene]},
                 **spd_extra}
     for label, e in spd_rows.items():
         p = sk.get_plan(e["n"])
@@ -1139,7 +1392,14 @@ def main():
                           ("anymal_golden.npz", (False, True)),
                           ("anymal_terrain_golden.npz", (False, True)),
                           ("ingenuity_golden.npz", (False, True)),
-                          ("quadcopter_golden.npz", (False,))):
+                          ("quadcopter_golden.npz", (False,)),
+                          ("franka_reach_golden.npz", (False, True)),
+                          ("franka_cabinet_golden.npz", (False, True)),
+                          ("franka_cabinet_b4_golden.npz", (True,)),
+                          ("franka_cube_stack_golden.npz", (False,)),
+                          ("franka_cube_stack2_golden.npz", (False,)),
+                          ("trifinger_golden.npz", (False,)),
+                          ("trifinger_b4_golden.npz", (True,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]
@@ -1170,14 +1430,25 @@ def main():
                     envs_not_held="/".join(str(v) for v in e.wild_envs),
                     reset_mismatches="/".join(
                         str(v) for v in e.reset_mismatches))
+            if e.traj_raw is not None:
+                # held beyond four times the reference's own trajectory
+                # spread (the cube-stack captures, ROADMAP C9)
+                extra = dict(raw_max_err="/".join(
+                    f"{k}:{max(e.traj_raw[k]):.2g}" for k in e.traj_raw),
+                    widening_last="/".join(
+                        f"{k}:{e.traj_widening[k][-1]:.2g}"
+                        for k in e.traj_widening))
             if "grab_envs" in np.load(path):
-                # half the envs start holding their cubes: two live grabs
-                # an env in step 1, and grabs live in every step
-                held = 2 * len(np.load(path)["grab_envs"])
+                # half the envs start holding (each agent its cube, or the
+                # cabinet's handle): a live grab per agent in step 1, and
+                # grabs live in every step
+                cap = np.load(path)
+                agents = cap["actions"].shape[1] // cap["init_q"].shape[0]
+                held = agents * len(cap["grab_envs"])
                 if e.grabs_live[0] != held or not (e.grabs_live > 0).all():
                     raise RuntimeError(f"{fname} replay grabs live per step "
                                        f"{e.grabs_live}")
-                extra = dict(grabs_live="/".join(
+                extra.update(grabs_live="/".join(
                     f"{v:.0f}" for v in e.grabs_live))
             phase("golden", task=name, b4=kernel_route, steps=len(e.q),
                   **{f"{k}_err": "/".join(f"{v:.2g}" for v in getattr(e, k))
@@ -1216,6 +1487,8 @@ def main():
               launches=json.dumps(r["launches"]).replace(" ", ""),
               host_waits_per_step=sum(r["host_waits"].values()),
               wait_at=json.dumps(dict(r["host_waits"])).replace(" ", ""))
+        if tag == "trifinger":
+            dr_stats(torch, task, dev)
 
     clock.lap("main")
     # ---- 6. train: PPO epochs on the main phases' tasks, then Cartpole
@@ -1227,8 +1500,8 @@ def main():
     for tag, scene, warm, epochs in TRAIN_RUNS:
         task = tasks[scene]
         expected = tuple(k for k in DYN if k not in NEVER.get(
-            type(task).__name__, ())) + (("spd_inverse",)
-                                         if task.num_agents > 1 else ())
+            type(task).__name__, ())) + (
+                ("spd_inverse",) if type(task).__name__ in OSC_TASKS else ())
         forbidden = [k for k in KERNEL_WRAPPERS if k not in expected]
         tcfg = train_default_config(type(task).__name__)
         if tag == "train_franka_collect_ma" and task.num_obs != 28:
@@ -1289,7 +1562,15 @@ def main():
     kernels = []
     rows = [(name, JSON_SCENE[name], total[name]) for name in KERNELS]
     rows += [(name, scene, scene_launches[scene][name])
-             for scene in GRAB_SCENES + LOCO_SCENES for name in report[scene]]
+             for scene in GRAB_SCENES + LOCO_SCENES + SINGLE_SCENES
+             for name in report[scene]]
+    # FrankaCubeStack2 runs FrankaCubeStack's kernels (the same scene and
+    # contact plan): its rows carry those checks and its own launches
+    report["franka_cube_stack2"] = report["franka_cube_stack"]
+    rows += [(name, "franka_cube_stack2",
+              scene_launches["franka_cube_stack2"][name])
+             for name in ("fk_motion", "dyn_forward", "dyn_cached",
+                          "spd_inverse")]
     # AnymalTerrain runs Anymal's kernels (the same scene and contact
     # plan): its rows carry Anymal's checks and its own launches
     report["anymal_terrain"] = report["anymal"]

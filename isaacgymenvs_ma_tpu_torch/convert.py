@@ -14,9 +14,13 @@ numpy arrays under flat dotted names, e.g. from a JAX ``EnvState`` ``st``::
 The ``task.*`` keys name the fields of one task's state class (Ant's
 ``AntTaskState``, BallBalance's ``BBTaskState``, FrankaReachMA's
 ``FrankaMATaskState``, the other MA tasks' ``CollectTaskState``,
-Anymal's, AnymalTerrain's, Ingenuity's and Quadcopter's); the class is
-picked by its field names, or given (Humanoid's ``HumanoidTaskState`` has
-Ant's fields).  A field keeps its kind: integer arrays (the MA tasks' FSM
+Anymal's, AnymalTerrain's, Ingenuity's, Quadcopter's and Trifinger's);
+the class is picked by its field names, or given (Humanoid's
+``HumanoidTaskState`` has Ant's fields, the single-arm Franka tasks'
+``CubeStackTaskState`` and ``CabinetTaskState`` FrankaReachMA's).  The
+``phys.*`` keys, where a task randomizes its physics, name the leaves of
+the JAX ``PhysScales`` (``phys.mass``, ``phys.friction``, ``phys.shape``,
+...) and become the port's (:func:`phys_from_jax`).  A field keeps its kind: integer arrays (the MA tasks' FSM
 states, AnymalTerrain's levels, types and step counter) become int32
 tensors, the others float32.
 
@@ -40,10 +44,26 @@ from .tasks.franka_collect_ma import CollectTaskState
 from .tasks.franka_reach_ma import FrankaMATaskState
 from .tasks.ingenuity import IngenuityTaskState
 from .tasks.quadcopter import QuadTaskState
+from .tasks.trifinger import TrifingerTaskState
+from .utils.domain_rand import PhysScales
 
 TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState,
                CollectTaskState, AnymalTaskState, ATTaskState,
-               IngenuityTaskState, QuadTaskState)
+               IngenuityTaskState, QuadTaskState, TrifingerTaskState)
+
+
+def phys_from_jax(arrays: dict, device) -> PhysScales:
+    """The port's ``PhysScales`` from the leaves of a JAX ``PhysScales``
+    as numpy arrays, keyed by leaf name (``mass``, ``damping``,
+    ``stiffness``, ``friction`` and any optional leaf that is not None:
+    ``shape``, ``obs_corr``, ``act_corr``, ...).  A missing optional leaf
+    stays None."""
+    unknown = set(arrays) - set(PhysScales._fields)
+    if unknown:
+        raise KeyError(f"not PhysScales leaves: {sorted(unknown)}")
+    return PhysScales(**{k: torch.tensor(np.asarray(v, np.float32),
+                                         dtype=DTYPE, device=device)
+                         for k, v in arrays.items()})
 
 
 def env_state_from_jax(arrays: dict, device, state_cls=None) -> EnvState:
@@ -68,9 +88,12 @@ def env_state_from_jax(arrays: dict, device, state_cls=None) -> EnvState:
         task = cls(*(i32(k) if np.issubdtype(np.asarray(arrays[k]).dtype,
                                              np.integer) else f32(k)
                      for k in (f"task.{f}" for f in cls._fields)))
+    phys = {k[len("phys."):]: v for k, v in arrays.items()
+            if k.startswith("phys.")}
     return EnvState(sim=SimState(f32("sim.q"), f32("sim.qd")),
                     progress=i32("progress"), reset_buf=i32("reset_buf"),
-                    task=task)
+                    task=task,
+                    phys=phys_from_jax(phys, device) if phys else None)
 
 
 def params_from_jax(tree: dict) -> dict:

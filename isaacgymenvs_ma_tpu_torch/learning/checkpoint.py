@@ -4,7 +4,7 @@ the rl_games ``.pth`` checkpoint).
 The payload has the JAX package's keys: ``ppo_state`` (the agent's
 ``state_dict()``: network and optimiser state, both normalisers, ``lr``,
 epoch, frames, the episode trackers, the generators' states and the env
-state, so a resumed run continues exactly), ``env_state_extra`` (curriculum
+state with its physics scales, so a resumed run continues exactly), ``env_state_extra`` (curriculum
 state from ``task.get_env_state``; None for the ported tasks) and ``meta``.
 It is written with ``torch.save`` to ``path + ".tmp"`` and then moved onto
 ``path``, so a reader never sees half a file; it holds only tensors and

@@ -468,6 +468,9 @@ class PPOAgent:
                "progress": st.progress, "reset_buf": st.reset_buf}
         if st.task is not None:
             env.update({f"task.{f}": v for f, v in st.task._asdict().items()})
+        if st.phys is not None:
+            env.update({f"phys.{f}": v for f, v in st.phys._asdict().items()
+                        if v is not None})
         return {
             "net": self.net.state_dict(), "optim": self._optim_state(),
             "obs_rms": self.obs_rms.state_dict(),
@@ -525,8 +528,12 @@ class PPOAgent:
             if task is not None:
                 task = type(task)(**{f: on(env[f"task.{f}"])
                                      for f in task._fields})
+            phys = self.env_state.phys
+            if phys is not None:
+                phys = type(phys)(**{f: on(env[f"phys.{f}"])
+                                     for f in phys._fields
+                                     if f"phys.{f}" in env})
             self.env_state = EnvState(
                 sim=SimState(on(env["sim.q"]), on(env["sim.qd"])),
                 progress=on(env["progress"]),
-                reset_buf=on(env["reset_buf"]), task=task,
-                phys=self.env_state.phys)
+                reset_buf=on(env["reset_buf"]), task=task, phys=phys)

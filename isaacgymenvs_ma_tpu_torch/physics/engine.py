@@ -15,7 +15,9 @@ B4, engine.py:1708-1735); otherwise it is a loop of batched products.
 
 Ported so far: what the Ant, BallBalance, Cartpole, the four
 multi-arm Franka, the Humanoid, Anymal, AnymalTerrain, Ingenuity and
-Quadcopter steps run (ground contact rows, on a flat plane or on a
+Quadcopter, the single-arm Franka and Trifinger steps run (per-env
+domain-randomization scales of mass, shape, friction, stiffness and
+damping; ground contact rows, on a flat plane or on a
 heightfield terrain, body-pair contact rows against primitive SDFs with
 tangent frames, rigid-body attractors, conditional grab constraints
 switched per env by ``Control.grab_active``, external body wrenches
@@ -654,8 +656,12 @@ class PhysicsEngine:
         reuse_contact_rows, see :meth:`_contact_solve`).  ``terrain``: a
         :class:`.terrain.TerrainGrid` the ground rows stand on instead of
         the plane z = 0 (its surface normals, SimParams.
-        terrain_normal_frames, are not ported).  ``phys`` (domain-
-        randomization scales) is not ported yet."""
+        terrain_normal_frames, are not ported).  ``phys``: the per-env
+        :class:`..utils.domain_rand.PhysScales` of the domain randomization
+        (engine.py:807-878): mass and shape into B2 and into B3's gravity
+        wrench, stiffness and damping into the drives, the passive damping
+        and the implicit diagonal, friction and shape into the contact
+        rows; its dof-property and restitution leaves raise."""
         if terrain is not None:
             if self.params.terrain_normal_frames:
                 _unsupported("terrain surface normals (terrain_normal_frames)")
@@ -666,8 +672,21 @@ class PhysicsEngine:
                     "pruned candidates on a fixed-base tree; rebuild the "
                     "engine without fixed-base trees or disable pruning for "
                     "this scene")
+        mass_s = shape_s = fric_s = None
+        kp_drive, kd_drive, d_damp = self.kp_drive, self.kd_drive, \
+            self.dof_damping
         if phys is not None:
-            _unsupported("per-env physics scales (domain randomization)")
+            for leaf in ("joint_friction", "armature", "effort",
+                         "dof_lower_shift", "dof_upper_shift",
+                         "restitution"):
+                if getattr(phys, leaf, None) is not None:
+                    _unsupported(f"the physics scale {leaf} (ROADMAP queue "
+                                 "A, items 7b-7c)")
+            mass_s, shape_s, fric_s = phys.mass, phys.shape, phys.friction
+            # drive gains and passive damping (engine.py:856-859)
+            kp_drive = kp_drive * phys.stiffness
+            kd_drive = kd_drive * phys.damping
+            d_damp = d_damp * phys.damping
         h = self.h
         N = q.shape[0]
         body_x, body_q, S, (bx_bl, bq_bl, S_bl) = self.kinematics(q)
@@ -675,17 +694,16 @@ class PhysicsEngine:
         qpos_dof = q @ self.q_to_dof.T
         eff_lim = self.dof_effort_limit
         tau = torch.clamp(ctrl.tau, -eff_lim, eff_lim)
-        rhs = tau - self.dof_spring * (qpos_dof + h * qd) - self.dof_damping * qd
+        rhs = tau - self.dof_spring * (qpos_dof + h * qd) - d_damp * qd
         # PD drive with PhysX's drive-force limit; a saturated drive drops
         # its implicit stiffening from the diagonal (engine.py:886-904)
         drive = torch.zeros_like(rhs)
         if ctrl.pos_target is not None:
-            drive = drive + self.kp_drive * (ctrl.pos_target - qpos_dof
-                                             - h * qd)
+            drive = drive + kp_drive * (ctrl.pos_target - qpos_dof - h * qd)
         if ctrl.vel_target is not None:
-            drive = drive + self.kd_drive * (ctrl.vel_target - qd)
+            drive = drive + kd_drive * (ctrl.vel_target - qd)
         else:
-            drive = drive - self.kd_drive * qd
+            drive = drive - kd_drive * qd
         drive_sat = torch.abs(drive) > eff_lim
         rhs = rhs + torch.clamp(drive, -eff_lim, eff_lim)
         imp = torch.where(drive_sat, 0.0, 1.0)
@@ -697,19 +715,28 @@ class PhysicsEngine:
                             -1)                                 # (N, nb, 6)
             rhs = rhs + torch.einsum("nvd,vb,nbd->nv", S,
                                      self.dof_body_mask_f, f_o)
-        diag = (self.dof_armature + h * self.dof_damping + h * h * self.dof_spring
-                + imp * (h * self.kd_drive + h * h * self.kp_drive))
+        diag = (self.dof_armature + h * d_damp + h * h * self.dof_spring
+                + imp * (h * kd_drive + h * h * kp_drive))
 
         rhs_bl = rhs.t().contiguous()
         qd_bl = qd.t().contiguous()
         if dyn_cache is None:
             diag_bl = diag.t().contiguous()
+            # the scales batch-last for B2: mass (nb, N), shape (nb, 3, N)
+            ms_bl = (None if mass_s is None
+                     else mass_s.expand(N, self.nb).t().contiguous())
+            ss_bl = (None if shape_s is None
+                     else shape_s.permute(1, 2, 0).contiguous())
             qdd_bl, hinv_bl, io_bl = dk.dyn_forward(
-                self.plan, bx_bl, bq_bl, S_bl, qd_bl, rhs_bl, diag_bl)
+                self.plan, bx_bl, bq_bl, S_bl, qd_bl, rhs_bl, diag_bl,
+                ms_bl, ss_bl)
             cache_out = (io_bl, hinv_bl)
         else:
             io_bl, hinv_bl = dyn_cache
-            fg = self.gravity_wrench(body_x, body_q)
+            # the fresh gravity wrench carries the scales too: with
+            # reuse_mass_matrix a scale missing here is wrong only from the
+            # second substep on (engine.py:836-837, :946-947)
+            fg = self.gravity_wrench(body_x, body_q, mass_s, shape_s)
             qdd_bl = dk.dyn_cached(self.plan, S_bl, qd_bl, rhs_bl, io_bl,
                                    hinv_bl, fg.permute(1, 2, 0).contiguous())
             cache_out = dyn_cache
@@ -723,7 +750,8 @@ class PhysicsEngine:
                                     qpos_dof, S_bl, hinv_bl,
                                     ccache=contact_cache, qd_geom=qd,
                                     grab_active=ctrl.grab_active,
-                                    terrain=terrain)
+                                    terrain=terrain, friction_scale=fric_s,
+                                    shape_scale=shape_s)
         else:
             qd_new = self._limit_solve(qd_new, Hinv, qpos_dof)
             impulse_pts = p_w = ccache_out = None
@@ -766,10 +794,22 @@ class PhysicsEngine:
             lam_lo, lam_hi = lam_lo_new, lam_hi_new
         return qd
 
-    def _contact_points(self, body_x, body_q):
-        """World ground-candidate positions p (N, n_ground, 3)."""
+    def _contact_points(self, body_x, body_q, shape_scale=None):
+        """World ground-candidate positions p (N, n_ground, 3); with
+        ``shape_scale`` (N, nb, 3) the offsets scale in their body's frame
+        (engine.py:1219-1226)."""
+        off = self.gnd_off
+        if shape_scale is not None:
+            off = off * shape_scale[:, self._gnd_body_t]           # (N, P, 3)
         return (body_x[:, self._gnd_body_t]
-                + maths.quat_apply(body_q[:, self._gnd_body_t], self.gnd_off))
+                + maths.quat_apply(body_q[:, self._gnd_body_t], off))
+
+    def _ground_radii(self, shape_scale=None):
+        """Ground-candidate radii (P,), or (N, P) scaled by the mean of
+        their body's shape scales (engine.py:1327-1329)."""
+        if shape_scale is None:
+            return self.gnd_rad
+        return self.gnd_rad * shape_scale[:, self._gnd_body_t].mean(-1)
 
     @staticmethod
     def _sdf_local(gtype: int, size, p):
@@ -828,24 +868,34 @@ class PhysicsEngine:
         t2 = _cross(n, t1)
         return torch.stack([t1, t2, n], dim=-1)
 
-    def _pair_rows(self, body_x, body_q):
+    def _pair_rows(self, body_x, body_q, shape_scale=None):
         """Narrowphase of the body-pair rows (engine.py:1048-1100): contact
         points p_c (N, K, 3), gaps phi (N, K), friction (K,) and world
-        normals n (N, K, 3)."""
+        normals n (N, K, 3).  ``shape_scale`` (N, nb, 3) scales geom A's
+        candidate offsets (radii by the mean) and geom B's SDF size and
+        offset, per env."""
         ps, phis, mus, ns = [], [], [], []
         for pr_ in self.pairs:
             bodies = pr_["pt_body"]
             xb, qb = body_x[:, bodies], body_q[:, bodies]
-            p = xb + maths.quat_apply(qb, pr_["pts_off"])
+            off, rad = pr_["pts_off"], pr_["pts_rad"]
+            tgt_size, tgt_pos = pr_["tgt_size"], pr_["tgt_pos"]
             tb = pr_["tgt_body"]
+            if shape_scale is not None:
+                sp = shape_scale[:, bodies]                      # (N, k, 3)
+                off = off * sp
+                rad = rad * sp.mean(-1)
+                st = shape_scale[:, tb, None, :]                 # (N, 1, 3)
+                tgt_size = tgt_size * st
+                tgt_pos = tgt_pos * st
+            p = xb + maths.quat_apply(qb, off)
             x_t = body_x[:, tb, None, :] + maths.quat_apply(
-                body_q[:, tb, None, :], pr_["tgt_pos"])
+                body_q[:, tb, None, :], tgt_pos)
             q_t = maths.quat_mul(body_q[:, tb, None, :],
                                  pr_["tgt_quat"].expand(qb.shape))
             lp = maths.quat_rotate_inverse(q_t, p - x_t)
-            d, n_l = self._sdf_local(pr_["tgt_type"], pr_["tgt_size"], lp)
+            d, n_l = self._sdf_local(pr_["tgt_type"], tgt_size, lp)
             n_w = maths.quat_apply(q_t, n_l)
-            rad = pr_["pts_rad"]
             ps.append(p - rad[..., None] * n_w)
             phis.append(d - rad)
             mus.append(torch.full((len(bodies),), pr_["mu"], dtype=DTYPE,
@@ -883,34 +933,55 @@ class PhysicsEngine:
             torch.sum(J_flat * HinvJ_flat, dim=-1).reshape(N, R_rows, 3),
             min=1e-8)
 
-    def _contact_rows(self, body_x, body_q, N, terrain=None):
+    def _contact_rows(self, body_x, body_q, N, terrain=None,
+                      friction_scale=None, shape_scale=None):
         """Narrowphase of every candidate row, ground rows first
         (engine.py:1306-1397): points p (N, P, 3), gaps phi (N, P),
         friction mu (N, P) and, when pairs exist, row frames (N, P, 3, 3)
         (identity on the ground rows), else None.  Ground rows measure
         their gap from z = 0 or, with ``terrain``, from the heightfield's
         bilinear height under the point.  A scene with grabs and no
-        candidate rows gets an empty row set (engine.py:1392-1398)."""
+        candidate rows gets an empty row set (engine.py:1392-1398).
+        ``friction_scale`` (N, 1) scales every row's mu, (N, nb) a ground
+        row's by its body's and a pair row's by the mean of its two
+        bodies' (engine.py:1341-1367); ``shape_scale`` (N, nb, 3) scales
+        the geometry (:meth:`_contact_points`, :meth:`_pair_rows`)."""
         pr = self.params
         if not (self.n_ground or self.pairs):
             z = body_x.new_zeros((N, 0))
             return body_x.new_zeros((N, 0, 3)), z, z, None
+        per_body = (friction_scale is not None
+                    and friction_scale.shape[-1] == self.nb)
         ps, phis, mus, frames = [], [], [], None
         if self.n_ground:
-            p = self._contact_points(body_x, body_q)            # (N, G, 3)
+            p = self._contact_points(body_x, body_q, shape_scale)  # (N, G, 3)
             ps.append(p)
+            rad = self._ground_radii(shape_scale)
             if terrain is None:
-                phis.append(p[..., 2] - self.gnd_rad)            # flat z = 0
+                phis.append(p[..., 2] - rad)                     # flat z = 0
             else:
-                phis.append(p[..., 2] - self.gnd_rad
+                phis.append(p[..., 2] - rad
                             - terrain.height_at(p[..., 0], p[..., 1]))
-            mus.append((self.gnd_mu * pr.plane_friction).expand(N, -1))
+            mu = (self.gnd_mu * pr.plane_friction).expand(N, -1)
+            if friction_scale is not None:
+                mu = mu * (friction_scale[:, self._gnd_body_t] if per_body
+                           else friction_scale)
+            mus.append(mu)
         if self.pairs:
-            pp, pphi, pmu, pn = self._pair_rows(body_x, body_q)
+            pp, pphi, pmu, pn = self._pair_rows(body_x, body_q, shape_scale)
             frame = self._tangent_frame(pn)                     # (N, K, 3, 3)
             ps.append(pp)
             phis.append(pphi)
-            mus.append(pmu.expand(N, -1))
+            pmu = pmu.expand(N, -1)
+            if friction_scale is not None:
+                if per_body:
+                    ra = self._row_a_t[self.n_ground:]
+                    rb = self._row_b_t[self.n_ground:]
+                    pmu = pmu * 0.5 * (friction_scale[:, ra]
+                                       + friction_scale[:, rb])
+                else:
+                    pmu = pmu * friction_scale
+            mus.append(pmu)
             eye = torch.eye(3, dtype=body_x.dtype, device=body_x.device)
             frames = torch.cat([eye.expand(N, self.n_ground, 3, 3), frame], 1)
         return (torch.cat(ps, 1), torch.cat(phis, 1), torch.cat(mus, 1),
@@ -929,13 +1000,16 @@ class PhysicsEngine:
 
     def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, S_bl,
                        hinv_bl, ccache=None, qd_geom=None, grab_active=None,
-                       terrain=None):
+                       terrain=None, friction_scale=None, shape_scale=None):
         """Projected-Jacobi impulse solve over grabs, attractors, ground
         rows, body-pair rows and joint limits, in that order in each
         iteration (engine.py:1248-1925 without warm start, terrain normals
         or restitution).  With ``terrain`` the ground rows' gaps are taken
         from the heightfield (:meth:`_contact_rows`); B4 sees terrain only
-        through those gaps, as the JAX kernel route does.
+        through those gaps, as the JAX kernel route does.  The per-env
+        ``friction_scale`` and ``shape_scale`` of the domain randomization
+        enter through the rows (:meth:`_contact_rows`): B4 takes them in its
+        per-env ``mu`` and points.
 
         Grab rows (:meth:`_grab_rows`) are bilateral world-axis rows gated
         per env by ``grab_active``; they are rebuilt every substep, their
@@ -999,9 +1073,10 @@ class PhysicsEngine:
             g_pts, gJ, gHJ, g_W, g_b, g_act = self._grab_rows(
                 body_x, body_q, S, Hinv, grab_active)
 
+        rows = lambda: self._contact_rows(  # noqa: E731
+            body_x, body_q, N, terrain, friction_scale, shape_scale)
         if self.cplan is not None:
-            p, phi, mu, frames = self._contact_rows(body_x, body_q, N,
-                                                    terrain)
+            p, phi, mu, frames = rows()
             active, b_n = self._normal_targets(phi)
             J_flat = self._build_J_flat(S, p, self.row_masks, frames)
             w_diag = self._w_diag(J_flat, torch.bmm(J_flat, Hinv), N,
@@ -1019,8 +1094,7 @@ class PhysicsEngine:
 
         reuse_rows = pr.reuse_contact_rows and pr.substeps > 1
         if ccache is None:
-            p, phi, mu, frames = self._contact_rows(body_x, body_q, N,
-                                                    terrain)
+            p, phi, mu, frames = rows()
             sel = None
             phi_r, p_r, mu_r, masks_r, frames_r = (phi, p, mu, self.row_masks,
                                                    frames)
@@ -1028,10 +1102,10 @@ class PhysicsEngine:
             if reuse_rows and terrain is not None:
                 # per row: its radius and whether it stands on the ground
                 # (the rows the later substeps read the heightfield for)
+                rad = self._ground_radii(shape_scale).expand(N, -1)
                 terr_r = torch.cat([
-                    torch.stack([self.gnd_rad, torch.ones_like(self.gnd_rad)],
-                                -1),
-                    phi.new_zeros((self.n_pair_rows, 2))]).expand(N, -1, -1)
+                    torch.stack([rad, torch.ones_like(rad)], -1),
+                    phi.new_zeros((N, self.n_pair_rows, 2))], 1)
             K = pr.contact_capacity
             if K is not None and p.shape[1] > K:
                 # the K deepest rows per env; a stable ascending sort puts

@@ -9,10 +9,18 @@ physics for tasks with ``reset_in_pre_physics``, as BallBalance).
 
 The JAX version threads a PRNG key through ``EnvState``; here each task
 owns a ``torch.Generator`` (``task.generator``) for its random draws, and
-``step`` also accepts explicit ``reset_draws`` (``reset_idx``'s) and
+``step`` also accepts explicit ``reset_draws`` (``reset_idx``'s),
 ``step_draws`` (``post_physics``'s, for the tasks that draw there:
-AnymalTerrain's pushes and observation noise, Ingenuity's new targets) so
-tests can inject the reference's draws.  A task whose ``post_physics``
+AnymalTerrain's pushes and observation noise, Ingenuity's new targets) and
+``dr_draws`` (the domain randomization's) so tests can inject the
+reference's draws.
+
+With ``task.randomize`` the step adds the domain randomizer
+(utils/domain_rand.py) in the JAX order (base.py:228-307): action noise
+before the clip, the physics scales of the envs flagged on the previous
+step resampled before physics (so those envs step once more with their new
+scales, then reset), observation noise before the clip.  The scales ride
+in ``EnvState.phys``.  A task whose ``post_physics``
 changes the physics state (AnymalTerrain's pushes) returns the new
 ``SimState`` as a seventh value; the step carries it on.
 
@@ -33,6 +41,7 @@ from ..device import DTYPE, resolve_device
 from ..ops.rng import make_generator
 from ..physics.engine import (Control, PhysicsEngine, SimOutput, SimParams,
                               SimState)
+from ..utils.domain_rand import DomainRandomizer
 
 
 class EnvState(NamedTuple):
@@ -40,7 +49,7 @@ class EnvState(NamedTuple):
     progress: torch.Tensor        # (N,) int32
     reset_buf: torch.Tensor       # (N,) int32 — starts at 1
     task: Any = None              # task-specific state (potentials, ...)
-    phys: Any = None              # domain-randomization scales (not ported)
+    phys: Any = None              # PhysScales of the domain randomization
 
 
 class StepResult(NamedTuple):
@@ -118,12 +127,21 @@ class VecTaskBase:
                            if sim_params is None else sim_params)
         self.dt = self.sim_params.dt
         self.terrain = None            # a TerrainGrid (AnymalTerrain)
-        if (cfg.get("task", {}) or {}).get("randomize"):
-            raise NotImplementedError(
-                "domain randomization is not ported yet (see ROADMAP.md)")
+        task_sec = cfg.get("task", {}) or {}
+        self.randomizer = None
+        if task_sec.get("randomize"):
+            # the correlated-noise bases are per env: the agent-folded MA
+            # batch gets none (base.py:138-147)
+            single = self.num_agents == 1
+            self.randomizer = DomainRandomizer(
+                task_sec.get("randomization_params", {}), self.num_envs,
+                num_obs=self.num_obs if single else None,
+                num_actions=self.num_actions if single else None)
         self.generator = make_generator(seed, self.device)
         model, ground = self.create_model()
         self.model = model
+        if self.randomizer is not None:
+            self.randomizer.bind_model(model)
         self.engine = self.build_engine(model, ground)
         self.rl_games_batch = self.num_envs * self.num_agents
 
@@ -160,13 +178,32 @@ class VecTaskBase:
         raise NotImplementedError
 
     # ------------------------------------------------------------------
+    def initial_phys(self):
+        """The physics scales of a fresh run (base.py:191-200): the
+        randomizer's setup_only draws from the task's generator, or None
+        without domain randomization."""
+        if self.randomizer is None or not self.randomizer.enabled:
+            return None
+        return self.randomizer.initial_phys(self.generator, self.model.nb,
+                                            self.device)
+
+    def update_phys(self, state: EnvState, reset_mask, fresh=None):
+        """The scales of the envs in ``reset_mask`` resampled (base.py:
+        202-209, DR at reset); ``fresh`` the draws (every env's new
+        values, ``DomainRandomizer.draw_resample``)."""
+        if self.randomizer is None or state.phys is None:
+            return state.phys
+        if fresh is None:
+            fresh = self.randomizer.draw_resample(self.generator, state.phys)
+        return self.randomizer.resample_phys(reset_mask, state.phys, fresh)
+
     def initial_state(self) -> EnvState:
         n = self.num_envs
         return EnvState(
             sim=self.engine.default_state(n),
             progress=torch.zeros(n, dtype=torch.int32, device=self.device),
             reset_buf=torch.ones(n, dtype=torch.int32, device=self.device),
-            task=self.initial_task_state())
+            task=self.initial_task_state(), phys=self.initial_phys())
 
     def reset(self, state: EnvState):
         """Initial obs (vec_task.py:428-440: no recompute, just zeros),
@@ -175,10 +212,27 @@ class VecTaskBase:
                                   dtype=DTYPE, device=self.device)
 
     def step(self, state: EnvState, actions: torch.Tensor,
-             reset_draws=None, step_draws=None
+             reset_draws=None, step_draws=None, dr_draws=None
              ) -> Tuple[EnvState, StepResult]:
+        """One control step.  ``dr_draws`` (with domain randomization): a
+        dict with any of "actions" and "observations" (the white noise
+        samples) and "phys" (the resampled scales, every env's), each
+        drawn from the generator where missing."""
+        dr = self.randomizer
+        draws = dr_draws or {}
+        if dr is not None:
+            # action noise before the clip (vec_task.py:373-376), with the
+            # correlated base of the state before this step's resample
+            noise = draws.get("actions")
+            if noise is None:
+                noise = dr.action_noise(self.generator, actions.shape)
+            actions = dr.randomize_actions(
+                actions, noise, corr=getattr(state.phys, "act_corr", None))
         actions = torch.clamp(actions, -self.clip_actions, self.clip_actions)
         reset_mask = state.reset_buf > 0
+        phys = self.update_phys(state, reset_mask, draws.get("phys"))
+        if phys is not state.phys:
+            state = state._replace(phys=phys)
         if self.reset_in_pre_physics:
             sim, task = self.reset_idx(state.sim, state.task, reset_mask,
                                        reset_draws)
@@ -221,6 +275,13 @@ class VecTaskBase:
         timeout = (progress >= self.max_episode_length - 1) & (reset != 0)
         extras = dict(extras)
         extras["time_outs"] = self._to_batch(timeout)
+        if dr is not None:
+            # observation noise before the clip (vec_task.py:404-406)
+            noise = draws.get("observations")
+            if noise is None:
+                noise = dr.obs_noise(self.generator, obs.shape)
+            obs = dr.randomize_observations(
+                obs, noise, corr=getattr(state.phys, "obs_corr", None))
         obs = torch.nan_to_num(torch.clamp(obs, -self.clip_obs, self.clip_obs))
         if states is not None:
             states = torch.nan_to_num(

@@ -276,7 +276,9 @@ class FrankaReachMA(VecTaskBase):
         tau[:, ad.reshape(-1)] = u.reshape(N, K * 7)
         # grippers position-held at default
         pos_target = torch.zeros((N, nv), dtype=DTYPE, device=self.device)
-        pos_target[:, self._gripper_dofs_t] = 0.035
+        # index_fill_: a scalar put through an index tensor waits for the
+        # card
+        pos_target.index_fill_(1, self._gripper_dofs_t, 0.035)
         return Control(tau=tau, pos_target=pos_target,
                        vel_target=torch.zeros((N, nv), dtype=DTYPE,
                                               device=self.device))

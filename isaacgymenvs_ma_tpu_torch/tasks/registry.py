@@ -27,6 +27,11 @@ _TASKS: Dict[str, Tuple[str, str]] = {
     "AnymalTerrain": (".anymal_terrain", "AnymalTerrain"),
     "Ingenuity": (".ingenuity", "Ingenuity"),
     "Quadcopter": (".quadcopter", "Quadcopter"),
+    "FrankaReach": (".franka_reach", "FrankaReach"),
+    "FrankaCabinet": (".franka_cabinet", "FrankaCabinet"),
+    "FrankaCubeStack": (".franka_cube_stack", "FrankaCubeStack"),
+    "FrankaCubeStack2": (".franka_cube_stack2", "FrankaCubeStack2"),
+    "Trifinger": (".trifinger", "Trifinger"),
 }
 
 # the JAX registry's other names -> ROADMAP queue-A item that ports them
@@ -35,10 +40,8 @@ _QUEUE_A = {
           "ShadowHandTest", "AllegroHand", "AllegroHandLSTM", "AllegroHandFF",
           "AllegroHandLSTM_Big", "AllegroHandDextremeManualDR",
           "AllegroHandDextremeADR", "AllegroHandManualDR", "AllegroHandADR",
-          "Trifinger", "AllegroKuka", "AllegroKukaLSTM", "AllegroKukaTwoArms",
+          "AllegroKuka", "AllegroKukaLSTM", "AllegroKukaTwoArms",
           "AllegroKukaTwoArmsLSTM"),
-    "8": ("FrankaReach", "FrankaCabinet", "FrankaCubeStack",
-          "FrankaCubeStack2"),
     "9": ("FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
           "FactoryTaskNutBoltScrew", "FactoryTaskGears",
           "FactoryTaskInsertion", "IndustRealTaskPegsInsert",

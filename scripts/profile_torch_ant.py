@@ -4,7 +4,9 @@ GPU.
     python3 scripts/profile_torch_ant.py
         [--task Ant|BallBalance|FrankaReachMA|Cartpole|FrankaCollectMA|
                 FrankaPPMA|FrankaCombineMA|Humanoid|Anymal|AnymalTerrain|
-                Ingenuity|Quadcopter] [--contact-kernel]
+                Ingenuity|Quadcopter|FrankaReach|FrankaCabinet|
+                FrankaCubeStack|FrankaCubeStack2|Trifinger]
+        [--contact-kernel]
         [--envs N] [--steps 20] [--train] [--table PATH]
 
 Runs the port's step of the task (Ant by default, at its configuration's
@@ -14,7 +16,7 @@ torch.profiler after a warm-up, and prints: host wall time per step, device
 kernel time per step (the sum over CUDA kernels), the device busy share
 (kernel time / wall time), kernel launches per step, the top kernels by
 device time and the port's kernels B1-B5.  B5's launches are also reported
-per matrix size: the multi-arm Franka tasks' OSC inverts the arm mass
+per matrix size: the Franka tasks' OSC inverts the arm mass
 matrices (n = 7) and then J M^-1 J^T (n = 6) every step, so in time order
 its launches alternate between the two.  ``--table`` writes torch.profiler's full table
 to PATH.
@@ -86,7 +88,10 @@ def main():
                     choices=("Ant", "BallBalance", "FrankaReachMA",
                              "Cartpole", "FrankaCollectMA", "FrankaPPMA",
                              "FrankaCombineMA", "Humanoid", "Anymal",
-                             "AnymalTerrain", "Ingenuity", "Quadcopter"))
+                             "AnymalTerrain", "Ingenuity", "Quadcopter",
+                             "FrankaReach", "FrankaCabinet",
+                             "FrankaCubeStack", "FrankaCubeStack2",
+                             "Trifinger"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
     ap.add_argument("--envs", type=int, default=None,

@@ -49,8 +49,27 @@ FrankaCollectMA / FrankaPPMA step's jit and 20 warm-up steps ~220 s each
 (FrankaReachMA alone: ~100 s); on the kernel route each eager
 interpret-mode step ~4 min (the kernel-route capture ~25 min in all).
 
+``--task FrankaReach``, ``FrankaCabinet``, ``FrankaCubeStack``,
+``FrankaCubeStack2`` and ``Trifinger`` -> franka_reach_golden.npz,
+franka_cabinet_golden.npz, franka_cube_stack_golden.npz,
+franka_cube_stack2_golden.npz and trifinger_golden.npz at 32 envs (6
+steps; 10 for the grab tasks, with the grab live in half of the envs:
+cube A on the grip site, or the cabinet's arm solved onto its handle by
+damped least squares from the default pose, both fingers closing).  The
+cube-stack captures also store the JAX trajectory's own spread
+(``traj_spread_*``, see ``TRAJ_SPREAD``); Trifinger's the domain
+randomization: the scales it starts from (``init_phys_*``) and every
+step's white action and observation noise and fresh scales (``dr_*``).
+``--task FrankaCabinet --kernel-route`` and ``--task Trifinger
+--kernel-route`` record at 128 envs on the kernel route (~3 min an
+interpreted step on an 8-core CPU).  ``--phys-step`` records
+phys_step_b4.npz: one engine step of Ant's and Trifinger's scenes at 128
+envs on the kernel route with seeded per-env physics scales, without and
+with shape scales (~35 s / ~200 s an interpreted step).  The single-arm
+Franka recordings jit in ~110-140 s, Trifinger's in ~25 s.
+
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
-        [--kernel-route]
+        [--kernel-route] [--phys-step]
 """
 import argparse
 import os
@@ -63,11 +82,15 @@ import jax.numpy as jnp
 from isaacgymenvs_ma_tpu.ops import rng as rng_ops
 from isaacgymenvs_ma_tpu.physics import contact_kernel as jck
 from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
+from isaacgymenvs_ma_tpu.ops import maths as jmaths
 from isaacgymenvs_ma_tpu.tasks import (anymal, anymal_terrain, ant,
                                        ball_balance, cartpole,
-                                       franka_collect_ma, franka_ppma,
+                                       franka_cabinet, franka_collect_ma,
+                                       franka_cube_stack, franka_cube_stack2,
+                                       franka_ppma, franka_reach,
                                        franka_reach_ma, humanoid, ingenuity,
-                                       quadcopter)
+                                       quadcopter, trifinger)
+from isaacgymenvs_ma_tpu.utils import domain_rand as jdr
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 
 WARMUP, T = 20, 6
@@ -104,6 +127,66 @@ def franka_reach_ma_draws(k_reset, task):
     return {"dof_noise": jax.random.uniform(k1, (n, k, 9)),
             "cube_xy_u": jax.random.uniform(k2, (n, t, 2)),
             "cube_z_u": jax.random.uniform(k3, (n, t))}
+
+
+def cube_stack2_draws(k_reset, task):
+    """FrankaCubeStack2.reset_idx's draws: FrankaReachMA's, then cube A's
+    spawn lift U[0, 1) (fold_in 77, franka_cube_stack2.py:67-73)."""
+    d = franka_reach_ma_draws(k_reset, task)
+    d["cube_a_dz_u"] = jax.random.uniform(jax.random.fold_in(k_reset, 77),
+                                          (task.num_envs,))
+    return d
+
+
+def cabinet_draws(k_reset, task):
+    """FrankaCabinet.reset_idx's draw (franka_cabinet.py:178-181): U[0, 1)
+    (N, 9), the arm's dof noise before its scale and shift."""
+    k1, = jax.random.split(k_reset, 1)
+    return {"dof_u": jax.random.uniform(k1, (task.num_envs, 9))}
+
+
+def trifinger_draws(k_reset, task):
+    """Trifinger.reset_idx's draws in its key order (trifinger.py:342-386),
+    each as the JAX samplers produce it: robot dof position and velocity
+    normals, the object's radius uniform, angle and yaw, and the goal's
+    radius uniform, angle, height (difficulty 3 or 4), yaw (difficulty -1)
+    and quaternion uniforms, whether the distributions use them or not."""
+    n = task.num_envs
+    u = jax.random.uniform
+    ks = jax.random.split(k_reset, 6)
+    ko1, ko2 = jax.random.split(ks[2])
+    kg = jax.random.split(ks[4], 3)
+    kg1, kg2 = jax.random.split(kg[0])
+    z_lo = (trifinger.MIN_HEIGHT if task.difficulty == 3
+            else trifinger.CUBE_RADIUS_3D)
+    return {"dof_pos_n": jax.random.normal(ks[0], (n, 9)),
+            "dof_vel_n": jax.random.normal(ks[1], (n, 9)),
+            "obj_r_u": u(ko1, (n,)),
+            "obj_th": u(ko2, (n,), minval=0.0, maxval=2 * np.pi),
+            "obj_yaw": u(ks[3], (n,), minval=-np.pi, maxval=np.pi),
+            "goal_r_u": u(kg1, (n,)),
+            "goal_th": u(kg2, (n,), minval=0.0, maxval=2 * np.pi),
+            "goal_z": u(kg[1], (n,), minval=z_lo,
+                        maxval=trifinger.MAX_HEIGHT),
+            "goal_yaw": u(kg[1], (n,), minval=-np.pi, maxval=np.pi),
+            "goal_quat_u": u(kg[2], (n, 3))}
+
+
+def dr_draws(k_anoise, k_onoise, k_phys, st, task, action_shape):
+    """The domain randomizer's draws of one step (base.py:228-307): the
+    white action and observation noise samples, and every env's fresh
+    physics scales (the JAX resample with every env masked)."""
+    dr = task.randomizer
+    out = {"dr_actions": jdr._sample(k_anoise, dr.act_spec, action_shape,
+                                     1e9),
+           "dr_observations": jdr._sample(
+               k_onoise, dr.obs_spec, (task.rl_games_batch, task.num_obs),
+               1e9)}
+    fresh = dr.resample_phys(k_phys, jnp.ones(task.num_envs, bool), st.phys)
+    for leaf, v in fresh._asdict().items():
+        if v is not None:
+            out[f"dr_phys_{leaf}"] = v
+    return out
 
 
 def cartpole_draws(k_reset, task):
@@ -252,9 +335,71 @@ def one_ulp_spread(step, st, action, res, new, rng):
         flips |= np.asarray(r2.reset) != np.asarray(res.reset)
     return spread, flips
 
+def trajectory_spread(step, st0, actions, fields, rng):
+    """Per recorded step, the largest move of q, qd, obs and reward over
+    SPREAD_RUNS reruns of the recording (the same actions and key stream)
+    from q and qd each moved by one rounding step (x (1 +- 2^-23), signs
+    from ``rng``): the reference's own spread over the trajectory."""
+    T = len(actions)
+    spread = {k: np.zeros(T, np.float32) for k in ("q", "qd", "obs", "rew")}
+    for _ in range(SPREAD_RUNS):
+        nudge = lambda x: jnp.asarray(np.asarray(x) * (  # noqa: E731
+            1 + rng.choice([-1.0, 1.0], x.shape) * 2.0 ** -23), jnp.float32)
+        st = st0._replace(sim=st0.sim._replace(q=nudge(st0.sim.q),
+                                               qd=nudge(st0.sim.qd)))
+        for t in range(T):
+            st, res = step(st, jnp.asarray(actions[t]))
+            got = {"q": st.sim.q, "qd": st.sim.qd, "obs": res.obs,
+                   "rew": res.rew}
+            for k, v in got.items():
+                dv = float(np.abs(np.asarray(v) - fields[k][t]).max())
+                spread[k][t] = max(spread[k][t], dv)
+    return {f"traj_spread_{k}": v for k, v in spread.items()}
+
+
 # tasks recorded from a golden rollout of the JAX tests instead of a
 # warmed-up state: name -> (PRNG seed, steps)
 ROLLOUTS = {"Cartpole": (1234, 101)}
+
+def cabinet_live_grabs(st, task, actions, envs):
+    """Make FrankaCabinet's handle grab live in ``envs``: the arm's joints
+    solved (damped least squares over a finite-difference Jacobian of the
+    JAX ``engine.fk``) so that the grip site sits on the handle, at rest,
+    and both finger actions (columns 7 and 8) negative in every recorded
+    step: the grab's gate (grip site within 5 cm of the handle, both
+    fingers closing) then holds."""
+    q = np.array(st.sim.q, np.float64)
+    qids = np.asarray(task.franka_qids[:7])
+    # from the default arm pose, a well-conditioned start
+    q[envs[:, None], qids[None]] = np.asarray(task.default_dof)[:7]
+    lo = np.asarray(task.dof_lower)[:7]
+    hi = np.asarray(task.dof_upper)[:7]
+    for _ in range(30):
+        def err(qq):
+            bx, bq = task.engine.fk(jnp.asarray(qq, jnp.float32))
+            handle = bx[:, task.drawer_body] + jmaths.quat_apply(
+                bq[:, task.drawer_body],
+                jnp.asarray(franka_cabinet.HANDLE_LOCAL, jnp.float32))
+            return np.asarray(handle - bx[:, task.grip_body], np.float64)
+        e = err(q)
+        J = np.zeros(e.shape + (7,))
+        for j, qi in enumerate(qids):
+            qp = q.copy()
+            qp[:, qi] += 1e-3
+            J[..., j] = (e - err(qp)) / 1e-3
+        JJt = J @ np.swapaxes(J, 1, 2) + 1e-4 * np.eye(3)
+        dq = (np.swapaxes(J, 1, 2) @ np.linalg.solve(JJt, e[..., None]))[..., 0]
+        q[envs[:, None], qids[None]] = np.clip(
+            q[envs[:, None], qids[None]] + np.clip(dq[envs], -0.2, 0.2),
+            lo, hi)
+    print(f"cabinet grabs: grip-handle distance "
+          f"{np.linalg.norm(err(q)[envs], axis=-1).max():.2e} m", flush=True)
+    qd = np.array(st.sim.qd)
+    qd[envs[:, None], np.asarray(task.franka_dofs)[None]] = 0.0
+    actions[:, envs, 7:9] = -np.abs(actions[:, envs, 7:9])
+    return st._replace(sim=st.sim._replace(
+        q=jnp.asarray(q, jnp.float32), qd=jnp.asarray(qd)))
+
 
 def live_grabs(st, task, actions, envs):
     """Make the grab constraints of the MA tasks live in ``envs``: each
@@ -302,13 +447,95 @@ TASKS = {  # name -> (class, config, draws, envs, file)
                   32, "ingenuity_golden.npz"),
     "Quadcopter": (quadcopter.Quadcopter, quadcopter.TASK_CFG,
                    quadcopter_draws, 32, "quadcopter_golden.npz"),
+    "FrankaReach": (franka_reach.FrankaReach, franka_reach.TASK_CFG,
+                    franka_reach_ma_draws, 32, "franka_reach_golden.npz"),
+    "FrankaCabinet": (franka_cabinet.FrankaCabinet, franka_cabinet.TASK_CFG,
+                      cabinet_draws, 32, "franka_cabinet_golden.npz"),
+    "FrankaCubeStack": (franka_cube_stack.FrankaCubeStack,
+                        franka_cube_stack.TASK_CFG, franka_reach_ma_draws,
+                        32, "franka_cube_stack_golden.npz"),
+    "FrankaCubeStack2": (franka_cube_stack2.FrankaCubeStack2,
+                         franka_cube_stack2.TASK_CFG, cube_stack2_draws, 32,
+                         "franka_cube_stack2_golden.npz"),
+    "Trifinger": (trifinger.Trifinger, trifinger.TASK_CFG, trifinger_draws,
+                  32, "trifinger_golden.npz"),
 }
 # tasks with grab constraints: recorded with live grabs in half of the
 # envs (those after the first quarter, which resets), for GRAB_STEPS steps
 # on the default loop; on the kernel route (128 envs) for T steps, which
-# keeps the capture under 400 KB
-GRAB_TASKS = ("FrankaCollectMA", "FrankaPPMA")
+# keeps the capture under 400 KB.  FrankaCabinet's grab is its handle's
+# (cabinet_live_grabs), the others' each agent's cube (live_grabs)
+GRAB_TASKS = ("FrankaCollectMA", "FrankaPPMA", "FrankaCubeStack",
+              "FrankaCubeStack2", "FrankaCabinet")
 GRAB_STEPS = 10
+# tasks whose captures also store the JAX trajectory's own spread: each
+# step's largest move of q, qd, obs and reward over SPREAD_RUNS reruns of
+# the whole recording from q and qd moved by one rounding step
+# (``traj_spread_*``, ROADMAP C9: the cube-stack scene amplifies float32
+# rounding); parity.replay widens their bounds by it
+TRAJ_SPREAD = ("FrankaCubeStack", "FrankaCubeStack2")
+
+
+# --phys-step: the scenes whose engine step is recorded with per-env
+# physics scales on the JAX kernel route
+PHYS_STEP_TASKS = ("Ant", "Trifinger")
+
+
+def record_phys_step():
+    """One engine step (``PhysicsEngine.step``) of Ant's and Trifinger's
+    scenes at 128 envs on the JAX kernel route (Pallas interpret mode),
+    from a state 6 steps into a run of seeded actions, with seeded torques
+    and per-env physics scales from a seed (mass 0.6-1.5 and shape
+    0.7-1.4 per body, tests/test_dyn_kernel.py:86; damping, stiffness 0.5-1.5
+    per env; friction 0.5-1.5 per body), once without and once with the
+    shape scales -> phys_step_b4.npz: keys ``<task>_q``, ``_qd``, ``_tau``,
+    ``_phys_<leaf>`` and, per case (``noshape``, ``shape``), the JAX
+    step's ``_<case>_q`` and ``_<case>_qd``."""
+    from isaacgymenvs_ma_tpu.physics.engine import Control, SimState
+    from isaacgymenvs_ma_tpu.utils.domain_rand import PhysScales
+    n = KERNEL_ROUTE_ENVS
+    rec = {}
+    for name in PHYS_STEP_TASKS:
+        cls, task_cfg = TASKS[name][:2]
+        task = cls(deep_merge(task_cfg, {"env": {"numEnvs": n}}))
+        st = task.initial_state(jax.random.PRNGKey(3))
+        step = jax.jit(task.step)
+        rng = np.random.default_rng(0)
+        for _ in range(6):
+            st, _ = step(st, jnp.asarray(rng.uniform(
+                -1, 1, (n, task.num_actions)), jnp.float32))
+        g = np.random.default_rng(1)
+        nb, nv = task.model.nb, task.engine.nv
+        leaves = {
+            "mass": g.uniform(0.6, 1.5, (n, nb)),
+            "damping": g.uniform(0.5, 1.5, (n, 1)),
+            "stiffness": g.uniform(0.5, 1.5, (n, 1)),
+            "friction": g.uniform(0.5, 1.5, (n, nb)),
+            "shape": g.uniform(0.7, 1.4, (n, nb, 3))}
+        leaves = {k: v.astype(np.float32) for k, v in leaves.items()}
+        tau = (0.3 * rng.normal(size=(n, nv))).astype(np.float32)
+        rec.update({f"{name}_q": np.asarray(st.sim.q),
+                    f"{name}_qd": np.asarray(st.sim.qd),
+                    f"{name}_tau": tau})
+        rec.update({f"{name}_phys_{k}": v for k, v in leaves.items()})
+        for case in ("noshape", "shape"):
+            lv = {k: jnp.asarray(v) for k, v in leaves.items()
+                  if case == "shape" or k != "shape"}
+            t0 = time.perf_counter()
+            jdk._FORCE_INTERPRET = True
+            try:
+                sim, _ = task.engine.step(SimState(st.sim.q, st.sim.qd),
+                                          Control(tau=jnp.asarray(tau)),
+                                          phys=PhysScales(**lv))
+            finally:
+                jdk._FORCE_INTERPRET = False
+            print(f"{name} {case}: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            rec[f"{name}_{case}_q"] = np.asarray(sim.q)
+            rec[f"{name}_{case}_qd"] = np.asarray(sim.qd)
+    out = os.path.join(DATA, "phys_step_b4.npz")
+    np.savez_compressed(out, **rec)
+    print(out, os.path.getsize(out), "bytes")
 
 
 def main():
@@ -316,7 +543,11 @@ def main():
     ap.add_argument("--task", default="Ant", choices=sorted(TASKS))
     ap.add_argument("--kernel-route", action="store_true",
                     help="record the steps on the JAX contact-kernel route")
+    ap.add_argument("--phys-step", action="store_true",
+                    help="record phys_step_b4.npz (PHYS_STEP_TASKS)")
     args = ap.parse_args()
+    if args.phys_step:
+        return record_phys_step()
     cls, task_cfg, draws_of, n, fname = TASKS[args.task]
     if args.kernel_route:
         n = KERNEL_ROUTE_ENVS
@@ -346,7 +577,9 @@ def main():
         actions = rng.uniform(-1, 1, (steps, B, A)).astype(np.float32)
         if args.task in GRAB_TASKS:
             grab_envs = np.arange(n // 4, n // 4 + n // 2)
-            st = live_grabs(st, task, actions, grab_envs)
+            make_live = (cabinet_live_grabs if args.task == "FrankaCabinet"
+                         else live_grabs)
+            st = make_live(st, task, actions, grab_envs)
         if args.task == "AnymalTerrain":
             st = st._replace(task=st.task._replace(common_step=jnp.asarray(
                 task.push_interval - 1 - PUSH_AT, jnp.int32)))
@@ -358,6 +591,9 @@ def main():
     }
     for f in st.task._fields if st.task is not None else ():
         rec[f"init_{f}"] = np.asarray(getattr(st.task, f))
+    for f, v in (st.phys._asdict().items() if st.phys is not None else ()):
+        if v is not None:
+            rec[f"init_phys_{f}"] = np.asarray(v)
     if args.task in GRAB_TASKS:
         rec["grab_envs"] = grab_envs
     fields = {k: [] for k in ("obs", "rew", "reset", "q", "qd")}
@@ -369,16 +605,20 @@ def main():
             eng, n, jnp.float32, P, len(eng.attractors), len(eng.grabs),
             bool(eng.pairs)), "the JAX engine would not take its kernels"
         step = task.step        # eager: the flag is read while tracing
+    st0 = st
     t0 = time.perf_counter()
     for t in range(len(actions)):
         if t == 1:
             print(f"first step (jit or interpret) "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-        # VecTaskBase.step's keys: reset_idx's, and post_physics's rng
-        _, k_reset, k_step = jax.random.split(st.rng, 6)[:3]
+        # VecTaskBase.step's keys: reset_idx's, post_physics's rng and the
+        # domain randomizer's
+        _, k_reset, k_step, k_an, k_on, k_ph = jax.random.split(st.rng, 6)
         draws = draws_of(k_reset, task)
         if args.task in STEP_DRAWS:
             draws.update(STEP_DRAWS[args.task](k_step, task))
+        if task.randomizer is not None and st.phys is not None:
+            draws.update(dr_draws(k_an, k_on, k_ph, st, task, (B, A)))
         for k, v in draws.items():
             fields.setdefault(k, []).append(np.asarray(v))
         start = st
@@ -397,6 +637,8 @@ def main():
         fields["reset"].append(np.asarray(res.reset))
         fields["q"].append(np.asarray(st.sim.q))
         fields["qd"].append(np.asarray(st.sim.qd))
+    if args.task in TRAJ_SPREAD:
+        rec.update(trajectory_spread(step, st0, actions, fields, rng))
     jdk._FORCE_INTERPRET = False
     rec["actions"] = actions
     for k, v in fields.items():

@@ -332,11 +332,15 @@ def test_unported_scene_features_raise(kwargs):
 
 
 def test_terrain_and_phys_raise():
-    """Still unported, and raising: per-env physics scales and terrain
-    surface normals (``terrain_normal_frames``).  Terrain heightfields and
-    external wrenches raised until they were ported: now a zero wrench
-    leaves the step unchanged (the wrench parity is
-    tests/test_torch_aerial.py's, the terrain's tests/test_torch_terrain.py's)."""
+    """Still unported, and raising: terrain surface normals
+    (``terrain_normal_frames``) and the dof-property leaves of the physics
+    scales (armature here; the others in tests/test_torch_domain_rand.py).
+    Terrain heightfields, external wrenches and the mass, shape, friction,
+    stiffness and damping scales raised until they were ported: now a zero
+    wrench and unit scales leave the step unchanged (the wrench parity is
+    tests/test_torch_aerial.py's, the terrain's tests/test_torch_terrain.py's,
+    the scales' tests/test_torch_domain_rand.py's)."""
+    from isaacgymenvs_ma_tpu_torch.utils.domain_rand import PhysScales
     from isaacgymenvs_ma_tpu_torch.physics.engine import PhysicsEngine
     from isaacgymenvs_ma_tpu_torch.physics.terrain import TerrainGrid
     t = Ant(deep_merge(TASK_CFG, {"env": {"numEnvs": 4}}), device="cpu")
@@ -348,8 +352,11 @@ def test_terrain_and_phys_raise():
     with pytest.raises(NotImplementedError):
         normals.step(st.sim, ctrl, terrain=flat)
     with pytest.raises(NotImplementedError):
-        t.engine.step(st.sim, ctrl, phys=object())
+        t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4)._replace(
+            armature=torch.ones(4, 1)))
     ref, _ = t.engine.step(st.sim, ctrl)
+    got, _ = t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4))
+    assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
     got, _ = t.engine.step(st.sim, ctrl._replace(f_ext=torch.zeros(4, 9, 6)))
     assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
     # grab activation is ported: a scene without grabs ignores it, as the
@@ -359,10 +366,32 @@ def test_terrain_and_phys_raise():
 
 
 def test_domain_randomization_raises():
+    """``task.randomize`` is ported (utils/domain_rand.py): Ant with a
+    mass and friction spec steps with per-env scales, and an empty
+    ``randomization_params`` leaves it unrandomized, as in the JAX
+    package.  What still raises is a dof-property or restitution leaf of
+    the scales (ROADMAP queue A, items 7b-7c)."""
+    from isaacgymenvs_ma_tpu_torch.physics.engine import Control
     cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": 4},
                                 "task": {"randomize": True}})
-    with pytest.raises(NotImplementedError):
-        Ant(cfg, device="cpu")
+    assert Ant(cfg, device="cpu").initial_state().phys is None
+    params = {"actor_params": {"torso": {
+        "rigid_body_properties": {"mass": {
+            "range": [0.5, 1.5], "operation": "scaling",
+            "distribution": "uniform", "setup_only": True}},
+        "rigid_shape_properties": {"friction": {
+            "range": [0.5, 1.5], "operation": "scaling",
+            "distribution": "uniform"}}}}}
+    cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": 4}, "task": {
+        "randomize": True, "randomization_params": params}})
+    t = Ant(cfg, device="cpu")
+    st = t.initial_state()
+    assert st.phys.mass.shape == (4, 9) and (st.phys.mass != 1).all()
+    st, res = t.step(st, torch.zeros(4, 8))
+    assert torch.isfinite(res.obs).all() and (st.phys.friction != 1).all()
+    with pytest.raises(NotImplementedError, match="7b-7c"):
+        t.engine.step(st.sim, Control(tau=torch.zeros(4, 14)),
+                      phys=st.phys._replace(restitution=torch.ones(4, 1)))
 
 
 @pytest.mark.parametrize("spec", ["shadow_hand", "franka_panda", "anymal"])

@@ -9,7 +9,10 @@ arms with live grabs (each agent's cube on its grip site, its gripper
 closing; both routes), Cartpole at 8 envs (the
 contact-free path, which no route option changes) and Humanoid, Anymal,
 AnymalTerrain (on a 2 x 5 terrain map), Ingenuity and Quadcopter at 8 envs
-on both routes, call ``spd_inverse``,
+on both routes, FrankaReach, FrankaCabinet, FrankaCubeStack,
+FrankaCubeStack2 (the grab live in one env) and Trifinger (with its
+shipped domain randomization) at 4 envs on both routes, call
+``spd_inverse``,
 run one PPO ``train_epoch`` of Cartpole at 16 envs, then check that neither ``jax*`` nor
 ``isaacgymenvs_ma_tpu`` / ``isaacgymenvs_ma_tpu.*`` was loaded.
 """
@@ -121,6 +124,33 @@ SCRIPT = textwrap.dedent("""
                     state, torch.tanh(torch.randn(8, task.num_actions)))
             assert torch.isfinite(res.obs).all()
             assert res.obs.shape == (8, task.num_obs)
+    from isaacgymenvs_ma_tpu_torch.utils.parity import live_cabinet_grabs
+    for name in ("FrankaReach", "FrankaCabinet", "FrankaCubeStack",
+                 "FrankaCubeStack2", "Trifinger"):
+        for kernel_route in (False, True):
+            cfg = deep_merge(registry.task_default_config(name),
+                             {"env": {"numEnvs": 4}})
+            params = parse_sim_params(cfg["sim"])._replace(
+                use_contact_kernel=kernel_route)
+            task = registry.task_class(name)(cfg, device="cpu",
+                                             sim_params=params)
+            state = task.initial_state()
+            for _ in range(2):
+                state, res = task.step(state, torch.zeros(4, task.num_actions))
+            actions = torch.tanh(torch.randn(4, task.num_actions))
+            if name == "FrankaCabinet":
+                state = live_cabinet_grabs(task, state, actions, [1])
+            elif task.engine.grabs:
+                state = live_grabs(task, state, actions, [1])
+            if task.engine.grabs:
+                ctrl = task.pre_physics(state, actions)
+                assert ctrl.grab_active[:, 0].tolist() == [0, 1, 0, 0]
+            state, res = task.step(state, actions)
+            assert torch.isfinite(res.obs).all()
+            assert res.obs.shape == (4, task.num_obs)
+            if name == "Trifinger":   # the shipped randomization is on
+                assert state.phys is not None
+                assert res.states.shape == (4, 113)
     A = torch.randn(5, 7, 7)
     Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
     assert torch.isfinite(Hinv).all()
@@ -143,7 +173,8 @@ def test_port_imports_and_steps_without_jax():
     # every module of the package was imported (scaffold, models, ops,
     # physics, tasks, utils, convert), the learner (learning/*, train, api,
     # tasks.registry), the MA tasks with grabs (franka_collect_ma,
-    # franka_ppma, franka_combine_ma) and the legged and aerial tasks with
-    # the terrain and their specs too
+    # franka_ppma, franka_combine_ma), the legged and aerial tasks with
+    # the terrain and their specs, and the single-arm Franka tasks,
+    # Trifinger, its spec and the domain randomizer too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 49, proc.stdout
+    assert n_mods >= 56, proc.stdout

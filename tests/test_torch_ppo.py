@@ -226,9 +226,12 @@ def test_overrides_and_loaders_equal_jax():
 def test_registry_ports_four_tasks_and_names_the_rest():
     assert pregistry.task_names() == ["Ant", "Anymal", "AnymalTerrain",
                                       "BallBalance", "Cartpole",
-                                      "FrankaCollectMA", "FrankaCombineMA",
-                                      "FrankaPPMA", "FrankaReachMA",
-                                      "Humanoid", "Ingenuity", "Quadcopter"]
+                                      "FrankaCabinet", "FrankaCollectMA",
+                                      "FrankaCombineMA", "FrankaCubeStack",
+                                      "FrankaCubeStack2", "FrankaPPMA",
+                                      "FrankaReach", "FrankaReachMA",
+                                      "Humanoid", "Ingenuity", "Quadcopter",
+                                      "Trifinger"]
     for name in jregistry.task_names() + sorted(jregistry._CONFIG_ONLY):
         if name in pregistry.task_names():
             assert pregistry.task_class(name).__name__ == name
@@ -564,7 +567,7 @@ def test_launch_trains_saves_and_plays(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flag", ["multi_gpu=True", "pbt.enabled=True",
                                   "capture_video=True", "wandb_activate=True",
                                   "headless=False", "task=ShadowHand",
-                                  "task=FrankaCubeStack", "train=HumanoidAMP",
+                                  "task=Trifinger", "train=HumanoidAMP",
                                   "train=AntSAC"])
 def test_unported_flags_and_names_raise(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
