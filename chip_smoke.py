@@ -10,11 +10,13 @@ Phases, each printing its own lines; any failure exits non-zero
      FrankaReachMA, Cartpole, FrankaCollectMA, FrankaPPMA,
      FrankaCombineMA, Humanoid, Anymal (AnymalTerrain's is the same),
      Ingenuity, Quadcopter, FrankaReach, FrankaCabinet, FrankaCubeStack
-     (FrankaCubeStack2's is the same) and Trifinger scenes, B4 for the
+     (FrankaCubeStack2's is the same), Trifinger, AllegroKuka and
+     AllegroKukaTwoArms scenes, B4 for the
      Ant, BallBalance, FrankaReachMA, FrankaCollectMA and FrankaPPMA
      contact plans (the last two with their grab group), the Humanoid,
      Anymal and Ingenuity plans, the FrankaReach, FrankaCabinet (grab
-     group), FrankaCubeStack (grab group) and Trifinger plans and a
+     group), FrankaCubeStack (grab group), Trifinger, AllegroKuka and
+     AllegroKukaTwoArms plans and a
      synthetic plan with grab rows, B5 for n = 6, 7, 14, 30 and 48,
      all compilers started together (a header shared by two plans is
      compiled once); each kernel's ptxas registers and spills
@@ -38,9 +40,15 @@ Phases, each printing its own lines; any failure exits non-zero
      with the gravity wrench they scale), B4 on their routes' inputs (the
      cabinet's handle and cube A grabbed in a quarter of the envs;
      Trifinger's per-env friction and shape-scaled pair rows) and B5 at
-     the OSC stacks of FrankaReach and FrankaCubeStack; B2 with per-env
+     the OSC stacks of FrankaReach and FrankaCubeStack; B1-B3 at
+     AllegroKuka-8192 and AllegroKukaTwoArms-8192 on warmed-up states (B2
+     with the cuboid catalog's per-env shape scales, B3 with the gravity
+     wrench they scale; TwoArms' B2 block of 201,248 B, one block an SM),
+     B4 on their routes' inputs (34 / 44 rows, the cube's pair rows
+     shape-scaled); B2 with per-env
      mass and shape scales and B3 with the gravity wrench they scale at
-     Ant-4096 (seeded scales) and Trifinger-16384 (its drawn scales),
+     Ant-4096 (seeded scales), Trifinger-16384 (its drawn scales) and the
+     two AllegroKuka scenes (their cuboid sizes),
      with B2's time beside its time without scales; B5 on the two
      OSC inverses of a warmed-up FrankaReachMA-8192
      step ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and
@@ -50,7 +58,7 @@ Phases, each printing its own lines; any failure exits non-zero
      time per launch by CUPTI beside the bound (B3: also with only H^-1's
      block entries read), the one-thread kernels' recorded time (B1-B4),
      ptxas's registers and spills, and the launch layout (team, envs or
-     matrices per block, shared memory)
+     matrices per block, shared memory, blocks an SM by shared memory)
   4. golden: the committed JAX captures replayed through the kernels: Ant
      and BallBalance, each on the default loop and on B4; FrankaReachMA on
      the default loop (compaction and row reuse) and, from its own
@@ -64,7 +72,12 @@ Phases, each printing its own lines; any failure exits non-zero
      FrankaCabinet's kernel-route capture (128 envs) on B4, FrankaCubeStack
      and FrankaCubeStack2 on the loop (beyond four times the reference's
      own trajectory spread), Trifinger with its recorded randomization on
-     the loop and its kernel-route capture (128 envs) on B4
+     the loop and its kernel-route capture (128 envs) on B4, AllegroKuka
+     and AllegroKukaTwoArms Reorientation on the loop and AllegroKuka's
+     kernel-route capture (128 envs) on B4, each one step at a time
+     against the reference's own one-ulp spread, their object-force draws
+     injected
+     (the JAX engine has no kernel route at TwoArms)
   5. main path, each phase with the launch counts set to 0 just before it:
      Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
      FrankaReachMA at 8192 envs x 2 arms on the default loop and on B4,
@@ -76,7 +89,9 @@ Phases, each printing its own lines; any failure exits non-zero
      forbidden: no contact rows), FrankaReach-4096, FrankaCabinet-4096 (no
      OSC: B5 forbidden), FrankaCubeStack-8192 and Trifinger-16384 (its
      shipped randomization on) on both routes and FrankaCubeStack2-8192 on
-     the loop, 100 steps each, tanh(obs @ W) actions;
+     the loop, AllegroKuka-8192 and AllegroKukaTwoArms-8192 (cuboid sizes
+     per env, random object forces; B5 forbidden) on both routes,
+     100 steps each, tanh(obs @ W) actions;
      env-steps/s (and agent-steps/s), stream ms per step by CUDA events
      (the kernels and the device's idle gaps between them), launches per
      kernel, the host waits of one more step (CUDA sync debug mode) by
@@ -91,7 +106,10 @@ Phases, each printing its own lines; any failure exits non-zero
      with its config (1 warm-up, 1 timed; B5 exactly twice a step), and
      the same on FrankaCollectMA at 8192 x 2 (its FSM occupancy extras
      printed), Humanoid-4096, AnymalTerrain-4096 and FrankaCubeStack-8192
-     with their configs (1 warm-up, 1 timed), each epoch's seconds,
+     with their configs (1 warm-up, 1 timed), AllegroKuka-8192 with the
+     AllegroKukaLSTM config (the recurrent path: LSTM 768, seq_len 16) and
+     Trifinger-16384 with its config (the central-value critic on 113
+     privileged states), 1 warm-up and 1 timed each, each epoch's seconds,
      rollout and update ms (CUDA events),
      training frames/s and losses; then Cartpole-512 through the ``train``
      entry point until its mean return passes 100, failing if it has not
@@ -100,7 +118,8 @@ Each phase prints its seconds (``[phase_seconds]``).  The line before the
 last is the kernels JSON (a row per kernel at the scene where it runs
 first, launches summed over every phase, then a row per kernel at
 FrankaCollectMA, FrankaPPMA, Humanoid, Anymal, Ingenuity, Quadcopter,
-FrankaReach, FrankaCabinet, FrankaCubeStack, Trifinger, AnymalTerrain
+FrankaReach, FrankaCabinet, FrankaCubeStack, Trifinger, AllegroKuka,
+AllegroKukaTwoArms, AnymalTerrain
 (Anymal's kernels) and FrankaCubeStack2 (FrankaCubeStack's), launches
 summed over that task's main phases), the last line {"ok": true,
 "device": {...}}.  Needs a CUDA
@@ -150,6 +169,10 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("franka_cube_stack2", "FrankaCubeStack2", False, 100, 8192),
     ("trifinger", "Trifinger", False, 100, 16384),
     ("trifinger_b4", "Trifinger", True, 100, 16384),
+    ("allegro_kuka", "AllegroKuka", False, 100, 8192),
+    ("allegro_kuka_b4", "AllegroKuka", True, 100, 8192),
+    ("allegro_kuka_two_arms", "AllegroKukaTwoArms", False, 100, 8192),
+    ("allegro_kuka_two_arms_b4", "AllegroKukaTwoArms", True, 100, 8192),
 )
 # the Franka tasks with OSC (kernel B5 twice every step); FrankaCabinet
 # drives its arm with joint torques
@@ -167,24 +190,41 @@ DYN = ("fk_motion", "dyn_forward", "dyn_cached")
 LOCO_SCENES = ("humanoid", "anymal", "ingenuity", "quadcopter")
 LOCO_B4 = {"humanoid": "humanoid_b4", "anymal": "anymal_terrain_b4",
            "ingenuity": "ingenuity_b4"}
-# the single-arm Franka scenes and Trifinger's: B1-B3 on a warmed-up state
-# (Trifinger's B2 with its drawn mass and shape scales, B3 with the scaled
-# gravity wrench), B4 on each route's inputs (the cabinet's handle grab and
-# cube A's grab live in a quarter of the envs, Trifinger's shape-scaled
-# pair rows and per-env friction), B5 at the OSC stacks; FrankaCubeStack2
-# runs FrankaCubeStack's scene and kernels
+# the single-arm Franka scenes, Trifinger's and the AllegroKuka scenes:
+# B1-B3 on a warmed-up state (Trifinger's B2 with its drawn mass and shape
+# scales, AllegroKuka's with its cuboid sizes, B3 with the scaled gravity
+# wrench), B4 on each route's inputs (the cabinet's handle grab and cube
+# A's grab live in a quarter of the envs, Trifinger's and AllegroKuka's
+# shape-scaled pair rows, Trifinger's per-env friction), B5 at the OSC
+# stacks; FrankaCubeStack2 runs FrankaCubeStack's scene and kernels
 SINGLE_SCENES = ("franka_reach", "franka_cabinet", "franka_cube_stack",
-                 "trifinger")
+                 "trifinger", "allegro_kuka", "allegro_kuka_two_arms")
+# the scenes whose B2 and B3 are also timed with and without their
+# physics scales (``[scaled_kernel]``): their drawn or catalog scales
+SCALED_SCENES = ("trifinger", "allegro_kuka", "allegro_kuka_two_arms")
 # kernels a task's main phases must not launch: AnymalTerrain does not
 # reuse the mass matrix (B2 on every substep, never B3)
 NEVER = {"AnymalTerrain": ("dyn_cached",)}
-# phase 6: tag, task, warm-up epochs, timed epochs (the main phases' tasks)
-TRAIN_RUNS = (("train_ant", "ant", 1, 3),
-              ("train_franka_reach_ma", "franka_reach_ma", 1, 1),
-              ("train_franka_collect_ma", "franka_collect_ma", 1, 1),
-              ("train_humanoid", "humanoid", 1, 1),
-              ("train_anymal_terrain", "anymal_terrain", 1, 1),
-              ("train_franka_cube_stack", "franka_cube_stack", 1, 1))
+# phase 6: tag, task (a main phase's), train config, warm-up epochs,
+# timed epochs
+TRAIN_RUNS = (("train_ant", "ant", "Ant", 1, 3),
+              ("train_franka_reach_ma", "franka_reach_ma", "FrankaReachMA",
+               1, 1),
+              ("train_franka_collect_ma", "franka_collect_ma",
+               "FrankaCollectMA", 1, 1),
+              ("train_humanoid", "humanoid", "Humanoid", 1, 1),
+              ("train_anymal_terrain", "anymal_terrain", "AnymalTerrain",
+               1, 1),
+              ("train_franka_cube_stack", "franka_cube_stack",
+               "FrankaCubeStack", 1, 1),
+              # the recurrent path (LSTM, truncated BPTT) and the
+              # asymmetric one (central-value critic)
+              ("train_allegro_kuka_lstm", "allegro_kuka", "AllegroKukaLSTM",
+               1, 1),
+              ("train_trifinger", "trifinger", "Trifinger", 1, 1))
+# shared memory of one H100 SM (228 KB) and the 1 KB the runtime reserves
+# a block: a block's layout fits SM_SMEM // (smem + 1024) blocks an SM
+SM_SMEM, BLOCK_RESERVED = 233472, 1024
 # learn_cartpole: the bar of tests/test_ppo_cartpole.py within the Cartpole
 # config's max_epochs
 LEARN_BAR, LEARN_EPOCHS = 100.0, 100
@@ -1152,6 +1192,14 @@ def check_single_kernels(torch, dk, sk, ck, ctl, task, task_b4, dev, scene,
         print(f"[check] trifinger B4 launch: per-env mu spread "
               f"{float(mu.min()):.4f}-{float(mu.max()):.4f} over "
               f"{tuple(mu.shape)}", flush=True)
+    elif scene.startswith("allegro_kuka"):
+        act = call[2]["active"]
+        sc = task_b4.object_scales
+        print(f"[check] {scene} B4 launch: active rows {float(act.sum()):.0f}"
+              f" of {act.numel()}, the cube's per-env scales "
+              f"{float(sc.min()):.2f}-{float(sc.max()):.2f} "
+              f"({len(set(map(tuple, task_b4.object_scales_np)))} sizes)",
+              flush=True)
     rep["contact_solve"] = check_contact_kernel(torch, ck, call, scene, True)
     extra = {}
     if type(task).__name__ in OSC_TASKS:
@@ -1311,12 +1359,13 @@ def main():
                      t_(gs.uniform(0.6, 1.5, (N_ENVS, nb))),
                      t_(gs.uniform(0.7, 1.4, (N_ENVS, nb, 3))), dev, "ant",
                      False)
-    tri = tasks["trifinger"]
-    st, _ = run_steps(torch, tri, tri.initial_state(),
-                      zero_obs(torch, tri, dev), policy(torch, tri, dev), 30)
-    check_scaled_dyn(torch, dk, tri, st.sim.q.t().contiguous(),
-                     st.sim.qd.t().contiguous(), st.phys.mass,
-                     st.phys.shape, dev, "trifinger", True)
+    for scene in SCALED_SCENES:
+        t = tasks[scene]
+        st, _ = run_steps(torch, t, t.initial_state(),
+                          zero_obs(torch, t, dev), policy(torch, t, dev), 30)
+        check_scaled_dyn(torch, dk, t, st.sim.q.t().contiguous(),
+                         st.sim.qd.t().contiguous(), st.phys.mass,
+                         st.phys.shape, dev, scene, True)
     for scene, r in report.items():
         for name, e in r.items():
             b_ms, b_by = bound(e["bytes"], e["flops"])
@@ -1352,6 +1401,8 @@ def main():
               regs=px.get("regs"), stack=px.get("stack"),
               spill_st=px.get("spill_st"), spill_ld=px.get("spill_ld"),
               smem_bytes=lay.smem_bytes, team=lay.team, envs=lay.envs,
+              blocks_per_sm_by_smem=SM_SMEM // (lay.smem_bytes
+                                                + BLOCK_RESERVED),
               **extra)
     # B5 per shape: the OSC inverses and the seeded stacks
     spd_rows = {"osc_mm": report["franka_reach_ma"]["spd_inverse"],
@@ -1399,7 +1450,10 @@ def main():
                           ("franka_cube_stack_golden.npz", (False,)),
                           ("franka_cube_stack2_golden.npz", (False,)),
                           ("trifinger_golden.npz", (False,)),
-                          ("trifinger_b4_golden.npz", (True,))):
+                          ("trifinger_b4_golden.npz", (True,)),
+                          ("allegro_kuka_golden.npz", (False,)),
+                          ("allegro_kuka_b4_golden.npz", (True,)),
+                          ("allegro_kuka_two_arms_golden.npz", (False,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]
@@ -1497,13 +1551,13 @@ def main():
     from isaacgymenvs_ma_tpu_torch.learning.configs import (
         train_default_config)
     from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
-    for tag, scene, warm, epochs in TRAIN_RUNS:
+    for tag, scene, config, warm, epochs in TRAIN_RUNS:
         task = tasks[scene]
         expected = tuple(k for k in DYN if k not in NEVER.get(
             type(task).__name__, ())) + (
                 ("spd_inverse",) if type(task).__name__ in OSC_TASKS else ())
         forbidden = [k for k in KERNEL_WRAPPERS if k not in expected]
-        tcfg = train_default_config(type(task).__name__)
+        tcfg = train_default_config(config)
         if tag == "train_franka_collect_ma" and task.num_obs != 28:
             raise RuntimeError(f"FrankaCollectMA obs width {task.num_obs}")
         agent = PPOAgent(task, tcfg, seed=42)
@@ -1522,6 +1576,7 @@ def main():
             agents = ({} if task.num_agents == 1 else dict(
                 agents=task.num_agents, agent_steps_per_s=f"{rows_per_s:.1f}"))
             phase("train", run=tag, epoch=i + 1, envs=task.num_envs,
+                  network=type(agent.net).__name__,
                   horizon=agent.horizon, minibatches=agent.num_minibatches,
                   mini_epochs=agent.cfg.mini_epochs, seconds=f"{sec:.4f}",
                   rollout_ms=f"{r['rollout_ms']:.3f}",

@@ -14,19 +14,24 @@ numpy arrays under flat dotted names, e.g. from a JAX ``EnvState`` ``st``::
 The ``task.*`` keys name the fields of one task's state class (Ant's
 ``AntTaskState``, BallBalance's ``BBTaskState``, FrankaReachMA's
 ``FrankaMATaskState``, the other MA tasks' ``CollectTaskState``,
-Anymal's, AnymalTerrain's, Ingenuity's, Quadcopter's and Trifinger's);
+Anymal's, AnymalTerrain's, Ingenuity's, Quadcopter's, Trifinger's and
+AllegroKuka's ``KukaTaskState``);
 the class is picked by its field names, or given (Humanoid's
 ``HumanoidTaskState`` has Ant's fields, the single-arm Franka tasks'
 ``CubeStackTaskState`` and ``CabinetTaskState`` FrankaReachMA's).  The
 ``phys.*`` keys, where a task randomizes its physics, name the leaves of
 the JAX ``PhysScales`` (``phys.mass``, ``phys.friction``, ``phys.shape``,
 ...) and become the port's (:func:`phys_from_jax`).  A field keeps its kind: integer arrays (the MA tasks' FSM
-states, AnymalTerrain's levels, types and step counter) become int32
-tensors, the others float32.
+states, AnymalTerrain's levels, types and step counter, AllegroKuka's
+near-goal counts) become int32 tensors, boolean arrays (AllegroKuka's
+lifted flags) bool tensors, the others float32.
 
 ``ppo_state_from_jax`` converts the learner part of a JAX ``PPOState``
 (flax parameters, optax Adam moments, the normalisers, ``lr``) into the
-keys of the port's ``PPOAgent.state_dict()``.
+keys of the port's ``PPOAgent.state_dict()``, with the asymmetric
+critic's ``states_rms`` and the LSTM's carry where the agent has them;
+``params_from_jax`` takes the ``ActorCritic``, ``AsymActorCritic``,
+``CentralValueNet`` and ``ActorCriticLSTM`` parameter trees.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ import torch
 
 from .device import DTYPE
 from .physics.engine import SimState
+from .tasks.allegro_kuka import KukaTaskState
 from .tasks.ant import AntTaskState
 from .tasks.anymal import AnymalTaskState
 from .tasks.anymal_terrain import ATTaskState
@@ -49,7 +55,8 @@ from .utils.domain_rand import PhysScales
 
 TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState,
                CollectTaskState, AnymalTaskState, ATTaskState,
-               IngenuityTaskState, QuadTaskState, TrifingerTaskState)
+               IngenuityTaskState, QuadTaskState, TrifingerTaskState,
+               KukaTaskState)
 
 
 def phys_from_jax(arrays: dict, device) -> PhysScales:
@@ -85,9 +92,13 @@ def env_state_from_jax(arrays: dict, device, state_cls=None) -> EnvState:
         if cls is None:
             raise KeyError(f"task state keys {sorted(task_keys)} match no "
                            f"task state in {[c.__name__ for c in TASK_STATES]}")
-        task = cls(*(i32(k) if np.issubdtype(np.asarray(arrays[k]).dtype,
-                                             np.integer) else f32(k)
-                     for k in (f"task.{f}" for f in cls._fields)))
+
+        def leaf(k):
+            kind = np.asarray(arrays[k]).dtype
+            if kind == np.bool_:
+                return torch.tensor(np.asarray(arrays[k]), device=device)
+            return i32(k) if np.issubdtype(kind, np.integer) else f32(k)
+        task = cls(*(leaf(f"task.{f}") for f in cls._fields))
     phys = {k[len("phys."):]: v for k, v in arrays.items()
             if k.startswith("phys.")}
     return EnvState(sim=SimState(f32("sim.q"), f32("sim.qd")),
@@ -97,22 +108,32 @@ def env_state_from_jax(arrays: dict, device, state_cls=None) -> EnvState:
 
 
 def params_from_jax(tree: dict) -> dict:
-    """Flax ``ActorCritic`` parameters (or an Adam moment of them, the same
+    """Flax actor-critic parameters (or an Adam moment of them, the same
     tree) as {``nn.Module`` parameter name: tensor}.  Flax ``Dense`` kernels
     are (in, out) and ``nn.Linear`` weights (out, in); the trunks' layers
-    are ``<trunk>/Dense_<i>`` in order."""
+    are ``<trunk>/Dense_<i>`` in order.  The LSTM cell's per-gate kernels
+    (``lstm/i{i,f,g,o}`` without bias, ``lstm/h{i,f,g,o}`` with) are
+    stacked in gate order into ``lstm.ih`` and ``lstm.hh``."""
     tree = tree.get("params", tree)
     out = {}
+    f32 = lambda x: np.asarray(x, np.float32)  # noqa: E731
 
     def dense(prefix, d):
-        out[f"{prefix}.weight"] = torch.tensor(
-            np.asarray(d["kernel"], np.float32).T.copy())
-        out[f"{prefix}.bias"] = torch.tensor(np.asarray(d["bias"], np.float32))
+        out[f"{prefix}.weight"] = torch.tensor(f32(d["kernel"]).T.copy())
+        out[f"{prefix}.bias"] = torch.tensor(f32(d["bias"]))
 
     for top, sub in tree.items():
-        if top in ("actor_mlp", "critic_mlp"):
+        if top in ("actor_mlp", "critic_mlp", "cv_mlp"):
             for layer, d in sub.items():
                 dense(f"{top}.{int(layer.split('_')[1])}", d)
+        elif top == "lstm":
+            for src, dst in (("i", "ih"), ("h", "hh")):
+                gates = [sub[f"{src}{g}"] for g in "ifgo"]
+                out[f"lstm.{dst}.weight"] = torch.tensor(np.concatenate(
+                    [f32(d["kernel"]) for d in gates], -1).T.copy())
+                if src == "h":
+                    out["lstm.hh.bias"] = torch.tensor(np.concatenate(
+                        [f32(d["bias"]) for d in gates]))
         elif top == "log_sigma":
             out[top] = torch.tensor(np.asarray(sub, np.float32))
         else:
@@ -130,8 +151,10 @@ def ppo_state_from_jax(arrays: dict) -> dict:
          "lr": x}
 
     plus, optionally, ``epoch``, ``frames``, ``ep_return``, ``ep_length``,
-    ``mean_return``, ``mean_length`` and ``last_obs``.  Returns a dict for
-    ``PPOAgent.load_state_dict`` (CPU tensors)."""
+    ``mean_return``, ``mean_length``, ``last_obs``, and with the
+    asymmetric critic ``states_rms`` ({"mean", "var", "count"}) and
+    ``last_states``, with the LSTM ``carry`` ((h, c), each (B, units)).
+    Returns a dict for ``PPOAgent.load_state_dict`` (CPU tensors)."""
     f32 = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
     adam = arrays["adam"]
     mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
@@ -150,7 +173,12 @@ def ppo_state_from_jax(arrays: dict) -> dict:
         if k in arrays:
             out[k] = int(arrays[k])
     for k in ("ep_return", "ep_length", "mean_return", "mean_length",
-              "last_obs"):
+              "last_obs", "last_states"):
         if k in arrays:
             out[k] = f32(arrays[k])
+    if arrays.get("states_rms"):
+        out["states_rms"] = {k: f32(arrays["states_rms"][k])
+                             for k in ("mean", "var", "count")}
+    if arrays.get("carry") is not None and len(arrays["carry"]):
+        out["carry"] = [f32(c) for c in arrays["carry"]]
     return out

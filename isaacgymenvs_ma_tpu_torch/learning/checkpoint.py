@@ -2,10 +2,14 @@
 the rl_games ``.pth`` checkpoint).
 
 The payload has the JAX package's keys: ``ppo_state`` (the agent's
-``state_dict()``: network and optimiser state, both normalisers, ``lr``,
-epoch, frames, the episode trackers, the generators' states and the env
-state with its physics scales, so a resumed run continues exactly), ``env_state_extra`` (curriculum
-state from ``task.get_env_state``; None for the ported tasks) and ``meta``.
+``state_dict()``: network and optimiser state, the normalisers (with the
+asymmetric critic's ``states_rms``), ``lr``, epoch, frames, the episode
+trackers, the generators' states, the LSTM carry and the env state with
+its physics scales, so a resumed run continues exactly),
+``env_state_extra`` (curriculum state from ``task.get_env_state``:
+AllegroKuka's success tolerance, None for the other ported tasks; the
+train entry point hands it back through ``task.set_env_state``) and
+``meta``.
 It is written with ``torch.save`` to ``path + ".tmp"`` and then moved onto
 ``path``, so a reader never sees half a file; it holds only tensors and
 plain containers, so ``load_checkpoint`` reads it with

@@ -11,8 +11,18 @@ no autocast is used.
 Initialisation copies flax's, not torch's defaults: every kernel is
 ``lecun_normal`` (a normal of std sqrt(1/fan_in)/0.8796 cut at +-2 of its
 std), ``mu``'s with variance scale 0.01; biases are 0 and ``log_sigma`` is
-the constant ``sigma_init``.  ``CentralValueNet``, ``AsymActorCritic`` and
-``ActorCriticLSTM`` are not ported (no ported task uses them).
+the constant ``sigma_init``.
+
+The asymmetric networks (``CentralValueNet``, ``AsymActorCritic``: the
+actor on the obs, the critic on the privileged states) and the recurrent
+one (``ActorCriticLSTM``: MLP trunk, one LSTM cell, heads) follow the JAX
+modules, not rl_games: the LSTM config's ``layer_norm`` and
+``before_mlp`` are ignored, as the JAX network ignores them.  Its cell is
+flax's ``OptimizedLSTMCell``, not ``torch.nn.LSTMCell``: gates in the
+order i, f, g, o from a bias-free input kernel (``lstm.ih``,
+lecun-normal) and a biased recurrent kernel (``lstm.hh``, each gate's
+block orthogonal, zero bias); ``nn.LSTMCell`` would add a second
+trainable bias that Adam moves.
 """
 from __future__ import annotations
 
@@ -100,23 +110,168 @@ class ActorCritic(nn.Module):
         return mu, log_sigma, value.squeeze(-1)
 
 
+class _Heads(nn.Module):
+    """The mu head, and ``log_sigma`` (fixed) or the sigma head, of an
+    ``in_dim`` feature."""
+
+    def _init_heads(self, in_dim, num_actions, fixed_sigma, sigma_init,
+                    generator):
+        self.fixed_sigma = fixed_sigma
+        self.mu = lecun_dense(in_dim, num_actions, 0.01, generator)
+        if fixed_sigma:
+            self.log_sigma = nn.Parameter(
+                torch.full((num_actions,), float(sigma_init)))
+        else:
+            self.sigma = lecun_dense(in_dim, num_actions, generator=generator)
+
+    def _mu_sigma(self, x):
+        mu = self.mu(x)
+        if self.fixed_sigma:
+            return mu, self.log_sigma.expand(mu.shape)
+        return mu, self.sigma(x)
+
+
+class CentralValueNet(nn.Module):
+    """Asymmetric critic on privileged states (rl_games
+    central_value_config, cfg/train/ShadowHandPPOAsymm.yaml:73-88)."""
+
+    def __init__(self, num_states: int, units: Sequence[int] = (256, 128),
+                 activation: str = "elu",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = _ACT[activation]
+        self.cv_mlp = _mlp(num_states, units, generator)
+        self.value = lecun_dense(units[-1] if units else num_states, 1,
+                                 generator=generator)
+
+    def forward(self, states):
+        x = states
+        for layer in self.cv_mlp:
+            x = self.act(layer(x))
+        return self.value(x).squeeze(-1)
+
+
+class AsymActorCritic(_Heads):
+    """The actor on the obs and a central-value critic (``critic_mlp``)
+    on the privileged states; ``forward(obs, states)``."""
+
+    def __init__(self, num_obs: int, num_states: int, num_actions: int,
+                 units: Sequence[int] = (256, 128, 64),
+                 cv_units: Sequence[int] = (256, 128),
+                 activation: str = "elu", fixed_sigma: bool = True,
+                 sigma_init: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = _ACT[activation]
+        self.actor_mlp = _mlp(num_obs, units, generator)
+        self._init_heads(units[-1] if units else num_obs, num_actions,
+                         fixed_sigma, sigma_init, generator)
+        self.critic_mlp = _mlp(num_states, cv_units, generator)
+        self.value = lecun_dense(cv_units[-1] if cv_units else num_states, 1,
+                                 generator=generator)
+
+    def _trunk(self, layers, x):
+        for layer in layers:
+            x = self.act(layer(x))
+        return x
+
+    def forward(self, obs, states):
+        """(mu, log_sigma, value): (B, A), (B, A), (B,)."""
+        mu, log_sigma = self._mu_sigma(self._trunk(self.actor_mlp, obs))
+        value = self.value(self._trunk(self.critic_mlp, states))
+        return mu, log_sigma, value.squeeze(-1)
+
+
+class LSTMCell(nn.Module):
+    """flax ``OptimizedLSTMCell``: ``ih`` (in -> 4h, no bias,
+    lecun-normal) and ``hh`` (h -> 4h, zero bias, each gate's (h, h)
+    block orthogonal), gates i, f, g, o."""
+
+    def __init__(self, in_dim: int, hidden: int,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden = hidden
+        self.ih = nn.Linear(in_dim, 4 * hidden, bias=False)
+        self.hh = nn.Linear(hidden, 4 * hidden)
+        std = math.sqrt(1.0 / in_dim) / _TRUNC_STD
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.ih.weight, 0.0, std, -2.0 * std,
+                                  2.0 * std, generator=generator)
+            for blk in self.hh.weight.view(4, hidden, hidden):
+                nn.init.orthogonal_(blk, generator=generator)
+            self.hh.bias.zero_()
+
+    def forward(self, x, h, c):
+        """(h', c') from the input ``x`` and the carry (h, c)."""
+        i, f, g, o = (self.hh(h) + self.ih(x)).chunk(4, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        return torch.sigmoid(o) * torch.tanh(c), c
+
+
+class ActorCriticLSTM(_Heads):
+    """MLP trunk -> LSTM -> mu and value heads (rl_games ``rnn: {name:
+    lstm}`` networks, trained with seq_len truncated BPTT); ``forward(obs,
+    (h, c))`` returns (mu, log_sigma, value, (h', c'))."""
+
+    def __init__(self, num_obs: int, num_actions: int,
+                 units: Sequence[int] = (256, 128, 64), lstm_units: int = 256,
+                 activation: str = "elu", fixed_sigma: bool = True,
+                 sigma_init: float = 0.0,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = _ACT[activation]
+        self.lstm_units = lstm_units
+        self.actor_mlp = _mlp(num_obs, units, generator)
+        self.lstm = LSTMCell(units[-1] if units else num_obs, lstm_units,
+                             generator)
+        self._init_heads(lstm_units, num_actions, fixed_sigma, sigma_init,
+                         generator)
+        self.value = lecun_dense(lstm_units, 1, generator=generator)
+
+    def forward(self, obs, carry):
+        x = obs
+        for layer in self.actor_mlp:
+            x = self.act(layer(x))
+        h, c = self.lstm(x, *carry)
+        mu, log_sigma = self._mu_sigma(h)
+        return mu, log_sigma, self.value(h).squeeze(-1), (h, c)
+
+    def initial_carry(self, batch: int, device=None):
+        z = torch.zeros((batch, self.lstm_units), device=device)
+        return (z, z.clone())
+
+
 def build_network(net_cfg: dict, num_obs: int, num_actions: int,
-                  generator: Optional[torch.Generator] = None) -> ActorCritic:
-    """Construct from the rl_games ``params.network`` schema."""
-    if net_cfg.get("rnn"):
-        raise NotImplementedError(
-            "network.rnn (ActorCriticLSTM) is not ported yet: ROADMAP "
-            "queue A, item 7 (the hand tasks that train with it)")
+                  generator: Optional[torch.Generator] = None,
+                  central_value_config: Optional[dict] = None,
+                  num_states: int = 0) -> nn.Module:
+    """Construct from the rl_games ``params.network`` schema as the JAX
+    ``PPOAgent`` does (ppo.py:140-174): ``AsymActorCritic`` with a
+    ``central_value_config`` and privileged states, else
+    ``ActorCriticLSTM`` with ``network.rnn``, else ``ActorCritic``.  The
+    first two take no ``sigma_init`` from the config, as in JAX."""
     mlp = net_cfg.get("mlp", {})
     space = net_cfg.get("space", {}).get("continuous", {})
+    units = tuple(mlp.get("units", (256, 128, 64)))
+    activation = mlp.get("activation", "elu")
+    fixed_sigma = bool(space.get("fixed_sigma", True))
+    if central_value_config and num_states > 0:
+        cv_units = tuple(central_value_config.get("network", {})
+                         .get("mlp", {}).get("units", [256, 128]))
+        return AsymActorCritic(num_obs, num_states, num_actions, units,
+                               cv_units, activation, fixed_sigma,
+                               generator=generator)
+    rnn = net_cfg.get("rnn")
+    if rnn:
+        return ActorCriticLSTM(num_obs, num_actions, units,
+                               int(rnn.get("units", 256)), activation,
+                               fixed_sigma, generator=generator)
     sigma_init = space.get("sigma_init", {}).get("val", 0.0)
     return ActorCritic(
-        num_obs, num_actions,
-        units=tuple(mlp.get("units", (256, 128, 64))),
-        activation=mlp.get("activation", "elu"),
+        num_obs, num_actions, units=units, activation=activation,
         separate=bool(net_cfg.get("separate", False)),
-        fixed_sigma=bool(space.get("fixed_sigma", True)),
-        sigma_init=float(sigma_init), generator=generator)
+        fixed_sigma=fixed_sigma, sigma_init=float(sigma_init),
+        generator=generator)
 
 
 def gaussian_neglogp(mu, log_sigma, actions):

@@ -24,19 +24,32 @@ exactly:
   1e-6; *1.5 below kl_threshold/2, cap 1e-2);
 * multi-agent batch folding: the task emits ``B = num_envs * num_agents``
   agent-minor rows and the episode stats stride by ``num_agents``
-  (``A2CAgent_MA.py:44-47``).
+  (``A2CAgent_MA.py:44-47``);
+* the asymmetric critic (``central_value_config`` with a task that has
+  privileged states, ``num_states > 0``): ``AsymActorCritic``'s critic
+  reads the states, normalised by ``states_rms`` as the obs are by
+  ``obs_rms``;
+* the recurrent path (``network.rnn``, off when the central value is on):
+  ``ActorCriticLSTM`` with its carry threaded through the rollout and
+  zeroed where an env is done; the update cuts the (T, B) rollout into
+  B * T / L sequences of ``seq_len`` L, each starting from the carry
+  stored at its first step, takes ``minibatch_size // L`` sequences a
+  minibatch and runs the network forward over the L steps (truncated
+  BPTT).  As in the JAX learner, its training obs and values are
+  normalised with the stats already updated by this epoch, and its
+  ``frames`` count grows by the number of sequences.
 
 Within an epoch nothing waits for the host: ``lr``, the episode counters
 and the KL tests are device tensors (``torch.where``), Adam is
 ``capturable`` on the card, and the host reads numbers only when it logs.
 Everything is float32 with TF32 off (``device.apply_precision_policy``);
 the config's ``mixed_precision`` is ignored, as the JAX learner ignores it,
-and no autocast is used.  ``central_value_config`` and ``network.rnn``
-raise (ROADMAP queue A, item 7).
+and no autocast is used.
 
 Test hooks: ``_rollout`` takes the action noise ``(T, B, A)`` and each
 step's ``reset_draws`` (handed to ``task.step``), ``_update`` the
-permutations ``(mini_epochs, T * B)``; they default to draws from the
+permutations ``(mini_epochs, T * B)`` (with the LSTM, ``(mini_epochs, B *
+T / seq_len)`` of sequences); they default to draws from the
 agent's and the task's generators.
 """
 from __future__ import annotations
@@ -117,7 +130,9 @@ class PPOConfig(NamedTuple):
 
 
 class Rollout(NamedTuple):
-    """One epoch's samples, each (T, B, ...)."""
+    """One epoch's samples, each (T, B, ...); ``states`` the privileged
+    states (central value) and ``carry`` the LSTM's (h, c) each step
+    started from, else None."""
 
     obs: torch.Tensor
     actions: torch.Tensor
@@ -127,6 +142,8 @@ class Rollout(NamedTuple):
     dones: torch.Tensor
     mu: torch.Tensor
     sigma: torch.Tensor
+    states: Optional[torch.Tensor] = None
+    carry: Optional[tuple] = None
 
 
 class PPOAgent:
@@ -140,14 +157,6 @@ class PPOAgent:
             raise NotImplementedError(
                 f"algo {algo!r} is not ported yet: ROADMAP queue A, item 10 "
                 "(AMP, HRL and SAC)")
-        if params["config"].get("central_value_config"):
-            raise NotImplementedError(
-                "central_value_config (the asymmetric critic) is not ported "
-                "yet: ROADMAP queue A, item 7")
-        if params["network"].get("rnn"):
-            raise NotImplementedError(
-                "network.rnn (ActorCriticLSTM) is not ported yet: ROADMAP "
-                "queue A, item 7")
         self.task = task
         self.train_cfg = train_cfg
         self.cfg = PPOConfig.from_train_cfg(train_cfg)
@@ -158,6 +167,20 @@ class PPOAgent:
         assert total % self.cfg.minibatch_size == 0, (
             f"batch {total} not divisible by minibatch {self.cfg.minibatch_size}")
         self.num_minibatches = total // self.cfg.minibatch_size
+        # the asymmetric critic (rl_games central_value_config) and the
+        # recurrent network, as the JAX learner chooses them
+        self.central_value_config = params["config"].get(
+            "central_value_config")
+        self.use_central_value = (bool(self.central_value_config)
+                                  and task.num_states > 0)
+        self.is_rnn = (bool(params["network"].get("rnn"))
+                       and not self.use_central_value)
+        if self.is_rnn:
+            self.seq_len = int(params["config"].get("seq_len", 4))
+            assert self.horizon % self.seq_len == 0
+            self.seqs_total = (self.horizon // self.seq_len) * self.batch
+            self.mb_seqs = max(self.cfg.minibatch_size // self.seq_len, 1)
+            self.num_minibatches = max(self.seqs_total // self.mb_seqs, 1)
         self.seed = seed
         self.net = None
 
@@ -172,7 +195,11 @@ class PPOAgent:
         self.net = build_network(
             self.train_cfg["params"]["network"], task.num_obs,
             task.num_actions,
-            generator=torch.Generator().manual_seed(self.seed)).to(dev)
+            generator=torch.Generator().manual_seed(self.seed),
+            central_value_config=(self.central_value_config
+                                  if self.use_central_value else None),
+            num_states=task.num_states if self.use_central_value else 0
+        ).to(dev)
         self.generator = make_generator(self.seed, dev)
         self.lr = torch.tensor(cfg.learning_rate, dtype=DTYPE, device=dev)
         self.optim = torch.optim.Adam(
@@ -180,7 +207,15 @@ class PPOAgent:
             capturable=dev.type == "cuda")
         self.obs_rms = RunningMeanStd((task.num_obs,), dev)
         self.value_rms = RunningMeanStd((), dev)
+        cv = self.use_central_value
+        self.states_rms = (RunningMeanStd((task.num_states,), dev) if cv
+                           else None)
         self.env_state, self.last_obs = task.reset(task.initial_state())
+        self.last_states = (torch.zeros((self.batch, task.num_states),
+                                        dtype=DTYPE, device=dev)
+                            if cv else None)
+        self.carry = (self.net.initial_carry(self.batch, dev) if self.is_rnn
+                      else None)
         nt = self.batch // task.num_agents
         self.ep_return = torch.zeros(nt, dtype=DTYPE, device=dev)
         self.ep_length = torch.zeros(nt, dtype=DTYPE, device=dev)
@@ -190,9 +225,23 @@ class PPOAgent:
         self.frames = 0
 
     # ------------------------------------------------------------------
-    def _policy(self, obs):
+    def _policy(self, obs, states=None):
+        """(mu, log_sigma, value) of the feed-forward networks; with the
+        central value, ``states`` (None: zeros) feed the critic."""
         o = self.obs_rms.normalize(obs) if self.cfg.normalize_input else obs
+        if self.use_central_value:
+            if states is None:
+                states = torch.zeros((obs.shape[0], self.task.num_states),
+                                     dtype=obs.dtype, device=obs.device)
+            elif self.cfg.normalize_input:
+                states = self.states_rms.normalize(states)
+            return self.net(o, states)
         return self.net(o)
+
+    def _policy_rnn(self, obs, carry):
+        """(mu, log_sigma, value, carry') of the LSTM network."""
+        o = self.obs_rms.normalize(obs) if self.cfg.normalize_input else obs
+        return self.net(o, carry)
 
     @staticmethod
     def _scalar_extras(extras) -> Dict[str, torch.Tensor]:
@@ -224,12 +273,17 @@ class PPOAgent:
         cfg, task = self.cfg, self.task
         na = task.num_agents
         env_state, obs = self.env_state, self.last_obs
+        states, carry = self.last_states, self.carry
         ep_ret, ep_len = self.ep_return, self.ep_length
         fin_sum = torch.zeros((), dtype=DTYPE, device=self.device)
         fin_len, fin_cnt = fin_sum.clone(), fin_sum.clone()
         steps, extra_seq = [], {}
         for t in range(self.horizon):
-            mu, log_sigma, v_norm = self._policy(obs)
+            if self.is_rnn:
+                mu, log_sigma, v_norm, carry_next = self._policy_rnn(obs,
+                                                                     carry)
+            else:
+                mu, log_sigma, v_norm = self._policy(obs, states)
             sigma = torch.exp(log_sigma)
             eps = (noise[t] if noise is not None else torch.randn(
                 mu.shape, generator=self.generator, device=self.device))
@@ -257,18 +311,31 @@ class PPOAgent:
             ep_ret = torch.where(row_done, 0.0, ep_ret)
             ep_len = torch.where(row_done, 0.0, ep_len)
 
-            steps.append((obs, actions, neglogp, value, rew, done, mu, sigma))
+            steps.append((obs, actions, neglogp, value, rew, done, mu, sigma,
+                          states, carry))
             for k, v in self._scalar_extras(res.extras).items():
                 extra_seq.setdefault(k, []).append(v)
             obs = res.obs
+            if self.use_central_value:
+                states = res.states
+            if self.is_rnn:
+                # the hidden state restarts at episode boundaries
+                carry = tuple(torch.where(done[:, None], 0.0, x)
+                              for x in carry_next)
 
-        roll = Rollout(*(torch.stack(x) for x in zip(*steps)))
+        cols = list(zip(*steps))
+        roll = Rollout(
+            *(torch.stack(x) for x in cols[:8]),
+            states=torch.stack(cols[8]) if self.use_central_value else None,
+            carry=(tuple(torch.stack(x) for x in zip(*cols[9]))
+                   if self.is_rnn else None))
         has = fin_cnt > 0
         self.mean_return = torch.where(
             has, fin_sum / torch.clamp(fin_cnt, min=1.0), self.mean_return)
         self.mean_length = torch.where(
             has, fin_len / torch.clamp(fin_cnt, min=1.0), self.mean_length)
         self.env_state, self.last_obs = env_state, obs
+        self.last_states, self.carry = states, carry
         self.ep_return, self.ep_length = ep_ret, ep_len
         stats = {"episodes_done": fin_cnt}
         for k, v in extra_seq.items():
@@ -279,7 +346,10 @@ class PPOAgent:
     def _gae(self, roll: Rollout, last_obs: torch.Tensor):
         """(advantages, returns), each (T, B)."""
         cfg = self.cfg
-        _, _, v_norm = self._policy(last_obs)
+        if self.is_rnn:
+            v_norm = self._policy_rnn(last_obs, self.carry)[2]
+        else:
+            v_norm = self._policy(last_obs, self.last_states)[2]
         last_value = (self.value_rms.denormalize(v_norm)
                       if cfg.normalize_value else v_norm)
         next_values = torch.cat([roll.values[1:], last_value[None]], dim=0)
@@ -294,12 +364,38 @@ class PPOAgent:
         return adv, adv + roll.values
 
     def _loss(self, mb):
-        """(total, (a_loss, c_loss, entropy, kl)) of one minibatch; the
-        gradient flows into ``self.net``."""
+        """(total, (a_loss, c_loss, entropy, kl)) of one minibatch (with
+        the central value, the normalised states last); the gradient flows
+        into ``self.net``."""
+        if self.use_central_value:
+            *mb, states = mb
+            mu, log_sigma, v_pred_n = self.net(mb[0], states)
+        else:
+            mu, log_sigma, v_pred_n = self.net(mb[0])
+        return self._ppo_loss(mu, log_sigma, v_pred_n, *mb[1:])
+
+    def _loss_rnn(self, mb):
+        """The truncated-BPTT loss over (mb, L, ...) sequences: the LSTM
+        run forward over the L steps from each sequence's stored carry,
+        the terms averaged over the L * mb samples."""
+        (obs, h0, c0, actions, old_neglogp, old_values_n, adv, returns_n,
+         old_mu, old_sigma) = mb
+        carry, outs = (h0, c0), []
+        for t in range(obs.shape[1]):
+            mu_t, ls_t, v_t, carry = self.net(obs[:, t], carry)
+            outs.append((mu_t, ls_t, v_t))
+        # time-major (L * mb, ...) rows, the targets flattened alike
+        mu, log_sigma, v_pred_n = (torch.cat(x) for x in zip(*outs))
+
+        def tflat(x):
+            return x.transpose(0, 1).reshape((-1,) + x.shape[2:])
+        return self._ppo_loss(mu, log_sigma, v_pred_n, *(
+            tflat(x) for x in (actions, old_neglogp, old_values_n, adv,
+                               returns_n, old_mu, old_sigma)))
+
+    def _ppo_loss(self, mu, log_sigma, v_pred_n, actions, old_neglogp,
+                  old_values_n, adv, returns_n, old_mu, old_sigma):
         cfg = self.cfg
-        (obs, actions, old_neglogp, old_values_n, adv, returns_n, old_mu,
-         old_sigma) = mb
-        mu, log_sigma, v_pred_n = self.net(obs)
         neglogp = gaussian_neglogp(mu, log_sigma, actions)
         ratio = torch.exp(torch.clamp(old_neglogp - neglogp, -20.0, 20.0))
         surr1 = adv * ratio
@@ -369,11 +465,39 @@ class PPOAgent:
         if cfg.normalize_advantage:
             adv_f = (adv_f - adv_f.mean()) / (adv_f.std(correction=0) + 1e-8)
 
-        data = (obs_train, flat(roll.actions), flat(roll.neglogp),
-                old_values_n, adv_f, returns_n, flat(roll.mu),
-                flat(roll.sigma))
-        total = obs_f.shape[0]
-        mb_size = cfg.minibatch_size
+        if self.use_central_value:
+            states_f = flat(roll.states)
+            states_train = (self.states_rms.normalize(states_f)
+                            if cfg.normalize_input else states_f)
+            self.states_rms.update(states_f)
+        if self.is_rnn:
+            # (T, B, ...) -> (B * T/L, L, ...) with the stored carry at
+            # each sequence start (rl_games seq_len); the obs and values
+            # normalised with the stats updated above, as in JAX
+            L = self.seq_len
+            S, B = self.horizon // L, self.batch
+
+            def seq(x):
+                x = x.reshape((S, L, B) + x.shape[2:]).movedim(2, 0)
+                return x.reshape((B * S, L) + x.shape[3:])
+            obs_t = (self.obs_rms.normalize(roll.obs) if cfg.normalize_input
+                     else roll.obs)
+            adv_t, rtn_t, val_t = (x.reshape(adv.shape)
+                                   for x in (adv_f, returns_n, old_values_n))
+            h0, c0 = (c.reshape(S, L, B, -1)[:, 0].movedim(1, 0).reshape(
+                B * S, -1) for c in roll.carry)
+            data = (seq(obs_t), h0, c0, seq(roll.actions), seq(roll.neglogp),
+                    seq(val_t), seq(adv_t), seq(rtn_t), seq(roll.mu),
+                    seq(roll.sigma))
+            total, mb_size, loss_fn = B * S, self.mb_seqs, self._loss_rnn
+        else:
+            data = (obs_train, flat(roll.actions), flat(roll.neglogp),
+                    old_values_n, adv_f, returns_n, flat(roll.mu),
+                    flat(roll.sigma))
+            if self.use_central_value:
+                data = data + (states_train,)
+            total, mb_size, loss_fn = (obs_f.shape[0], cfg.minibatch_size,
+                                       self._loss)
         metrics = []
         for e in range(cfg.mini_epochs):
             perm = (perms[e] if perms is not None else torch.randperm(
@@ -383,7 +507,7 @@ class PPOAgent:
             for idx in idxs:
                 mb = tuple(d[idx] for d in data)
                 self.optim.zero_grad(set_to_none=True)
-                loss, (a_l, c_l, ent, kl) = self._loss(mb)
+                loss, (a_l, c_l, ent, kl) = loss_fn(mb)
                 loss.backward()
                 if cfg.truncate_grads:
                     self._clip_grads()
@@ -397,6 +521,7 @@ class PPOAgent:
                      ent.detach(), kl]))
         loss, a_l, c_l, ent, kl = torch.stack(metrics).mean(dim=0)
         self.epoch += 1
+        # samples (sequences with the LSTM), as the JAX learner counts
         self.frames += total
         net = self.net
         return {
@@ -447,7 +572,12 @@ class PPOAgent:
     # ------------------------------------------------------------------
     @torch.no_grad()
     def act(self, obs, deterministic: bool = True):
-        """Player path (PpoPlayerContinuous.get_action equivalent)."""
+        """Player path (PpoPlayerContinuous.get_action equivalent); the
+        central-value critic sees zero states, as in JAX."""
+        if self.is_rnn:
+            raise NotImplementedError(
+                "playing a recurrent policy: the JAX player threads no LSTM "
+                "carry either (ROADMAP queue A, item 11)")
         mu, log_sigma, _ = self._policy(obs)
         if deterministic:
             return mu
@@ -481,6 +611,10 @@ class PPOAgent:
             "generator": self.generator.get_state(),
             "task_generator": self.task.generator.get_state(),
             "env_state": env, "last_obs": self.last_obs,
+            "states_rms": (None if self.states_rms is None
+                           else self.states_rms.state_dict()),
+            "last_states": self.last_states,
+            "carry": None if self.carry is None else list(self.carry),
         }
 
     def load_state_dict(self, d: dict) -> None:
@@ -505,9 +639,13 @@ class PPOAgent:
                     "step": step.to(dev if capturable else "cpu").clone(),
                     "exp_avg": on(s["exp_avg"]),
                     "exp_avg_sq": on(s["exp_avg_sq"])}
-        for k in ("obs_rms", "value_rms"):
-            if k in d:
+        for k in ("obs_rms", "value_rms", "states_rms"):
+            if d.get(k) is not None:
                 getattr(self, k).load_state_dict(d[k])
+        if d.get("last_states") is not None:
+            self.last_states = on(d["last_states"]).to(DTYPE)
+        if d.get("carry") is not None:
+            self.carry = tuple(on(c).to(DTYPE) for c in d["carry"])
         if "lr" in d:
             self.lr = on(d["lr"]).to(DTYPE)
             self.optim.param_groups[0]["lr"] = self.lr

@@ -1,3 +1,3 @@
 """Robot specs of the port: numpy-only copies of the JAX package's
-``models/specs`` modules (so far ``franka_panda``, ``humanoid``, ``anymal`` and
-``trifinger``)."""
+``models/specs`` modules (so far ``franka_panda``, ``humanoid``, ``anymal``,
+``trifinger`` and ``kuka_allegro``)."""

@@ -10,10 +10,20 @@ physics for tasks with ``reset_in_pre_physics``, as BallBalance).
 The JAX version threads a PRNG key through ``EnvState``; here each task
 owns a ``torch.Generator`` (``task.generator``) for its random draws, and
 ``step`` also accepts explicit ``reset_draws`` (``reset_idx``'s),
-``step_draws`` (``post_physics``'s, for the tasks that draw there:
-AnymalTerrain's pushes and observation noise, Ingenuity's new targets) and
-``dr_draws`` (the domain randomization's) so tests can inject the
-reference's draws.
+``pre_draws`` (``pre_physics``'s, for the tasks that draw there:
+AllegroKuka's random object forces), ``step_draws`` (``post_physics``'s,
+for the tasks that draw there: AnymalTerrain's pushes and observation
+noise, Ingenuity's new targets) and ``dr_draws`` (the domain
+randomization's) so tests can inject the reference's draws.  A task that
+takes draws in one of those hooks takes them as its ``draws`` keyword,
+which the step passes only when it is given them.
+
+A task may restart the episode clock of some envs without resetting them
+(AllegroKuka on a success): its ``post_physics`` puts the mask in
+``extras["_reset_progress_mask"]``, and the step zeroes ``progress`` there
+after the time-outs are read from the old clock (base.py:286-292).
+``get_env_state`` / ``set_env_state`` carry a task's curriculum through a
+checkpoint (AllegroKuka's success tolerance); the other tasks have none.
 
 With ``task.randomize`` the step adds the domain randomizer
 (utils/domain_rand.py) in the JAX order (base.py:228-307): action noise
@@ -211,9 +221,19 @@ class VecTaskBase:
         return state, torch.zeros((self.rl_games_batch, self.num_obs),
                                   dtype=DTYPE, device=self.device)
 
+    def get_env_state(self, state: EnvState):
+        """Curriculum state persisted into learner checkpoints
+        (vec_task.py:197-205); None for a task without one."""
+        return None
+
+    def set_env_state(self, state: EnvState, env_state):
+        """``state`` with the curriculum state ``env_state`` (what
+        ``get_env_state`` returned) put back."""
+        return state
+
     def step(self, state: EnvState, actions: torch.Tensor,
-             reset_draws=None, step_draws=None, dr_draws=None
-             ) -> Tuple[EnvState, StepResult]:
+             reset_draws=None, step_draws=None, dr_draws=None,
+             pre_draws=None) -> Tuple[EnvState, StepResult]:
         """One control step.  ``dr_draws`` (with domain randomization): a
         dict with any of "actions" and "observations" (the white noise
         samples) and "phys" (the resampled scales, every env's), each
@@ -237,7 +257,9 @@ class VecTaskBase:
             sim, task = self.reset_idx(state.sim, state.task, reset_mask,
                                        reset_draws)
             state = state._replace(sim=sim, task=task)
-        ctrl = self.pre_physics(state, actions)
+        ctrl = self.pre_physics(
+            state, actions,
+            **({} if pre_draws is None else {"draws": pre_draws}))
         sim = state.sim
         terrain = self.step_terrain(sim)
         out = None
@@ -275,6 +297,10 @@ class VecTaskBase:
         timeout = (progress >= self.max_episode_length - 1) & (reset != 0)
         extras = dict(extras)
         extras["time_outs"] = self._to_batch(timeout)
+        # episode-extension hook: envs whose clock restarts without a reset
+        clock_reset = extras.pop("_reset_progress_mask", None)
+        if clock_reset is not None:
+            progress = torch.where(clock_reset, 0, progress).to(torch.int32)
         if dr is not None:
             # observation noise before the clip (vec_task.py:404-406)
             noise = draws.get("observations")

@@ -32,6 +32,13 @@ _TASKS: Dict[str, Tuple[str, str]] = {
     "FrankaCubeStack": (".franka_cube_stack", "FrankaCubeStack"),
     "FrankaCubeStack2": (".franka_cube_stack2", "FrankaCubeStack2"),
     "Trifinger": (".trifinger", "Trifinger"),
+    # subtask-resolver entries (reference tasks/__init__.py:65-90): the
+    # env.subtask key picks the class
+    "AllegroKuka": (".allegro_kuka", "resolve_allegro_kuka"),
+    "AllegroKukaLSTM": (".allegro_kuka", "resolve_allegro_kuka"),
+    "AllegroKukaTwoArms": (".allegro_kuka", "resolve_allegro_kuka_two_arms"),
+    "AllegroKukaTwoArmsLSTM": (".allegro_kuka",
+                               "resolve_allegro_kuka_two_arms"),
 }
 
 # the JAX registry's other names -> ROADMAP queue-A item that ports them
@@ -39,9 +46,7 @@ _QUEUE_A = {
     "7": ("ShadowHand", "ShadowHandOpenAI_FF", "ShadowHandOpenAI_LSTM",
           "ShadowHandTest", "AllegroHand", "AllegroHandLSTM", "AllegroHandFF",
           "AllegroHandLSTM_Big", "AllegroHandDextremeManualDR",
-          "AllegroHandDextremeADR", "AllegroHandManualDR", "AllegroHandADR",
-          "AllegroKuka", "AllegroKukaLSTM", "AllegroKukaTwoArms",
-          "AllegroKukaTwoArmsLSTM"),
+          "AllegroHandDextremeADR", "AllegroHandManualDR", "AllegroHandADR"),
     "9": ("FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
           "FactoryTaskNutBoltScrew", "FactoryTaskGears",
           "FactoryTaskInsertion", "IndustRealTaskPegsInsert",

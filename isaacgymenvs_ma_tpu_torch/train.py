@@ -125,8 +125,9 @@ def launch(argv=None):
 
     agent.init()
     if cfg.get("checkpoint"):
-        state, _, meta = ckpt.load_checkpoint(cfg["checkpoint"])
+        state, env_extra, meta = ckpt.load_checkpoint(cfg["checkpoint"])
         agent.load_state_dict(state)
+        agent.env_state = task.set_env_state(agent.env_state, env_extra)
         print(f"restored checkpoint {cfg['checkpoint']} (meta {meta})")
         if cfg.get("sigma") not in ("", None):
             # fixed exploration sigma at restore (reference train.py:212-216)
@@ -155,8 +156,10 @@ def launch(argv=None):
         if save_freq and ep % save_freq == 0:
             ckpt.save_checkpoint(
                 ckpt_path, agent.state_dict(),
-                env_state_extra=None, meta={"epoch": ep})
-    ckpt.save_checkpoint(ckpt_path, agent.state_dict(), env_state_extra=None,
+                env_state_extra=task.get_env_state(agent.env_state),
+                meta={"epoch": ep})
+    ckpt.save_checkpoint(ckpt_path, agent.state_dict(),
+                         env_state_extra=task.get_env_state(agent.env_state),
                          meta={"epoch": max_epochs})
     print(f"saved {ckpt_path}")
     return agent

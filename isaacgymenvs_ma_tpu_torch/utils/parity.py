@@ -18,11 +18,15 @@ between the two packages:
                                         step, named in RESET_DRAWS, and of
                                         the tasks that draw in
                                         post_physics those draws, named in
-                                        STEP_DRAWS
+                                        STEP_DRAWS, and in pre_physics
+                                        (AllegroKuka's object forces),
+                                        named in PRE_DRAWS
     q, qd                               (T, N, nq|nv) f32  per-step state
 
-and, for a task with domain randomization (Trifinger), ``init_phys_<leaf>``
-(the JAX ``PhysScales`` leaves the run starts from) and per step
+and, for a task with per-env physics scales (Trifinger's domain
+randomization, AllegroKuka's cuboid sizes), ``init_phys_<leaf>`` (the JAX
+``PhysScales`` leaves the run starts from); for one with domain
+randomization also, per step
 ``dr_actions`` (T, B, A) and ``dr_observations`` (T, B, O) (the white
 noise samples) and ``dr_phys_<leaf>`` (every env's fresh scales);
 ``traj_spread_<k>`` (T,) where a capture carries the reference's own
@@ -40,7 +44,8 @@ import torch
 from .config import deep_merge
 
 from ..convert import env_state_from_jax, phys_from_jax
-from ..tasks import (anymal, anymal_terrain, ant, ball_balance, cartpole,
+from ..tasks import (allegro_kuka, anymal, anymal_terrain, ant,
+                     ball_balance, cartpole,
                      franka_cabinet, franka_collect_ma, franka_combine_ma,
                      franka_cube_stack, franka_cube_stack2, franka_ppma,
                      franka_reach, franka_reach_ma, humanoid, ingenuity,
@@ -84,7 +89,14 @@ TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
                               franka_cube_stack2.TASK_CFG,
                               franka_cube_stack.CubeStackTaskState),
          "Trifinger": (trifinger.Trifinger, trifinger.TASK_CFG,
-                       trifinger.TrifingerTaskState)}
+                       trifinger.TrifingerTaskState),
+         "AllegroKuka": (allegro_kuka.AllegroKukaReorientation,
+                         allegro_kuka.TASK_CFG, allegro_kuka.KukaTaskState),
+         "AllegroKukaTwoArms": (
+             allegro_kuka.AllegroKukaTwoArmsReorientation,
+             allegro_kuka.TASK_CFG, allegro_kuka.KukaTaskState)}
+KUKA_RESET_DRAWS = ("goal_pos_u", "goal_quat_u", "dof_u", "dof_vel_u",
+                    "obj_pos_u", "obj_quat_u", "force_prob_u")
 # capture keys of each task's reset draws, in reset_idx's order
 RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                "BallBalance": ("reset_dists", "reset_dirs", "reset_hspeeds",
@@ -108,10 +120,15 @@ RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                                     "cube_a_dz_u"),
                "Trifinger": ("dof_pos_n", "dof_vel_n", "obj_r_u", "obj_th",
                              "obj_yaw", "goal_r_u", "goal_th", "goal_z",
-                             "goal_yaw", "goal_quat_u")}
+                             "goal_yaw", "goal_quat_u"),
+               "AllegroKuka": KUKA_RESET_DRAWS,
+               "AllegroKukaTwoArms": KUKA_RESET_DRAWS}
 # capture keys of the draws post_physics makes, in its order
 STEP_DRAWS = {"AnymalTerrain": ("push_vel", "noise_u"),
               "Ingenuity": ("retarget_xy_u", "retarget_z_u")}
+# capture keys of the draws pre_physics makes, in its order
+PRE_DRAWS = {"AllegroKuka": ("force_fire_u", "force_n"),
+             "AllegroKukaTwoArms": ("force_fire_u", "force_n")}
 
 # Per-step max abs error bounds of the Ant golden replay
 # (tests/data/torch_port/ant_golden.npz).  Measured on the CPU twins over
@@ -217,6 +234,18 @@ ANYMAL_TERRAIN_GOLDEN_TOL = GOLDEN_TOL
 # 3.3e-5, qd <= 7.3e-4, obs <= 7.3e-5, reward <= 1.1e-6; Trifinger q <=
 # 2.4e-6, qd <= 6.7e-4, obs <= 3.6e-5, reward <= 8.6e-5.
 GROUND_RULE_TOL = {"q": 2e-4, "qd": 2e-3, "obs": 2e-3, "rew": 1e-3}
+# The AllegroKuka captures (allegro_kuka_golden.npz and
+# allegro_kuka_two_arms_golden.npz, 32 envs; allegro_kuka_b4_golden.npz,
+# 128 envs on the kernel route; 6 steps each) are held one step at a time,
+# each env's error beyond four times the reference's own one-ulp spread
+# there, the median over the envs at GROUND_RULE_TOL, as AnymalTerrain's:
+# where a finger strikes, its 40 / 5 position drives on 0.005-0.13 kg
+# links turn one ulp of q and qd into up to ~5e-2 of qd at one arm and ~1 at
+# two.  Held over the whole 6 steps against the reference's trajectory
+# spread instead, the card's replay of allegro_kuka_golden.npz passed it
+# by 2.9e-3 in obs at the last step; at the first step the port's own
+# one-ulp spread in each env is of the size of its error against JAX
+# there (scripts/record_torch_golden.py ONE_STEP).
 TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
               "FrankaReachMA": FRANKA_GOLDEN_TOL,
               "FrankaCollectMA": FRANKA_GRAB_GOLDEN_TOL,
@@ -231,7 +260,9 @@ TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
               "FrankaCabinet": GROUND_RULE_TOL,
               "FrankaCubeStack": FRANKA_GOLDEN_TOL,
               "FrankaCubeStack2": FRANKA_GOLDEN_TOL,
-              "Trifinger": GROUND_RULE_TOL}
+              "Trifinger": GROUND_RULE_TOL,
+              "AllegroKuka": GROUND_RULE_TOL,
+              "AllegroKukaTwoArms": GROUND_RULE_TOL}
 # one-step captures: the most held envs per step whose reset may differ
 # (a base contact force at the 1 N threshold, where the reference's noise
 # reaches)
@@ -322,7 +353,7 @@ class StepErrors(NamedTuple):
 def replay(npz_path: str, device, use_contact_kernel: bool = False
            ) -> StepErrors:
     """Replay a capture on ``device`` with the recorded reset draws (and
-    ``post_physics`` draws); with ``use_contact_kernel`` the contact loop
+    ``pre_physics`` and ``post_physics`` draws); with ``use_contact_kernel`` the contact loop
     runs through kernel B4.  For a task with grab constraints it also
     counts the grabs its control turns on in each step.
 
@@ -389,12 +420,16 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
         if one_step:
             start = {k[len("start_"):]: d[k][t] for k in d.files
                      if k.startswith("start_")}
+            # the physics scales carry on (AllegroKuka's cuboid sizes)
             state = env_state_from_jax(
                 {(_STATE_PREFIX.get(k, "task.") + k): v
-                 for k, v in start.items()}, device, state_cls)
+                 for k, v in start.items()}, device, state_cls)._replace(
+                    phys=state.phys)
         draws = tuple(t_(d[k][t]) for k in RESET_DRAWS[name])
         step_draws = (tuple(t_(d[k][t]) for k in STEP_DRAWS[name])
                       if name in STEP_DRAWS else None)
+        pre_draws = (tuple(t_(d[k][t]) for k in PRE_DRAWS[name])
+                     if name in PRE_DRAWS else None)
         dr = None
         if "dr_actions" in d:
             dr = {"actions": t_(d["dr_actions"][t]),
@@ -402,7 +437,8 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
                   "phys": phys_from_jax({k: d[f"dr_phys_{k}"][t]
                                          for k in dr_leaves}, device)}
         state, res = task.step(state, t_(d["actions"][t]), reset_draws=draws,
-                               step_draws=step_draws, dr_draws=dr)
+                               step_draws=step_draws, dr_draws=dr,
+                               pre_draws=pre_draws)
         got = {"q": state.sim.q, "qd": state.sim.qd, "obs": res.obs,
                "rew": res.rew}
         held = np.ones(N, bool)

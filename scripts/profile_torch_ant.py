@@ -5,7 +5,8 @@ GPU.
         [--task Ant|BallBalance|FrankaReachMA|Cartpole|FrankaCollectMA|
                 FrankaPPMA|FrankaCombineMA|Humanoid|Anymal|AnymalTerrain|
                 Ingenuity|Quadcopter|FrankaReach|FrankaCabinet|
-                FrankaCubeStack|FrankaCubeStack2|Trifinger]
+                FrankaCubeStack|FrankaCubeStack2|Trifinger|AllegroKuka|
+                AllegroKukaTwoArms]
         [--contact-kernel]
         [--envs N] [--steps 20] [--train] [--table PATH]
 
@@ -91,7 +92,8 @@ def main():
                              "AnymalTerrain", "Ingenuity", "Quadcopter",
                              "FrankaReach", "FrankaCabinet",
                              "FrankaCubeStack", "FrankaCubeStack2",
-                             "Trifinger"))
+                             "Trifinger", "AllegroKuka",
+                             "AllegroKukaTwoArms"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
     ap.add_argument("--envs", type=int, default=None,

@@ -17,8 +17,8 @@ tests/test_golden_cartpole.py: 64 envs from ``initial_state(PRNGKey(1234))``
 warm-up, each step jitted on its own.
 
 ``--kernel-route`` records the JAX contact-kernel route instead: the
-warm-up stays on the default path (jitted), then the 6 steps run eagerly
-with the Pallas kernels in interpret mode (``dyn_kernel._FORCE_INTERPRET``,
+warm-up stays on the default path (jitted), then the 6 steps run with the
+Pallas kernels in interpret mode (jitted with the flag set) (``dyn_kernel._FORCE_INTERPRET``,
 read at trace time), at 128 envs, the fewest at which the JAX engine takes
 its dynamics kernels and with them kernel B4 (its lane blocks divide N by
 128): ``--task FrankaReachMA --kernel-route`` ->
@@ -46,8 +46,10 @@ negative in every step; ``--task FrankaCollectMA --kernel-route`` ->
 franka_collect_ma_b4_golden.npz records 6 steps so at 128 envs.  JAX
 compile times on an 8-core CPU, three recordings side by side: the
 FrankaCollectMA / FrankaPPMA step's jit and 20 warm-up steps ~220 s each
-(FrankaReachMA alone: ~100 s); on the kernel route each eager
-interpret-mode step ~4 min (the kernel-route capture ~25 min in all).
+(FrankaReachMA alone: ~100 s); on the kernel route each interpret-mode
+step took ~4 min run eagerly (the kernel-route capture ~25 min in all);
+the steps are now jitted with the flag set, which compiles for minutes
+and then steps several times faster.
 
 ``--task FrankaReach``, ``FrankaCabinet``, ``FrankaCubeStack``,
 ``FrankaCubeStack2`` and ``Trifinger`` -> franka_reach_golden.npz,
@@ -68,6 +70,19 @@ envs on the kernel route with seeded per-env physics scales, without and
 with shape scales (~35 s / ~200 s an interpreted step).  The single-arm
 Franka recordings jit in ~110-140 s, Trifinger's in ~25 s.
 
+``--task AllegroKuka`` and ``--task AllegroKukaTwoArms`` ->
+allegro_kuka_golden.npz and allegro_kuka_two_arms_golden.npz record the
+Reorientation subtask at 32 envs (6 steps), with each step's
+``pre_physics`` draws (the random object force's trigger and direction,
+``PRE_DRAWS``), the cuboid sizes as ``init_phys_shape`` and, per step,
+the state it starts from and each env's one-ulp spread (``ONE_STEP``);
+``--task AllegroKuka --kernel-route`` records it at 128 envs with every
+JAX kernel interpreted, its spread too (~40 min).  AllegroKukaTwoArms has no kernel route in
+the JAX engine: its plan exceeds the JAX dynamics kernels' VMEM budget at
+every block, and B4 takes their H^-1, so the engine runs its compacting
+XLA loop there (the assertion below refuses it).  The warm-up jits in
+~2.5 min (TwoArms ~6 min).
+
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
         [--kernel-route] [--phys-step]
 """
@@ -83,7 +98,8 @@ from isaacgymenvs_ma_tpu.ops import rng as rng_ops
 from isaacgymenvs_ma_tpu.physics import contact_kernel as jck
 from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
 from isaacgymenvs_ma_tpu.ops import maths as jmaths
-from isaacgymenvs_ma_tpu.tasks import (anymal, anymal_terrain, ant,
+from isaacgymenvs_ma_tpu.tasks import (allegro_kuka, anymal,
+                                       anymal_terrain, ant,
                                        ball_balance, cartpole,
                                        franka_cabinet, franka_collect_ma,
                                        franka_cube_stack, franka_cube_stack2,
@@ -198,6 +214,53 @@ def cartpole_draws(k_reset, task):
             "reset_vel": 0.5 * (jax.random.uniform(k2, (n, 2)) - 0.5)}
 
 
+def kuka_goal_draws(key, task):
+    """An AllegroKuka subtask's goal draws (allegro_kuka.py:408-414,
+    :724-750) in their sampler ranges: Reorientation the position's U[0, 1)
+    (N, 3) and the quaternion's U[0, 1) (N, 3); Regrasping the same
+    (the quaternion's unused); Throw the side U[-1, 1), the offset
+    U[0, 0.4), y U[-1, 0.7) and z U[0, 1) as ``goal_pos_u`` (N, 4)."""
+    n = task.num_envs
+    u = jax.random.uniform
+    if isinstance(task, allegro_kuka.AllegroKukaThrow):
+        ks = jax.random.split(key, 4)
+        return {"goal_pos_u": jnp.concatenate([
+                    u(ks[0], (n, 1), minval=-1.0, maxval=1.0),
+                    u(ks[1], (n, 1), minval=0.0, maxval=0.4),
+                    u(ks[2], (n, 1), minval=-1.0, maxval=0.7),
+                    u(ks[3], (n, 1), minval=0.0, maxval=1.0)], -1),
+                "goal_quat_u": jnp.zeros((n, 3), jnp.float32)}
+    k1, k2 = jax.random.split(key)
+    return {"goal_pos_u": u(k1, (n, 3)), "goal_quat_u": u(k2, (n, 3))}
+
+
+def kuka_draws(k_reset, task):
+    """AllegroKukaBase.reset_idx's draws (allegro_kuka.py:419-487): the
+    goal's, the dof positions' U[0, 1) and velocities' U[-1, 1) (N, nd),
+    the object's position noise U[-1, 1) (N, 3) and quaternion U[0, 1)
+    (N, 3), and the force probability's U[0, 1) (N,)."""
+    n, nd = task.num_envs, task.nd
+    u = jax.random.uniform
+    ks = jax.random.split(k_reset, 8)
+    d = kuka_goal_draws(ks[0], task)
+    d.update({"dof_u": u(ks[1], (n, nd)),
+              "dof_vel_u": u(ks[2], (n, nd), minval=-1.0, maxval=1.0),
+              "obj_pos_u": u(ks[3], (n, 3), minval=-1.0, maxval=1.0),
+              "obj_quat_u": u(ks[4], (n, 3)),
+              "force_prob_u": u(ks[5], (n,))})
+    return d
+
+
+def kuka_pre_draws(rng, task):
+    """AllegroKukaBase.pre_physics's draws (fold_in 23 of the state's key,
+    allegro_kuka.py:516-523): the force trigger's U[0, 1) (N,) and the new
+    force's N(0, 1) (N, 3)."""
+    k1, k2 = jax.random.split(jax.random.fold_in(rng, 23))
+    n = task.num_envs
+    return {"force_fire_u": jax.random.uniform(k1, (n,)),
+            "force_n": jax.random.normal(k2, (n, 3))}
+
+
 def humanoid_draws(k_reset, task):
     """Humanoid.reset_idx's draws (humanoid.py:144-146)."""
     n = task.num_envs
@@ -288,6 +351,9 @@ def quadcopter_draws(k_reset, task):
 # post_physics draws of the tasks that draw there: name -> draws(k_step)
 STEP_DRAWS = {"AnymalTerrain": anymal_terrain_step_draws,
               "Ingenuity": ingenuity_step_draws}
+# pre_physics draws of the tasks that draw there: name -> draws(state key)
+PRE_DRAWS = {"AllegroKuka": kuka_pre_draws,
+             "AllegroKukaTwoArms": kuka_pre_draws}
 # AnymalTerrain: the push counter set so that the third recorded step
 # pushes every base (its pushInterval_s is 750 steps)
 PUSH_AT = 2
@@ -296,8 +362,11 @@ PUSH_AT = 2
 # spread under one-ulp input noise: on AnymalTerrain's stairs, obstacles
 # and stepping stones one ulp of q and qd moves the JAX step's q by up to
 # 1e-1 (a foot on a stone's edge reads a 10 m bilinear cliff), so neither
-# package can follow the other over several steps
-ONE_STEP = ("AnymalTerrain",)
+# package can follow the other over several steps.  The AllegroKuka hands
+# amplify rounding as much in the envs where their fingers strike (one ulp
+# moves the JAX step's qd by up to ~5e-2 at one arm, ~1 at two): held
+# step by step, each env against its own spread
+ONE_STEP = ("AnymalTerrain", "AllegroKuka", "AllegroKukaTwoArms")
 SPREAD_RUNS = 8
 
 
@@ -459,6 +528,12 @@ TASKS = {  # name -> (class, config, draws, envs, file)
                          "franka_cube_stack2_golden.npz"),
     "Trifinger": (trifinger.Trifinger, trifinger.TASK_CFG, trifinger_draws,
                   32, "trifinger_golden.npz"),
+    "AllegroKuka": (allegro_kuka.AllegroKukaReorientation,
+                    allegro_kuka.TASK_CFG, kuka_draws, 32,
+                    "allegro_kuka_golden.npz"),
+    "AllegroKukaTwoArms": (allegro_kuka.AllegroKukaTwoArmsReorientation,
+                           allegro_kuka.TASK_CFG, kuka_draws, 32,
+                           "allegro_kuka_two_arms_golden.npz"),
 }
 # tasks with grab constraints: recorded with live grabs in half of the
 # envs (those after the first quarter, which resets), for GRAB_STEPS steps
@@ -601,10 +676,18 @@ def main():
         jdk._FORCE_INTERPRET = True
         eng = task.engine
         P = eng.n_ground + eng.n_pair_rows
+        # B4 takes H^-1 from the dynamics kernels: without them the JAX
+        # engine runs its compacting XLA loop.  AllegroKukaTwoArms' plan
+        # exceeds their VMEM budget at every block, so it has no kernel
+        # route to record (on the TPU either)
         assert jdk.supports(eng, n, jnp.float32) and jck.supports(
             eng, n, jnp.float32, P, len(eng.attractors), len(eng.grabs),
             bool(eng.pairs)), "the JAX engine would not take its kernels"
-        step = task.step        # eager: the flag is read while tracing
+        # traced with the flag set (it is read while tracing): the
+        # interpreted kernels compiled once (~3.5 min at AllegroKuka), then
+        # ~40 s a step against ~3 min eager.  A fresh function, so no
+        # trace of task.step without the flag is reused
+        step = jax.jit(lambda s, a: task.step(s, a))
     st0 = st
     t0 = time.perf_counter()
     for t in range(len(actions)):
@@ -617,6 +700,8 @@ def main():
         draws = draws_of(k_reset, task)
         if args.task in STEP_DRAWS:
             draws.update(STEP_DRAWS[args.task](k_step, task))
+        if args.task in PRE_DRAWS:
+            draws.update(PRE_DRAWS[args.task](st.rng, task))
         if task.randomizer is not None and st.phys is not None:
             draws.update(dr_draws(k_an, k_on, k_ph, st, task, (B, A)))
         for k, v in draws.items():

@@ -15,9 +15,11 @@ Scenes: Ant and BallBalance (both contact routes' plans), FrankaReachMA at
 its committed capture's warmed-up state (16 envs x 2 arms; its B4 plan from
 the kernel route), Cartpole (the smallest tree B1-B3 take: a fixed root, a
 SLIDE and a HINGE, nv 2; no contact plan), Humanoid (one 27-dof block),
-Anymal, Ingenuity and Quadcopter (no contact plan), and a seeded contact
-plan with every row group (the synthetic grab plan of chip_smoke.py: nv
-14, P 8, A 2, G 2, frames).
+Anymal, Ingenuity and Quadcopter (no contact plan), AllegroKuka and
+AllegroKukaTwoArms (the largest plans: TwoArms' B2 block of 201,248 B
+fills an SM's shared memory alone), and a seeded contact plan with every
+row group (the synthetic grab plan of chip_smoke.py: nv 14, P 8, A 2, G 2,
+frames).
 """
 import os
 import re
@@ -37,15 +39,19 @@ from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 SCENES = ("Ant", "BallBalance", "FrankaReachMA", "Cartpole", "Humanoid",
-          "Anymal", "Ingenuity", "Quadcopter")
+          "Anymal", "Ingenuity", "Quadcopter", "AllegroKuka",
+          "AllegroKukaTwoArms")
 BLOCK_SIZES = {"Ant": [14],               # the torso's free joint ties all
                "BallBalance": [12, 6],    # tray + legs, ball
                "FrankaReachMA": [9, 9, 6, 6],   # two arms, two cubes
                "Cartpole": [2],           # cart and pole under the slider
                "Humanoid": [27],          # a free base ties every dof
-               "Anymal": [18], "Ingenuity": [6], "Quadcopter": [14]}
+               "Anymal": [18], "Ingenuity": [6], "Quadcopter": [14],
+               # arm and hand under a fixed base, the free cube
+               "AllegroKuka": [23, 6], "AllegroKukaTwoArms": [23, 23, 6]}
 CONTACT_PLANS = ("Ant", "BallBalance", "FrankaReachMA", "Humanoid",
-                 "Anymal", "Ingenuity", "grab")
+                 "Anymal", "Ingenuity", "AllegroKuka", "AllegroKukaTwoArms",
+                 "grab")
 
 
 def _task(name, n, kernel_route):
@@ -64,7 +70,8 @@ def tasks():
             "Cartpole": _task("Cartpole", 4, True),
             **{name: _task(name, 4, True)
                for name in ("Humanoid", "Anymal", "Ingenuity",
-                            "Quadcopter")}}
+                            "Quadcopter", "AllegroKuka",
+                            "AllegroKukaTwoArms")}}
 
 
 def grab_plan():
@@ -263,10 +270,12 @@ def test_layout_rules():
 
 TEAMS = {"fk_motion": {"Ant": 8, "BallBalance": 8, "FrankaReachMA": 8,
                        "Cartpole": 8, "Humanoid": 8, "Anymal": 8,
-                       "Ingenuity": 8, "Quadcopter": 8},
+                       "Ingenuity": 8, "Quadcopter": 8, "AllegroKuka": 8,
+                       "AllegroKukaTwoArms": 8},
          "dyn_cached": {"Ant": 16, "BallBalance": 16, "FrankaReachMA": 32,
                         "Cartpole": 8, "Humanoid": 32, "Anymal": 16,
-                        "Ingenuity": 8, "Quadcopter": 16}}
+                        "Ingenuity": 8, "Quadcopter": 16, "AllegroKuka": 32,
+                        "AllegroKukaTwoArms": 32}}
 
 
 @pytest.mark.parametrize("kernel", list(TEAMS))
@@ -313,6 +322,41 @@ def test_loco_plan_layouts(tasks, name, kernel):
                                                                  kernel)]
     if kernel == "contact_solve":
         assert 2 * lay.smem_bytes <= 232448 or name == "Humanoid"
+
+
+# (team, envs a block, shared-memory bytes) of the AllegroKuka plans
+KUKA_LAYOUTS = {
+    ("AllegroKuka", "fk_motion"): (8, 32, 78768),
+    ("AllegroKuka", "dyn_forward"): (32, 8, 86688),
+    ("AllegroKuka", "dyn_cached"): (32, 8, 79504),
+    ("AllegroKuka", "contact_solve"): (32, 4, 91456),
+    ("AllegroKukaTwoArms", "fk_motion"): (8, 32, 147728),
+    ("AllegroKukaTwoArms", "dyn_forward"): (32, 8, 201248),
+    ("AllegroKukaTwoArms", "dyn_cached"): (32, 8, 151312),
+    ("AllegroKukaTwoArms", "contact_solve"): (32, 4, 180032),
+}
+
+
+@pytest.mark.parametrize("name,kernel", sorted(KUKA_LAYOUTS))
+def test_kuka_plan_layouts(tasks, name, kernel):
+    """The AllegroKuka plans (nb 26 / 50, nv 29 / 52; B4 over 34 rows (21
+    ground + 13 pair) / 44 (26 + 18) with frames): every block within the
+    H100's 232,448 B; TwoArms' B1-B4 blocks, B2's at 201,248 B the
+    largest of the port, run one block an SM."""
+    plan = (contact_plan(tasks, name) if kernel == "contact_solve"
+            else tasks[name].engine.plan)
+    lay = plan.layout(kernel)
+    assert (lay.team, lay.envs, lay.smem_bytes) == KUKA_LAYOUTS[(name,
+                                                                 kernel)]
+    two = name == "AllegroKukaTwoArms"
+    eng = tasks[name].engine
+    assert (eng.nb, eng.nv) == ((50, 52) if two else (26, 29))
+    if kernel == "contact_solve":
+        assert (plan.P, plan.A, plan.G, plan.nv, plan.has_frames) == (
+            (44 if two else 34), 0, 0, eng.nv, True)
+        assert (eng.n_ground, eng.n_pair_rows) == ((26, 18) if two
+                                                   else (21, 13))
+    assert (2 * lay.smem_bytes > 232448) == two
 
 
 def test_franka_contact_plan_fits(tasks):
@@ -372,7 +416,9 @@ def test_block_restricted_qdd_equals_dense_at_franka_capture(tasks):
 
 ACTIVE = {"Ant": 9, "BallBalance": 8, "FrankaReachMA": 32, "Cartpole": 2,
           # floating bases: every body is on the root's free joint
-          "Humanoid": 25, "Anymal": 13, "Ingenuity": 3, "Quadcopter": 9}
+          "Humanoid": 25, "Anymal": 13, "Ingenuity": 3, "Quadcopter": 9,
+          # all but the fixed arm bases and the table
+          "AllegroKuka": 24, "AllegroKukaTwoArms": 47}
 
 
 @pytest.mark.parametrize("name", SCENES)

@@ -11,10 +11,14 @@ contact-free path, which no route option changes) and Humanoid, Anymal,
 AnymalTerrain (on a 2 x 5 terrain map), Ingenuity and Quadcopter at 8 envs
 on both routes, FrankaReach, FrankaCabinet, FrankaCubeStack,
 FrankaCubeStack2 (the grab live in one env) and Trifinger (with its
-shipped domain randomization) at 4 envs on both routes, call
+shipped domain randomization) at 4 envs on both routes, the five
+AllegroKuka subtasks (per-env cuboid sizes) at 4 envs (the two
+Reorientation scenes on both routes), call
 ``spd_inverse``,
-run one PPO ``train_epoch`` of Cartpole at 16 envs, then check that neither ``jax*`` nor
-``isaacgymenvs_ma_tpu`` / ``isaacgymenvs_ma_tpu.*`` was loaded.
+run one PPO ``train_epoch`` of Cartpole at 16 envs, one of Cartpole with
+an LSTM network and one of Trifinger with its central-value critic, then
+check that neither ``jax*`` nor ``isaacgymenvs_ma_tpu`` /
+``isaacgymenvs_ma_tpu.*`` was loaded.
 """
 import os
 import subprocess
@@ -151,6 +155,48 @@ SCRIPT = textwrap.dedent("""
             if name == "Trifinger":   # the shipped randomization is on
                 assert state.phys is not None
                 assert res.states.shape == (4, 113)
+    from isaacgymenvs_ma_tpu_torch.tasks import allegro_kuka
+    for name, subtask, routes in (
+            ("AllegroKuka", "reorientation", (False, True)),
+            ("AllegroKuka", "regrasping", (False,)),
+            ("AllegroKuka", "throw", (False,)),
+            ("AllegroKukaTwoArms", "reorientation", (False, True)),
+            ("AllegroKukaTwoArmsLSTM", "regrasping", (False,))):
+        for kernel_route in routes:
+            cfg = deep_merge(registry.task_default_config(name),
+                             {"env": {"numEnvs": 4, "subtask": subtask}})
+            params = parse_sim_params(cfg["sim"])._replace(
+                use_contact_kernel=kernel_route)
+            task = registry.task_class(name)(cfg, device="cpu",
+                                             sim_params=params)
+            assert isinstance(task, allegro_kuka.AllegroKukaBase)
+            state = task.initial_state()
+            assert state.phys.shape.shape == (4, task.model.nb, 3)
+            for _ in range(2):
+                state, res = task.step(
+                    state, torch.tanh(torch.randn(4, task.num_actions)))
+            assert torch.isfinite(res.obs).all()
+            assert res.obs.shape == (4, task.num_obs)
+    from isaacgymenvs_ma_tpu_torch.learning import networks
+    tcfg = train_default_config("Cartpole")
+    tcfg["params"]["config"].update(minibatch_size=128, seq_len=4)
+    tcfg["params"]["network"]["rnn"] = {"name": "lstm", "units": 8}
+    agent = PPOAgent(Cartpole(deep_merge(CP_CFG, {"env": {"numEnvs": 16}}),
+                              device="cpu"), tcfg, seed=1)
+    agent.init()
+    assert isinstance(agent.net, networks.ActorCriticLSTM)
+    m = agent.train_epoch()
+    assert all(torch.isfinite(torch.as_tensor(v)).all() for v in m.values())
+    tcfg = train_default_config("Trifinger")
+    tcfg["params"]["config"]["minibatch_size"] = 16
+    tri = registry.task_class("Trifinger")(deep_merge(
+        registry.task_default_config("Trifinger"), {"env": {"numEnvs": 4}}),
+        device="cpu")
+    agent = PPOAgent(tri, tcfg, seed=1)
+    agent.init()
+    assert isinstance(agent.net, networks.AsymActorCritic)
+    m = agent.train_epoch()
+    assert all(torch.isfinite(torch.as_tensor(v)).all() for v in m.values())
     A = torch.randn(5, 7, 7)
     Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
     assert torch.isfinite(Hinv).all()
@@ -175,6 +221,7 @@ def test_port_imports_and_steps_without_jax():
     # tasks.registry), the MA tasks with grabs (franka_collect_ma,
     # franka_ppma, franka_combine_ma), the legged and aerial tasks with
     # the terrain and their specs, and the single-arm Franka tasks,
-    # Trifinger, its spec and the domain randomizer too
+    # Trifinger, its spec and the domain randomizer, the AllegroKuka tasks
+    # and their spec too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 56, proc.stdout
+    assert n_mods >= 58, proc.stdout

@@ -18,6 +18,8 @@ with its shipped domain randomization against the JAX package.
 * With the randomization live (generator draws): the setup-only scales sit
   on the cube only and in range, friction is resampled for the envs that
   reset, the noise moves actions and observations at the configured std.
+* ``train.py task=Trifinger`` trains with the config's central-value
+  critic and plays from its checkpoint.
 """
 import os
 
@@ -190,10 +192,29 @@ def test_randomization_live_on_the_generator():
     assert torch.equal(st3.phys.friction, f)
 
 
-def test_train_config_raises_on_the_central_value_critic():
-    """Trifinger's train config uses the asymmetric critic, which is not
-    ported (ROADMAP queue A, item 7d)."""
+def test_train_entry_point_trains_with_the_central_value(tmp_path,
+                                                         monkeypatch):
+    """``train.py task=Trifinger``: its config's asymmetric critic
+    (central_value_config, 113 privileged states) trains an epoch, and the
+    checkpoint carries the states' normaliser into the player."""
+    from isaacgymenvs_ma_tpu_torch import train as ptrain
+    from isaacgymenvs_ma_tpu_torch.learning.networks import AsymActorCritic
     tcfg = train_default_config("Trifinger")
     assert tcfg["params"]["config"].get("central_value_config")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PPOAgent(_port(8), tcfg)
+    tcfg["params"]["config"]["minibatch_size"] = 32
+    agent = PPOAgent(_port(8), tcfg)
+    assert agent.use_central_value and not agent.is_rnn
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(ptrain, "PLAY_STEPS", 4)
+    args = ["task=Trifinger", "num_envs=8", "max_iterations=1",
+            "train.params.config.minibatch_size=32",
+            "train.params.config.mini_epochs=1", "sim_device=cpu"]
+    agent = ptrain.launch(args)
+    assert isinstance(agent.net, AsymActorCritic)
+    assert float(agent.states_rms.count) > 1.0
+    assert agent.last_states.shape == (8, 113)
+    ckpt = next((tmp_path / "runs").glob("Trifinger_*/nn/Trifinger.pth"))
+    played = ptrain.launch(args + ["test=True", f"checkpoint={ckpt}"])
+    for f in ("mean", "var", "count"):
+        assert torch.equal(getattr(played.states_rms, f),
+                           getattr(agent.states_rms, f))
