@@ -10,8 +10,9 @@ Phases, each printing its own lines; any failure exits non-zero
      FrankaReachMA, Cartpole, FrankaCollectMA, FrankaPPMA,
      FrankaCombineMA, Humanoid, Anymal (AnymalTerrain's is the same),
      Ingenuity, Quadcopter, FrankaReach, FrankaCabinet, FrankaCubeStack
-     (FrankaCubeStack2's is the same), Trifinger, AllegroKuka and
-     AllegroKukaTwoArms scenes, B4 for the
+     (FrankaCubeStack2's is the same), Trifinger, AllegroKuka,
+     AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF and
+     AllegroHandLSTM scenes, B4 for the
      Ant, BallBalance, FrankaReachMA, FrankaCollectMA and FrankaPPMA
      contact plans (the last two with their grab group), the Humanoid,
      Anymal and Ingenuity plans, the FrankaReach, FrankaCabinet (grab
@@ -49,7 +50,11 @@ Phases, each printing its own lines; any failure exits non-zero
      mass and shape scales and B3 with the gravity wrench they scale at
      Ant-4096 (seeded scales), Trifinger-16384 (its drawn scales) and the
      two AllegroKuka scenes (their cuboid sizes),
-     with B2's time beside its time without scales; B5 on the two
+     with B2's time beside its time without scales; B1-B3 at
+     ShadowHand-8192 (H blocks 24 + 6), AllegroHand-8192 (16 + 6),
+     ShadowHandOpenAI_FF-16384 and AllegroHandLSTM-16384 on warmed-up
+     states (the hands split masses, so B4 is not on their path); B5 on
+     the two
      OSC inverses of a warmed-up FrankaReachMA-8192
      step ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and
      on seeded SPD matrices at (16384, 7, 7), (4096, 14, 14), (1024, 30,
@@ -58,7 +63,9 @@ Phases, each printing its own lines; any failure exits non-zero
      time per launch by CUPTI beside the bound (B3: also with only H^-1's
      block entries read), the one-thread kernels' recorded time (B1-B4),
      ptxas's registers and spills, and the launch layout (team, envs or
-     matrices per block, shared memory, blocks an SM by shared memory)
+     matrices per block, shared memory, blocks an SM by shared memory);
+     the plain twins timed over 3 x 5 calls, and at Ant and ShadowHand
+     also over the kernels' 5 x 20 (``[twin_timing]``)
   4. golden: the committed JAX captures replayed through the kernels: Ant
      and BallBalance, each on the default loop and on B4; FrankaReachMA on
      the default loop (compaction and row reuse) and, from its own
@@ -77,7 +84,10 @@ Phases, each printing its own lines; any failure exits non-zero
      kernel-route capture (128 envs) on B4, each one step at a time
      against the reference's own one-ulp spread, their object-force draws
      injected
-     (the JAX engine has no kernel route at TwoArms)
+     (the JAX engine has no kernel route at TwoArms); ShadowHand,
+     AllegroHand, ShadowHandOpenAI_FF and AllegroHandLSTM on the
+     mass-splitting loop, one step at a time, their reset, force and goal
+     draws injected
   5. main path, each phase with the launch counts set to 0 just before it:
      Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
      FrankaReachMA at 8192 envs x 2 arms on the default loop and on B4,
@@ -91,7 +101,14 @@ Phases, each printing its own lines; any failure exits non-zero
      shipped randomization on) on both routes and FrankaCubeStack2-8192 on
      the loop, AllegroKuka-8192 and AllegroKukaTwoArms-8192 (cuboid sizes
      per env, random object forces; B5 forbidden) on both routes,
-     100 steps each, tanh(obs @ W) actions;
+     ShadowHand-8192, AllegroHand-8192, ShadowHandOpenAI_FF-16384 and
+     AllegroHandLSTM-16384 with the contact kernel requested (mass
+     splitting takes the batched loop, the JAX route rule: B4 and B5
+     forbidden; after each a ``[mass_split]`` line, the share of active
+     rows scaled below 1 and the smallest scale, and at the Allegro
+     scenes a ``[dof_friction]`` line, the mean |friction torque|),
+     100 steps each (the hands' 50), tanh(obs @ W) actions;
+     each ``[main]`` line names the contact route the engine took;
      env-steps/s (and agent-steps/s), stream ms per step by CUDA events
      (the kernels and the device's idle gaps between them), launches per
      kernel, the host waits of one more step (CUDA sync debug mode) by
@@ -109,7 +126,9 @@ Phases, each printing its own lines; any failure exits non-zero
      with their configs (1 warm-up, 1 timed), AllegroKuka-8192 with the
      AllegroKukaLSTM config (the recurrent path: LSTM 768, seq_len 16) and
      Trifinger-16384 with its config (the central-value critic on 113
-     privileged states), 1 warm-up and 1 timed each, each epoch's seconds,
+     privileged states) and ShadowHandOpenAI_FF-16384 with its config
+     (the central-value critic on 211 privileged states, 3 engine steps
+     a step), 1 warm-up and 1 timed each, each epoch's seconds,
      rollout and update ms (CUDA events),
      training frames/s and losses; then Cartpole-512 through the ``train``
      entry point until its mean return passes 100, failing if it has not
@@ -119,8 +138,10 @@ last is the kernels JSON (a row per kernel at the scene where it runs
 first, launches summed over every phase, then a row per kernel at
 FrankaCollectMA, FrankaPPMA, Humanoid, Anymal, Ingenuity, Quadcopter,
 FrankaReach, FrankaCabinet, FrankaCubeStack, Trifinger, AllegroKuka,
-AllegroKukaTwoArms, AnymalTerrain
-(Anymal's kernels) and FrankaCubeStack2 (FrankaCubeStack's), launches
+AllegroKukaTwoArms, ShadowHand, AllegroHand, AnymalTerrain
+(Anymal's kernels), FrankaCubeStack2 (FrankaCubeStack's),
+ShadowHandOpenAI_FF (ShadowHand's) and AllegroHandLSTM (AllegroHand's),
+launches
 summed over that task's main phases), the last line {"ok": true,
 "device": {...}}.  Needs a CUDA
 device; never falls back to the CPU and never imports jax.
@@ -173,7 +194,22 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("allegro_kuka_b4", "AllegroKuka", True, 100, 8192),
     ("allegro_kuka_two_arms", "AllegroKukaTwoArms", False, 100, 8192),
     ("allegro_kuka_two_arms_b4", "AllegroKukaTwoArms", True, 100, 8192),
+    # the hands split masses: the contact kernel requested, the engine
+    # takes its batched loop (the JAX route rule)
+    ("shadow_hand", "ShadowHand", True, 50, 8192),
+    ("allegro_hand", "AllegroHand", True, 50, 8192),
+    ("shadow_hand_openai_ff", "ShadowHandOpenAI_FF", True, 50, 16384),
+    ("allegro_hand_lstm", "AllegroHandLSTM", True, 50, 16384),
 )
+# the tasks that split masses: their contact solve never runs B4
+MASS_SPLIT = ("ShadowHand", "AllegroHand", "ShadowHandOpenAI_FF",
+              "AllegroHandLSTM")
+# the hand scenes: B1-B3 on a warmed-up state at each main phase's width
+HAND_SCENES = ("shadow_hand", "allegro_hand", "shadow_hand_openai_ff",
+               "allegro_hand_lstm")
+# the scenes whose B1-B3 twins are also timed over the kernels' 5 x 20
+# calls beside twin_ms's 3 x 5 (``[twin_timing]``)
+TWIN_TIMING_SCENES = ("ant", "shadow_hand")
 # the Franka tasks with OSC (kernel B5 twice every step); FrankaCabinet
 # drives its arm with joint torques
 OSC_TASKS = ("FrankaReachMA", "FrankaCollectMA", "FrankaPPMA",
@@ -221,7 +257,9 @@ TRAIN_RUNS = (("train_ant", "ant", "Ant", 1, 3),
               # asymmetric one (central-value critic)
               ("train_allegro_kuka_lstm", "allegro_kuka", "AllegroKukaLSTM",
                1, 1),
-              ("train_trifinger", "trifinger", "Trifinger", 1, 1))
+              ("train_trifinger", "trifinger", "Trifinger", 1, 1),
+              ("train_shadow_hand_openai_ff", "shadow_hand_openai_ff",
+               "ShadowHandOpenAI_FF", 1, 1))
 # shared memory of one H100 SM (228 KB) and the 1 KB the runtime reserves
 # a block: a block's layout fits SM_SMEM // (smem + 1024) blocks an SM
 SM_SMEM, BLOCK_RESERVED = 233472, 1024
@@ -272,7 +310,7 @@ RECORDED_US = {("ant", "fk_motion"): 5.02,
                ("cartpole", "dyn_forward"): None,
                ("cartpole", "dyn_cached"): None,
                **{(scene, name): None
-                  for scene in LOCO_SCENES + SINGLE_SCENES
+                  for scene in LOCO_SCENES + SINGLE_SCENES + HAND_SCENES
                   for name in ("fk_motion", "dyn_forward", "dyn_cached",
                                "contact_solve")}}
 # B5's seeded stacks, (B, n, seed): the OSC sizes, the JAX kernel's own
@@ -324,6 +362,14 @@ def gpu_ms(torch, fn, batches=5, per_batch=20):
         end.synchronize()
         times.append(start.elapsed_time(end) / per_batch)
     return statistics.median(times)
+
+
+def twin_ms(torch, fn):
+    """``gpu_ms`` of a plain twin, over fewer calls: a twin takes 2-190 ms
+    a call (hundreds of small launches), so 3 batches of 5 calls, a sixth
+    of the kernels' 5 batches of 20 (``[twin_timing]`` lines set the two
+    side by side at TWIN_TIMING_SCENES)."""
+    return gpu_ms(torch, fn, batches=3, per_batch=5)
 
 
 def device_us(torch, fn, kernel, calls=20):
@@ -579,6 +625,15 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
     close = lambda what, a, b, rtol, atol, noise=None: hold(  # noqa: E731
         f"{scene} {what}", a, b, rtol, atol, noise)
 
+    def plain_ms(name, fn):
+        """``twin_ms`` of a twin; at TWIN_TIMING_SCENES also ``gpu_ms``'s
+        5 batches of 20 calls, in the same run (``[twin_timing]``)."""
+        ms = twin_ms(torch, fn)
+        if scene in TWIN_TIMING_SCENES:
+            phase("twin_timing", scene=scene, name=name,
+                  ms_3x5=f"{ms:.5f}", ms_5x20=f"{gpu_ms(torch, fn):.5f}")
+        return ms
+
     def noise(twin, names, *a):
         """{output name: rounding_noise pair} for the twin's outputs (named
         ``names`` in order) that ``widen`` names."""
@@ -595,7 +650,8 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
               close("fk_motion S", S, rS, 1e-5, 1e-5))
     report["fk_motion"] = dict(
         max_abs_err=err, ms=gpu_ms(torch, lambda: dk.fk_motion(plan, q_bl)),
-        plain_ms=gpu_ms(torch, lambda: dk._fk_motion_bl(plan, q_bl)),
+        plain_ms=plain_ms("fk_motion",
+                          lambda: dk._fk_motion_bl(plan, q_bl)),
         device_us=device_us(torch, lambda: dk.fk_motion(plan, q_bl),
                             "fk_motion_kernel"),
         bytes=nbytes(q_bl, bx, bq, S), flops=flops_fk(plan) * N)
@@ -628,7 +684,8 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
                          ((2e-4, 2e-4), (2e-4, 1e-5), (1e-5, 1e-5)))))
     report["dyn_forward"] = dict(
         max_abs_err=err, ms=gpu_ms(torch, lambda: dk.dyn_forward(plan, *args)),
-        plain_ms=gpu_ms(torch, lambda: dk.dyn_full_bl(plan, consts, *args)),
+        plain_ms=plain_ms("dyn_forward",
+                          lambda: dk.dyn_full_bl(plan, consts, *args)),
         device_us=device_us(torch, lambda: dk.dyn_forward(plan, *args),
                             "dyn_forward_kernel"),
         bytes=nbytes(*args, qdd, hinv, io), flops=flops_dyn_forward(plan) * N)
@@ -645,7 +702,8 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
     report["dyn_cached"] = dict(
         max_abs_err=err,
         ms=gpu_ms(torch, lambda: dk.dyn_cached(plan, *cargs)),
-        plain_ms=gpu_ms(torch, lambda: dk.dyn_cached_bl(plan, consts, *cargs)),
+        plain_ms=plain_ms("dyn_cached",
+                          lambda: dk.dyn_cached_bl(plan, consts, *cargs)),
         device_us=device_us(torch, lambda: dk.dyn_cached(plan, *cargs),
                             "dyn_cached_kernel"),
         bytes=nbytes(*cargs, qdd_c), flops=flops_dyn_cached(plan) * N,
@@ -824,7 +882,7 @@ def check_contact_kernel(torch, ck, call, scene, widen):
     N = a[0].shape[-1]
     return dict(max_abs_err=err,
                 ms=gpu_ms(torch, lambda: ck.solve_kernel(plan, *a, **k)),
-                plain_ms=gpu_ms(torch, lambda: ck.solve_bl(plan, *a, **k)),
+                plain_ms=twin_ms(torch, lambda: ck.solve_bl(plan, *a, **k)),
                 device_us=device_us(
                     torch, lambda: ck.solve_kernel(plan, *a, **k),
                     "contact_solve_kernel"),
@@ -880,7 +938,7 @@ def check_spd_kernel(torch, sk, dk, H, label, widen):
     print(f"[check] {label} spd_inverse max|H Hinv - I| kernel={resid[0]:.3g}"
           f" twin={resid[1]:.3g}", flush=True)
     return dict(max_abs_err=err, ms=gpu_ms(torch, lambda: sk.sweep_inverse(H)),
-                plain_ms=gpu_ms(torch, lambda: dk.sweep_inverse_bl(H_bl)),
+                plain_ms=twin_ms(torch, lambda: dk.sweep_inverse_bl(H_bl)),
                 library_ms=gpu_ms(torch, lambda: torch.linalg.inv(H)),
                 device_us=device_us(torch, lambda: sk.sweep_inverse(H),
                                     "spd_inverse_kernel"),
@@ -1212,6 +1270,73 @@ def check_single_kernels(torch, dk, sk, ck, ctl, task, task_b4, dev, scene,
     return rep, extra
 
 
+def check_hand_kernels(torch, dk, task, dev, scene):
+    """B1-B3 at a hand scene's full-width shapes on a state 30 steps in
+    (qd nudged by N(0, 0.3)), qdd and H^-1 held per env.  The hands split
+    masses, so their contact solve is the batched loop and B4 is not on
+    their path."""
+    st, _ = run_steps(torch, task, task.initial_state(),
+                      zero_obs(torch, task, dev), policy(torch, task, dev), 30)
+    gq = torch.Generator(device=dev).manual_seed(18)
+    qd = st.sim.qd + 0.3 * torch.randn(st.sim.qd.shape, generator=gq,
+                                       device=dev)
+    return check_dyn_kernels(torch, dk, task, st.sim.q.t().contiguous(),
+                             qd.t().contiguous(), dev, scene,
+                             ("qdd", "Hinv"))
+
+
+def hand_stats(torch, task, dev, tag, steps=10):
+    """The hands' engine features live on the main path: ``steps`` steps
+    of the tanh policy after 10 with the engine's row scale spied (every
+    solve's active rows and their scales summed on the card).  Prints the
+    share of active rows scaled below 1 and the smallest scale
+    (``[mass_split]``; fails unless some row is scaled) and, with dof
+    friction, the mean and largest |friction torque| mu tanh(qd / 0.05)
+    over the hand dofs of the states stepped from (``[dof_friction]``)."""
+    eng = task.engine
+    acc = torch.zeros(3, dtype=torch.float64, device=dev)
+    low = torch.ones((), device=dev)
+    split = eng.mass_split_scale
+
+    def spy(active, sel, frames):
+        nonlocal low
+        rs = split(active, sel, frames)
+        a = active.to(rs.dtype)
+        acc.add_(torch.stack([a.sum(), (a * (rs < 1.0)).sum(),
+                              torch.ones((), device=dev)]).double())
+        low = torch.minimum(low, torch.where(active, rs, 1.0).amin())
+        return rs
+
+    act = policy(torch, task, dev)
+    st, obs = run_steps(torch, task, task.initial_state(),
+                        zero_obs(torch, task, dev), act, 10)
+    fric = torch.zeros(2, dtype=torch.float64, device=dev)
+    eng.mass_split_scale = spy
+    try:
+        for _ in range(steps):
+            if eng.has_dof_friction:
+                tq = (eng.dof_friction * torch.tanh(st.sim.qd / 0.05)).abs()
+                fric[0] += tq[:, eng.dof_friction > 0].mean().double()
+                fric[1] = torch.maximum(fric[1], tq.amax().double())
+            st, res = task.step(st, act(obs))
+            obs = res.obs
+    finally:
+        del eng.mass_split_scale
+    n_act, n_low, solves = (float(v) for v in acc)
+    share = n_low / max(n_act, 1.0)
+    phase("mass_split", phase=tag, envs=task.num_envs, steps=steps,
+          solves=int(solves), active_rows_per_solve=f"{n_act / solves:.1f}",
+          scaled_share=f"{share:.4f}", min_scale=f"{float(low):.4f}")
+    if not share > 0.0:
+        raise RuntimeError(f"{tag}: no active contact row scaled by mass "
+                           "splitting")
+    if eng.has_dof_friction:
+        phase("dof_friction", phase=tag, envs=task.num_envs,
+              mean_abs_torque=f"{float(fric[0]) / steps:.6f}",
+              max_abs_torque=f"{float(fric[1]):.6f}",
+              friction=f"{float(eng.dof_friction.max()):.4f}")
+
+
 def host_waits(torch, task, state, act, obs):
     """Host waits for the card in one ``task.step`` (CUDA sync debug
     mode), by file and line."""
@@ -1290,7 +1415,7 @@ def main():
     dyn_scenes = ("ant", "ball_balance", "franka_reach_ma", "cartpole",
                   "franka_collect_ma", "franka_ppma", "franka_combine_ma",
                   *LOCO_SCENES, "anymal_terrain", *SINGLE_SCENES,
-                  "franka_cube_stack2")
+                  "franka_cube_stack2", *HAND_SCENES)
     b4_scenes = ("ant", "ball_balance", "franka_reach_ma", *GRAB_SCENES,
                  "humanoid", "anymal", "anymal_terrain", "ingenuity",
                  *SINGLE_SCENES)
@@ -1347,6 +1472,9 @@ def main():
             torch, dk, sk, ck, ctl, tasks[scene], tasks[scene + "_b4"], dev,
             scene, parity)
         spd_extra.update({f"{scene} {k}": v for k, v in extra.items()})
+    for scene in HAND_SCENES:
+        report[scene] = check_hand_kernels(torch, dk, tasks[scene], dev,
+                                           scene)
     # queue B item 7: B2 with per-env mass and shape scales and B3 with the
     # gravity wrench they scale, at Ant-4096 (seeded scales in the ranges of
     # tests/test_dyn_kernel.py:86) and at Trifinger-16384 (the scales its
@@ -1453,7 +1581,11 @@ def main():
                           ("trifinger_b4_golden.npz", (True,)),
                           ("allegro_kuka_golden.npz", (False,)),
                           ("allegro_kuka_b4_golden.npz", (True,)),
-                          ("allegro_kuka_two_arms_golden.npz", (False,))):
+                          ("allegro_kuka_two_arms_golden.npz", (False,)),
+                          ("shadow_hand_golden.npz", (False,)),
+                          ("allegro_hand_golden.npz", (False,)),
+                          ("shadow_hand_openai_ff_golden.npz", (False,)),
+                          ("allegro_hand_lstm_golden.npz", (False,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]
@@ -1514,8 +1646,13 @@ def main():
     scene_launches = collections.defaultdict(collections.Counter)
     for tag, name, kernel_route, steps, n_envs in PHASES:
         task = tasks[tag]
+        # a requested kernel route is B4, except where masses are split
+        route = task.engine.contact_route
+        if kernel_route and route != ("loop" if name in MASS_SPLIT
+                                      else "b4"):
+            raise RuntimeError(f"{tag} took the contact route {route}")
         expected = tuple(k for k in DYN if k not in NEVER.get(name, ())) + (
-            ("contact_solve",) if kernel_route else ())
+            ("contact_solve",) if route == "b4" else ())
         if name in OSC_TASKS:
             expected += ("spd_inverse",)
         forbidden = [k for k in KERNEL_WRAPPERS if k not in expected]
@@ -1534,7 +1671,7 @@ def main():
         if task.engine.grabs:
             agents["grab_live_share"] = f"{r['grab_share']:.6f}"
         phase("main", phase=tag, envs=n_envs, steps=steps,
-              seconds=f"{r['seconds']:.4f}",
+              contact_route=route, seconds=f"{r['seconds']:.4f}",
               env_steps_per_s=f"{n_envs * steps / r['seconds']:.1f}",
               **agents, stream_ms_per_step=f"{r['stream_ms']:.4f}",
               resets=r["resets"],
@@ -1543,6 +1680,8 @@ def main():
               wait_at=json.dumps(dict(r["host_waits"])).replace(" ", ""))
         if tag == "trifinger":
             dr_stats(torch, task, dev)
+        if name in MASS_SPLIT:
+            hand_stats(torch, task, dev, tag)
 
     clock.lap("main")
     # ---- 6. train: PPO epochs on the main phases' tasks, then Cartpole
@@ -1618,7 +1757,7 @@ def main():
     rows = [(name, JSON_SCENE[name], total[name]) for name in KERNELS]
     rows += [(name, scene, scene_launches[scene][name])
              for scene in GRAB_SCENES + LOCO_SCENES + SINGLE_SCENES
-             for name in report[scene]]
+             + HAND_SCENES for name in report[scene]]
     # FrankaCubeStack2 runs FrankaCubeStack's kernels (the same scene and
     # contact plan): its rows carry those checks and its own launches
     report["franka_cube_stack2"] = report["franka_cube_stack"]

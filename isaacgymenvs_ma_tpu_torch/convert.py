@@ -14,8 +14,9 @@ numpy arrays under flat dotted names, e.g. from a JAX ``EnvState`` ``st``::
 The ``task.*`` keys name the fields of one task's state class (Ant's
 ``AntTaskState``, BallBalance's ``BBTaskState``, FrankaReachMA's
 ``FrankaMATaskState``, the other MA tasks' ``CollectTaskState``,
-Anymal's, AnymalTerrain's, Ingenuity's, Quadcopter's, Trifinger's and
-AllegroKuka's ``KukaTaskState``);
+Anymal's, AnymalTerrain's, Ingenuity's, Quadcopter's, Trifinger's,
+AllegroKuka's ``KukaTaskState`` and the hands' ``HandTaskState``, whose
+``consecutive`` is a scalar);
 the class is picked by its field names, or given (Humanoid's
 ``HumanoidTaskState`` has Ant's fields, the single-arm Franka tasks'
 ``CubeStackTaskState`` and ``CabinetTaskState`` FrankaReachMA's).  The
@@ -50,13 +51,14 @@ from .tasks.franka_collect_ma import CollectTaskState
 from .tasks.franka_reach_ma import FrankaMATaskState
 from .tasks.ingenuity import IngenuityTaskState
 from .tasks.quadcopter import QuadTaskState
+from .tasks.shadow_hand import HandTaskState
 from .tasks.trifinger import TrifingerTaskState
 from .utils.domain_rand import PhysScales
 
 TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState,
                CollectTaskState, AnymalTaskState, ATTaskState,
                IngenuityTaskState, QuadTaskState, TrifingerTaskState,
-               KukaTaskState)
+               KukaTaskState, HandTaskState)
 
 
 def phys_from_jax(arrays: dict, device) -> PhysScales:

@@ -9,15 +9,19 @@ kinematics and dynamics chain run through the dispatching wrappers of
 for CPU tensors — exactly where the JAX engine runs its Pallas kernels
 (engine.py:802-803, :938-949).  With ``SimParams.use_contact_kernel`` the
 contact iteration loop runs through :func:`.contact_kernel.solve` (kernel
-B4, engine.py:1708-1735); otherwise it is a loop of batched products.
+B4, engine.py:1708-1735) unless the scene splits masses; otherwise it is a
+loop of batched products (:func:`takes_contact_kernel`, the JAX engine's
+own route rule; ``PhysicsEngine.contact_route`` names the route taken).
 :func:`spd_inverse` (OSC's two inverses) runs through kernel B5
 (:mod:`.spd_kernel`).
 
 Ported so far: what the Ant, BallBalance, Cartpole, the four
 multi-arm Franka, the Humanoid, Anymal, AnymalTerrain, Ingenuity and
-Quadcopter, the single-arm Franka and Trifinger steps run (per-env
-domain-randomization scales of mass, shape, friction, stiffness and
-damping; ground contact rows, on a flat plane or on a
+Quadcopter, the single-arm Franka, Trifinger, AllegroKuka, ShadowHand and
+AllegroHand steps run (per-env domain-randomization scales of mass, shape,
+friction, stiffness, damping, armature, effort limit and joint friction;
+dof dry friction; Jacobi mass splitting on the batched-product loop;
+ground contact rows, on a flat plane or on a
 heightfield terrain, body-pair contact rows against primitive SDFs with
 tangent frames, rigid-body attractors, conditional grab constraints
 switched per env by ``Control.grab_active``, external body wrenches
@@ -139,29 +143,37 @@ def spd_inverse(H: torch.Tensor) -> torch.Tensor:
     return spd_kernel.sweep_inverse(flat).reshape(H.shape)
 
 
+def takes_contact_kernel(params: SimParams) -> bool:
+    """Whether a scene with contact rows solves them through kernel B4:
+    ``use_contact_kernel`` without ``mass_splitting``, the JAX engine's own
+    route rule (engine.py:1290, ``kernel_on and not pr.mass_splitting``):
+    the split masses' per-row scale exists only on the batched-product
+    loop, which then compacts and reuses rows as on the default route."""
+    return bool(params.use_contact_kernel and not params.mass_splitting)
+
+
 def solver_rows_bf16(model, params: SimParams, n_rows: int) -> bool:
     """Whether the JAX engine stores the loop's row matrices in bfloat16
     (SimParams.solver_rows_bf16; None = its auto rule, engine.py:1798-1803:
     the rows left after active-set compaction times nv reach 1024).  The
-    kernel route has no bf16 rows."""
+    kernel route has no bf16 rows; a mass-split scene takes the loop
+    (:func:`takes_contact_kernel`), so the rule counts its rows."""
     if params.solver_rows_bf16 is not None:
         return bool(params.solver_rows_bf16)
     cap = params.contact_capacity
     rows = n_rows if cap is None else min(n_rows, int(cap))
-    return rows * int(model.nv) >= 1024 and not params.use_contact_kernel
+    return rows * int(model.nv) >= 1024 and not takes_contact_kernel(params)
 
 
 def _check_supported(model, params: SimParams, n_rows: int):
     """Reject every engine feature the port does not implement yet."""
     if params.warm_start > 0:
         _unsupported("contact warm start (warm_start > 0)")
-    if params.mass_splitting:
-        _unsupported("Jacobi mass splitting (mass_splitting)")
     if params.plane_restitution != 0.0:
         _unsupported("restitution")
     if solver_rows_bf16(model, params, n_rows):
         _unsupported("bfloat16 solver rows (solver_rows_bf16)")
-    for name in ("body_lin_damping", "body_ang_damping", "dof_friction"):
+    for name in ("body_lin_damping", "body_ang_damping"):
         v = np.asarray(getattr(model, name, np.zeros(0)))
         if v.size and v.any():
             _unsupported(f"model field {name}")
@@ -213,6 +225,12 @@ class PhysicsEngine:
         self.dof_damping = f32(m.dof_damping)
         self.dof_spring = f32(m.dof_spring)
         self.dof_armature = f32(m.dof_armature)
+        # per-dof Coulomb friction torque (engine.py:370-375)
+        dfr = np.asarray(getattr(m, "dof_friction", np.zeros(0)))
+        if len(dfr) != m.nv:
+            dfr = np.zeros(m.nv)
+        self.dof_friction = f32(dfr)
+        self.has_dof_friction = bool(np.any(dfr > 0.0))
         self.dof_lower = f32(m.dof_lower)
         self.dof_upper = f32(m.dof_upper)
         self.dof_has_limit = torch.as_tensor(
@@ -277,7 +295,7 @@ class PhysicsEngine:
                                      or self.grabs)
         # kernel B4's static plan: row masks per group, loop constants
         self.cplan = None
-        if params.use_contact_kernel and (self.n_ground or self.pairs):
+        if takes_contact_kernel(params) and (self.n_ground or self.pairs):
             masks = {"c": self.row_masks_np}
             if self.attractors:
                 masks["a"] = np.stack([a["mask"] for a in self.attractors])
@@ -286,6 +304,10 @@ class PhysicsEngine:
             self.cplan = ck.ContactPlan(
                 masks, self.nv, params.num_iterations, params.relaxation,
                 has_frames=bool(self.pairs))
+        # the route the contact solve takes: B4, the batched-product loop,
+        # or the joint-limit solve of a scene without contact rows or grabs
+        self.contact_route = ("b4" if self.cplan is not None else "loop"
+                              if self.has_contact_rows else "limit_solve")
 
     def _build_contact_set(self, m, ground, pair_specs):
         """Contact candidates (engine.py:415-470), body-pair rows
@@ -385,6 +407,16 @@ class PhysicsEngine:
             np.where(self.row_body_b >= 0, self.row_body_b, m.nb)
         ].reshape(-1, m.nb)
         self.seg = torch.as_tensor(seg_a - seg_b, device=dev)
+        # mass splitting: per row, a one-hot over the movable bodies it
+        # pushes (world and dof-less bodies left out), engine.py:514-524
+        movable = np.asarray(m.dof_body_mask).any(axis=0)       # (nb,)
+        oh = np.zeros((len(ra), m.nb), np.float32)
+        for r, (ba, bb) in enumerate(zip(ra, rb)):
+            if ba >= 0 and movable[ba]:
+                oh[r, ba] = 1.0
+            if bb >= 0 and movable[bb]:
+                oh[r, bb] = 1.0
+        self.row_body_oh = torch.as_tensor(oh, device=dev)     # (P, nb)
         self.sensor_body = np.asarray(m.sensor_body, np.int64)
         sp = np.asarray(m.sensor_pos)
         if sp.shape != (len(self.sensor_body), 3):
@@ -661,7 +693,10 @@ class PhysicsEngine:
         (engine.py:807-878): mass and shape into B2 and into B3's gravity
         wrench, stiffness and damping into the drives, the passive damping
         and the implicit diagonal, friction and shape into the contact
-        rows; its dof-property and restitution leaves raise."""
+        rows, ``armature``, ``effort`` and ``joint_friction`` into the
+        implicit diagonal, both effort clamps and the dof friction
+        (engine.py:860-870); its limit-shift and restitution leaves
+        raise."""
         if terrain is not None:
             if self.params.terrain_normal_frames:
                 _unsupported("terrain surface normals (terrain_normal_frames)")
@@ -675,26 +710,39 @@ class PhysicsEngine:
         mass_s = shape_s = fric_s = None
         kp_drive, kd_drive, d_damp = self.kp_drive, self.kd_drive, \
             self.dof_damping
+        armature, eff_lim = self.dof_armature, self.dof_effort_limit
+        jfric = self.dof_friction if self.has_dof_friction else None
         if phys is not None:
-            for leaf in ("joint_friction", "armature", "effort",
-                         "dof_lower_shift", "dof_upper_shift",
-                         "restitution"):
+            for leaf in ("dof_lower_shift", "dof_upper_shift", "restitution"):
                 if getattr(phys, leaf, None) is not None:
                     _unsupported(f"the physics scale {leaf} (ROADMAP queue "
-                                 "A, items 7b-7c)")
+                                 "A, item 7c)")
             mass_s, shape_s, fric_s = phys.mass, phys.shape, phys.friction
             # drive gains and passive damping (engine.py:856-859)
             kp_drive = kp_drive * phys.stiffness
             kd_drive = kd_drive * phys.damping
             d_damp = d_damp * phys.damping
+            # the dof-property leaves (engine.py:860-870); a joint-friction
+            # scale turns the friction term on even at zero friction, as
+            # in JAX
+            if phys.armature is not None:
+                armature = armature * phys.armature
+            if phys.effort is not None:
+                eff_lim = eff_lim * phys.effort
+            if phys.joint_friction is not None:
+                jfric = self.dof_friction * phys.joint_friction
         h = self.h
         N = q.shape[0]
         body_x, body_q, S, (bx_bl, bq_bl, S_bl) = self.kinematics(q)
 
         qpos_dof = q @ self.q_to_dof.T
-        eff_lim = self.dof_effort_limit
         tau = torch.clamp(ctrl.tau, -eff_lim, eff_lim)
         rhs = tau - self.dof_spring * (qpos_dof + h * qd) - d_damp * qd
+        if jfric is not None:
+            # joint dry friction, smooth Coulomb mu tanh(qd / v0); its
+            # slope at rest joins the implicit diagonal below
+            # (engine.py:880-885, :933-934)
+            rhs = rhs - jfric * torch.tanh(qd / 0.05)
         # PD drive with PhysX's drive-force limit; a saturated drive drops
         # its implicit stiffening from the diagonal (engine.py:886-904)
         drive = torch.zeros_like(rhs)
@@ -715,8 +763,10 @@ class PhysicsEngine:
                             -1)                                 # (N, nb, 6)
             rhs = rhs + torch.einsum("nvd,vb,nbd->nv", S,
                                      self.dof_body_mask_f, f_o)
-        diag = (self.dof_armature + h * d_damp + h * h * self.dof_spring
+        diag = (armature + h * d_damp + h * h * self.dof_spring
                 + imp * (h * kd_drive + h * h * kp_drive))
+        if jfric is not None:
+            diag = diag + h * jfric / 0.05
 
         rhs_bl = rhs.t().contiguous()
         qd_bl = qd.t().contiguous()
@@ -1162,6 +1212,12 @@ class PhysicsEngine:
         hinv_diag = torch.clamp(torch.diagonal(Hinv, dim1=-2, dim2=-1),
                                 min=1e-8)
         relax = pr.relaxation
+        # with mass splitting the contact rows step by relax * row_scale;
+        # the scale is taken in every solve from that solve's active set,
+        # on a cached substep too, where the JAX engine takes it
+        # (engine.py:1746-1782, after both the fresh and the cached branch)
+        rs = (relax * self.mass_split_scale(active, sel, frames_r)
+              if pr.mass_splitting and R > 0 else relax)
         for _ in range(pr.num_iterations):
             if G:
                 v_g = torch.bmm(gJ, qd[..., None])[..., 0].reshape(N, G, 3)
@@ -1175,15 +1231,15 @@ class PhysicsEngine:
             # against the new normal
             v_c = torch.bmm(J_flat, qd[..., None])[..., 0].reshape(N, R, 3)
             dv_n = b_n - v_c[..., 2]
-            lam_n = torch.clamp(lam[..., 2] + relax * dv_n / w_diag[..., 2],
+            lam_n = torch.clamp(lam[..., 2] + rs * dv_n / w_diag[..., 2],
                                 min=0.0)
             lam_n = torch.where(active, lam_n, 0.0)
             max_f = mu_r * lam_n
             lam_t1 = torch.clamp(
-                lam[..., 0] + relax * (-v_c[..., 0]) / w_diag[..., 0],
+                lam[..., 0] + rs * (-v_c[..., 0]) / w_diag[..., 0],
                 -max_f, max_f)
             lam_t2 = torch.clamp(
-                lam[..., 1] + relax * (-v_c[..., 1]) / w_diag[..., 1],
+                lam[..., 1] + rs * (-v_c[..., 1]) / w_diag[..., 1],
                 -max_f, max_f)
             lam_new = torch.stack([lam_t1, lam_t2, lam_n], dim=-1)
             lam_new = torch.where(active[..., None], lam_new, 0.0)
@@ -1212,6 +1268,28 @@ class PhysicsEngine:
             lam_w = torch.zeros_like(p).scatter(
                 1, sel[..., None].expand(-1, -1, 3), lam_w)
         return qd, lam_w, p, imp_dof, ccache_out
+
+    def mass_split_scale(self, active, sel, frames):
+        """Each row's step scale under mass splitting (engine.py:1739-1782):
+        1 / max(n_r, 1) (N, R), where n_r = sum_b oh_rb n_r^T C_b n_r and
+        C_b = sum_r' active_r' oh_r'b n_r' n_r'^T sums the outer products
+        of the normals of the active rows that push movable body b: R
+        coincident rows get 1 / R, orthogonal rows do not throttle each
+        other.  ``sel`` (N, R) the compaction's row indices or None,
+        ``frames`` (N, R, 3, 3) the row frames (normal: column 2) or None
+        (normals +z)."""
+        N, R = active.shape
+        oh = (self.row_body_oh[sel] if sel is not None
+              else self.row_body_oh.expand(N, R, self.nb))      # (N, R, nb)
+        if frames is not None:
+            n_w = frames[..., :, 2]                             # (N, R, 3)
+        else:
+            n_w = self._ez.expand(N, R, 3)
+        nn = (n_w[..., :, None] * n_w[..., None, :]).reshape(N, R, 9)
+        counts = torch.bmm((active.to(nn.dtype)[..., None] * oh
+                            ).transpose(1, 2), nn)              # (N, nb, 9)
+        n_r = torch.sum(oh * torch.bmm(nn, counts.transpose(1, 2)), -1)
+        return 1.0 / torch.clamp(n_r, min=1.0)
 
     @staticmethod
     def _to_world(lam, frames):

@@ -13,10 +13,16 @@ owns a ``torch.Generator`` (``task.generator``) for its random draws, and
 ``pre_draws`` (``pre_physics``'s, for the tasks that draw there:
 AllegroKuka's random object forces), ``step_draws`` (``post_physics``'s,
 for the tasks that draw there: AnymalTerrain's pushes and observation
-noise, Ingenuity's new targets) and ``dr_draws`` (the domain
-randomization's) so tests can inject the reference's draws.  A task that
-takes draws in one of those hooks takes them as its ``draws`` keyword,
-which the step passes only when it is given them.
+noise, Ingenuity's new targets, the hands' resampled goals) and
+``dr_draws`` (the domain randomization's) so tests can inject the
+reference's draws.  A task that takes draws in one of those hooks takes
+them as its ``draws`` keyword, which the step passes only when it is given
+them.
+
+A task whose ``post_physics`` needs values its ``pre_physics`` computed
+(the hands' new targets and object force) returns ``(Control, carry)``
+from ``pre_physics`` and takes the carry back as ``post_physics``'s
+``carry`` keyword, instead of keeping it on the task object.
 
 A task may restart the episode clock of some envs without resetting them
 (AllegroKuka on a success): its ``post_physics`` puts the mask in
@@ -260,6 +266,9 @@ class VecTaskBase:
         ctrl = self.pre_physics(
             state, actions,
             **({} if pre_draws is None else {"draws": pre_draws}))
+        post_kw = {} if step_draws is None else {"draws": step_draws}
+        if not isinstance(ctrl, Control):
+            ctrl, post_kw["carry"] = ctrl
         sim = state.sim
         terrain = self.step_terrain(sim)
         out = None
@@ -287,9 +296,7 @@ class VecTaskBase:
         out = self.engine.forward(sim, prev_out=out)
 
         mid = state._replace(sim=sim, progress=progress, task=task)
-        post = self.post_physics(
-            mid, out, actions,
-            **({} if step_draws is None else {"draws": step_draws}))
+        post = self.post_physics(mid, out, actions, **post_kw)
         obs, states, rew, reset, task, extras = post[:6]
         if len(post) == 7:
             sim = post[6]

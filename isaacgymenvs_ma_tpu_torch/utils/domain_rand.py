@@ -44,8 +44,9 @@ class PhysScales(NamedTuple):
     # correlated-noise bases (standard normal), refreshed at reset
     obs_corr: Optional[torch.Tensor] = None   # (N, num_obs)
     act_corr: Optional[torch.Tensor] = None   # (N, num_actions)
-    # dof-property and restitution leaves of the JAX package's ADR tasks;
-    # the port's engine raises on them (ROADMAP queue A, items 7b-7c)
+    # dof-property and restitution leaves of the JAX package's ADR tasks:
+    # the engine scales armature, effort limit and joint friction with
+    # the first three and raises on the others (ROADMAP queue A, item 7c)
     joint_friction: Optional[torch.Tensor] = None
     armature: Optional[torch.Tensor] = None
     effort: Optional[torch.Tensor] = None

@@ -19,8 +19,9 @@ between the two packages:
                                         the tasks that draw in
                                         post_physics those draws, named in
                                         STEP_DRAWS, and in pre_physics
-                                        (AllegroKuka's object forces),
-                                        named in PRE_DRAWS
+                                        (the object forces of
+                                        AllegroKuka and the hands), named
+                                        in PRE_DRAWS
     q, qd                               (T, N, nq|nv) f32  per-step state
 
 and, for a task with per-env physics scales (Trifinger's domain
@@ -49,7 +50,7 @@ from ..tasks import (allegro_kuka, anymal, anymal_terrain, ant,
                      franka_cabinet, franka_collect_ma, franka_combine_ma,
                      franka_cube_stack, franka_cube_stack2, franka_ppma,
                      franka_reach, franka_reach_ma, humanoid, ingenuity,
-                     quadcopter, trifinger)
+                     quadcopter, registry, shadow_hand, trifinger)
 
 # name -> (task class, configuration, task-state class or None)
 TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
@@ -95,6 +96,11 @@ TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
          "AllegroKukaTwoArms": (
              allegro_kuka.AllegroKukaTwoArmsReorientation,
              allegro_kuka.TASK_CFG, allegro_kuka.KukaTaskState)}
+# the hands, their configuration variants by registry name
+HANDS = ("ShadowHand", "AllegroHand", "ShadowHandOpenAI_FF",
+         "AllegroHandLSTM")
+TASKS.update({h: (registry.task_class(h), registry.task_default_config(h),
+                  shadow_hand.HandTaskState) for h in HANDS})
 KUKA_RESET_DRAWS = ("goal_pos_u", "goal_quat_u", "dof_u", "dof_vel_u",
                     "obj_pos_u", "obj_quat_u", "force_prob_u")
 # capture keys of each task's reset draws, in reset_idx's order
@@ -122,13 +128,17 @@ RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                              "obj_yaw", "goal_r_u", "goal_th", "goal_z",
                              "goal_yaw", "goal_quat_u"),
                "AllegroKuka": KUKA_RESET_DRAWS,
-               "AllegroKukaTwoArms": KUKA_RESET_DRAWS}
+               "AllegroKukaTwoArms": KUKA_RESET_DRAWS,
+               **{h: ("obj_pos_n", "obj_rot_ang", "dof_u", "goal_rot_ang")
+                  for h in HANDS}}
 # capture keys of the draws post_physics makes, in its order
 STEP_DRAWS = {"AnymalTerrain": ("push_vel", "noise_u"),
-              "Ingenuity": ("retarget_xy_u", "retarget_z_u")}
+              "Ingenuity": ("retarget_xy_u", "retarget_z_u"),
+              **{h: ("new_goal_ang",) for h in HANDS}}
 # capture keys of the draws pre_physics makes, in its order
 PRE_DRAWS = {"AllegroKuka": ("force_fire_u", "force_n"),
-             "AllegroKukaTwoArms": ("force_fire_u", "force_n")}
+             "AllegroKukaTwoArms": ("force_fire_u", "force_n"),
+             **{h: ("force_fire_u", "force_n") for h in HANDS}}
 
 # Per-step max abs error bounds of the Ant golden replay
 # (tests/data/torch_port/ant_golden.npz).  Measured on the CPU twins over
@@ -262,7 +272,18 @@ TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
               "FrankaCubeStack2": FRANKA_GOLDEN_TOL,
               "Trifinger": GROUND_RULE_TOL,
               "AllegroKuka": GROUND_RULE_TOL,
-              "AllegroKukaTwoArms": GROUND_RULE_TOL}
+              "AllegroKukaTwoArms": GROUND_RULE_TOL,
+              **{h: GROUND_RULE_TOL for h in HANDS}}
+# The hands' captures (shadow_hand_golden.npz, allegro_hand_golden.npz,
+# shadow_hand_openai_ff_golden.npz, allegro_hand_lstm_golden.npz; 32
+# envs, 6 steps on the mass-splitting loop) are held one step at a time as
+# the AllegroKuka ones, at GROUND_RULE_TOL.  On the CPU twins every held
+# env's error is within it even before the widening: ShadowHand q <=
+# 1.7e-6, qd <= 3.3e-4, obs <= 1.5e-4, reward <= 3.1e-5; AllegroHand q <=
+# 2.3e-6, qd <= 2.5e-4, obs <= 5.1e-5, reward <= 2.1e-5; OpenAI_FF (3
+# engine steps a step) q <= 1.8e-5, qd <= 1.3e-3, obs <= 1.7e-5, reward <=
+# 2.3e-6; AllegroHandLSTM q <= 9.7e-7, qd <= 1.8e-4, obs <= 1.1e-6,
+# reward <= 1.8e-6; resets exact.
 # one-step captures: the most held envs per step whose reset may differ
 # (a base contact force at the 1 N threshold, where the reference's noise
 # reaches)

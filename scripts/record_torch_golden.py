@@ -83,6 +83,20 @@ every block, and B4 takes their H^-1, so the engine runs its compacting
 XLA loop there (the assertion below refuses it).  The warm-up jits in
 ~2.5 min (TwoArms ~6 min).
 
+``--task ShadowHand``, ``AllegroHand``, ``ShadowHandOpenAI_FF`` and
+``AllegroHandLSTM`` -> shadow_hand_golden.npz, allegro_hand_golden.npz,
+shadow_hand_openai_ff_golden.npz and allegro_hand_lstm_golden.npz at 32
+envs (6 steps, each held one step at a time against the reference's own
+one-ulp spread, ``ONE_STEP``): the variants' configs from the JAX
+registry (OpenAI_FF: openai obs plus the 211 critic states, 3 engine
+steps a step, the random object force; AllegroHandLSTM: full_no_vel obs
+plus states, the per-env moving average, the force), with each step's
+reset draws, ``pre_physics``'s force draws (``fold_in(rng, 77)``) and
+``post_physics``'s goal draws (``fold_in(rng, 41)``).  Eight envs after the
+quarter flagged to reset start with their goal set to their cube's
+orientation, so the first step has successes (a bonus, a resampled goal
+and, with ``maxConsecutiveSuccesses``, a restarted episode clock).
+
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
         [--kernel-route] [--phys-step]
 """
@@ -98,6 +112,7 @@ from isaacgymenvs_ma_tpu.ops import rng as rng_ops
 from isaacgymenvs_ma_tpu.physics import contact_kernel as jck
 from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
 from isaacgymenvs_ma_tpu.ops import maths as jmaths
+from isaacgymenvs_ma_tpu.tasks import registry as jregistry
 from isaacgymenvs_ma_tpu.tasks import (allegro_kuka, anymal,
                                        anymal_terrain, ant,
                                        ball_balance, cartpole,
@@ -261,6 +276,50 @@ def kuka_pre_draws(rng, task):
             "force_n": jax.random.normal(k2, (n, 3))}
 
 
+def _hand_angles(key, n):
+    """ShadowHand._random_quat's draws: the angles about z and y, each
+    U[-pi, pi) (N,), as (N, 2)."""
+    k1, k2 = jax.random.split(key)
+    return jnp.stack([
+        jax.random.uniform(k1, (n,), minval=-np.pi, maxval=np.pi),
+        jax.random.uniform(k2, (n,), minval=-np.pi, maxval=np.pi)], -1)
+
+
+def hand_draws(k_reset, task):
+    """ShadowHand.reset_idx's draws (shadow_hand.py:436-468): the cube's
+    position noise N(0, 1) (N, 3), its orientation's angles (N, 2), the
+    dof noise U[0, 1) (N, num_hand_dofs) and the goal's angles (N, 2)."""
+    n = task.num_envs
+    ks = jax.random.split(k_reset, 5)
+    return {"obj_pos_n": jax.random.normal(ks[0], (n, 3)),
+            "obj_rot_ang": _hand_angles(ks[1], n),
+            "dof_u": jax.random.uniform(ks[2], (n, task.num_hand_dofs)),
+            "goal_rot_ang": _hand_angles(ks[3], n)}
+
+
+def hand_pre_draws(rng, task):
+    """ShadowHand.pre_physics's force draws (fold_in 77 of the state's
+    key, shadow_hand.py:416-421): the trigger's U[0, 1) (N,) and the new
+    force's N(0, 1) (N, 3)."""
+    k_fire, k_mag = jax.random.split(jax.random.fold_in(rng, 77))
+    n = task.num_envs
+    return {"force_fire_u": jax.random.uniform(k_fire, (n,)),
+            "force_n": jax.random.normal(k_mag, (n, 3))}
+
+
+def hand_step_draws(k_step, task):
+    """ShadowHand.post_physics's goal draws (fold_in 41 of the step's key,
+    shadow_hand.py:547-548): the resampled goals' angles (N, 2)."""
+    return {"new_goal_ang": _hand_angles(jax.random.fold_in(k_step, 41),
+                                         task.num_envs)}
+
+
+HANDS = {"ShadowHand": "shadow_hand_golden.npz",
+         "AllegroHand": "allegro_hand_golden.npz",
+         "ShadowHandOpenAI_FF": "shadow_hand_openai_ff_golden.npz",
+         "AllegroHandLSTM": "allegro_hand_lstm_golden.npz"}
+
+
 def humanoid_draws(k_reset, task):
     """Humanoid.reset_idx's draws (humanoid.py:144-146)."""
     n = task.num_envs
@@ -350,10 +409,12 @@ def quadcopter_draws(k_reset, task):
 
 # post_physics draws of the tasks that draw there: name -> draws(k_step)
 STEP_DRAWS = {"AnymalTerrain": anymal_terrain_step_draws,
-              "Ingenuity": ingenuity_step_draws}
+              "Ingenuity": ingenuity_step_draws,
+              **{h: hand_step_draws for h in HANDS}}
 # pre_physics draws of the tasks that draw there: name -> draws(state key)
 PRE_DRAWS = {"AllegroKuka": kuka_pre_draws,
-             "AllegroKukaTwoArms": kuka_pre_draws}
+             "AllegroKukaTwoArms": kuka_pre_draws,
+             **{h: hand_pre_draws for h in HANDS}}
 # AnymalTerrain: the push counter set so that the third recorded step
 # pushes every base (its pushInterval_s is 750 steps)
 PUSH_AT = 2
@@ -366,7 +427,7 @@ PUSH_AT = 2
 # amplify rounding as much in the envs where their fingers strike (one ulp
 # moves the JAX step's qd by up to ~5e-2 at one arm, ~1 at two): held
 # step by step, each env against its own spread
-ONE_STEP = ("AnymalTerrain", "AllegroKuka", "AllegroKukaTwoArms")
+ONE_STEP = ("AnymalTerrain", "AllegroKuka", "AllegroKukaTwoArms", *HANDS)
 SPREAD_RUNS = 8
 
 
@@ -534,7 +595,12 @@ TASKS = {  # name -> (class, config, draws, envs, file)
     "AllegroKukaTwoArms": (allegro_kuka.AllegroKukaTwoArmsReorientation,
                            allegro_kuka.TASK_CFG, kuka_draws, 32,
                            "allegro_kuka_two_arms_golden.npz"),
+    **{h: (jregistry.task_class(h), jregistry.task_default_config(h),
+           hand_draws, 32, f) for h, f in HANDS.items()},
 }
+# the hands' first step has successes in these envs (after the quarter
+# flagged to reset): their goals set to their cubes' orientations
+HAND_SUCCESS_ENVS = 8
 # tasks with grab constraints: recorded with live grabs in half of the
 # envs (those after the first quarter, which resets), for GRAB_STEPS steps
 # on the default loop; on the kernel route (128 envs) for T steps, which
@@ -655,6 +721,15 @@ def main():
             make_live = (cabinet_live_grabs if args.task == "FrankaCabinet"
                          else live_grabs)
             st = make_live(st, task, actions, grab_envs)
+        if args.task in HANDS:
+            e0 = n // 4
+            qa = task.obj_qa
+            goal = st.task.goal_rot.at[e0: e0 + HAND_SUCCESS_ENVS].set(
+                st.sim.q[e0: e0 + HAND_SUCCESS_ENVS, qa + 3: qa + 7])
+            st = st._replace(task=st.task._replace(goal_rot=goal))
+            print("envs with a nonzero object force:",
+                  int((jnp.abs(st.task.rb_force).sum(-1) > 0).sum()),
+                  flush=True)
         if args.task == "AnymalTerrain":
             st = st._replace(task=st.task._replace(common_step=jnp.asarray(
                 task.push_interval - 1 - PUSH_AT, jnp.int32)))

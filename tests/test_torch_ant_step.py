@@ -256,8 +256,7 @@ def test_generator_reset_draws_are_seeded():
 
 
 _UNPORTED = [
-    {"warm_start": 0.5},
-    {"mass_splitting": True}, {"solver_rows_bf16": True},
+    {"warm_start": 0.5}, {"solver_rows_bf16": True},
     {"plane_restitution": 0.5},
 ]
 
@@ -333,13 +332,15 @@ def test_unported_scene_features_raise(kwargs):
 
 def test_terrain_and_phys_raise():
     """Still unported, and raising: terrain surface normals
-    (``terrain_normal_frames``) and the dof-property leaves of the physics
-    scales (armature here; the others in tests/test_torch_domain_rand.py).
-    Terrain heightfields, external wrenches and the mass, shape, friction,
-    stiffness and damping scales raised until they were ported: now a zero
-    wrench and unit scales leave the step unchanged (the wrench parity is
-    tests/test_torch_aerial.py's, the terrain's tests/test_torch_terrain.py's,
-    the scales' tests/test_torch_domain_rand.py's)."""
+    (``terrain_normal_frames``) and the limit-shift and restitution leaves
+    of the physics scales (dof_lower_shift here; the others in
+    tests/test_torch_domain_rand.py).  Terrain heightfields, external
+    wrenches and the mass, shape, friction, stiffness, damping, armature,
+    effort and joint-friction scales raised until they were ported: now a
+    zero wrench and unit scales leave the step unchanged (the wrench parity
+    is tests/test_torch_aerial.py's, the terrain's
+    tests/test_torch_terrain.py's, the scales' tests/test_torch_domain_rand.py's
+    and tests/test_torch_mass_splitting.py's)."""
     from isaacgymenvs_ma_tpu_torch.utils.domain_rand import PhysScales
     from isaacgymenvs_ma_tpu_torch.physics.engine import PhysicsEngine
     from isaacgymenvs_ma_tpu_torch.physics.terrain import TerrainGrid
@@ -353,9 +354,13 @@ def test_terrain_and_phys_raise():
         normals.step(st.sim, ctrl, terrain=flat)
     with pytest.raises(NotImplementedError):
         t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4)._replace(
-            armature=torch.ones(4, 1)))
+            dof_lower_shift=torch.ones(4, 1)))
     ref, _ = t.engine.step(st.sim, ctrl)
     got, _ = t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4))
+    assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
+    one = torch.ones(4, 1)
+    got, _ = t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4)._replace(
+        armature=one, effort=one))
     assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
     got, _ = t.engine.step(st.sim, ctrl._replace(f_ext=torch.zeros(4, 9, 6)))
     assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
@@ -369,8 +374,8 @@ def test_domain_randomization_raises():
     """``task.randomize`` is ported (utils/domain_rand.py): Ant with a
     mass and friction spec steps with per-env scales, and an empty
     ``randomization_params`` leaves it unrandomized, as in the JAX
-    package.  What still raises is a dof-property or restitution leaf of
-    the scales (ROADMAP queue A, items 7b-7c)."""
+    package.  What still raises is a limit-shift or restitution leaf of
+    the scales (ROADMAP queue A, item 7c)."""
     from isaacgymenvs_ma_tpu_torch.physics.engine import Control
     cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": 4},
                                 "task": {"randomize": True}})
@@ -389,7 +394,7 @@ def test_domain_randomization_raises():
     assert st.phys.mass.shape == (4, 9) and (st.phys.mass != 1).all()
     st, res = t.step(st, torch.zeros(4, 8))
     assert torch.isfinite(res.obs).all() and (st.phys.friction != 1).all()
-    with pytest.raises(NotImplementedError, match="7b-7c"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         t.engine.step(st.sim, Control(tau=torch.zeros(4, 14)),
                       phys=st.phys._replace(restitution=torch.ones(4, 1)))
 

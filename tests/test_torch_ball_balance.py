@@ -246,12 +246,15 @@ def _assert_models_equal(a, b):
 
 
 @pytest.mark.parametrize("which", ["ant", "balance_bot", "humanoid", "anymal",
-                                   "ingenuity", "quadcopter", "kuka_allegro"])
+                                   "ingenuity", "quadcopter", "kuka_allegro",
+                                   "shadow_hand", "allegro_hand"])
 def test_copied_model_builders_match_jax(which):
     """The port's copies of build_ant / build_balance_bot, of the humanoid,
-    anymal and kuka_allegro specs and of build_ingenuity / build_quadcopter
-    give the JAX package's models (and rotor bodies) field by field."""
-    if which in ("humanoid", "anymal", "kuka_allegro"):
+    anymal, kuka_allegro, shadow_hand and allegro_hand specs and of
+    build_ingenuity / build_quadcopter give the JAX package's models (and
+    rotor bodies) field by field."""
+    if which in ("humanoid", "anymal", "kuka_allegro", "shadow_hand",
+                 "allegro_hand"):
         import importlib
         from isaacgymenvs_ma_tpu.models.model import model_from_spec as jmfs
         from isaacgymenvs_ma_tpu_torch.models.model import model_from_spec

@@ -176,14 +176,13 @@ def test_unit_scales_leave_the_step_unchanged(phys_step):
         assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
 
 
-@pytest.mark.parametrize("leaf", ["armature", "effort", "joint_friction",
-                                  "dof_lower_shift", "dof_upper_shift",
+@pytest.mark.parametrize("leaf", ["dof_lower_shift", "dof_upper_shift",
                                   "restitution"])
 def test_unported_scale_leaves_raise(leaf):
     tt = _port_task("Ant", 4)
     st = tt.initial_state()
     phys = tdr.PhysScales.ones(4)._replace(**{leaf: torch.ones(4, 1)})
-    with pytest.raises(NotImplementedError, match="7b-7c"):
+    with pytest.raises(NotImplementedError, match="item 7c"):
         tt.engine.step(st.sim, Control(tau=torch.zeros(4, 14)), phys=phys)
 
 

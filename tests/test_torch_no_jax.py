@@ -13,7 +13,10 @@ on both routes, FrankaReach, FrankaCabinet, FrankaCubeStack,
 FrankaCubeStack2 (the grab live in one env) and Trifinger (with its
 shipped domain randomization) at 4 envs on both routes, the five
 AllegroKuka subtasks (per-env cuboid sizes) at 4 envs (the two
-Reorientation scenes on both routes), call
+Reorientation scenes on both routes), ShadowHand and AllegroHand (mass
+splitting; AllegroHand's dof friction) at 4 envs with and without the
+contact-kernel request (both take the loop) and ShadowHandOpenAI_FF and
+AllegroHandLSTM (critic states, the random object force), call
 ``spd_inverse``,
 run one PPO ``train_epoch`` of Cartpole at 16 envs, one of Cartpole with
 an LSTM network and one of Trifinger with its central-value critic, then
@@ -177,6 +180,26 @@ SCRIPT = textwrap.dedent("""
                     state, torch.tanh(torch.randn(4, task.num_actions)))
             assert torch.isfinite(res.obs).all()
             assert res.obs.shape == (4, task.num_obs)
+    for name, routes in (("ShadowHand", (False, True)),
+                         ("AllegroHand", (False, True)),
+                         ("ShadowHandOpenAI_FF", (False,)),
+                         ("AllegroHandLSTM", (False,))):
+        for kernel_route in routes:
+            cfg = deep_merge(registry.task_default_config(name),
+                             {"env": {"numEnvs": 4}})
+            params = parse_sim_params(cfg["sim"])._replace(
+                use_contact_kernel=kernel_route)
+            task = registry.task_class(name)(cfg, device="cpu",
+                                             sim_params=params)
+            assert task.engine.contact_route == "loop"
+            state = task.initial_state()
+            for _ in range(2):
+                state, res = task.step(
+                    state, torch.tanh(torch.randn(4, task.num_actions)))
+            assert torch.isfinite(res.obs).all()
+            assert res.obs.shape == (4, task.num_obs)
+            if task.num_states:
+                assert res.states.shape == (4, task.num_states)
     from isaacgymenvs_ma_tpu_torch.learning import networks
     tcfg = train_default_config("Cartpole")
     tcfg["params"]["config"].update(minibatch_size=128, seq_len=4)
@@ -222,6 +245,6 @@ def test_port_imports_and_steps_without_jax():
     # franka_ppma, franka_combine_ma), the legged and aerial tasks with
     # the terrain and their specs, and the single-arm Franka tasks,
     # Trifinger, its spec and the domain randomizer, the AllegroKuka tasks
-    # and their spec too
+    # and their spec, the two hand tasks and their specs too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 58, proc.stdout
+    assert n_mods >= 62, proc.stdout

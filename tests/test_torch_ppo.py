@@ -224,7 +224,10 @@ def test_overrides_and_loaders_equal_jax():
 
 
 def test_registry_ports_four_tasks_and_names_the_rest():
-    assert pregistry.task_names() == ["AllegroKuka", "AllegroKukaLSTM",
+    assert pregistry.task_names() == ["AllegroHand", "AllegroHandFF",
+                                      "AllegroHandLSTM",
+                                      "AllegroHandLSTM_Big",
+                                      "AllegroKuka", "AllegroKukaLSTM",
                                       "AllegroKukaTwoArms",
                                       "AllegroKukaTwoArmsLSTM", "Ant",
                                       "Anymal", "AnymalTerrain",
@@ -234,7 +237,9 @@ def test_registry_ports_four_tasks_and_names_the_rest():
                                       "FrankaCubeStack2", "FrankaPPMA",
                                       "FrankaReach", "FrankaReachMA",
                                       "Humanoid", "Ingenuity", "Quadcopter",
-                                      "Trifinger"]
+                                      "ShadowHand", "ShadowHandOpenAI_FF",
+                                      "ShadowHandOpenAI_LSTM",
+                                      "ShadowHandTest", "Trifinger"]
     for name in jregistry.task_names() + sorted(jregistry._CONFIG_ONLY):
         if name in pregistry.task_names():
             # a class, or the subtask resolver of the AllegroKuka names
@@ -571,8 +576,10 @@ def test_launch_trains_saves_and_plays(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", ["multi_gpu=True", "pbt.enabled=True",
                                   "capture_video=True", "wandb_activate=True",
-                                  "headless=False", "task=ShadowHand",
-                                  "task=AllegroHand", "train=HumanoidAMP",
+                                  "headless=False",
+                                  "task=AllegroHandDextremeADR",
+                                  "task=AllegroHandManualDR",
+                                  "train=HumanoidAMP",
                                   "train=AntSAC"])
 def test_unported_flags_and_names_raise(flag, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
