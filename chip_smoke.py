@@ -11,8 +11,9 @@ Phases, each printing its own lines; any failure exits non-zero
      FrankaCombineMA, Humanoid, Anymal (AnymalTerrain's is the same),
      Ingenuity, Quadcopter, FrankaReach, FrankaCabinet, FrankaCubeStack
      (FrankaCubeStack2's is the same), Trifinger, AllegroKuka,
-     AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF and
-     AllegroHandLSTM scenes, B4 for the
+     AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF,
+     AllegroHandLSTM and Dextreme (AllegroHand's header: built once)
+     scenes, B4 for the
      Ant, BallBalance, FrankaReachMA, FrankaCollectMA and FrankaPPMA
      contact plans (the last two with their grab group), the Humanoid,
      Anymal and Ingenuity plans, the FrankaReach, FrankaCabinet (grab
@@ -52,8 +53,11 @@ Phases, each printing its own lines; any failure exits non-zero
      two AllegroKuka scenes (their cuboid sizes),
      with B2's time beside its time without scales; B1-B3 at
      ShadowHand-8192 (H blocks 24 + 6), AllegroHand-8192 (16 + 6),
-     ShadowHandOpenAI_FF-16384 and AllegroHandLSTM-16384 on warmed-up
-     states (the hands split masses, so B4 is not on their path); B5 on
+     ShadowHandOpenAI_FF-16384, AllegroHandLSTM-16384 and
+     AllegroHandDextremeADR-8192 on warmed-up states (the hands split
+     masses, so B4 is not on their path), and B2 with Dextreme-ADR's own
+     per-body mass scale from its ADR rows, B3 with the gravity wrench it
+     scales (``[scaled_kernel]``); B5 on
      the two
      OSC inverses of a warmed-up FrankaReachMA-8192
      step ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and
@@ -87,7 +91,18 @@ Phases, each printing its own lines; any failure exits non-zero
      (the JAX engine has no kernel route at TwoArms); ShadowHand,
      AllegroHand, ShadowHandOpenAI_FF and AllegroHandLSTM on the
      mass-splitting loop, one step at a time, their reset, force and goal
-     draws injected
+     draws injected; AllegroHandDextremeManualDR and AllegroHandDextremeADR
+     (the ADR one from widened ranges: restitution and limit shifts in the
+     engine) so, with every draw of their hooks injected and the RNA's
+     recorded weights
+  restitution: one engine step of AllegroHand-8192 (plane restitution
+     0.5, every cube thrown at the palm) with restitution 0.5 on every body
+     and seeded limit shifts on the card and on the CPU twins, held at the
+     ground-rule bounds widened per env by the CPU step's one-ulp spread;
+     the share of active rows whose bounce target binds; the route
+     ``engine.route_for`` gives the hand's call and an Ant-4096 call with
+     the contact kernel requested and restitution (the loop) and without
+     it (B4)
   5. main path, each phase with the launch counts set to 0 just before it:
      Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
      FrankaReachMA at 8192 envs x 2 arms on the default loop and on B4,
@@ -102,11 +117,15 @@ Phases, each printing its own lines; any failure exits non-zero
      the loop, AllegroKuka-8192 and AllegroKukaTwoArms-8192 (cuboid sizes
      per env, random object forces; B5 forbidden) on both routes,
      ShadowHand-8192, AllegroHand-8192, ShadowHandOpenAI_FF-16384 and
-     AllegroHandLSTM-16384 with the contact kernel requested (mass
-     splitting takes the batched loop, the JAX route rule: B4 and B5
-     forbidden; after each a ``[mass_split]`` line, the share of active
-     rows scaled below 1 and the smallest scale, and at the Allegro
-     scenes a ``[dof_friction]`` line, the mean |friction torque|),
+     AllegroHandLSTM-16384, AllegroHandDextremeManualDR-8192 and
+     AllegroHandDextremeADR-8192 with the contact kernel requested (mass
+     splitting, and ADR's restitution, take the batched loop, the JAX
+     route rule: B4 and B5 forbidden; after each a ``[mass_split]`` line,
+     the share of active rows scaled below 1 and the smallest scale, and
+     at the Allegro scenes a ``[dof_friction]`` line, the mean |friction
+     torque|; after Dextreme's an ``[rna]`` line, the share of envs the
+     RNA blends a step, and ADR's ``[adr]`` line: npd, queued boundary
+     episodes, the mean |limit shift| and restitution reaching the engine),
      100 steps each (the hands' 50), tanh(obs @ W) actions;
      each ``[main]`` line names the contact route the engine took;
      env-steps/s (and agent-steps/s), stream ms per step by CUDA events
@@ -116,7 +135,9 @@ Phases, each printing its own lines; any failure exits non-zero
      with a grab live; after Trifinger's, its randomization measured on
      the path: the spread of the drawn scales, the share of envs whose
      friction changed at a reset (every flagged env, no other) and the
-     noise std added to actions and observations against the config's
+     noise std added to actions and observations against the config's;
+     then ``[shim]``: ``ComplexObsRLGPUEnv`` over Dextreme-ADR-8192, each
+     group's shape and ``reset_done``'s count
   6. train, each run with the launch counts set to 0 just before it: PPO
      (``learning/ppo.py``) on Ant-4096 with the Ant train config (1
      warm-up epoch, 3 timed) and on FrankaReachMA at 8192 envs x 2 arms
@@ -128,7 +149,9 @@ Phases, each printing its own lines; any failure exits non-zero
      Trifinger-16384 with its config (the central-value critic on 113
      privileged states) and ShadowHandOpenAI_FF-16384 with its config
      (the central-value critic on 211 privileged states, 3 engine steps
-     a step), 1 warm-up and 1 timed each, each epoch's seconds,
+     a step) and AllegroHandDextremeADR-8192 with its config (the central
+     value on 112 true states; ``adr_npd`` printed), 1 warm-up and 1 timed
+     each, each epoch's seconds,
      rollout and update ms (CUDA events),
      training frames/s and losses; then Cartpole-512 through the ``train``
      entry point until its mean return passes 100, failing if it has not
@@ -138,10 +161,10 @@ last is the kernels JSON (a row per kernel at the scene where it runs
 first, launches summed over every phase, then a row per kernel at
 FrankaCollectMA, FrankaPPMA, Humanoid, Anymal, Ingenuity, Quadcopter,
 FrankaReach, FrankaCabinet, FrankaCubeStack, Trifinger, AllegroKuka,
-AllegroKukaTwoArms, ShadowHand, AllegroHand, AnymalTerrain
-(Anymal's kernels), FrankaCubeStack2 (FrankaCubeStack's),
-ShadowHandOpenAI_FF (ShadowHand's) and AllegroHandLSTM (AllegroHand's),
-launches
+AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF,
+AllegroHandLSTM, AllegroHandDextremeADR, AllegroHandDextremeManualDR
+(ADR's), FrankaCubeStack2 (FrankaCubeStack's) and AnymalTerrain
+(Anymal's), launches
 summed over that task's main phases), the last line {"ok": true,
 "device": {...}}.  Needs a CUDA
 device; never falls back to the CPU and never imports jax.
@@ -200,13 +223,21 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("allegro_hand", "AllegroHand", True, 50, 8192),
     ("shadow_hand_openai_ff", "ShadowHandOpenAI_FF", True, 50, 16384),
     ("allegro_hand_lstm", "AllegroHandLSTM", True, 50, 16384),
+    # Dextreme: AllegroHand's scene; ADR's rows bring restitution and limit
+    # shifts to the engine, which keep it on the loop too
+    ("allegro_hand_dextreme_manual_dr", "AllegroHandDextremeManualDR", True,
+     50, 8192),
+    ("allegro_hand_dextreme_adr", "AllegroHandDextremeADR", True, 50, 8192),
 )
 # the tasks that split masses: their contact solve never runs B4
 MASS_SPLIT = ("ShadowHand", "AllegroHand", "ShadowHandOpenAI_FF",
-              "AllegroHandLSTM")
+              "AllegroHandLSTM", "AllegroHandDextremeManualDR",
+              "AllegroHandDextremeADR")
+DEXTREME = ("AllegroHandDextremeManualDR", "AllegroHandDextremeADR")
 # the hand scenes: B1-B3 on a warmed-up state at each main phase's width
+# (ManualDR runs the ADR scene's kernels)
 HAND_SCENES = ("shadow_hand", "allegro_hand", "shadow_hand_openai_ff",
-               "allegro_hand_lstm")
+               "allegro_hand_lstm", "allegro_hand_dextreme_adr")
 # the scenes whose B1-B3 twins are also timed over the kernels' 5 x 20
 # calls beside twin_ms's 3 x 5 (``[twin_timing]``)
 TWIN_TIMING_SCENES = ("ant", "shadow_hand")
@@ -236,8 +267,10 @@ LOCO_B4 = {"humanoid": "humanoid_b4", "anymal": "anymal_terrain_b4",
 SINGLE_SCENES = ("franka_reach", "franka_cabinet", "franka_cube_stack",
                  "trifinger", "allegro_kuka", "allegro_kuka_two_arms")
 # the scenes whose B2 and B3 are also timed with and without their
-# physics scales (``[scaled_kernel]``): their drawn or catalog scales
-SCALED_SCENES = ("trifinger", "allegro_kuka", "allegro_kuka_two_arms")
+# physics scales (``[scaled_kernel]``): their drawn or catalog scales;
+# Dextreme-ADR's per-body mass scale from its ADR rows (no shape scale)
+SCALED_SCENES = ("trifinger", "allegro_kuka", "allegro_kuka_two_arms",
+                 "allegro_hand_dextreme_adr")
 # kernels a task's main phases must not launch: AnymalTerrain does not
 # reuse the mass matrix (B2 on every substep, never B3)
 NEVER = {"AnymalTerrain": ("dyn_cached",)}
@@ -259,7 +292,10 @@ TRAIN_RUNS = (("train_ant", "ant", "Ant", 1, 3),
                1, 1),
               ("train_trifinger", "trifinger", "Trifinger", 1, 1),
               ("train_shadow_hand_openai_ff", "shadow_hand_openai_ff",
-               "ShadowHandOpenAI_FF", 1, 1))
+               "ShadowHandOpenAI_FF", 1, 1),
+              # the central-value critic on 112 true states, ADR adapting
+              ("train_allegro_hand_dextreme_adr", "allegro_hand_dextreme_adr",
+               "AllegroHandDextremeADR", 1, 1))
 # shared memory of one H100 SM (228 KB) and the 1 KB the runtime reserves
 # a block: a block's layout fits SM_SMEM // (smem + 1024) blocks an SM
 SM_SMEM, BLOCK_RESERVED = 233472, 1024
@@ -714,7 +750,8 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
 def check_scaled_dyn(torch, dk, task, q_bl, qd_bl, mass, shape, dev, scene,
                      widen):
     """B2 with per-env ``mass`` (N, nb) and ``shape`` (N, nb, 3) scales
-    (batch-last (nb, N) and (nb, 3, N) for the kernel) against its twin
+    (batch-last (nb, N) and (nb, 3, N) for the kernel; ``shape`` None: the
+    mass scale alone, as Dextreme-ADR's rows give it) against its twin
     with the same scales, and B3 against its twin with the gravity wrench
     those scales give (engine.gravity_wrench), at ``hold``'s B2 / B3
     bounds (qdd and H^-1 widened per env with ``widen``).  Prints B2's
@@ -730,7 +767,7 @@ def check_scaled_dyn(torch, dk, task, q_bl, qd_bl, mass, shape, dev, scene,
     c64 = {k: v.double() for k, v in consts.items()}
     bx, bq, S = dk._fk_motion_bl(plan, q_bl)
     ms_bl = mass.expand(N, plan.nb).t().contiguous()
-    ss_bl = shape.permute(1, 2, 0).contiguous()
+    ss_bl = None if shape is None else shape.permute(1, 2, 0).contiguous()
     args = (bx, bq, S, qd_bl, rhs_bl, diag_bl, ms_bl, ss_bl)
     out = dk.dyn_forward(plan, *args)
     ref = dk.dyn_full_bl(plan, consts, *args)
@@ -765,7 +802,8 @@ def check_scaled_dyn(torch, dk, task, q_bl, qd_bl, mass, shape, dev, scene,
           bound_us=f"{b_us:.2f}", max_abs_err=f"{errs['dyn_forward']:.3g}",
           cached_max_abs_err=f"{errs['dyn_cached']:.3g}",
           mass_range=f"{float(mass.min()):.4f}-{float(mass.max()):.4f}",
-          shape_range=f"{float(shape.min()):.4f}-{float(shape.max()):.4f}")
+          shape_range=("none" if shape is None else
+                       f"{float(shape.min()):.4f}-{float(shape.max()):.4f}"))
     return errs
 
 
@@ -1337,6 +1375,209 @@ def hand_stats(torch, task, dev, tag, steps=10):
               friction=f"{float(eng.dof_friction.max()):.4f}")
 
 
+def restitution_phase(torch, np, tasks, dev, steps_in=30):
+    """``[restitution]``: one engine step of the AllegroHand scene at
+    8192 envs (plane restitution 0.5) on the card and on the CPU twins from
+    the same state (30 policy steps in, every cube thrown at the palm at 1
+    m/s), control and physics scales (restitution 0.5 on every body,
+    limit shifts U(-0.1, 0.1) on the hand dofs from a seed), held at the
+    ground-rule bounds (q rtol 2e-4 / atol 2e-5, qd 3e-3: a pair scene)
+    with each env's bound widened by four times the CPU step's own move
+    under one-ulp noise on q and qd (two nudged runs).  Prints the share
+    of active rows whose bounce target binds in the card's step (fails
+    unless above 0) and the route ``engine.route_for`` gives for the hand
+    scene's call and for an Ant-4096 call with the contact kernel
+    requested and restitution (fails unless both read the loop)."""
+    from isaacgymenvs_ma_tpu_torch.utils.domain_rand import PhysScales
+    base = tasks["allegro_hand"]
+    n, nb, nv = base.num_envs, base.engine.nb, base.engine.nv
+    params = base.sim_params._replace(plane_restitution=0.5)
+    card = type(base)(base.cfg, device=dev, seed=1, sim_params=params)
+    cpu = type(base)(base.cfg, device="cpu", seed=1, sim_params=params)
+    st, obs = run_steps(torch, card, card.initial_state(),
+                        zero_obs(torch, card, dev), policy(torch, card, dev),
+                        steps_in)
+    qd = st.sim.qd.clone()
+    qd[:, card.obj_va + 2] = -1.0
+    st = st._replace(sim=st.sim._replace(qd=qd))
+    ctrl, _ = card.pre_physics(st, policy(torch, card, dev)(obs))
+    g = np.random.default_rng(15)
+    shift = np.zeros((n, nv), np.float32)
+    shift[:, card.hand_dofs] = g.uniform(-0.1, 0.1,
+                                         (n, len(card.hand_dofs)))
+
+    def scales(device):
+        one = torch.ones((n, 1), device=device)
+        sh = torch.as_tensor(shift, device=device)
+        return PhysScales(one, one, one, one, dof_lower_shift=sh,
+                          dof_upper_shift=-sh,
+                          restitution=torch.full((n, nb), 0.5,
+                                                 device=device))
+    # the card's step with its bounce targets counted
+    eng = card.engine
+    normal, bounce = eng._normal_targets, eng._bounce_targets
+    last = {}
+    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+
+    def normal_targets(phi):
+        last["active"], b_n = normal(phi)
+        return last["active"], b_n
+
+    def bounce_targets(b_n, e_rows, J_flat, qd_, R):
+        lifted = bounce(b_n, e_rows, J_flat, qd_, R)
+        act = last["active"]
+        acc.add_(torch.stack([act.sum(), (act & (lifted > b_n)).sum()])
+                 .double())
+        return lifted
+
+    eng._normal_targets, eng._bounce_targets = normal_targets, bounce_targets
+    try:
+        phys = scales(dev)
+        got, _ = eng.step(st.sim, ctrl, phys=phys)
+    finally:
+        del eng._normal_targets, eng._bounce_targets
+    cpu_ctrl = ctrl._replace(**{k: getattr(ctrl, k).cpu() for k in (
+        "tau", "pos_target", "vel_target", "f_ext")
+        if getattr(ctrl, k) is not None})
+    sim0 = st.sim._replace(q=st.sim.q.cpu(), qd=st.sim.qd.cpu())
+    t0 = time.perf_counter()
+    ref, _ = cpu.engine.step(sim0, cpu_ctrl, phys=scales("cpu"))
+    cpu_s = time.perf_counter() - t0
+    gn = torch.Generator().manual_seed(16)
+    spread = {"q": torch.zeros(n, dtype=torch.float64),
+              "qd": torch.zeros(n, dtype=torch.float64)}
+    for _ in range(2):
+        nudge = lambda x: x * (1 + (torch.randint(  # noqa: E731
+            0, 2, x.shape, generator=gn) * 2 - 1) * 2.0 ** -23)
+        alt, _ = cpu.engine.step(sim0._replace(q=nudge(sim0.q),
+                                               qd=nudge(sim0.qd)),
+                                 cpu_ctrl, phys=scales("cpu"))
+        for k in spread:
+            d = (getattr(alt, k) - getattr(ref, k)).abs().amax(-1).double()
+            spread[k] = torch.maximum(spread[k], d)
+    errs = {}
+    for k, rtol, atol in (("q", 2e-4, 2e-5), ("qd", 3e-3, 3e-3)):
+        a = getattr(got, k).cpu().double()
+        b = getattr(ref, k).double()
+        tol = atol + rtol * b.abs() + 4.0 * spread[k][:, None]
+        diff = (a - b).abs()
+        errs[k] = float(diff.max())
+        print(f"[check] restitution {k} max_abs_err={errs[k]:.3g} "
+              f"max_bound={float(tol.max()):.3g} "
+              f"median_bound={float(tol.median()):.3g} "
+              f"median_env_spread={float(spread[k].median()):.3g}",
+              flush=True)
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"restitution {k}: card vs CPU differs by "
+                                 f"{errs[k]:.3g} beyond its bound")
+    active, binds = (float(v) for v in acc)
+    share = binds / max(active, 1.0)
+    ant = tasks["ant_b4"]
+    na = ant.num_envs
+    ant_phys = PhysScales.ones(na, dev)._replace(
+        restitution=torch.full((na, 1), 0.5, device=dev))
+    routes = {"hand": eng.route_for(phys), "ant_b4": ant.engine.route_for(
+        ant_phys), "ant_b4_without": ant.engine.route_for(None)}
+    phase("restitution", envs=n, bounce_binding_share=f"{share:.6f}",
+          active_rows=int(active), binding_rows=int(binds),
+          q_err=f"{errs['q']:.3g}", qd_err=f"{errs['qd']:.3g}",
+          cpu_seconds=f"{cpu_s:.2f}", route_hand=routes["hand"],
+          route_ant_b4=routes["ant_b4"],
+          route_ant_b4_without=routes["ant_b4_without"])
+    if not share > 0.0:
+        raise RuntimeError("no active row's bounce target binds")
+    if routes["hand"] != "loop" or routes["ant_b4"] != "loop" or \
+            routes["ant_b4_without"] != "b4":
+        raise RuntimeError(f"restitution routes {routes}")
+
+
+def dextreme_stats(torch, task, dev, tag, steps=10):
+    """Dextreme's randomization on the main path: ``steps`` steps of the
+    tanh policy after 10 with ``pre_physics`` spied.  ``[rna]``: the share
+    of envs whose actions the RNA blends in a step (U < rnaProb and a
+    blend weight above 0: the fixed 0.2 at ManualDR, the ADR row's
+    ``rna_alpha``, whose initial range is 0, at ADR).  ``[adr]`` (ADR):
+    ``adr_npd``, the boundary episodes queued, and the mean |limit shift|
+    over the hand dofs and the mean restitution over the bodies that
+    reach the engine."""
+    pre = task.pre_physics
+    acc = torch.zeros(2, dtype=torch.float64, device=dev)
+
+    def spy(state, actions, draws=None):
+        d = task.draw_pre() if draws is None else draws
+        alpha = task._adr_value(state.task, "rna_alpha")
+        acc.add_(torch.stack([((d.rna_u < task.rna_prob) & (alpha > 0))
+                              .double().mean(),
+                              torch.ones((), device=dev).double()]))
+        return pre(state, actions, draws=d)
+
+    act = policy(torch, task, dev)
+    st, obs = run_steps(torch, task, task.initial_state(),
+                        zero_obs(torch, task, dev), act, 10)
+    task.pre_physics = spy
+    try:
+        st, obs = run_steps(torch, task, st, obs, act, steps)
+    finally:
+        del task.pre_physics
+    blended, n = (float(v) for v in acc)
+    phase("rna", phase=tag, envs=task.num_envs, steps=steps,
+          blended_share=f"{blended / n:.6f}", rna_prob=task.rna_prob,
+          refresh_interval=task.rna_refresh)
+    if not task.use_adr:
+        if not blended > 0.0:
+            raise RuntimeError(f"{tag}: the RNA blended no env")
+        return
+    a = st.task.adr
+    ph = task.update_phys(st, None)
+    hd = torch.as_tensor(task.hand_dofs, device=dev)
+    phase("adr", phase=tag, envs=task.num_envs,
+          adr_npd=f"{float(task.adr.npd(a)):.6f}",
+          queued_episodes=int(float(a.perf_cnt.sum())),
+          range_updates=int(float(a.num_updates.sum())),
+          mean_abs_limit_shift=f"{float(ph.dof_lower_shift[:, hd].abs().mean() + ph.dof_upper_shift[:, hd].abs().mean()) / 2:.6f}",
+          mean_restitution=f"{float(ph.restitution.mean()):.6f}",
+          route=task.engine.route_for(ph))
+    if task.engine.route_for(ph) != "loop":
+        raise RuntimeError(f"{tag}: the ADR scales do not take the loop")
+
+
+def shim_phase(torch, task, dev, steps=5):
+    """``[shim]``: ``utils.rlgames_utils.ComplexObsRLGPUEnv`` over a
+    Dextreme task: ``steps`` steps of the tanh policy on the policy
+    groups, each group's shape, then ``reset_done`` with every fourth env
+    flagged: the count of done ids returned."""
+    from isaacgymenvs_ma_tpu_torch.utils.rlgames_utils import (
+        ComplexObsRLGPUEnv)
+    spec = {"obs": {"names": [n for n, _ in task.obs_spec]},
+            "states": {"names": ["states"], "space_name": "state_space"},
+            "priv": {"names": ["dof_vel", "dof_force", "object_vels",
+                               "ft_force_torques"], "concat": False}}
+    env = ComplexObsRLGPUEnv(task, spec)
+    act = policy(torch, task, dev)
+    out = env.reset()
+    for _ in range(steps):
+        out, rew, reset, extras = env.step(act(out["obs"]))
+    shapes = {"obs": tuple(out["obs"].shape),
+              "states": tuple(out["states"].shape),
+              **{f"priv.{k}": tuple(v.shape)
+                 for k, v in out["priv"].items()}}
+    flags = (torch.arange(task.num_envs, device=dev) % 4 == 0).to(torch.int32)
+    env._state = env._state._replace(reset_buf=flags)
+    out2, done = env.reset_done()
+    finite = all(bool(torch.isfinite(v).all()) for v in
+                 (out["obs"], out["states"], out2["obs"], out2["states"]))
+    phase("shim", task=type(task).__name__, envs=task.num_envs,
+          steps=steps, groups=json.dumps(shapes).replace(" ", ""),
+          reset_done_count=len(done),
+          observation_space=json.dumps(env.get_env_info()[
+              "observation_space"]).replace(" ", ""))
+    if not finite or len(done) != int(flags.sum()) or \
+            shapes["obs"] != (task.num_envs, task.num_obs) or \
+            (env._state.reset_buf != 0).any():
+        raise RuntimeError(f"shim phase: finite {finite}, done {len(done)}, "
+                           f"shapes {shapes}")
+
+
 def host_waits(torch, task, state, act, obs):
     """Host waits for the card in one ``task.step`` (CUDA sync debug
     mode), by file and line."""
@@ -1585,7 +1826,11 @@ def main():
                           ("shadow_hand_golden.npz", (False,)),
                           ("allegro_hand_golden.npz", (False,)),
                           ("shadow_hand_openai_ff_golden.npz", (False,)),
-                          ("allegro_hand_lstm_golden.npz", (False,))):
+                          ("allegro_hand_lstm_golden.npz", (False,)),
+                          ("allegro_hand_dextreme_manual_dr_golden.npz",
+                           (False,)),
+                          ("allegro_hand_dextreme_adr_golden.npz",
+                           (False,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]
@@ -1641,13 +1886,19 @@ def main():
                      for k in tol}, **extra)
 
     clock.lap("golden")
+    # ---- restitution and limit shifts: the engine step on the card
+    # against the CPU twins, the bounce target live, the route rule
+    restitution_phase(torch, np, tasks, dev)
+    clock.lap("restitution")
     # ---- 5. main path: each phase with the counts set to 0 just before it
     total = {name: 0 for name in KERNEL_WRAPPERS}
     scene_launches = collections.defaultdict(collections.Counter)
     for tag, name, kernel_route, steps, n_envs in PHASES:
         task = tasks[tag]
-        # a requested kernel route is B4, except where masses are split
-        route = task.engine.contact_route
+        # a requested kernel route is B4, except where masses are split;
+        # at Dextreme the route of the call with the step's own scales
+        route = (task.engine.route_for(task.initial_state().phys)
+                 if name in DEXTREME else task.engine.contact_route)
         if kernel_route and route != ("loop" if name in MASS_SPLIT
                                       else "b4"):
             raise RuntimeError(f"{tag} took the contact route {route}")
@@ -1682,6 +1933,10 @@ def main():
             dr_stats(torch, task, dev)
         if name in MASS_SPLIT:
             hand_stats(torch, task, dev, tag)
+        if name in DEXTREME:
+            dextreme_stats(torch, task, dev, tag)
+    # the dict-observation shim over Dextreme-ADR
+    shim_phase(torch, tasks["allegro_hand_dextreme_adr"], dev)
 
     clock.lap("main")
     # ---- 6. train: PPO epochs on the main phases' tasks, then Cartpole
@@ -1728,8 +1983,12 @@ def main():
                       "mean_return", "episodes_done")},
                   **{k.split("/")[-1]: f"{v:.6g}" for k, v in m.items()
                      if "fsm" in k.lower()})
+        extra = {}
+        if getattr(task, "use_adr", False):
+            extra["adr_npd"] = (
+                f"{float(task.adr.npd(agent.env_state.task.adr)):.6f}")
         phase("train", run=tag, epochs=epochs,
-              launches=json.dumps(launches).replace(" ", ""))
+              launches=json.dumps(launches).replace(" ", ""), **extra)
 
     for w in KERNEL_WRAPPERS.values():
         w.launches = 0
@@ -1765,6 +2024,13 @@ def main():
               scene_launches["franka_cube_stack2"][name])
              for name in ("fk_motion", "dyn_forward", "dyn_cached",
                           "spd_inverse")]
+    # Dextreme-ManualDR runs the ADR scene's kernels (the same scene): its
+    # rows carry those checks and its own launches
+    report["allegro_hand_dextreme_manual_dr"] = report[
+        "allegro_hand_dextreme_adr"]
+    rows += [(name, "allegro_hand_dextreme_manual_dr",
+              scene_launches["allegro_hand_dextreme_manual_dr"][name])
+             for name in DYN]
     # AnymalTerrain runs Anymal's kernels (the same scene and contact
     # plan): its rows carry Anymal's checks and its own launches
     report["anymal_terrain"] = report["anymal"]

@@ -27,6 +27,13 @@ states, AnymalTerrain's levels, types and step counter, AllegroKuka's
 near-goal counts) become int32 tensors, boolean arrays (AllegroKuka's
 lifted flags) bool tensors, the others float32.
 
+Dextreme's ``DextremeTaskState`` nests: its hand state's fields are keyed
+``task.hand.<field>``, the RNA's dropout masks ``task.rna.<i>`` (the JAX
+``RNAState.masks``; its key is the JAX stream's and is not carried, its
+parameters go through :func:`rna_state_dict_from_jax`), the ADR state's
+fields (ADR only) ``task.adr.<field>``, and the other fields
+``task.<field>`` (``step_count`` a scalar).
+
 ``ppo_state_from_jax`` converts the learner part of a JAX ``PPOState``
 (flax parameters, optax Adam moments, the normalisers, ``lr``) into the
 keys of the port's ``PPOAgent.state_dict()``, with the asymmetric
@@ -41,6 +48,7 @@ import torch
 
 from .device import DTYPE
 from .physics.engine import SimState
+from .tasks.allegro_hand_dextreme import DextremeTaskState
 from .tasks.allegro_kuka import KukaTaskState
 from .tasks.ant import AntTaskState
 from .tasks.anymal import AnymalTaskState
@@ -53,6 +61,7 @@ from .tasks.ingenuity import IngenuityTaskState
 from .tasks.quadcopter import QuadTaskState
 from .tasks.shadow_hand import HandTaskState
 from .tasks.trifinger import TrifingerTaskState
+from .utils.adr import ADRState
 from .utils.domain_rand import PhysScales
 
 TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState,
@@ -87,7 +96,9 @@ def env_state_from_jax(arrays: dict, device, state_cls=None) -> EnvState:
         np.asarray(arrays[k], np.int32), device=device)
     task = None
     task_keys = {k for k in arrays if k.startswith("task.")}
-    if task_keys:
+    if "task.hand.goal_rot" in arrays:
+        task = dextreme_state_from_jax(arrays, device)
+    elif task_keys:
         by_fields = {frozenset(f"task.{f}" for f in cls._fields): cls
                      for cls in TASK_STATES}
         cls = state_cls or by_fields.get(frozenset(task_keys))
@@ -107,6 +118,50 @@ def env_state_from_jax(arrays: dict, device, state_cls=None) -> EnvState:
                     progress=i32("progress"), reset_buf=i32("reset_buf"),
                     task=task,
                     phys=phys_from_jax(phys, device) if phys else None)
+
+
+def dextreme_state_from_jax(arrays: dict, device) -> DextremeTaskState:
+    """Dextreme's nested task state from the ``task.*`` keys of the module
+    docstring."""
+    def t(k):
+        a = np.asarray(arrays[k])
+        if np.issubdtype(a.dtype, np.integer):
+            return torch.tensor(a.astype(np.int32), device=device)
+        return torch.tensor(a.astype(np.float32), dtype=DTYPE,
+                            device=device)
+    hand = HandTaskState(*(t(f"task.hand.{f}")
+                           for f in HandTaskState._fields))
+    masks = tuple(t(f"task.rna.{i}") for i in range(len(
+        [k for k in arrays if k.startswith("task.rna.")])))
+    adr = (ADRState(*(t(f"task.adr.{f}") for f in ADRState._fields))
+           if "task.adr.ranges" in arrays else None)
+    rest = {f: t(f"task.{f}") for f in DextremeTaskState._fields
+            if f not in ("hand", "rna", "adr")
+            and f"task.{f}" in arrays}
+    unknown = {k for k in arrays if k.startswith("task.")} - (
+        {f"task.hand.{f}" for f in HandTaskState._fields}
+        | {f"task.rna.{i}" for i in range(len(masks))}
+        | {f"task.adr.{f}" for f in ADRState._fields}
+        | {f"task.{f}" for f in rest})
+    if unknown:
+        raise KeyError(f"not DextremeTaskState keys: {sorted(unknown)}")
+    return DextremeTaskState(hand=hand, rna=masks, adr=adr, **rest)
+
+
+def rna_state_dict_from_jax(params: dict) -> dict:
+    """The ``state_dict`` of the port's ``RandomNetworkAdversary`` from
+    the JAX RNA's flax parameters (numpy; ``{"params": {"fc0": {"kernel",
+    "bias"}, "fc1": ..., "out": ...}}`` or the inner dict): the Dense
+    kernels (in, out) transposed into ``Linear`` weights (out, in)."""
+    params = params.get("params", params)
+    out = {}
+    for layer, d in params.items():
+        name = (f"fc.{int(layer[2:])}" if layer.startswith("fc")
+                else layer)
+        out[f"{name}.weight"] = torch.tensor(
+            np.asarray(d["kernel"], np.float32).T.copy())
+        out[f"{name}.bias"] = torch.tensor(np.asarray(d["bias"], np.float32))
+    return out
 
 
 def params_from_jax(tree: dict) -> dict:

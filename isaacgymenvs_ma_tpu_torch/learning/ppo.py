@@ -597,7 +597,7 @@ class PPOAgent:
         env = {"sim.q": st.sim.q, "sim.qd": st.sim.qd,
                "progress": st.progress, "reset_buf": st.reset_buf}
         if st.task is not None:
-            env.update({f"task.{f}": v for f, v in st.task._asdict().items()})
+            env.update(_flatten("task", st.task))
         if st.phys is not None:
             env.update({f"phys.{f}": v for f, v in st.phys._asdict().items()
                         if v is not None})
@@ -664,8 +664,7 @@ class PPOAgent:
             env = d["env_state"]
             task = self.env_state.task
             if task is not None:
-                task = type(task)(**{f: on(env[f"task.{f}"])
-                                     for f in task._fields})
+                task = _unflatten("task", task, env, on)
             phys = self.env_state.phys
             if phys is not None:
                 phys = type(phys)(**{f: on(env[f"phys.{f}"])
@@ -675,3 +674,34 @@ class PPOAgent:
                 sim=SimState(on(env["sim.q"]), on(env["sim.qd"])),
                 progress=on(env["progress"]),
                 reset_buf=on(env["reset_buf"]), task=task, phys=phys)
+
+
+def _flatten(prefix: str, x) -> dict:
+    """A task state as {dotted name: tensor}: a NamedTuple's fields by
+    name, a plain tuple's items by index (Dextreme's RNA masks), nested;
+    None leaves are left out."""
+    if x is None:
+        return {}
+    if torch.is_tensor(x):
+        return {prefix: x}
+    items = (x._asdict().items() if hasattr(x, "_asdict")
+             else enumerate(x))
+    out = {}
+    for k, v in items:
+        out.update(_flatten(f"{prefix}.{k}", v))
+    return out
+
+
+def _unflatten(prefix: str, like, flat: dict, on):
+    """The inverse of :func:`_flatten`, shaped as ``like`` (the agent's
+    current task state): each tensor leaf taken from ``flat`` through
+    ``on``, None leaves kept."""
+    if like is None:
+        return None
+    if torch.is_tensor(like):
+        return on(flat[prefix])
+    if hasattr(like, "_asdict"):
+        return type(like)(**{f: _unflatten(f"{prefix}.{f}", v, flat, on)
+                             for f, v in like._asdict().items()})
+    return tuple(_unflatten(f"{prefix}.{i}", v, flat, on)
+                 for i, v in enumerate(like))

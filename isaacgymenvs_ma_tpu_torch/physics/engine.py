@@ -152,25 +152,28 @@ def takes_contact_kernel(params: SimParams) -> bool:
     return bool(params.use_contact_kernel and not params.mass_splitting)
 
 
-def solver_rows_bf16(model, params: SimParams, n_rows: int) -> bool:
+def solver_rows_bf16(model, params: SimParams, n_rows: int,
+                     on_loop: Optional[bool] = None) -> bool:
     """Whether the JAX engine stores the loop's row matrices in bfloat16
     (SimParams.solver_rows_bf16; None = its auto rule, engine.py:1798-1803:
     the rows left after active-set compaction times nv reach 1024).  The
     kernel route has no bf16 rows; a mass-split scene takes the loop
-    (:func:`takes_contact_kernel`), so the rule counts its rows."""
+    (:func:`takes_contact_kernel`), and so does a call with restitution on
+    any scene (``on_loop``, :meth:`PhysicsEngine.route_for`): the rule then
+    counts the loop's rows."""
     if params.solver_rows_bf16 is not None:
         return bool(params.solver_rows_bf16)
+    if on_loop is None:
+        on_loop = not takes_contact_kernel(params)
     cap = params.contact_capacity
     rows = n_rows if cap is None else min(n_rows, int(cap))
-    return rows * int(model.nv) >= 1024 and not takes_contact_kernel(params)
+    return rows * int(model.nv) >= 1024 and on_loop
 
 
 def _check_supported(model, params: SimParams, n_rows: int):
     """Reject every engine feature the port does not implement yet."""
     if params.warm_start > 0:
         _unsupported("contact warm start (warm_start > 0)")
-    if params.plane_restitution != 0.0:
-        _unsupported("restitution")
     if solver_rows_bf16(model, params, n_rows):
         _unsupported("bfloat16 solver rows (solver_rows_bf16)")
     for name in ("body_lin_damping", "body_ang_damping"):
@@ -304,10 +307,31 @@ class PhysicsEngine:
             self.cplan = ck.ContactPlan(
                 masks, self.nv, params.num_iterations, params.relaxation,
                 has_frames=bool(self.pairs))
-        # the route the contact solve takes: B4, the batched-product loop,
-        # or the joint-limit solve of a scene without contact rows or grabs
-        self.contact_route = ("b4" if self.cplan is not None else "loop"
-                              if self.has_contact_rows else "limit_solve")
+        # the route the contact solve takes without restitution: B4, the
+        # batched-product loop, or the joint-limit solve of a scene without
+        # contact rows or grabs
+        self.contact_route = self.route_for(None)
+
+    def route_for(self, phys=None) -> str:
+        """The route a step with the physics scales ``phys`` takes:
+        ``"b4"``, ``"loop"`` or ``"limit_solve"``.  A call whose ``phys``
+        carries restitution takes the batched-product loop even on a scene
+        planned for B4, with the loop's own capacity and row reuse, as the
+        JAX engine does (engine.py:1291-1292, ``kernel_on and restitution
+        is None``; :1304 ``reuse_rows``): the bounce target is lifted after
+        J is built, which B4 does not do.  A pure function of the scene and
+        the call, so a captured graph holds no route state."""
+        if not self.has_contact_rows:
+            return "limit_solve"
+        if self.cplan is None:
+            return "loop"
+        if getattr(phys, "restitution", None) is None:
+            return "b4"
+        if solver_rows_bf16(self.model, self.params,
+                            self.n_ground + self.n_pair_rows, on_loop=True):
+            _unsupported("bfloat16 solver rows (solver_rows_bf16) on the "
+                         "loop a restitution call takes")
+        return "loop"
 
     def _build_contact_set(self, m, ground, pair_specs):
         """Contact candidates (engine.py:415-470), body-pair rows
@@ -430,6 +454,7 @@ class PhysicsEngine:
         self._gnd_body_t = idx(self.gnd_body)
         self._row_a_t = idx(self.row_body_a)
         self._row_b_t = idx(np.maximum(self.row_body_b, 0))
+        self._row_b_body_t = idx(self.row_body_b >= 0)   # not the plane
         self._sensor_body_t = idx(self.sensor_body)
         self._root_body_t = idx(self.actor_root_body)
 
@@ -695,8 +720,12 @@ class PhysicsEngine:
         and the implicit diagonal, friction and shape into the contact
         rows, ``armature``, ``effort`` and ``joint_friction`` into the
         implicit diagonal, both effort clamps and the dof friction
-        (engine.py:860-870); its limit-shift and restitution leaves
-        raise."""
+        (engine.py:860-870), the additive limit shifts ``dof_lower_shift``
+        / ``dof_upper_shift`` (N, nv) into the joint-limit gaps of the
+        contact solve and of :meth:`_limit_solve` (engine.py:1425-1428,
+        :1927-1935), and ``restitution`` (N, nb) per body or (N, 1) into
+        the contact rows' bounce targets (:meth:`_contact_solve`); a call
+        with restitution takes the loop (:meth:`route_for`)."""
         if terrain is not None:
             if self.params.terrain_normal_frames:
                 _unsupported("terrain surface normals (terrain_normal_frames)")
@@ -712,11 +741,14 @@ class PhysicsEngine:
             self.dof_damping
         armature, eff_lim = self.dof_armature, self.dof_effort_limit
         jfric = self.dof_friction if self.has_dof_friction else None
+        lo_lim, hi_lim, restitution = self.dof_lower, self.dof_upper, None
         if phys is not None:
-            for leaf in ("dof_lower_shift", "dof_upper_shift", "restitution"):
-                if getattr(phys, leaf, None) is not None:
-                    _unsupported(f"the physics scale {leaf} (ROADMAP queue "
-                                 "A, item 7c)")
+            # additive joint-limit shifts (engine.py:1425-1428)
+            if phys.dof_lower_shift is not None:
+                lo_lim = lo_lim + phys.dof_lower_shift
+            if phys.dof_upper_shift is not None:
+                hi_lim = hi_lim + phys.dof_upper_shift
+            restitution = phys.restitution
             mass_s, shape_s, fric_s = phys.mass, phys.shape, phys.friction
             # drive gains and passive damping (engine.py:856-859)
             kp_drive = kp_drive * phys.stiffness
@@ -801,9 +833,12 @@ class PhysicsEngine:
                                     ccache=contact_cache, qd_geom=qd,
                                     grab_active=ctrl.grab_active,
                                     terrain=terrain, friction_scale=fric_s,
-                                    shape_scale=shape_s)
+                                    shape_scale=shape_s, lo_lim=lo_lim,
+                                    hi_lim=hi_lim, restitution=restitution,
+                                    route=self.route_for(phys))
         else:
-            qd_new = self._limit_solve(qd_new, Hinv, qpos_dof)
+            qd_new = self._limit_solve(qd_new, Hinv, qpos_dof, lo_lim,
+                                       hi_lim)
             impulse_pts = p_w = ccache_out = None
             imp_dof = torch.zeros_like(qd_new)
         qd_new = torch.clamp(qd_new, -self.dof_velocity_limit,
@@ -812,18 +847,19 @@ class PhysicsEngine:
         return q_new, qd_new, (body_x, body_q, qdd, impulse_pts, p_w,
                                imp_dof, cache_out, ccache_out)
 
-    def _limit_solve(self, qd, Hinv, qpos_dof):
+    def _limit_solve(self, qd, Hinv, qpos_dof, lo_lim=None, hi_lim=None):
         """Joint-limit-only solve of a scene without contact rows
         (engine.py:1927-1953, e.g. Cartpole): 4 projected-Jacobi sweeps over
         the dofs past a lower or upper limit, with Baumgarte targets and
         H^-1's diagonal (clamped at 1e-8) as the row masses; each sweep
         adds H^-1 times the impulse change to qd.  A batched product, as
-        the JAX package computes it outside any Pallas kernel."""
+        the JAX package computes it outside any Pallas kernel.  ``lo_lim``
+        / ``hi_lim``: the limits with the per-env shifts added, (N, nv)."""
         if not bool(np.any(np.asarray(self.model.dof_has_limit))):
             return qd
         pr, h = self.params, self.h
-        lo_gap = qpos_dof - self.dof_lower
-        hi_gap = self.dof_upper - qpos_dof
+        lo_gap = qpos_dof - (self.dof_lower if lo_lim is None else lo_lim)
+        hi_gap = (self.dof_upper if hi_lim is None else hi_lim) - qpos_dof
         hinv_diag = torch.clamp(torch.diagonal(Hinv, dim1=-2, dim2=-1),
                                 min=1e-8)
         b_lo = -pr.baumgarte / h * torch.clamp(lo_gap, max=0.0)
@@ -1048,13 +1084,37 @@ class PhysicsEngine:
             b_n = torch.where(phi >= 0.0, -phi / h, b_n)
         return active, torch.clamp(b_n, max=pr.max_depenetration_velocity)
 
+    def _restitution_rows(self, restitution, N):
+        """Each candidate row's restitution (N, P) (engine.py:1407-1421):
+        a per-body ``restitution`` (N, nb) takes the average of the row's
+        two bodies, a ground row's body b being the plane
+        (``SimParams.plane_restitution``); an (N, 1) one is every row's."""
+        P = self.n_ground + self.n_pair_rows
+        if restitution.shape[-1] != self.nb:
+            return restitution.expand(N, P)
+        ea = restitution[:, self._row_a_t]
+        eb = torch.where(self._row_b_body_t, restitution[:, self._row_b_t],
+                         self.params.plane_restitution)
+        return 0.5 * (ea + eb)
+
+    def _bounce_targets(self, b_n, e_rows, J_flat, qd, R):
+        """The normal targets lifted to the restitution bounce: at least
+        e (v_impact - bounce threshold) outward, v_impact = -(J qd) normal
+        before the solve (engine.py:1570-1578)."""
+        N = qd.shape[0]
+        v_n_pre = torch.bmm(J_flat, qd[..., None])[..., 0].reshape(
+            N, R, 3)[..., 2]
+        return torch.maximum(b_n, e_rows * torch.clamp(
+            -v_n_pre - self.params.bounce_threshold_velocity, min=0.0))
+
     def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, S_bl,
                        hinv_bl, ccache=None, qd_geom=None, grab_active=None,
-                       terrain=None, friction_scale=None, shape_scale=None):
+                       terrain=None, friction_scale=None, shape_scale=None, *,
+                       lo_lim, hi_lim, restitution, route):
         """Projected-Jacobi impulse solve over grabs, attractors, ground
         rows, body-pair rows and joint limits, in that order in each
-        iteration (engine.py:1248-1925 without warm start, terrain normals
-        or restitution).  With ``terrain`` the ground rows' gaps are taken
+        iteration (engine.py:1248-1925 without warm start or terrain
+        normals).  With ``terrain`` the ground rows' gaps are taken
         from the heightfield (:meth:`_contact_rows`); B4 sees terrain only
         through those gaps, as the JAX kernel route does.  The per-env
         ``friction_scale`` and ``shape_scale`` of the domain randomization
@@ -1092,14 +1152,24 @@ class PhysicsEngine:
         :1837-1842).  The B4 route takes neither option, as the JAX
         engine's kernel route does not (engine.py:1304-1305, :1524, :1558):
         it solves every candidate row from zero impulses in every substep
-        and returns no row cache.  Returns (qd, world impulses (N, P, 3),
-        contact points (N, P, 3), J^T lambda (N, nv), the row cache or
-        None)."""
+        and returns no row cache.
+
+        ``lo_lim`` / ``hi_lim`` (nv,) or (N, nv): the joint limits, with the
+        per-env shifts added, whose gaps B4 takes as inputs
+        (engine.py:1425-1428).  ``restitution`` None, or (N, nb) or (N, 1):
+        each row's coefficient
+        (:meth:`_restitution_rows`) is gathered with the compaction and
+        cached with the rows, and once J is built the normal target is
+        lifted to the bounce (:meth:`_bounce_targets`), on a cached substep
+        against the cached J (engine.py:1570-1578, :1632-1639).  Such a call
+        takes the loop: ``route`` is :meth:`route_for`'s.  Returns (qd,
+        world impulses (N, P, 3), contact points (N, P, 3), J^T lambda
+        (N, nv), the row cache or None)."""
         pr = self.params
         h = self.h
         N, nv = qd.shape[0], self.nv
-        lo_gap = qpos_dof - self.dof_lower
-        hi_gap = self.dof_upper - qpos_dof
+        lo_gap = qpos_dof - lo_lim
+        hi_gap = hi_lim - qpos_dof
         b_lo = -pr.baumgarte / h * torch.clamp(lo_gap, max=0.0)
         b_hi = -pr.baumgarte / h * torch.clamp(hi_gap, max=0.0)
         act_lo = self.dof_has_limit & (lo_gap < 0.0)
@@ -1125,7 +1195,7 @@ class PhysicsEngine:
 
         rows = lambda: self._contact_rows(  # noqa: E731
             body_x, body_q, N, terrain, friction_scale, shape_scale)
-        if self.cplan is not None:
+        if route == "b4":
             p, phi, mu, frames = rows()
             active, b_n = self._normal_targets(phi)
             J_flat = self._build_J_flat(S, p, self.row_masks, frames)
@@ -1148,6 +1218,8 @@ class PhysicsEngine:
             sel = None
             phi_r, p_r, mu_r, masks_r, frames_r = (phi, p, mu, self.row_masks,
                                                    frames)
+            e_r = (None if restitution is None or not p.shape[1]
+                   else self._restitution_rows(restitution, N))
             terr_r = None
             if reuse_rows and terrain is not None:
                 # per row: its radius and whether it stands on the ground
@@ -1168,11 +1240,15 @@ class PhysicsEngine:
                     frames_r = frames[env, sel]
                 if terr_r is not None:
                     terr_r = terr_r[env, sel]
+                if e_r is not None:
+                    e_r = e_r[env, sel]
             R = p_r.shape[1]
             active, b_n = self._normal_targets(phi_r)
             J_flat = self._build_J_flat(S, p_r, masks_r, frames_r)  # (N,3R,nv)
             HinvJ_flat = torch.bmm(J_flat, Hinv)
             w_diag = self._w_diag(J_flat, HinvJ_flat, N, R)
+            if e_r is not None:
+                b_n = self._bounce_targets(b_n, e_r, J_flat, qd, R)
             lam = torch.zeros((N, R, 3), dtype=qd.dtype, device=qd.device)
             lam_lo = torch.zeros_like(qd)
             lam_hi = torch.zeros_like(qd)
@@ -1181,7 +1257,7 @@ class PhysicsEngine:
             sel, J_flat, HinvJ_flat, w_diag = (
                 cc["sel"], cc["J_flat"], cc["HinvJ_flat"], cc["w_diag"])
             frames_r, mu_r, p = cc["frames_r"], cc["mu"], cc["p_full"]
-            p_r, terr_r = cc["p_rows"], cc["terr_rows"]
+            p_r, terr_r, e_r = cc["p_rows"], cc["terr_rows"], cc["e_rows"]
             R = w_diag.shape[1]
             # gaps advanced by the normal velocity through the cached rows
             v3 = torch.bmm(J_flat, qd_geom[..., None])[..., 0].reshape(
@@ -1196,6 +1272,9 @@ class PhysicsEngine:
                 phi_g = p_r[..., 2] - gz - terr_r[..., 0]
                 phi_r = torch.where(terr_r[..., 1] > 0.5, phi_g, phi_r)
             active, b_n = self._normal_targets(phi_r)
+            if e_r is not None:
+                # against the cached J, before the seeds' velocity
+                b_n = self._bounce_targets(b_n, e_r, J_flat, qd, R)
             if pr.contact_continuation:
                 lam = torch.where(active[..., None], cc["lam"], 0.0)
                 lam_lo = torch.where(act_lo, cc["lam_lo"], 0.0)
@@ -1260,7 +1339,8 @@ class PhysicsEngine:
         if reuse_rows:
             ccache_out = (dict(ccache) if ccache is not None else dict(
                 sel=sel, J_flat=J_flat, HinvJ_flat=HinvJ_flat, w_diag=w_diag,
-                frames_r=frames_r, mu=mu_r, p_full=p, terr_rows=terr_r))
+                frames_r=frames_r, mu=mu_r, p_full=p, terr_rows=terr_r,
+                e_rows=e_r))
             ccache_out.update(p_rows=p_r, phi_rows=phi_r, lam=lam,
                               lam_lo=lam_lo, lam_hi=lam_hi)
         if sel is not None:

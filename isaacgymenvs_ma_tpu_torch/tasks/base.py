@@ -119,6 +119,9 @@ class VecTaskBase:
 
     # BallBalance resets in pre_physics_step (base.py:110-111)
     reset_in_pre_physics = False
+    # tasks whose flat obs concatenate named groups (``obs_spec``;
+    # Dextreme): get_env_info serves the dict space
+    dict_obs_cls = False
 
     def __init__(self, cfg: dict, device="cuda", seed: int = 0,
                  sim_params: Optional[SimParams] = None):
@@ -237,6 +240,11 @@ class VecTaskBase:
         ``get_env_state`` returned) put back."""
         return state
 
+    def set_train_info(self, state: EnvState, env_frames: int):
+        """The learner-to-env channel for curricula (vec_task.py:188-194);
+        no ported task has one."""
+        return state
+
     def step(self, state: EnvState, actions: torch.Tensor,
              reset_draws=None, step_draws=None, dr_draws=None,
              pre_draws=None) -> Tuple[EnvState, StepResult]:
@@ -327,6 +335,53 @@ class VecTaskBase:
         return new_state, StepResult(obs=obs, states=states, rew=rew,
                                      reset=self._to_batch(reset),
                                      extras=extras)
+
+    def reset_done(self, state: EnvState, reset_draws=None, pre_draws=None,
+                   step_draws=None, phys_draws=None):
+        """Learner-driven reset (base.py:311-340, vec_task.py:442-457):
+        reset every env whose ``reset_buf`` is set, recompute the
+        observations of the fresh state with zero actions and clear the
+        flags.  Returns ``(state', obs, states)``; the done ids are read
+        on the host by the :class:`..utils.rlgames_utils.RLGPUEnv` shim.
+        ``pre_physics`` runs first, its control discarded, and its carry
+        goes to ``post_physics`` (whose task-state updates are kept, its
+        reward and resets discarded).  The draws are ``step``'s, each from
+        the generator where missing."""
+        mask = state.reset_buf > 0
+        phys = self.update_phys(state, mask, phys_draws)
+        sim, task = self.reset_idx(state.sim, state.task, mask, reset_draws)
+        progress = torch.where(mask, 0, state.progress).to(torch.int32)
+        out = self.engine.forward(sim)
+        mid = EnvState(sim=sim, progress=progress,
+                       reset_buf=torch.zeros_like(state.reset_buf),
+                       task=task, phys=phys)
+        zeros = self.zero_actions()
+        ctrl = self.pre_physics(
+            mid, zeros, **({} if pre_draws is None else {"draws": pre_draws}))
+        post_kw = {} if step_draws is None else {"draws": step_draws}
+        if not isinstance(ctrl, Control):
+            post_kw["carry"] = ctrl[1]
+        obs, states, _rew, _reset, task, _extras = self.post_physics(
+            mid, out, zeros, **post_kw)[:6]
+        obs = torch.nan_to_num(torch.clamp(obs, -self.clip_obs, self.clip_obs))
+        if states is not None:
+            states = torch.nan_to_num(
+                torch.clamp(states, -self.clip_obs, self.clip_obs))
+        return mid._replace(task=task), obs, states
+
+    def get_env_info(self) -> dict:
+        """The learner contract (base.py ``get_env_info``, SURVEY.md
+        Appendix B): action and observation spaces, the agent count and,
+        with a critic, the state space; a ``dict_obs_cls`` task's
+        observation space is the dict of its ``obs_spec`` groups."""
+        info = {"action_space": (self.num_actions,),
+                "observation_space": (self.num_obs,),
+                "agents": self.num_agents}
+        if self.num_states > 0:
+            info["state_space"] = (self.num_states,)
+        if self.dict_obs_cls and getattr(self, "obs_spec", None):
+            info["observation_space"] = {n: (s,) for n, s in self.obs_spec}
+        return info
 
     def _to_batch(self, per_env: torch.Tensor) -> torch.Tensor:
         """Per-env values to per-agent rows (base.py:357-366); values that

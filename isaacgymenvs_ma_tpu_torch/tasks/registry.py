@@ -46,6 +46,14 @@ _TASKS: Dict[str, Tuple[str, str]] = {
                                "resolve_allegro_kuka_two_arms"),
     "ShadowHand": (".shadow_hand", "ShadowHand"),
     "AllegroHand": (".allegro_hand", "AllegroHand"),
+    "AllegroHandDextremeManualDR": (".allegro_hand_dextreme",
+                                    "AllegroHandDextremeManualDR"),
+    "AllegroHandDextremeADR": (".allegro_hand_dextreme",
+                               "AllegroHandDextremeADR"),
+    # the reference registry's short names (tasks/__init__.py:98-99)
+    "AllegroHandManualDR": (".allegro_hand_dextreme",
+                            "AllegroHandDextremeManualDR"),
+    "AllegroHandADR": (".allegro_hand_dextreme", "AllegroHandDextremeADR"),
 }
 
 # config variants: name -> (base task, deltas over its defaults)
@@ -88,8 +96,6 @@ _VARIANTS: Dict[str, Tuple[str, dict]] = {
 
 # the JAX registry's other names -> ROADMAP queue-A item that ports them
 _QUEUE_A = {
-    "7": ("AllegroHandDextremeManualDR", "AllegroHandDextremeADR",
-          "AllegroHandManualDR", "AllegroHandADR"),
     "9": ("FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
           "FactoryTaskNutBoltScrew", "FactoryTaskGears",
           "FactoryTaskInsertion", "IndustRealTaskPegsInsert",

@@ -45,7 +45,7 @@ import torch
 from .config import deep_merge
 
 from ..convert import env_state_from_jax, phys_from_jax
-from ..tasks import (allegro_kuka, anymal, anymal_terrain, ant,
+from ..tasks import (allegro_hand_dextreme, allegro_kuka, anymal, anymal_terrain, ant,
                      ball_balance, cartpole,
                      franka_cabinet, franka_collect_ma, franka_combine_ma,
                      franka_cube_stack, franka_cube_stack2, franka_ppma,
@@ -101,6 +101,16 @@ HANDS = ("ShadowHand", "AllegroHand", "ShadowHandOpenAI_FF",
          "AllegroHandLSTM")
 TASKS.update({h: (registry.task_class(h), registry.task_default_config(h),
                   shadow_hand.HandTaskState) for h in HANDS})
+# Dextreme, by registry name; its draws are packed into the task's
+# PreDraws / StepDraws (``_pack_draws``)
+DEXTREME = ("AllegroHandDextremeManualDR", "AllegroHandDextremeADR")
+TASKS.update({d: (registry.task_class(d), registry.task_default_config(d),
+                  allegro_hand_dextreme.DextremeTaskState)
+              for d in DEXTREME})
+HAND_RESET_DRAWS = ("obj_pos_n", "obj_rot_ang", "dof_u", "goal_rot_ang")
+DEXTREME_RESET_DRAWS = HAND_RESET_DRAWS + (
+    "act_bias_n", "pos_bias_n", "dof_bias_n", "act_scale_n", "pos_scale_n",
+    "dof_scale_n")
 KUKA_RESET_DRAWS = ("goal_pos_u", "goal_quat_u", "dof_u", "dof_vel_u",
                     "obj_pos_u", "obj_quat_u", "force_prob_u")
 # capture keys of each task's reset draws, in reset_idx's order
@@ -129,16 +139,23 @@ RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                              "goal_yaw", "goal_quat_u"),
                "AllegroKuka": KUKA_RESET_DRAWS,
                "AllegroKukaTwoArms": KUKA_RESET_DRAWS,
-               **{h: ("obj_pos_n", "obj_rot_ang", "dof_u", "goal_rot_ang")
-                  for h in HANDS}}
+               **{h: HAND_RESET_DRAWS for h in HANDS},
+               "AllegroHandDextremeManualDR": DEXTREME_RESET_DRAWS,
+               "AllegroHandDextremeADR": ("adr_u",) + DEXTREME_RESET_DRAWS}
 # capture keys of the draws post_physics makes, in its order
 STEP_DRAWS = {"AnymalTerrain": ("push_vel", "noise_u"),
               "Ingenuity": ("retarget_xy_u", "retarget_z_u"),
-              **{h: ("new_goal_ang",) for h in HANDS}}
+              **{h: ("new_goal_ang",) for h in HANDS},
+              **{d: ("new_goal_ang", "unreliable_u", "cam_pos_n",
+                     "cam_axis_n", "cam_ang_n", "hold_u", "dof_obs_n")
+                 for d in DEXTREME}}
 # capture keys of the draws pre_physics makes, in its order
 PRE_DRAWS = {"AllegroKuka": ("force_fire_u", "force_n"),
              "AllegroKukaTwoArms": ("force_fire_u", "force_n"),
-             **{h: ("force_fire_u", "force_n") for h in HANDS}}
+             **{h: ("force_fire_u", "force_n") for h in HANDS},
+             **{d: ("act_noise_n", "rna_u", "delay_u", "mask_u_0",
+                    "mask_u_1", "force_fire_u", "force_n")
+                for d in DEXTREME}}
 
 # Per-step max abs error bounds of the Ant golden replay
 # (tests/data/torch_port/ant_golden.npz).  Measured on the CPU twins over
@@ -273,7 +290,8 @@ TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
               "Trifinger": GROUND_RULE_TOL,
               "AllegroKuka": GROUND_RULE_TOL,
               "AllegroKukaTwoArms": GROUND_RULE_TOL,
-              **{h: GROUND_RULE_TOL for h in HANDS}}
+              **{h: GROUND_RULE_TOL for h in HANDS},
+              **{d: GROUND_RULE_TOL for d in DEXTREME}}
 # The hands' captures (shadow_hand_golden.npz, allegro_hand_golden.npz,
 # shadow_hand_openai_ff_golden.npz, allegro_hand_lstm_golden.npz; 32
 # envs, 6 steps on the mass-splitting loop) are held one step at a time as
@@ -284,6 +302,11 @@ TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
 # engine steps a step) q <= 1.8e-5, qd <= 1.3e-3, obs <= 1.7e-5, reward <=
 # 2.3e-6; AllegroHandLSTM q <= 9.7e-7, qd <= 1.8e-4, obs <= 1.1e-6,
 # reward <= 1.8e-6; resets exact.
+# The Dextreme captures (allegro_hand_dextreme_manual_dr_golden.npz and
+# allegro_hand_dextreme_adr_golden.npz, 32 envs, 6 steps on the
+# mass-splitting loop; the ADR one from widened ranges, with restitution
+# and limit shifts in the engine) are held one step at a time as the
+# hands', at GROUND_RULE_TOL.
 # one-step captures: the most held envs per step whose reset may differ
 # (a base contact force at the 1 N threshold, where the reference's noise
 # reaches)
@@ -371,6 +394,19 @@ class StepErrors(NamedTuple):
     traj_widening: dict = None
 
 
+def _pack_draws(name: str, kind: str, flat: tuple):
+    """A hook's recorded draws as the task takes them: Dextreme's
+    pre_physics / post_physics draws as its PreDraws / StepDraws, the
+    other tasks' as the flat tuple."""
+    if name not in DEXTREME or kind == "reset":
+        return flat
+    if kind == "pre":
+        return allegro_hand_dextreme.PreDraws(
+            noise=flat[0], rna_u=flat[1], delay_u=flat[2],
+            mask_u=tuple(flat[3:5]), hand=tuple(flat[5:7]))
+    return allegro_hand_dextreme.StepDraws(*flat)
+
+
 def replay(npz_path: str, device, use_contact_kernel: bool = False
            ) -> StepErrors:
     """Replay a capture on ``device`` with the recorded reset draws (and
@@ -409,7 +445,22 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
     arrays = {"sim.q": d["init_q"], "sim.qd": d["init_qd"],
               "progress": d["init_progress"],
               "reset_buf": d["init_reset_buf"]}
-    if state_cls is not None:
+    if name in DEXTREME:
+        # the nested state's keys (convert.dextreme_state_from_jax) and
+        # the RNA's weights
+        arrays.update({"task." + k[len("init_"):]: d[k] for k in d.files
+                       if k.startswith("init_") and k[len("init_"):]
+                       not in ("q", "qd", "progress", "reset_buf")})
+        from ..convert import rna_state_dict_from_jax
+        tree = {}
+        for k in d.files:
+            if k.startswith("rna_params."):
+                _, layer, leaf = k.split(".")
+                tree.setdefault(layer, {})[leaf] = d[k]
+        task.rna.load_state_dict(
+            {k: v.to(task.device)
+             for k, v in rna_state_dict_from_jax(tree).items()})
+    elif state_cls is not None:
         arrays.update({f"task.{f}": d[f"init_{f}"]
                        for f in state_cls._fields})
     arrays.update({"phys." + k[len("init_phys_"):]: d[k] for k in d.files
@@ -447,10 +498,12 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
                  for k, v in start.items()}, device, state_cls)._replace(
                     phys=state.phys)
         draws = tuple(t_(d[k][t]) for k in RESET_DRAWS[name])
-        step_draws = (tuple(t_(d[k][t]) for k in STEP_DRAWS[name])
-                      if name in STEP_DRAWS else None)
-        pre_draws = (tuple(t_(d[k][t]) for k in PRE_DRAWS[name])
-                     if name in PRE_DRAWS else None)
+        step_draws = (_pack_draws(name, "step", tuple(
+            t_(d[k][t]) for k in STEP_DRAWS[name]))
+            if name in STEP_DRAWS else None)
+        pre_draws = (_pack_draws(name, "pre", tuple(
+            t_(d[k][t]) for k in PRE_DRAWS[name]))
+            if name in PRE_DRAWS else None)
         dr = None
         if "dr_actions" in d:
             dr = {"actions": t_(d["dr_actions"][t]),

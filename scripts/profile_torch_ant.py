@@ -7,14 +7,17 @@ GPU.
                 Ingenuity|Quadcopter|FrankaReach|FrankaCabinet|
                 FrankaCubeStack|FrankaCubeStack2|Trifinger|AllegroKuka|
                 AllegroKukaTwoArms|ShadowHand|AllegroHand|
-                ShadowHandOpenAI_FF|AllegroHandLSTM]
+                ShadowHandOpenAI_FF|AllegroHandLSTM|
+                AllegroHandDextremeManualDR|AllegroHandDextremeADR]
         [--contact-kernel]
         [--envs N] [--steps 20] [--train] [--table PATH]
 
 Runs the port's step of the task (Ant by default, at its configuration's
 env count unless ``--envs``; ``--contact-kernel`` routes the contact loop
 through kernel B4, except at the hands, whose mass splitting keeps them on
-the batched loop) with tanh(obs @ W) actions, as chip_smoke.py does, under
+the batched loop, as does Dextreme-ADR's restitution; the route printed is
+``engine.route_for`` of the scales the task's first state hands the
+engine) with tanh(obs @ W) actions, as chip_smoke.py does, under
 torch.profiler after a warm-up, and prints: host wall time per step, device
 kernel time per step (the sum over CUDA kernels), the device busy share
 (kernel time / wall time), kernel launches per step, the top kernels by
@@ -97,7 +100,8 @@ def main():
                              "Trifinger", "AllegroKuka",
                              "AllegroKukaTwoArms", "ShadowHand",
                              "AllegroHand", "ShadowHandOpenAI_FF",
-                             "AllegroHandLSTM"))
+                             "AllegroHandLSTM", "AllegroHandDextremeManualDR",
+                             "AllegroHandDextremeADR"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
     ap.add_argument("--envs", type=int, default=None,
@@ -126,7 +130,7 @@ def main():
         use_contact_kernel=args.contact_kernel)
     task = cls(cfg, device=dev, seed=1, sim_params=params)
     head = (f"task={args.task} contact_kernel={args.contact_kernel} "
-            f"route={task.engine.contact_route} "
+            f"route={task.engine.route_for(task.initial_state().phys)} "
             f"envs={task.num_envs} agents={task.num_agents}")
     if args.train:
         from isaacgymenvs_ma_tpu_torch.learning.configs import (

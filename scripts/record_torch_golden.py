@@ -679,6 +679,264 @@ def record_phys_step():
     print(out, os.path.getsize(out), "bytes")
 
 
+# --route-step: one task step on the JAX kernel route (every Pallas kernel
+# in interpret mode, run eagerly) from a seeded state with a quarter of the
+# envs flagged to reset, at 128 envs: the parity tests read it instead of
+# stepping JAX themselves.  name -> file
+ROUTE_STEPS = {"Ant": "ant_route_step.npz",
+               "BallBalance": "ball_balance_route_step.npz",
+               "FrankaReachMA": "franka_reach_ma_route_step.npz"}
+
+
+def _route_step_start(name, task, n):
+    """The state and actions each route-step test starts from:
+    Ant from PRNGKey(5) with PRNGKey(6) actions, 5 steps on;
+    BallBalance from PRNGKey(11), 10 steps of actions seeded with
+    default_rng(128); FrankaReachMA from the B4-route capture's warmed-up
+    state (franka_reach_ma_b4_golden.npz) and its first actions."""
+    if name == "Ant":
+        st = task.initial_state(jax.random.PRNGKey(5))
+        acts = np.array(jax.random.uniform(
+            jax.random.PRNGKey(6), (n, 8), minval=-1, maxval=1))
+        step = jax.jit(task.step)
+        for _ in range(5):
+            st, _ = step(st, jnp.asarray(acts))
+        return st, acts
+    if name == "BallBalance":
+        st = task.initial_state(jax.random.PRNGKey(11))
+        step = jax.jit(task.step)
+        rng = np.random.default_rng(n)
+        for _ in range(10):
+            st, _ = step(st, jnp.asarray(rng.uniform(-1, 1, (n, 3)),
+                                         jnp.float32))
+        return st, rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    from isaacgymenvs_ma_tpu.physics.engine import SimState
+    from isaacgymenvs_ma_tpu.tasks.base import EnvState
+    d = np.load(os.path.join(DATA, "franka_reach_ma_b4_golden.npz"))
+    st = EnvState(
+        sim=SimState(jnp.asarray(d["init_q"]), jnp.asarray(d["init_qd"])),
+        progress=jnp.asarray(d["init_progress"]),
+        reset_buf=jnp.asarray(d["init_reset_buf"]),
+        rng=jax.random.PRNGKey(7),
+        task=franka_reach_ma.FrankaMATaskState(
+            actions=jnp.asarray(d["init_actions"])))
+    return st, d["actions"][0]
+
+
+def record_route_step(name):
+    """``--route-step NAME`` -> ROUTE_STEPS[name]: the start state
+    (``init_*``, as ``state_arrays``), the actions, the reset draws
+    (``draw_<i>``) and the JAX kernel route's step: ``q``, ``qd``,
+    ``progress``, ``task_*``, ``obs``, ``rew`` and ``reset``."""
+    cls, task_cfg, draws_of = TASKS[name][:3]
+    n = KERNEL_ROUTE_ENVS
+    task = cls(deep_merge(task_cfg, {"env": {"numEnvs": n}}))
+    st, acts = _route_step_start(name, task, n)
+    if name != "FrankaReachMA":     # its capture's state keeps its flags
+        st = st._replace(reset_buf=jnp.asarray(
+            (np.arange(n) % 4 == 0).astype(np.int32)))
+    draws = draws_of(jax.random.split(st.rng, 6)[1], task)
+    t0 = time.perf_counter()
+    jdk._FORCE_INTERPRET = True
+    try:
+        st2, res = task.step(st, jnp.asarray(acts))
+    finally:
+        jdk._FORCE_INTERPRET = False
+    print(f"{name} interpreted step {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    rec = {f"init_{k}": v for k, v in state_arrays(st).items()}
+    rec["actions"] = np.asarray(acts, np.float32)
+    rec.update({f"draw_{i}": np.asarray(v)
+                for i, v in enumerate(draws.values())})
+    rec.update({"q": np.asarray(st2.sim.q), "qd": np.asarray(st2.sim.qd),
+                "progress": np.asarray(st2.progress),
+                "obs": np.asarray(res.obs), "rew": np.asarray(res.rew),
+                "reset": np.asarray(res.reset)})
+    for f in st2.task._fields if st2.task is not None else ():
+        rec[f"task_{f}"] = np.asarray(getattr(st2.task, f))
+    out = os.path.join(DATA, ROUTE_STEPS[name])
+    np.savez_compressed(out, **rec)
+    print(out, os.path.getsize(out), "bytes")
+
+
+# --dextreme NAME: the Dextreme captures, recorded as the hands' (32 envs,
+# 6 steps, one step at a time with the reference's one-ulp spread)
+DEXTREME = {"AllegroHandDextremeManualDR":
+            "allegro_hand_dextreme_manual_dr_golden.npz",
+            "AllegroHandDextremeADR": "allegro_hand_dextreme_adr_golden.npz"}
+# the RNA refresh clock at the first recorded step: its masks are redrawn
+# in the third (step_count % rnaRefreshInterval == 0)
+DEXTREME_STEP_COUNT = 1198
+
+
+def dextreme_reset_draws(k_reset, task):
+    """Dextreme's reset_idx draws: the ADR rows' uniforms (N, P)
+    (``fold_in(key, 11)``, ADR only), the hand's four (``hand_draws``),
+    then the six per-episode normals of ``fold_in(key, 23)``."""
+    n, A, nh = task.num_envs, task.num_actions, task.num_hand_dofs
+    out = {}
+    if task.use_adr:
+        out["adr_u"] = jax.random.uniform(jax.random.fold_in(k_reset, 11),
+                                          (n, task.adr.P))
+    out.update(hand_draws(k_reset, task))
+    ks = jax.random.split(jax.random.fold_in(k_reset, 23), 6)
+    for k, name, w in zip(ks, ("act_bias_n", "pos_bias_n", "dof_bias_n",
+                               "act_scale_n", "pos_scale_n", "dof_scale_n"),
+                          (A, 3, nh, A, 3, nh)):
+        out[name] = jax.random.normal(k, (n, w))
+    return out
+
+
+def dextreme_pre_draws(rng, rna_key, task):
+    """Dextreme's pre_physics draws: ``fold_in(rng, 7)`` split 4 ways
+    (the white action noise N(0, 1) (N, A), the RNA blend's U[0, 1) (N,),
+    unused, the extra latency's U[0, 1) (N,)), the RNA refresh's mask
+    uniforms from its own key (units,) per layer, then the hand's force
+    draws (``hand_pre_draws``)."""
+    n = task.num_envs
+    k_n, k_p, _, k_d = jax.random.split(jax.random.fold_in(rng, 7), 4)
+    _, *km = jax.random.split(rna_key, len(task.rna.units) + 1)
+    out = {"act_noise_n": jax.random.normal(k_n, (n, task.num_actions)),
+           "rna_u": jax.random.uniform(k_p, (n,)),
+           "delay_u": jax.random.uniform(k_d, (n,))}
+    out.update({f"mask_u_{i}": jax.random.uniform(k, (u,))
+                for i, (k, u) in enumerate(zip(km, task.rna.units))})
+    out.update(hand_pre_draws(rng, task))
+    return out
+
+
+def dextreme_step_draws(k_step, task):
+    """Dextreme's post_physics draws: the hand's goals
+    (``hand_step_draws``), ``fold_in(k_step, 13)`` split 5 ways (the
+    unreliable flag's U[0, 1) (N,), position noise N(0, 1) (N, 3), axis
+    (N, 3), angle (N,), the extra hold's U[0, 1) (N,)) and the dof noise
+    N(0, 1) (N, nh) of ``fold_in(k_step, 17)``."""
+    n = task.num_envs
+    out = dict(hand_step_draws(k_step, task))
+    ks = jax.random.split(jax.random.fold_in(k_step, 13), 5)
+    out.update(unreliable_u=jax.random.uniform(ks[0], (n,)),
+               cam_pos_n=jax.random.normal(ks[1], (n, 3)),
+               cam_axis_n=jax.random.normal(ks[2], (n, 3)),
+               cam_ang_n=jax.random.normal(ks[3], (n,)),
+               hold_u=jax.random.uniform(ks[4], (n,)),
+               dof_obs_n=jax.random.normal(jax.random.fold_in(k_step, 17),
+                                           (n, task.num_hand_dofs)))
+    return out
+
+
+def dextreme_state_arrays(st):
+    """A Dextreme EnvState as flat numpy arrays: the hand's fields as
+    ``hand.<f>``, the RNA masks as ``rna.<i>``, the ADR state's as
+    ``adr.<f>`` (ADR only) and the other task fields by name."""
+    out = {"q": st.sim.q, "qd": st.sim.qd, "progress": st.progress,
+           "reset_buf": st.reset_buf}
+    t = st.task
+    for f in t._fields:
+        v = getattr(t, f)
+        if f == "hand":
+            out.update({f"hand.{g}": getattr(v, g) for g in v._fields})
+        elif f == "rna":
+            out.update({f"rna.{i}": m for i, m in enumerate(v.masks)})
+        elif f == "adr":
+            if v is not None:
+                out.update({f"adr.{g}": getattr(v, g) for g in v._fields})
+        elif v is not None:
+            out[f] = v
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+def widened_adr_ranges(task, ranges):
+    """Every ADR range widened inside its limits by max(20 delta, 0.05) on
+    each side: live limit shifts, latency, refresh rate, affine scaling
+    and restitution, as a loaded checkpoint can hold them."""
+    c = task.adr.cfg
+    w = np.maximum(20.0 * np.asarray(c.delta), 0.05)
+    r = np.asarray(ranges)
+    return jnp.asarray(np.stack([np.maximum(r[:, 0] - w, c.limit_lo),
+                                 np.minimum(r[:, 1] + w, c.limit_hi)], -1),
+                       jnp.float32)
+
+
+def record_dextreme(name):
+    """``--dextreme NAME`` -> DEXTREME[name] at 32 envs: warmed up 20
+    steps (ADR: from ranges widened by ``widened_adr_ranges`` and loaded
+    through ``set_env_state``), a quarter of the envs flagged to reset,
+    HAND_SUCCESS_ENVS envs after them with their goals on their cubes'
+    orientations, the RNA clock at DEXTREME_STEP_COUNT; then T steps, each
+    with its draws, start state and one-ulp spread (as ONE_STEP).  Also
+    the RNA's flax parameters as ``rna_params.<layer>.<kernel|bias>``."""
+    from isaacgymenvs_ma_tpu.tasks import allegro_hand_dextreme as jdx
+    n = 32
+    task = jregistry.task_class(name)(deep_merge(
+        jregistry.task_default_config(name), {"env": {"numEnvs": n}}))
+    A = task.num_actions
+    step = jax.jit(task.step)
+    rng = np.random.default_rng(2024)
+    st = task.initial_state(jax.random.PRNGKey(2024))
+    if task.use_adr:
+        adr = st.task.adr._replace(ranges=widened_adr_ranges(
+            task, st.task.adr.ranges))
+        st = task.set_env_state(st, {"adr": adr})
+    t_w = time.perf_counter()
+    for _ in range(WARMUP):
+        st, _ = step(st, jnp.asarray(rng.uniform(-1, 1, (n, A)),
+                                     jnp.float32))
+    print(f"warm-up (jit + {WARMUP} steps) "
+          f"{time.perf_counter() - t_w:.1f} s", flush=True)
+    flags = np.asarray(st.reset_buf).copy()
+    flags[: n // 4] = 1
+    e0, qa = n // 4, task.obj_qa
+    hand = st.task.hand
+    goal = hand.goal_rot.at[e0: e0 + HAND_SUCCESS_ENVS].set(
+        st.sim.q[e0: e0 + HAND_SUCCESS_ENVS, qa + 3: qa + 7])
+    st = st._replace(reset_buf=jnp.asarray(flags, jnp.int32),
+                     task=st.task._replace(
+                         hand=hand._replace(goal_rot=goal),
+                         step_count=jnp.asarray(DEXTREME_STEP_COUNT,
+                                                jnp.int32)))
+    actions = rng.uniform(-1, 1, (T, n, A)).astype(np.float32)
+    rec = {"task": np.asarray(name), "atol": np.float32(2e-3)}
+    rec.update({f"init_{k}": v for k, v in dextreme_state_arrays(st).items()})
+    params = st.task.rna.params.get("params", st.task.rna.params)
+    for layer, d in params.items():
+        for k, v in d.items():
+            rec[f"rna_params.{layer}.{k}"] = np.asarray(v)
+    fields = {}
+    blends = 0
+    for t in range(T):
+        _, k_reset, k_step, _, _, _ = jax.random.split(st.rng, 6)
+        draws = dextreme_reset_draws(k_reset, task)
+        draws.update(dextreme_pre_draws(st.rng, st.task.rna.key, task))
+        draws.update(dextreme_step_draws(k_step, task))
+        blends += int((np.asarray(draws["rna_u"]) < task.rna_prob).sum())
+        for k, v in draws.items():
+            fields.setdefault(k, []).append(np.asarray(v))
+        start = st
+        st, res = step(st, jnp.asarray(actions[t]))
+        for k, v in dextreme_state_arrays(start).items():
+            fields.setdefault(f"start_{k}", []).append(v)
+        spread, flips = one_ulp_spread(step, start, jnp.asarray(actions[t]),
+                                       res, st, rng)
+        for k, v in spread.items():
+            fields.setdefault(f"spread_{k}", []).append(v)
+        fields.setdefault("spread_reset", []).append(flips)
+        for k, v in (("obs", res.obs), ("rew", res.rew), ("reset", res.reset),
+                     ("states", res.states), ("q", st.sim.q),
+                     ("qd", st.sim.qd)):
+            fields.setdefault(k, []).append(np.asarray(v))
+        print(f"step {t}: resets {int(np.asarray(res.reset).sum())}, "
+              f"successes {float(np.asarray(st.task.hand.successes).sum())}",
+              flush=True)
+    print("RNA blends in the recorded steps:", blends)
+    rec["actions"] = actions
+    for k, v in fields.items():
+        rec[k] = np.stack(v)
+    assert jdx.MAX_ACTION_LATENCY == rec["init_act_hist"].shape[1]
+    out = os.path.join(DATA, DEXTREME[name])
+    np.savez_compressed(out, **rec)
+    print(out, os.path.getsize(out), "bytes")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant", choices=sorted(TASKS))
@@ -686,7 +944,16 @@ def main():
                     help="record the steps on the JAX contact-kernel route")
     ap.add_argument("--phys-step", action="store_true",
                     help="record phys_step_b4.npz (PHYS_STEP_TASKS)")
+    ap.add_argument("--route-step", choices=sorted(ROUTE_STEPS),
+                    help="record one interpreted kernel-route step "
+                         "(ROUTE_STEPS)")
+    ap.add_argument("--dextreme", choices=sorted(DEXTREME),
+                    help="record a Dextreme capture (DEXTREME)")
     args = ap.parse_args()
+    if args.dextreme:
+        return record_dextreme(args.dextreme)
+    if args.route_step:
+        return record_route_step(args.route_step)
     if args.phys_step:
         return record_phys_step()
     cls, task_cfg, draws_of, n, fname = TASKS[args.task]

@@ -88,10 +88,13 @@ def test_registry_variants_match_jax(name):
 
 
 def test_dextreme_names_stay_unported():
-    """ROADMAP queue A item 7c: the four Dextreme names still raise."""
-    for name in ("AllegroHandDextremeManualDR", "AllegroHandDextremeADR",
-                 "AllegroHandManualDR", "AllegroHandADR"):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    """The four Dextreme names raised until ROADMAP queue A item 7c was
+    ported (tests/test_torch_dextreme.py); what still raises are the
+    names of items 9 (Factory, IndustReal) and 10 (AMP, SAC)."""
+    for name, item in (("FactoryTaskNutBoltPick", "9"),
+                       ("IndustRealTaskPegsInsert", "9"),
+                       ("HumanoidAMP", "10"), ("AntSAC", "10")):
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
             pregistry.task_class(name)
 
 

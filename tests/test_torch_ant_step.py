@@ -12,18 +12,20 @@ reset exact.  Reward at 2e-3 plus two float32 ulps of the potential: the
 progress term is a difference of two potentials of ~6e4 (one ulp there is
 3.9e-3), so a one-ulp difference in a potential shows in the reward.  The
 contact-kernel route (``use_contact_kernel``: kernel B4's twin on the CPU)
-is held against the JAX kernel route in interpret mode at the same q, qd
+is held against the JAX kernel route in interpret mode (a step recorded by
+``scripts/record_torch_golden.py --route-step Ant``) at the same q, qd
 and obs bounds (the JAX package's, tests/test_dyn_kernel.py:112-136), also
 with ``contact_capacity`` or ``reuse_contact_rows`` set, which that route
 ignores.
 """
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 import torch
 
-from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
 from isaacgymenvs_ma_tpu.tasks.ant import Ant as JAnt, TASK_CFG as JCFG
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.convert import env_state_from_jax
@@ -31,6 +33,9 @@ from isaacgymenvs_ma_tpu_torch.physics.engine import (
     Control, PhysicsEngine, SimParams, SimState)
 from isaacgymenvs_ma_tpu_torch.tasks.ant import Ant, TASK_CFG
 from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
+
+ROUTE_STEP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                          "torch_port", "ant_route_step.npz")
 
 
 def jax_state_arrays(st) -> dict:
@@ -157,54 +162,70 @@ def ant_kernel_route():
     package's test_full_step_parity_interpret (128 envs, PRNGKey(5) state,
     PRNGKey(6) actions) advanced 5 steps so that the feet are on the
     ground, with a quarter of the envs flagged to reset: the state, the
-    actions, the reset draws and the JAX step's result."""
-    n = 128
-    jt = JAnt(deep_merge(JCFG, {"env": {"numEnvs": n}}))
-    st = jt.initial_state(jax.random.PRNGKey(5))
-    acts = np.array(jax.random.uniform(
-        jax.random.PRNGKey(6), (n, 8), minval=-1, maxval=1))
-    step = jax.jit(jt.step)
-    for _ in range(5):
-        st, _ = step(st, jnp.asarray(acts))
-    st = st._replace(
-        reset_buf=jnp.asarray((np.arange(n) % 4 == 0).astype(np.int32)))
-
-    jdk._FORCE_INTERPRET = True
-    try:
-        st2, res = jt.step(st, jnp.asarray(acts))
-    finally:
-        jdk._FORCE_INTERPRET = False
-    draws = tuple(torch.as_tensor(d) for d in jax_reset_draws(st, n))
-    return n, st, acts, draws, st2, res
+    actions, the reset draws and the JAX step's result, as
+    ``scripts/record_torch_golden.py --route-step Ant`` recorded them into
+    tests/data/torch_port/ant_route_step.npz (the interpreted step takes
+    ~40-170 s on the CPU; the capture is read instead).  The reset draws
+    recorded are the ones :func:`jax_reset_draws` makes from the state's
+    key."""
+    d = np.load(ROUTE_STEP)
+    n = d["init_q"].shape[0]
+    state = {"sim.q": d["init_q"], "sim.qd": d["init_qd"],
+             "progress": d["init_progress"],
+             "reset_buf": d["init_reset_buf"],
+             **{f"task.{f}": d[f"init_{f}"]
+                for f in ("potentials", "prev_potentials", "actions")}}
+    draws = (torch.as_tensor(d["draw_0"]), torch.as_tensor(d["draw_1"]))
+    return dict(n=n, state=state, acts=d["actions"], draws=draws,
+                q=d["q"], qd=d["qd"], obs=d["obs"], reset=d["reset"])
 
 
 def _port_kernel_route_step(ant_kernel_route, **overrides):
-    n, st, acts, draws, _, _ = ant_kernel_route
-    cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": n}})
+    r = ant_kernel_route
+    cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": r["n"]}})
     tt = Ant(cfg, device="cpu", sim_params=parse_sim_params(cfg["sim"])
              ._replace(use_contact_kernel=True, **overrides))
-    return tt.step(env_state_from_jax(jax_state_arrays(st), "cpu"),
-                   torch.as_tensor(acts), reset_draws=draws)
+    return tt.step(env_state_from_jax(r["state"], "cpu"),
+                   torch.as_tensor(r["acts"]), reset_draws=r["draws"])
 
 
 def _assert_matches_jax_kernel_route(ant_kernel_route, ts2, tres):
-    st2, res = ant_kernel_route[4:]
-    np.testing.assert_allclose(ts2.sim.q.numpy(), np.asarray(st2.sim.q),
+    r = ant_kernel_route
+    np.testing.assert_allclose(ts2.sim.q.numpy(), r["q"],
                                rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(ts2.sim.qd.numpy(), np.asarray(st2.sim.qd),
+    np.testing.assert_allclose(ts2.sim.qd.numpy(), r["qd"],
                                rtol=2e-3, atol=2e-3)
-    np.testing.assert_allclose(tres.obs.numpy(), np.asarray(res.obs),
+    np.testing.assert_allclose(tres.obs.numpy(), r["obs"],
                                rtol=2e-3, atol=2e-3)
-    np.testing.assert_array_equal(tres.reset.numpy(), np.asarray(res.reset))
+    np.testing.assert_array_equal(tres.reset.numpy(), r["reset"])
 
 
 def test_ant_kernel_route_matches_jax_interpret(ant_kernel_route):
     """Ant with use_contact_kernel against the JAX kernel route in
-    interpret mode (the ``ant_kernel_route`` setup)."""
+    interpret mode (the ``ant_kernel_route`` setup), a quarter of the envs
+    reset with the recorded draws."""
+    r = ant_kernel_route
+    assert r["n"] == 128
+    assert (r["state"]["reset_buf"] == (np.arange(128) % 4 == 0)).all()
     ts2, tres = _port_kernel_route_step(ant_kernel_route)
     _assert_matches_jax_kernel_route(ant_kernel_route, ts2, tres)
-    res = ant_kernel_route[5]
-    assert float(np.abs(np.asarray(res.obs)[:, 28:52]).max()) > 0.1
+    assert float(np.abs(r["obs"][:, 28:52]).max()) > 0.1
+
+
+def test_route_step_capture_draws_match_jax_keys():
+    """The capture's reset draws are the ones :func:`jax_reset_draws`
+    makes from the key of the state the capture starts from (the
+    ``PRNGKey(5)`` state advanced 5 steps; no step is run here)."""
+    d = np.load(ROUTE_STEP)
+    jt = JAnt(deep_merge(JCFG, {"env": {"numEnvs": 128}}))
+    st = jt.initial_state(jax.random.PRNGKey(5))
+    # the key chain: initial_state keeps its key; each step splits it
+    key = st.rng
+    for _ in range(5):
+        key = jax.random.split(key, 6)[0]
+    draws = jax_reset_draws(st._replace(rng=key), 128)
+    np.testing.assert_array_equal(draws[0], d["draw_0"])
+    np.testing.assert_array_equal(draws[1], d["draw_1"])
 
 
 _KERNEL_ROUTE_OPTIONS = {"capacity": {"contact_capacity": 8},
@@ -257,17 +278,51 @@ def test_generator_reset_draws_are_seeded():
 
 _UNPORTED = [
     {"warm_start": 0.5}, {"solver_rows_bf16": True},
-    {"plane_restitution": 0.5},
+    {"terrain_normal_frames": True},
 ]
 
 
 @pytest.mark.parametrize("override", _UNPORTED,
                          ids=[next(iter(o)) for o in _UNPORTED])
 def test_unported_options_raise(override):
+    """Unported options raise when the engine is built, or (terrain
+    surface normals) on the first step on a terrain.  ``plane_restitution``
+    raised until restitution was ported (test_plane_restitution_builds)."""
     from isaacgymenvs_ma_tpu.models.robots import build_ant
+    from isaacgymenvs_ma_tpu_torch.physics.terrain import TerrainGrid
     params = SimParams(contact_margin=0.02)._replace(**override)
     with pytest.raises(NotImplementedError):
-        PhysicsEngine(build_ant(), params, device="cpu")
+        eng = PhysicsEngine(build_ant(), params, device="cpu")
+        eng.step(eng.default_state(2), Control(tau=torch.zeros(2, 14)),
+                 terrain=TerrainGrid(torch.zeros(4, 4), 1.0, (-2.0, -2.0)))
+
+
+def test_plane_restitution_builds():
+    """``plane_restitution`` is ported: as in the JAX engine it enters only
+    a ground row's coefficient when the call's physics scales carry a
+    per-body restitution (engine.py:1411-1419), so alone it leaves the
+    step unchanged, and with a per-body restitution it changes it."""
+    from isaacgymenvs_ma_tpu.models.robots import build_ant
+    from isaacgymenvs_ma_tpu_torch.utils.domain_rand import PhysScales
+    params = SimParams(contact_margin=0.02)
+    m = build_ant()
+    plain = PhysicsEngine(m, params, device="cpu")
+    bouncy = PhysicsEngine(m, params._replace(plane_restitution=0.5),
+                           device="cpu")
+    # the Ant's lowest point 1 mm over the plane, falling at 3 m/s
+    q = plain.default_state(2).q.clone()
+    bx, bq, _, _ = plain.kinematics(q)
+    q[:, 2] -= float(plain._contact_rows(bx, bq, 2)[1].min()) - 1e-3
+    st = SimState(q, torch.zeros(2, 14).index_fill(
+        1, torch.tensor([2]), -3.0))
+    ctrl = Control(tau=torch.zeros(2, 14))
+    a, _ = plain.step(st, ctrl)
+    b, _ = bouncy.step(st, ctrl)
+    assert torch.equal(a.q, b.q) and torch.equal(a.qd, b.qd)
+    phys = PhysScales.ones(2)._replace(restitution=torch.zeros(2, m.nb))
+    a, _ = plain.step(st, ctrl, phys=phys)
+    b, _ = bouncy.step(st, ctrl, phys=phys)
+    assert float((b.qd - a.qd).abs().max()) > 1e-3
 
 
 @pytest.mark.parametrize("kwargs", [{"ground": False},
@@ -332,15 +387,14 @@ def test_unported_scene_features_raise(kwargs):
 
 def test_terrain_and_phys_raise():
     """Still unported, and raising: terrain surface normals
-    (``terrain_normal_frames``) and the limit-shift and restitution leaves
-    of the physics scales (dof_lower_shift here; the others in
-    tests/test_torch_domain_rand.py).  Terrain heightfields, external
-    wrenches and the mass, shape, friction, stiffness, damping, armature,
-    effort and joint-friction scales raised until they were ported: now a
-    zero wrench and unit scales leave the step unchanged (the wrench parity
-    is tests/test_torch_aerial.py's, the terrain's
-    tests/test_torch_terrain.py's, the scales' tests/test_torch_domain_rand.py's
-    and tests/test_torch_mass_splitting.py's)."""
+    (``terrain_normal_frames``).  Terrain heightfields, external wrenches
+    and the mass, shape, friction, stiffness, damping, armature, effort,
+    joint-friction and limit-shift scales raised until they were ported:
+    now a zero wrench, unit scales and zero limit shifts leave the step
+    unchanged (the wrench parity is tests/test_torch_aerial.py's, the
+    terrain's tests/test_torch_terrain.py's, the scales'
+    tests/test_torch_domain_rand.py's and tests/test_torch_mass_splitting.py's,
+    the shifts' and restitution's tests/test_torch_restitution.py's)."""
     from isaacgymenvs_ma_tpu_torch.utils.domain_rand import PhysScales
     from isaacgymenvs_ma_tpu_torch.physics.engine import PhysicsEngine
     from isaacgymenvs_ma_tpu_torch.physics.terrain import TerrainGrid
@@ -352,11 +406,12 @@ def test_terrain_and_phys_raise():
         terrain_normal_frames=True), device="cpu")
     with pytest.raises(NotImplementedError):
         normals.step(st.sim, ctrl, terrain=flat)
-    with pytest.raises(NotImplementedError):
-        t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4)._replace(
-            dof_lower_shift=torch.ones(4, 1)))
     ref, _ = t.engine.step(st.sim, ctrl)
     got, _ = t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4))
+    assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
+    zero = torch.zeros(4, 14)
+    got, _ = t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4)._replace(
+        dof_lower_shift=zero, dof_upper_shift=zero))
     assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)
     one = torch.ones(4, 1)
     got, _ = t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4)._replace(
@@ -374,8 +429,9 @@ def test_domain_randomization_raises():
     """``task.randomize`` is ported (utils/domain_rand.py): Ant with a
     mass and friction spec steps with per-env scales, and an empty
     ``randomization_params`` leaves it unrandomized, as in the JAX
-    package.  What still raises is a limit-shift or restitution leaf of
-    the scales (ROADMAP queue A, item 7c)."""
+    package.  A restitution leaf of the scales raised until it was ported:
+    now the step with it takes the loop and is finite (its parity with the
+    JAX engine is tests/test_torch_restitution.py's)."""
     from isaacgymenvs_ma_tpu_torch.physics.engine import Control
     cfg = deep_merge(TASK_CFG, {"env": {"numEnvs": 4},
                                 "task": {"randomize": True}})
@@ -394,9 +450,11 @@ def test_domain_randomization_raises():
     assert st.phys.mass.shape == (4, 9) and (st.phys.mass != 1).all()
     st, res = t.step(st, torch.zeros(4, 8))
     assert torch.isfinite(res.obs).all() and (st.phys.friction != 1).all()
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        t.engine.step(st.sim, Control(tau=torch.zeros(4, 14)),
-                      phys=st.phys._replace(restitution=torch.ones(4, 1)))
+    phys = st.phys._replace(restitution=torch.ones(4, 1))
+    assert t.engine.route_for(phys) == "loop"
+    sim, _ = t.engine.step(st.sim, Control(tau=torch.zeros(4, 14)),
+                           phys=phys)
+    assert torch.isfinite(sim.q).all() and torch.isfinite(sim.qd).all()
 
 
 @pytest.mark.parametrize("spec", ["shadow_hand", "franka_panda", "anymal"])

@@ -15,6 +15,7 @@ primitives ``_sdf_local``/``_tangent_frame`` are float32 elementwise
 formulas and are held at 1e-6; the copied model builders exactly.
 """
 import dataclasses
+import os
 
 import numpy as np
 import jax
@@ -23,7 +24,6 @@ import pytest
 import torch
 
 from isaacgymenvs_ma_tpu.ops import rng as jrng
-from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
 from isaacgymenvs_ma_tpu.physics.engine import PhysicsEngine as JEngine
 from isaacgymenvs_ma_tpu.tasks.ball_balance import (
     BallBalance as JBB, TASK_CFG as JCFG)
@@ -37,6 +37,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.ball_balance import (
 from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
+ROUTE_STEP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                          "torch_port", "ball_balance_route_step.npz")
 # 128: the smallest batch on which the JAX package runs its kernel route
 # (its dynamics kernels, whose H^-1 routes the contact solve to B4, need
 # N % 128 == 0)
@@ -132,20 +134,42 @@ def test_step_with_partial_resets(bb):
 
 def test_kernel_route_matches_jax_interpret(bb):
     """use_contact_kernel (B4's twin on the CPU) against the JAX kernel
-    route in interpret mode (pair rows with frames, attractor rows)."""
+    route in interpret mode (pair rows with frames, attractor rows), a
+    quarter of the envs reset.  The interpreted JAX step (~50-180 s on the
+    CPU) was recorded from this fixture's state, actions and reset draws by
+    ``scripts/record_torch_golden.py --route-step BallBalance`` into
+    tests/data/torch_port/ball_balance_route_step.npz; the capture's start
+    is checked against the fixture's live JAX state here, and the port's
+    step is held against the recorded one at the bounds of
+    :func:`_compare_step`."""
+    d = np.load(ROUTE_STEP)
     st = bb["st"]._replace(
         reset_buf=jnp.asarray((np.arange(N) % 4 == 0).astype(np.int32)))
-
-    def jstep(s, a):
-        jdk._FORCE_INTERPRET = True
-        try:
-            return bb["jt"].step(s, a)
-        finally:
-            jdk._FORCE_INTERPRET = False
-
-    res = _compare_step(jstep, bb["kernel"], st, bb["acts"],
-                        bb_reset_draws(st, N), 3e-3)
-    assert float(np.abs(np.asarray(res.obs)[:, 12:]).max()) > 0.1
+    start = jax_state_arrays(st)
+    for k, v in start.items():     # where the capture came from
+        np.testing.assert_allclose(d["init_" + k.split(".")[-1]], v,
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    np.testing.assert_array_equal(d["actions"], bb["acts"])
+    draws = bb_reset_draws(st, N)
+    for i, x in enumerate(draws):
+        np.testing.assert_array_equal(d[f"draw_{i}"], x.numpy())
+    ts = env_state_from_jax({k: d["init_" + k.split(".")[-1]]
+                             for k in start}, "cpu")
+    ts2, tres = bb["kernel"].step(ts, torch.as_tensor(d["actions"]),
+                                  reset_draws=draws)
+    np.testing.assert_allclose(ts2.sim.q.numpy(), d["q"],
+                               rtol=2e-4, atol=2e-5)
+    for name, a, b in (("qd", ts2.sim.qd, d["qd"]),
+                       ("obs", tres.obs, d["obs"]), ("rew", tres.rew, d["rew"])):
+        np.testing.assert_allclose(a.numpy(), b, rtol=3e-3, atol=3e-3,
+                                   err_msg=name)
+    np.testing.assert_array_equal(tres.reset.numpy(), d["reset"])
+    np.testing.assert_array_equal(ts2.progress.numpy(), d["progress"])
+    for f in ts2.task._fields:
+        np.testing.assert_allclose(getattr(ts2.task, f).numpy(),
+                                   d[f"task_{f}"], rtol=1e-6, atol=1e-6,
+                                   err_msg=f)
+    assert float(np.abs(d["obs"][:, 12:]).max()) > 0.1
 
 
 def test_engine_step_matches_jax(bb):

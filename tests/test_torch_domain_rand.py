@@ -179,11 +179,29 @@ def test_unit_scales_leave_the_step_unchanged(phys_step):
 @pytest.mark.parametrize("leaf", ["dof_lower_shift", "dof_upper_shift",
                                   "restitution"])
 def test_unported_scale_leaves_raise(leaf):
-    tt = _port_task("Ant", 4)
-    st = tt.initial_state()
-    phys = tdr.PhysScales.ones(4)._replace(**{leaf: torch.ones(4, 1)})
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        tt.engine.step(st.sim, Control(tau=torch.zeros(4, 14)), phys=phys)
+    """The limit-shift and restitution leaves raised until ROADMAP queue A
+    item 7c ported them: now an Ant engine step from the warmed-up state
+    of ant_golden.npz (feet on the ground) with the leaf set (a shift of
+    0.3 rad on every dof, the lower limit raised or the upper lowered, or
+    restitution 0.5) is finite and differs from the step without it.  Its
+    parity with the JAX engine is tests/test_torch_restitution.py's."""
+    n = 4
+    tt = _port_task("Ant", n)
+    d = np.load(os.path.join(DATA, "ant_golden.npz"))
+    sim0 = SimState(torch.as_tensor(d["init_q"][:n]),
+                    torch.as_tensor(d["init_qd"][:n]))
+    value = {"dof_lower_shift": 0.3, "dof_upper_shift": -0.3,
+             "restitution": 0.5}[leaf]
+    width = 1 if leaf == "restitution" else tt.engine.nv
+    phys = tdr.PhysScales.ones(n)._replace(
+        **{leaf: torch.full((n, width), value)})
+    g = np.random.default_rng(0)
+    ctrl = Control(tau=torch.as_tensor(
+        (0.3 * g.normal(size=(n, tt.engine.nv))).astype(np.float32)))
+    got, _ = tt.engine.step(sim0, ctrl, phys=phys)
+    plain, _ = tt.engine.step(sim0, ctrl)
+    assert torch.isfinite(got.q).all() and torch.isfinite(got.qd).all()
+    assert float((plain.qd - got.qd).abs().max()) > 1e-3
 
 
 # --------------------------------------------- kernel twins with scales

@@ -14,9 +14,10 @@ every substep, although FrankaReachMA's configuration sets
 The state is the warmed-up initial state of the committed B4-route capture
 (tests/data/torch_port/franka_reach_ma_b4_golden.npz, replayed whole in
 tests/test_torch_golden.py) with a quarter of the envs flagged to reset;
-the JAX step runs eagerly with ``_FORCE_INTERPRET`` set (it is read while
-tracing; ~110 s on the CPU) and its reset draws are injected into the
-port.  Tolerances: q rtol 2e-4 / atol 2e-5, qd, obs and reward 3e-3 (the
+the JAX step ran eagerly with ``_FORCE_INTERPRET`` set (it is read while
+tracing; ~120-300 s on the CPU) in ``scripts/record_torch_golden.py
+--route-step FrankaReachMA``, which recorded it with its reset draws, and
+the tests read that record; the draws are injected into the port.  Tolerances: q rtol 2e-4 / atol 2e-5, qd, obs and reward 3e-3 (the
 JAX package's bounds for pair scenes, tests/test_dyn_kernel.py:139-159);
 resets exact.
 """
@@ -30,9 +31,7 @@ import torch
 
 from isaacgymenvs_ma_tpu.physics import contact_kernel as jck
 from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
-from isaacgymenvs_ma_tpu.physics.engine import SimState as JSimState
 from isaacgymenvs_ma_tpu.tasks import franka_reach_ma as jfr
-from isaacgymenvs_ma_tpu.tasks.base import EnvState as JEnvState
 from isaacgymenvs_ma_tpu.utils.config import deep_merge as jdeep_merge
 from isaacgymenvs_ma_tpu_torch.convert import env_state_from_jax
 from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
@@ -42,6 +41,8 @@ from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
 CAPTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "torch_port", "franka_reach_ma_b4_golden.npz")
+ROUTE_STEP = os.path.join(os.path.dirname(os.path.dirname(CAPTURE)),
+                          "torch_port", "franka_reach_ma_route_step.npz")
 
 
 def _jax_supports(engine, n):
@@ -68,33 +69,34 @@ def _port_task(n, **overrides):
 @pytest.fixture(scope="module")
 def kernel_route():
     """The capture's state, the first recorded actions, the JAX reset
-    draws and the JAX kernel route's step from there."""
+    draws and the JAX kernel route's step from there.  The step (~120-300 s
+    interpreted on the CPU) was recorded from that state, with
+    ``PRNGKey(7)``'s reset draws, by ``scripts/record_torch_golden.py
+    --route-step FrankaReachMA`` into ROUTE_STEP, which this fixture reads;
+    the draws are made here again from the key and must be the recorded
+    ones."""
     d = np.load(CAPTURE)
+    r = np.load(ROUTE_STEP)
     n = d["init_q"].shape[0]
     jt = jfr.FrankaReachMA(jdeep_merge(jfr.TASK_CFG, {"env": {"numEnvs": n}}))
-    st = JEnvState(
-        sim=JSimState(jnp.asarray(d["init_q"]), jnp.asarray(d["init_qd"])),
-        progress=jnp.asarray(d["init_progress"]),
-        reset_buf=jnp.asarray(d["init_reset_buf"]),
-        rng=jax.random.PRNGKey(7),
-        task=jfr.FrankaMATaskState(actions=jnp.asarray(d["init_actions"])))
+    for k in ("q", "qd", "progress", "reset_buf", "actions"):
+        np.testing.assert_array_equal(r[f"init_{k}"], d[f"init_{k}"])
     acts = d["actions"][0]
+    np.testing.assert_array_equal(r["actions"], acts)
     # FrankaReachMA.reset_idx's uniform draws from VecTaskBase.step's key
-    k1, k2, k3 = jax.random.split(jax.random.split(st.rng, 6)[1], 3)
+    k1, k2, k3 = jax.random.split(
+        jax.random.split(jax.random.PRNGKey(7), 6)[1], 3)
     K, T = jt.num_agents, jt.num_targets
     draws = tuple(torch.as_tensor(np.array(x)) for x in (
         jax.random.uniform(k1, (n, K, 9)), jax.random.uniform(k2, (n, T, 2)),
         jax.random.uniform(k3, (n, T))))
-    jdk._FORCE_INTERPRET = True
-    try:
-        st2, res = jt.step(st, jnp.asarray(acts))
-    finally:
-        jdk._FORCE_INTERPRET = False
+    for i, x in enumerate(draws):
+        np.testing.assert_array_equal(r[f"draw_{i}"], x.numpy())
     port_state = env_state_from_jax(
         {"sim.q": d["init_q"], "sim.qd": d["init_qd"],
          "progress": d["init_progress"], "reset_buf": d["init_reset_buf"],
          "task.actions": d["init_actions"]}, "cpu")
-    return dict(n=n, jt=jt, acts=acts, draws=draws, st2=st2, res=res,
+    return dict(n=n, jt=jt, acts=acts, draws=draws, ref=r,
                 port_state=port_state)
 
 
@@ -119,20 +121,20 @@ def test_franka_kernel_route_matches_jax_interpret(kernel_route):
     ts2, tres = tt.step(kernel_route["port_state"],
                         torch.as_tensor(kernel_route["acts"]),
                         reset_draws=kernel_route["draws"])
-    st2, res = kernel_route["st2"], kernel_route["res"]
-    np.testing.assert_allclose(ts2.sim.q.numpy(), np.asarray(st2.sim.q),
+    ref = kernel_route["ref"]
+    np.testing.assert_allclose(ts2.sim.q.numpy(), ref["q"],
                                rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(ts2.sim.qd.numpy(), np.asarray(st2.sim.qd),
+    np.testing.assert_allclose(ts2.sim.qd.numpy(), ref["qd"],
                                rtol=3e-3, atol=3e-3)
-    np.testing.assert_allclose(tres.obs.numpy(), np.asarray(res.obs),
+    np.testing.assert_allclose(tres.obs.numpy(), ref["obs"],
                                rtol=3e-3, atol=3e-3)
-    np.testing.assert_allclose(tres.rew.numpy(), np.asarray(res.rew),
+    np.testing.assert_allclose(tres.rew.numpy(), ref["rew"],
                                rtol=3e-3, atol=3e-3)
-    np.testing.assert_array_equal(tres.reset.numpy(), np.asarray(res.reset))
+    np.testing.assert_array_equal(tres.reset.numpy(), ref["reset"])
     # the step reset the flagged envs and moved the others
     flagged = np.asarray(kernel_route["port_state"].reset_buf.numpy(), bool)
     assert flagged.sum() == kernel_route["n"] // 4
-    assert float(np.abs(np.asarray(st2.sim.qd)[~flagged]).max()) > 1e-3
+    assert float(np.abs(ref["qd"][~flagged]).max()) > 1e-3
 
 
 def test_franka_kernel_route_ignores_capacity_and_reuse(kernel_route):

@@ -16,7 +16,10 @@ AllegroKuka subtasks (per-env cuboid sizes) at 4 envs (the two
 Reorientation scenes on both routes), ShadowHand and AllegroHand (mass
 splitting; AllegroHand's dof friction) at 4 envs with and without the
 contact-kernel request (both take the loop) and ShadowHandOpenAI_FF and
-AllegroHandLSTM (critic states, the random object force), call
+AllegroHandLSTM (critic states, the random object force),
+AllegroHandDextremeManualDR and AllegroHandADR at 4 envs (the RNA, the ADR
+rows' restitution and limit shifts on the loop) and the dict-observation
+shim over the latter, call
 ``spd_inverse``,
 run one PPO ``train_epoch`` of Cartpole at 16 envs, one of Cartpole with
 an LSTM network and one of Trifinger with its central-value critic, then
@@ -200,6 +203,26 @@ SCRIPT = textwrap.dedent("""
             assert res.obs.shape == (4, task.num_obs)
             if task.num_states:
                 assert res.states.shape == (4, task.num_states)
+    from isaacgymenvs_ma_tpu_torch.utils.rlgames_utils import (
+        ComplexObsRLGPUEnv)
+    for name in ("AllegroHandDextremeManualDR", "AllegroHandADR"):
+        cfg = deep_merge(registry.task_default_config(name),
+                         {"env": {"numEnvs": 4}})
+        task = registry.create_task(name, cfg, device="cpu")
+        state = task.initial_state()
+        assert task.engine.route_for(state.phys) == "loop"
+        for _ in range(2):
+            state, res = task.step(
+                state, torch.tanh(torch.randn(4, task.num_actions)))
+        assert torch.isfinite(res.obs).all() and res.obs.shape == (4, 50)
+        assert res.states.shape == (4, 112)
+    env = ComplexObsRLGPUEnv(task, {
+        "obs": {"names": ["dof_pos", "object_pose"]},
+        "priv": {"names": ["dof_vel"], "concat": False}})
+    out, rew, reset, extras = env.step(torch.zeros(4, 16))
+    assert out["obs"].shape == (4, 23) and "adr_npd" in extras
+    out, done = env.reset_done()
+    assert out["priv"]["dof_vel"].shape == (4, 16)
     from isaacgymenvs_ma_tpu_torch.learning import networks
     tcfg = train_default_config("Cartpole")
     tcfg["params"]["config"].update(minibatch_size=128, seq_len=4)
@@ -245,6 +268,7 @@ def test_port_imports_and_steps_without_jax():
     # franka_ppma, franka_combine_ma), the legged and aerial tasks with
     # the terrain and their specs, and the single-arm Franka tasks,
     # Trifinger, its spec and the domain randomizer, the AllegroKuka tasks
-    # and their spec, the two hand tasks and their specs too
+    # and their spec, the two hand tasks and their specs, Dextreme, ADR,
+    # the RNA and the rl_games shim too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 62, proc.stdout
+    assert n_mods >= 66, proc.stdout

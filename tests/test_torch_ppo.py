@@ -224,10 +224,12 @@ def test_overrides_and_loaders_equal_jax():
 
 
 def test_registry_ports_four_tasks_and_names_the_rest():
-    assert pregistry.task_names() == ["AllegroHand", "AllegroHandFF",
-                                      "AllegroHandLSTM",
+    assert pregistry.task_names() == ["AllegroHand", "AllegroHandADR",
+                                      "AllegroHandDextremeADR",
+                                      "AllegroHandDextremeManualDR",
+                                      "AllegroHandFF", "AllegroHandLSTM",
                                       "AllegroHandLSTM_Big",
-                                      "AllegroKuka", "AllegroKukaLSTM",
+                                      "AllegroHandManualDR", "AllegroKuka", "AllegroKukaLSTM",
                                       "AllegroKukaTwoArms",
                                       "AllegroKukaTwoArmsLSTM", "Ant",
                                       "Anymal", "AnymalTerrain",
@@ -577,8 +579,8 @@ def test_launch_trains_saves_and_plays(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("flag", ["multi_gpu=True", "pbt.enabled=True",
                                   "capture_video=True", "wandb_activate=True",
                                   "headless=False",
-                                  "task=AllegroHandDextremeADR",
-                                  "task=AllegroHandManualDR",
+                                  "task=FactoryTaskNutBoltPick",
+                                  "task=IndustRealTaskGearsInsert",
                                   "train=HumanoidAMP",
                                   "train=AntSAC"])
 def test_unported_flags_and_names_raise(flag, tmp_path, monkeypatch):
