@@ -13,7 +13,8 @@ Phases, each printing its own lines; any failure exits non-zero
      (FrankaCubeStack2's is the same), Trifinger, AllegroKuka,
      AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF,
      AllegroHandLSTM and Dextreme (AllegroHand's header: built once)
-     scenes, B4 for the
+     scenes and the Factory and IndustReal ones (Pick at 128, 512 and 1024
+     envs and Place share one header), B4 for the
      Ant, BallBalance, FrankaReachMA, FrankaCollectMA and FrankaPPMA
      contact plans (the last two with their grab group), the Humanoid,
      Anymal and Ingenuity plans, the FrankaReach, FrankaCabinet (grab
@@ -57,7 +58,11 @@ Phases, each printing its own lines; any failure exits non-zero
      AllegroHandDextremeADR-8192 on warmed-up states (the hands split
      masses, so B4 is not on their path), and B2 with Dextreme-ADR's own
      per-body mass scale from its ADR rows, B3 with the gravity wrench it
-     scales (``[scaled_kernel]``); B5 on
+     scales (``[scaled_kernel]``); B1-B3 at FactoryTaskNutBoltPick-128
+     and -1024, FactoryTaskNutBoltScrew-128, FactoryTaskGears-128 and
+     IndustRealTaskPegsInsert-128 on warmed-up states (qdd and H^-1 held
+     per env), and B5 on Screw's two operational-space stacks ((128, 7, 7)
+     arm mass matrices, (128, 6, 6) J M^-1 J^T + 1e-6 I); B5 on
      the two
      OSC inverses of a warmed-up FrankaReachMA-8192
      step ((16384, 7, 7) arm mass matrices, (16384, 6, 6) J M^-1 J^T) and
@@ -94,7 +99,10 @@ Phases, each printing its own lines; any failure exits non-zero
      draws injected; AllegroHandDextremeManualDR and AllegroHandDextremeADR
      (the ADR one from widened ranges: restitution and limit shifts in the
      engine) so, with every draw of their hooks injected and the RNA's
-     recorded weights
+     recorded weights; the five Factory and two IndustReal captures (8
+     envs, a 23-step episode: Pick's close-and-lift epilogue in the third
+     recorded step) on the loop, one step at a time against the
+     reference's own one-ulp spread
   restitution: one engine step of AllegroHand-8192 (plane restitution
      0.5, every cube thrown at the palm) with restitution 0.5 on every body
      and seeded limit shifts on the card and on the CPU twins, held at the
@@ -103,6 +111,13 @@ Phases, each printing its own lines; any failure exits non-zero
      ``engine.route_for`` gives the hand's call and an Ant-4096 call with
      the contact kernel requested and restitution (the loop) and without
      it (B4)
+  factory_engine: one engine step of FactoryTaskNutBoltPick-128 (warm
+     start, body damping, bf16 solver rows, the nut's and bolt's SDF grids,
+     mass splitting) on the card and on the CPU twins from the same state,
+     held at the ground-rule bounds widened per env by the CPU step's
+     one-ulp spread; the share of active rows warm start seeds, the mean
+     |lambda| carried in, the mean |damping wrench|, the bf16 rule's rows x
+     nv and the route
   5. main path, each phase with the launch counts set to 0 just before it:
      Ant-4096 and BallBalance-4096 on the default contact loop and on B4,
      FrankaReachMA at 8192 envs x 2 arms on the default loop and on B4,
@@ -126,7 +141,8 @@ Phases, each printing its own lines; any failure exits non-zero
      torque|; after Dextreme's an ``[rna]`` line, the share of envs the
      RNA blends a step, and ADR's ``[adr]`` line: npd, queued boundary
      episodes, the mean |limit shift| and restitution reaching the engine),
-     100 steps each (the hands' 50), tanh(obs @ W) actions;
+     50 steps each (100 until the Factory phases joined), tanh(obs @ W)
+     actions;
      each ``[main]`` line names the contact route the engine took;
      env-steps/s (and agent-steps/s), stream ms per step by CUDA events
      (the kernels and the device's idle gaps between them), launches per
@@ -137,7 +153,14 @@ Phases, each printing its own lines; any failure exits non-zero
      friction changed at a reset (every flagged env, no other) and the
      noise std added to actions and observations against the config's;
      then ``[shim]``: ``ComplexObsRLGPUEnv`` over Dextreme-ADR-8192, each
-     group's shape and ``reset_done``'s count
+     group's shape and ``reset_done``'s count; then the Factory family
+     (Pick, Place, Screw, Gears, Insertion) and IndustReal (PegsInsert,
+     GearsInsert) at their published 128 envs and Pick at 1024, 100 steps
+     each, the contact kernel requested (warm start and mass splitting
+     take the loop: B4 forbidden, B5 only and twice a step at Screw),
+     each followed by a ``[factory]`` line: the host reads of the two
+     data-dependent branches a step and, at Pick, the close-and-lift
+     epilogues run in the phase and the last one's lift success share
   6. train, each run with the launch counts set to 0 just before it: PPO
      (``learning/ppo.py``) on Ant-4096 with the Ant train config (1
      warm-up epoch, 3 timed) and on FrankaReachMA at 8192 envs x 2 arms
@@ -150,8 +173,10 @@ Phases, each printing its own lines; any failure exits non-zero
      privileged states) and ShadowHandOpenAI_FF-16384 with its config
      (the central-value critic on 211 privileged states, 3 engine steps
      a step) and AllegroHandDextremeADR-8192 with its config (the central
-     value on 112 true states; ``adr_npd`` printed), 1 warm-up and 1 timed
-     each, each epoch's seconds,
+     value on 112 true states; ``adr_npd`` printed),
+     FactoryTaskNutBoltPick-512 with its config (an epilogue an episode)
+     and IndustRealTaskPegsInsert-128 with its config, 1 warm-up and 1
+     timed each, each epoch's seconds,
      rollout and update ms (CUDA events),
      training frames/s and losses; then Cartpole-512 through the ``train``
      entry point until its mean return passes 100, failing if it has not
@@ -162,8 +187,9 @@ first, launches summed over every phase, then a row per kernel at
 FrankaCollectMA, FrankaPPMA, Humanoid, Anymal, Ingenuity, Quadcopter,
 FrankaReach, FrankaCabinet, FrankaCubeStack, Trifinger, AllegroKuka,
 AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF,
-AllegroHandLSTM, AllegroHandDextremeADR, AllegroHandDextremeManualDR
-(ADR's), FrankaCubeStack2 (FrankaCubeStack's) and AnymalTerrain
+AllegroHandLSTM, AllegroHandDextremeADR, the Factory scenes of phase 3
+(Pick-128, Pick-1024, Screw with B5, Gears, PegsInsert),
+AllegroHandDextremeManualDR (ADR's), FrankaCubeStack2 (FrankaCubeStack's) and AnymalTerrain
 (Anymal's), launches
 summed over that task's main phases), the last line {"ok": true,
 "device": {...}}.  Needs a CUDA
@@ -183,40 +209,40 @@ import warnings
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_ENVS = 4096
 PHASES = (  # tag, task, use_contact_kernel, steps, envs
-    ("ant", "Ant", False, 100, N_ENVS),
-    ("ant_b4", "Ant", True, 100, N_ENVS),
-    ("ball_balance", "BallBalance", False, 100, N_ENVS),
-    ("ball_balance_b4", "BallBalance", True, 100, N_ENVS),
-    ("franka_reach_ma", "FrankaReachMA", False, 100, 8192),
-    ("franka_reach_ma_b4", "FrankaReachMA", True, 100, 8192),
-    ("cartpole", "Cartpole", False, 100, 512),
-    ("franka_collect_ma", "FrankaCollectMA", False, 100, 8192),
-    ("franka_collect_ma_b4", "FrankaCollectMA", True, 100, 8192),
-    ("franka_ppma", "FrankaPPMA", False, 100, 8192),
-    ("franka_ppma_b4", "FrankaPPMA", True, 100, 8192),
-    ("franka_combine_ma", "FrankaCombineMA", False, 100, 8192),
-    ("humanoid", "Humanoid", False, 100, N_ENVS),
-    ("humanoid_b4", "Humanoid", True, 100, N_ENVS),
-    ("anymal", "Anymal", False, 100, N_ENVS),
-    ("anymal_b4", "Anymal", True, 100, N_ENVS),
-    ("anymal_terrain", "AnymalTerrain", False, 100, N_ENVS),
-    ("anymal_terrain_b4", "AnymalTerrain", True, 100, N_ENVS),
-    ("ingenuity", "Ingenuity", False, 100, N_ENVS),
-    ("ingenuity_b4", "Ingenuity", True, 100, N_ENVS),
-    ("quadcopter", "Quadcopter", False, 100, N_ENVS),
-    ("franka_reach", "FrankaReach", False, 100, N_ENVS),
-    ("franka_reach_b4", "FrankaReach", True, 100, N_ENVS),
-    ("franka_cabinet", "FrankaCabinet", False, 100, N_ENVS),
-    ("franka_cabinet_b4", "FrankaCabinet", True, 100, N_ENVS),
-    ("franka_cube_stack", "FrankaCubeStack", False, 100, 8192),
-    ("franka_cube_stack_b4", "FrankaCubeStack", True, 100, 8192),
-    ("franka_cube_stack2", "FrankaCubeStack2", False, 100, 8192),
-    ("trifinger", "Trifinger", False, 100, 16384),
-    ("trifinger_b4", "Trifinger", True, 100, 16384),
-    ("allegro_kuka", "AllegroKuka", False, 100, 8192),
-    ("allegro_kuka_b4", "AllegroKuka", True, 100, 8192),
-    ("allegro_kuka_two_arms", "AllegroKukaTwoArms", False, 100, 8192),
-    ("allegro_kuka_two_arms_b4", "AllegroKukaTwoArms", True, 100, 8192),
+    ("ant", "Ant", False, 50, N_ENVS),
+    ("ant_b4", "Ant", True, 50, N_ENVS),
+    ("ball_balance", "BallBalance", False, 50, N_ENVS),
+    ("ball_balance_b4", "BallBalance", True, 50, N_ENVS),
+    ("franka_reach_ma", "FrankaReachMA", False, 50, 8192),
+    ("franka_reach_ma_b4", "FrankaReachMA", True, 50, 8192),
+    ("cartpole", "Cartpole", False, 50, 512),
+    ("franka_collect_ma", "FrankaCollectMA", False, 50, 8192),
+    ("franka_collect_ma_b4", "FrankaCollectMA", True, 50, 8192),
+    ("franka_ppma", "FrankaPPMA", False, 50, 8192),
+    ("franka_ppma_b4", "FrankaPPMA", True, 50, 8192),
+    ("franka_combine_ma", "FrankaCombineMA", False, 50, 8192),
+    ("humanoid", "Humanoid", False, 50, N_ENVS),
+    ("humanoid_b4", "Humanoid", True, 50, N_ENVS),
+    ("anymal", "Anymal", False, 50, N_ENVS),
+    ("anymal_b4", "Anymal", True, 50, N_ENVS),
+    ("anymal_terrain", "AnymalTerrain", False, 50, N_ENVS),
+    ("anymal_terrain_b4", "AnymalTerrain", True, 50, N_ENVS),
+    ("ingenuity", "Ingenuity", False, 50, N_ENVS),
+    ("ingenuity_b4", "Ingenuity", True, 50, N_ENVS),
+    ("quadcopter", "Quadcopter", False, 50, N_ENVS),
+    ("franka_reach", "FrankaReach", False, 50, N_ENVS),
+    ("franka_reach_b4", "FrankaReach", True, 50, N_ENVS),
+    ("franka_cabinet", "FrankaCabinet", False, 50, N_ENVS),
+    ("franka_cabinet_b4", "FrankaCabinet", True, 50, N_ENVS),
+    ("franka_cube_stack", "FrankaCubeStack", False, 50, 8192),
+    ("franka_cube_stack_b4", "FrankaCubeStack", True, 50, 8192),
+    ("franka_cube_stack2", "FrankaCubeStack2", False, 50, 8192),
+    ("trifinger", "Trifinger", False, 50, 16384),
+    ("trifinger_b4", "Trifinger", True, 50, 16384),
+    ("allegro_kuka", "AllegroKuka", False, 50, 8192),
+    ("allegro_kuka_b4", "AllegroKuka", True, 50, 8192),
+    ("allegro_kuka_two_arms", "AllegroKukaTwoArms", False, 50, 8192),
+    ("allegro_kuka_two_arms_b4", "AllegroKukaTwoArms", True, 50, 8192),
     # the hands split masses: the contact kernel requested, the engine
     # takes its batched loop (the JAX route rule)
     ("shadow_hand", "ShadowHand", True, 50, 8192),
@@ -228,12 +254,39 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("allegro_hand_dextreme_manual_dr", "AllegroHandDextremeManualDR", True,
      50, 8192),
     ("allegro_hand_dextreme_adr", "AllegroHandDextremeADR", True, 50, 8192),
+    # the Factory family and IndustReal at their published 128 envs (Pick
+    # also at 1024), the contact kernel requested: warm start and mass
+    # splitting take the batched loop (the JAX route rule), B5 only at
+    # Screw (its operational-space controller), B4 never
+    ("factory_pick", "FactoryTaskNutBoltPick", True, 100, 128),
+    ("factory_pick_1024", "FactoryTaskNutBoltPick", True, 100, 1024),
+    ("factory_place", "FactoryTaskNutBoltPlace", True, 100, 128),
+    ("factory_screw", "FactoryTaskNutBoltScrew", True, 100, 128),
+    ("factory_gears", "FactoryTaskGears", True, 100, 128),
+    ("factory_insertion", "FactoryTaskInsertion", True, 100, 128),
+    ("industreal_pegs_insert", "IndustRealTaskPegsInsert", True, 100, 128),
+    ("industreal_gears_insert", "IndustRealTaskGearsInsert", True, 100,
+     128),
 )
+# tasks built for phase 6 only: tag, task, envs (Pick at the width of the
+# repo's solved run, BASELINE.md:90)
+TRAIN_ONLY = (("factory_pick_512", "FactoryTaskNutBoltPick", 512),)
 # the tasks that split masses: their contact solve never runs B4
 MASS_SPLIT = ("ShadowHand", "AllegroHand", "ShadowHandOpenAI_FF",
               "AllegroHandLSTM", "AllegroHandDextremeManualDR",
               "AllegroHandDextremeADR")
 DEXTREME = ("AllegroHandDextremeManualDR", "AllegroHandDextremeADR")
+# the Factory and IndustReal tasks: warm start and mass splitting keep
+# their contact solve on the loop
+FACTORY = ("FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
+           "FactoryTaskNutBoltScrew", "FactoryTaskGears",
+           "FactoryTaskInsertion", "IndustRealTaskPegsInsert",
+           "IndustRealTaskGearsInsert")
+# the Factory scenes whose B1-B3 phase 3 holds on a warmed-up state at
+# each main phase's width (Place runs Pick's scene); Screw's B5 also at its
+# operational-space stacks
+FACTORY_SCENES = ("factory_pick", "factory_pick_1024", "factory_screw",
+                  "factory_gears", "industreal_pegs_insert")
 # the hand scenes: B1-B3 on a warmed-up state at each main phase's width
 # (ManualDR runs the ADR scene's kernels)
 HAND_SCENES = ("shadow_hand", "allegro_hand", "shadow_hand_openai_ff",
@@ -245,7 +298,7 @@ TWIN_TIMING_SCENES = ("ant", "shadow_hand")
 # drives its arm with joint torques
 OSC_TASKS = ("FrankaReachMA", "FrankaCollectMA", "FrankaPPMA",
              "FrankaCombineMA", "FrankaReach", "FrankaCubeStack",
-             "FrankaCubeStack2")
+             "FrankaCubeStack2", "FactoryTaskNutBoltScrew")
 # the MA scenes with grab constraints whose kernels phase 3 checks: B1-B3
 # on a warmed-up state, B4 on its route's inputs with live grabs
 GRAB_SCENES = ("franka_collect_ma", "franka_ppma")
@@ -295,7 +348,13 @@ TRAIN_RUNS = (("train_ant", "ant", "Ant", 1, 3),
                "ShadowHandOpenAI_FF", 1, 1),
               # the central-value critic on 112 true states, ADR adapting
               ("train_allegro_hand_dextreme_adr", "allegro_hand_dextreme_adr",
-               "AllegroHandDextremeADR", 1, 1))
+               "AllegroHandDextremeADR", 1, 1),
+              # Factory Pick at 512 envs (its close-and-lift epilogue on
+              # an episode's last step) and IndustReal's pegs at 128
+              ("train_factory_pick", "factory_pick_512",
+               "FactoryTaskNutBoltPick", 1, 1),
+              ("train_industreal_pegs_insert", "industreal_pegs_insert",
+               "IndustRealTaskPegsInsert", 1, 1))
 # shared memory of one H100 SM (228 KB) and the 1 KB the runtime reserves
 # a block: a block's layout fits SM_SMEM // (smem + 1024) blocks an SM
 SM_SMEM, BLOCK_RESERVED = 233472, 1024
@@ -347,6 +406,7 @@ RECORDED_US = {("ant", "fk_motion"): 5.02,
                ("cartpole", "dyn_cached"): None,
                **{(scene, name): None
                   for scene in LOCO_SCENES + SINGLE_SCENES + HAND_SCENES
+                  + FACTORY_SCENES + ("factory_pick_512",)
                   for name in ("fk_motion", "dyn_forward", "dyn_cached",
                                "contact_solve")}}
 # B5's seeded stacks, (B, n, seed): the OSC sizes, the JAX kernel's own
@@ -1611,6 +1671,151 @@ def check_ma_kernels(torch, dk, ck, task, task_b4, dev, scene):
     return rep
 
 
+def check_factory_kernels(torch, dk, sk, task, dev, scene):
+    """B1-B3 at a Factory scene's width on a state 10 policy steps in (qd
+    nudged by N(0, 0.3)), qdd and H^-1 held per env as at the hands; at
+    Screw also B5 on the two stacks its operational-space controller
+    inverts there (the (N, 7, 7) arm mass matrices, then J M^-1 J^T +
+    1e-6 I), each matrix's bound widened as at the Franka OSC."""
+    st, obs = run_steps(torch, task, task.initial_state(),
+                        zero_obs(torch, task, dev), policy(torch, task, dev),
+                        10)
+    gq = torch.Generator(device=dev).manual_seed(19)
+    qd = st.sim.qd + 0.3 * torch.randn(st.sim.qd.shape, generator=gq,
+                                       device=dev)
+    rep = check_dyn_kernels(torch, dk, task, st.sim.q.t().contiguous(),
+                            qd.t().contiguous(), dev, scene, ("qdd", "Hinv"))
+    if type(task).__name__ == "FactoryTaskNutBoltScrew":
+        from isaacgymenvs_ma_tpu_torch.physics import engine as eng_mod
+        box = []
+        inverse = eng_mod.spd_inverse
+
+        def spy(H):
+            box.append(H.clone())
+            return inverse(H)
+
+        eng_mod.spd_inverse = spy
+        try:
+            task.pre_physics(st, policy(torch, task, dev)(obs))
+        finally:
+            eng_mod.spd_inverse = inverse
+        if [tuple(H.shape) for H in box] != [(task.num_envs, 7, 7),
+                                              (task.num_envs, 6, 6)]:
+            raise RuntimeError(f"Screw's OSC stacks {[H.shape for H in box]}")
+        rep["spd_inverse"] = check_spd_kernel(torch, sk, dk, box[0],
+                                              f"{scene} osc_mm", True)
+        rep["spd_inverse 6"] = check_spd_kernel(torch, sk, dk, box[1],
+                                                f"{scene} osc_lambda", True)
+    return rep
+
+
+def factory_engine_phase(torch, task, dev, steps_in=30):
+    """``[factory_engine]``: one engine step of FactoryTaskNutBoltPick-128
+    on the card and on the CPU twins from the same state (30 policy steps
+    in, carrying the warm-start impulses) and control, the Factory engine
+    features all on: warm start 0.9, the Franka's body damping, bfloat16
+    solver rows (152 rows x nv 15 reach the auto rule), the nut's and
+    bolt's SDF grids, mass splitting.  q and qd held at the ground-rule
+    bounds (q rtol 2e-4 / atol 2e-5, qd 3e-3: a pair scene) with each
+    env's bound widened by four times the CPU step's own move under
+    one-ulp noise on q and qd (two nudged runs: the squeezed nut amplifies
+    rounding); the impulses' error printed.  Prints the share of the first
+    substep's active rows that warm start seeds, the mean |lambda| of the
+    impulses carried in, the mean |damping wrench| on the Franka's bodies,
+    the rows x nv of the bf16 rule and the route."""
+    cpu = type(task)(task.cfg, device="cpu", seed=1,
+                     sim_params=task.sim_params)
+    st, obs = run_steps(torch, task, task.initial_state(),
+                        zero_obs(torch, task, dev), policy(torch, task, dev),
+                        steps_in)
+    ctrl = task.pre_physics(st, policy(torch, task, dev)(obs))
+    eng = task.engine
+    normal = eng._normal_targets
+    first = {}
+
+    def normal_targets(phi):
+        active, b_n = normal(phi)
+        first.setdefault("active", active)
+        return active, b_n
+
+    eng._normal_targets = normal_targets
+    try:
+        got, _ = eng.step(st.sim, ctrl)
+    finally:
+        del eng._normal_targets
+    lam_in = st.sim.lam[0]
+    active = first["active"]
+    seeded = active & (lam_in.abs().amax(-1) > 0)
+    share = float(seeded.sum()) / max(float(active.sum()), 1.0)
+    body_x, body_q, S, _ = eng.kinematics(st.sim.q)
+    franka = torch.as_tensor([i for i, n in enumerate(task.model.body_names)
+                              if n.startswith("panda_")], device=dev)
+    wrench = eng.damping_wrench(body_x, body_q, S, st.sim.qd)[:, franka]
+    to_cpu = lambda x: None if x is None else x.cpu()  # noqa: E731
+    cpu_ctrl = ctrl._replace(tau=ctrl.tau.cpu(),
+                             pos_target=to_cpu(ctrl.pos_target),
+                             vel_target=to_cpu(ctrl.vel_target))
+    sim0 = st.sim._replace(q=st.sim.q.cpu(), qd=st.sim.qd.cpu(),
+                           lam=tuple(x.cpu() for x in st.sim.lam))
+    t0 = time.perf_counter()
+    ref, _ = cpu.engine.step(sim0, cpu_ctrl)
+    cpu_s = time.perf_counter() - t0
+    n = task.num_envs
+    gn = torch.Generator().manual_seed(20)
+    spread = {"q": torch.zeros(n, dtype=torch.float64),
+              "qd": torch.zeros(n, dtype=torch.float64)}
+    for _ in range(2):
+        nudge = lambda x: x * (1 + (torch.randint(  # noqa: E731
+            0, 2, x.shape, generator=gn) * 2 - 1) * 2.0 ** -23)
+        alt, _ = cpu.engine.step(sim0._replace(q=nudge(sim0.q),
+                                               qd=nudge(sim0.qd)), cpu_ctrl)
+        for k in spread:
+            d = (getattr(alt, k) - getattr(ref, k)).abs().amax(-1).double()
+            spread[k] = torch.maximum(spread[k], d)
+    errs = {}
+    for k, rtol, atol in (("q", 2e-4, 2e-5), ("qd", 3e-3, 3e-3)):
+        a = getattr(got, k).cpu().double()
+        b = getattr(ref, k).double()
+        tol = atol + rtol * b.abs() + 4.0 * spread[k][:, None]
+        diff = (a - b).abs()
+        errs[k] = float(diff.max())
+        print(f"[check] factory_engine {k} max_abs_err={errs[k]:.3g} "
+              f"max_bound={float(tol.max()):.3g} "
+              f"median_bound={float(tol.median()):.3g} "
+              f"median_env_spread={float(spread[k].median()):.3g}",
+              flush=True)
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"factory_engine {k}: card vs CPU differs "
+                                 f"by {errs[k]:.3g} beyond its bound")
+    lam_err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(got.lam, ref.lam))
+    rows = eng.n_ground + eng.n_pair_rows
+    phase("factory_engine", task=type(task).__name__, envs=n,
+          warm_seeded_share=f"{share:.6f}", active_rows=int(active.sum()),
+          mean_abs_lam=f"{float(lam_in.abs().mean()):.6g}",
+          mean_abs_damping_wrench=f"{float(wrench.abs().mean()):.6g}",
+          rows_x_nv=rows * eng.nv, rows_bf16=eng.rows_bf16,
+          route=eng.contact_route, q_err=f"{errs['q']:.3g}",
+          qd_err=f"{errs['qd']:.3g}", lam_err=f"{lam_err:.3g}",
+          cpu_seconds=f"{cpu_s:.2f}")
+    if not (share > 0.0 and eng.rows_bf16 and eng.has_body_damping
+            and eng.contact_route == "loop"
+            and any(p["grid"] is not None for p in eng.pairs)):
+        raise RuntimeError("the Factory engine features are not all live")
+
+
+def factory_stats(task, lift, reads0, steps):
+    """``[factory]`` after a Factory main phase: the host reads its two
+    data-dependent branches took a step, the epilogues run and (Pick) the
+    share of the last epilogue's envs that lifted the nut."""
+    fields = dict(phase_task=type(task).__name__,
+                  branch_reads_per_step=f"{(task.branch_reads - reads0) / steps:.3f}")
+    if lift:
+        fields.update(epilogues=len(lift),
+                      lift_success_share=f"{float(lift[-1]):.6f}")
+    phase("factory", **fields)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1652,11 +1857,15 @@ def main():
     clock.lap("device")
     # ---- 2. build: every distinct kernel and header, compilers in parallel
     tasks = {tag: make(name, route, n) for tag, name, route, _, n in PHASES}
+    tasks.update({tag: make(name, True, n) for tag, name, n in TRAIN_ONLY})
     grab = synthetic_grab_call(torch, np, ck, dev)
     dyn_scenes = ("ant", "ball_balance", "franka_reach_ma", "cartpole",
                   "franka_collect_ma", "franka_ppma", "franka_combine_ma",
                   *LOCO_SCENES, "anymal_terrain", *SINGLE_SCENES,
-                  "franka_cube_stack2", *HAND_SCENES)
+                  "franka_cube_stack2", *HAND_SCENES, *FACTORY_SCENES,
+                  "factory_place", "factory_insertion",
+                  "industreal_gears_insert",
+                  *(tag for tag, _, _ in TRAIN_ONLY))
     b4_scenes = ("ant", "ball_balance", "franka_reach_ma", *GRAB_SCENES,
                  "humanoid", "anymal", "anymal_terrain", "ingenuity",
                  *SINGLE_SCENES)
@@ -1716,6 +1925,12 @@ def main():
     for scene in HAND_SCENES:
         report[scene] = check_hand_kernels(torch, dk, tasks[scene], dev,
                                            scene)
+    for scene in FACTORY_SCENES:
+        report[scene] = check_factory_kernels(torch, dk, sk, tasks[scene],
+                                              dev, scene)
+        if "spd_inverse" in report[scene]:
+            spd_extra[f"{scene} osc_lambda"] = report[scene].pop(
+                "spd_inverse 6")
     # queue B item 7: B2 with per-env mass and shape scales and B3 with the
     # gravity wrench they scale, at Ant-4096 (seeded scales in the ranges of
     # tests/test_dyn_kernel.py:86) and at Trifinger-16384 (the scales its
@@ -1776,7 +1991,7 @@ def main():
     # B5 per shape: the OSC inverses and the seeded stacks
     spd_rows = {"osc_mm": report["franka_reach_ma"]["spd_inverse"],
                 **{f"{scene} osc_mm": report[scene]["spd_inverse"]
-                   for scene in SINGLE_SCENES
+                   for scene in SINGLE_SCENES + FACTORY_SCENES
                    if "spd_inverse" in report[scene]},
                 **spd_extra}
     for label, e in spd_rows.items():
@@ -1830,7 +2045,15 @@ def main():
                           ("allegro_hand_dextreme_manual_dr_golden.npz",
                            (False,)),
                           ("allegro_hand_dextreme_adr_golden.npz",
-                           (False,))):
+                           (False,)),
+                          *((f, (False,)) for f in (
+                              "factory_task_nut_bolt_pick_golden.npz",
+                              "factory_task_nut_bolt_place_golden.npz",
+                              "factory_task_nut_bolt_screw_golden.npz",
+                              "factory_task_gears_golden.npz",
+                              "factory_task_insertion_golden.npz",
+                              "indust_real_task_pegs_insert_golden.npz",
+                              "indust_real_task_gears_insert_golden.npz"))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]
@@ -1890,6 +2113,10 @@ def main():
     # against the CPU twins, the bounce target live, the route rule
     restitution_phase(torch, np, tasks, dev)
     clock.lap("restitution")
+    # ---- the Factory engine features: one Pick-128 step on the card
+    # against the CPU twins
+    factory_engine_phase(torch, tasks["factory_pick"], dev)
+    clock.lap("factory_engine")
     # ---- 5. main path: each phase with the counts set to 0 just before it
     total = {name: 0 for name in KERNEL_WRAPPERS}
     scene_launches = collections.defaultdict(collections.Counter)
@@ -1899,7 +2126,7 @@ def main():
         # at Dextreme the route of the call with the step's own scales
         route = (task.engine.route_for(task.initial_state().phys)
                  if name in DEXTREME else task.engine.contact_route)
-        if kernel_route and route != ("loop" if name in MASS_SPLIT
+        if kernel_route and route != ("loop" if name in MASS_SPLIT + FACTORY
                                       else "b4"):
             raise RuntimeError(f"{tag} took the contact route {route}")
         expected = tuple(k for k in DYN if k not in NEVER.get(name, ())) + (
@@ -1907,8 +2134,24 @@ def main():
         if name in OSC_TASKS:
             expected += ("spd_inverse",)
         forbidden = [k for k in KERNEL_WRAPPERS if k not in expected]
+        lift, reads0 = [], getattr(task, "branch_reads", 0)
+        if name == "FactoryTaskNutBoltPick":
+            # the close-and-lift epilogue: each call's lift success share
+            # (read after the phase), on the card
+            evaluate = task.evaluate_lift
+
+            def counted_lift(st, _evaluate=evaluate):
+                out = _evaluate(st)
+                lift.append(out.mean())
+                return out
+
+            task.evaluate_lift = counted_lift
         r = main_phase(torch, KERNEL_WRAPPERS, task, dev, steps, expected,
                        forbidden)
+        if name == "FactoryTaskNutBoltPick":
+            del task.evaluate_lift
+            if not lift:
+                raise RuntimeError(f"{tag} ran no close-and-lift epilogue")
         scene_launches[tag.replace("_b4", "")].update(r["launches"])
         n_b5 = r["launches"]["spd_inverse"]
         if name in OSC_TASKS and n_b5 != 2 * steps:
@@ -1935,6 +2178,8 @@ def main():
             hand_stats(torch, task, dev, tag)
         if name in DEXTREME:
             dextreme_stats(torch, task, dev, tag)
+        if name in FACTORY:
+            factory_stats(task, lift, reads0, steps + 11)
     # the dict-observation shim over Dextreme-ADR
     shim_phase(torch, tasks["allegro_hand_dextreme_adr"], dev)
 
@@ -2016,7 +2261,7 @@ def main():
     rows = [(name, JSON_SCENE[name], total[name]) for name in KERNELS]
     rows += [(name, scene, scene_launches[scene][name])
              for scene in GRAB_SCENES + LOCO_SCENES + SINGLE_SCENES
-             + HAND_SCENES for name in report[scene]]
+             + HAND_SCENES + FACTORY_SCENES for name in report[scene]]
     # FrankaCubeStack2 runs FrankaCubeStack's kernels (the same scene and
     # contact plan): its rows carry those checks and its own launches
     report["franka_cube_stack2"] = report["franka_cube_stack"]

@@ -25,7 +25,10 @@ the JAX ``PhysScales`` (``phys.mass``, ``phys.friction``, ``phys.shape``,
 ...) and become the port's (:func:`phys_from_jax`).  A field keeps its kind: integer arrays (the MA tasks' FSM
 states, AnymalTerrain's levels, types and step counter, AllegroKuka's
 near-goal counts) become int32 tensors, boolean arrays (AllegroKuka's
-lifted flags) bool tensors, the others float32.
+lifted flags) bool tensors, the others float32.  The JAX
+``SimState.lam`` of a warm-start engine (the Factory and IndustReal tasks)
+comes as ``sim.lam.0`` (N, rows, 3), ``sim.lam.1`` and ``sim.lam.2`` (N,
+nv); without them the state carries none.
 
 Dextreme's ``DextremeTaskState`` nests: its hand state's fields are keyed
 ``task.hand.<field>``, the RNA's dropout masks ``task.rna.<i>`` (the JAX
@@ -55,6 +58,8 @@ from .tasks.anymal import AnymalTaskState
 from .tasks.anymal_terrain import ATTaskState
 from .tasks.ball_balance import BBTaskState
 from .tasks.base import EnvState
+from .tasks.factory import FactoryTaskState
+from .tasks.industreal import IndustRealTaskState
 from .tasks.franka_collect_ma import CollectTaskState
 from .tasks.franka_reach_ma import FrankaMATaskState
 from .tasks.ingenuity import IngenuityTaskState
@@ -67,7 +72,8 @@ from .utils.domain_rand import PhysScales
 TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState,
                CollectTaskState, AnymalTaskState, ATTaskState,
                IngenuityTaskState, QuadTaskState, TrifingerTaskState,
-               KukaTaskState, HandTaskState)
+               KukaTaskState, HandTaskState, FactoryTaskState,
+               IndustRealTaskState)
 
 
 def phys_from_jax(arrays: dict, device) -> PhysScales:
@@ -114,7 +120,9 @@ def env_state_from_jax(arrays: dict, device, state_cls=None) -> EnvState:
         task = cls(*(leaf(f"task.{f}") for f in cls._fields))
     phys = {k[len("phys."):]: v for k, v in arrays.items()
             if k.startswith("phys.")}
-    return EnvState(sim=SimState(f32("sim.q"), f32("sim.qd")),
+    lam = (tuple(f32(f"sim.lam.{i}") for i in range(3))
+           if "sim.lam.0" in arrays else None)
+    return EnvState(sim=SimState(f32("sim.q"), f32("sim.qd"), lam),
                     progress=i32("progress"), reset_buf=i32("reset_buf"),
                     task=task,
                     phys=phys_from_jax(phys, device) if phys else None)

@@ -596,6 +596,10 @@ class PPOAgent:
         st = self.env_state
         env = {"sim.q": st.sim.q, "sim.qd": st.sim.qd,
                "progress": st.progress, "reset_buf": st.reset_buf}
+        # the engine's warm-start impulses (the Factory and IndustReal
+        # tasks)
+        for i, x in enumerate(st.sim.lam if st.sim.lam is not None else ()):
+            env[f"sim.lam.{i}"] = x
         if st.task is not None:
             env.update(_flatten("task", st.task))
         if st.phys is not None:
@@ -670,8 +674,10 @@ class PPOAgent:
                 phys = type(phys)(**{f: on(env[f"phys.{f}"])
                                      for f in phys._fields
                                      if f"phys.{f}" in env})
+            lam = (tuple(on(env[f"sim.lam.{i}"]) for i in range(3))
+                   if "sim.lam.0" in env else None)
             self.env_state = EnvState(
-                sim=SimState(on(env["sim.q"]), on(env["sim.qd"])),
+                sim=SimState(on(env["sim.q"]), on(env["sim.qd"]), lam),
                 progress=on(env["progress"]),
                 reset_buf=on(env["reset_buf"]), task=task, phys=phys)
 

@@ -1,8 +1,7 @@
 """Static articulation/scene description (copy of
 isaacgymenvs_ma_tpu/models/model.py for the PyTorch port, which imports
-nothing of the JAX package).  Numpy only.  The mesh voxelizer entry point
-``ModelBuilder.add_sdf_geom`` is left out: the port has no SDF-grid
-collision targets yet.
+nothing of the JAX package).  Numpy only; ``ModelBuilder.add_sdf_geom``
+bakes its grids through the port's own voxelizer (..native).
 
 Original description:
 
@@ -357,6 +356,90 @@ class ModelBuilder:
         if density is not None:
             m, c, i = geom_mass_props(gtype, g.size, density)
             self._accumulate_inertia(body, m, c, i, g.pos, g.quat)
+        return len(self.geoms) - 1
+
+    def add_sdf_geom(self, body: int, verts, tris, pos=(0, 0, 0),
+                     quat=(0, 0, 0, 1), density: Optional[float] = None,
+                     friction: float = 1.0, resolution: int = 48,
+                     contact_samples: int = 0, contact_points=None,
+                     union_with=None, sdf_from=None, name: str = ""):
+        """Mesh geom baked to a signed-distance voxel grid (native
+        voxelizer — the analog of PhysX SDF collisions, docs/factory.md).
+        Acts as a collision *target* in engine pair_specs; with
+        ``contact_samples`` > 0 an area-weighted surface cloud is attached
+        so the mesh can also carry candidate points (collide as geom A), or
+        pass an explicit ``contact_points`` (K, 3) cloud (structured rims/
+        corners beat random samples for resting stability).
+        ``union_with``: optional list of extra (verts, tris) watertight
+        solids CSG-unioned into the grid.  Each part is voxelized SEPARATELY
+        on the shared grid and the fields combined with elementwise min —
+        voxelizing one concatenated mesh instead lets interior-interface
+        triangles cap |SDF| near the seam (measured: a nut sank 9 mm into a
+        bolt head whose top cap abutted the shank's bottom cap).
+
+        Mass properties integrate the interior voxels of the PRIMARY mesh
+        (+ ``union_with``); ``sdf_from`` optionally bakes the COLLISION
+        field from different solids on the same grid — e.g. a hex nut whose
+        pads-facing field is the solid hex prism (no bore): a thin wall's
+        interior SDF ridge flips the gradient toward the far side, letting
+        fast contacts tunnel straight through (see
+        SimParams.contact_margin)."""
+        from ..native import voxelize_mesh
+        parts = [(np.asarray(verts, np.float32), np.asarray(tris, np.int32))]
+        for uv, ut in (union_with or []):
+            parts.append((np.asarray(uv, np.float32),
+                          np.asarray(ut, np.int32)))
+        col_parts = parts if sdf_from is None else [
+            (np.asarray(cv, np.float32), np.asarray(ct, np.int32))
+            for cv, ct in sdf_from]
+        verts = parts[0][0]
+        tris = parts[0][1]
+        all_v = np.concatenate([p[0] for p in parts]
+                               + [p[0] for p in col_parts])
+        lo = all_v.min(0)
+        hi = all_v.max(0)
+        margin = float((hi - lo).max()) * 0.15
+        lo = lo - margin
+        hi = hi + margin
+        h = float((hi - lo).max()) / max(resolution - 1, 3)
+        dims = np.maximum(np.ceil((hi - lo) / h).astype(np.int32) + 1, 4)
+
+        def bake(ps):
+            v_ = voxelize_mesh(ps[0][0], ps[0][1], lo,
+                               np.full(3, h, np.float32), dims)
+            for uv, ut in ps[1:]:
+                v_ = np.minimum(v_, voxelize_mesh(
+                    uv, ut, lo, np.full(3, h, np.float32), dims))
+            return v_
+
+        vals = bake(col_parts)
+        vals_mass = vals if sdf_from is None else bake(parts)
+        cp = None
+        if contact_points is not None:
+            cp = np.asarray(contact_points, np.float32)
+        elif contact_samples:
+            from .meshes import surface_sample
+            cp = surface_sample(verts, tris, contact_samples)
+        g = Geom(
+            body=body, gtype=GEOM_SDF, size=(hi - lo) / 2.0,
+            pos=np.asarray(pos, np.float64),
+            quat=np.asarray(quat, np.float64), friction=friction,
+            contact=True, name=name, sdf_values=vals,
+            sdf_origin=lo.astype(np.float64),
+            sdf_spacing=np.full(3, h, np.float64), contact_points=cp)
+        self.geoms.append(g)
+        if density is not None:
+            inside = np.argwhere(vals_mass < 0)
+            if len(inside):
+                centers = lo[None, :] + h * inside.astype(np.float64)
+                vol = h ** 3
+                m = density * vol * len(inside)
+                com = centers.mean(0)
+                d = centers - com
+                inertia = density * vol * (
+                    np.eye(3) * (d * d).sum() - d.T @ d)
+                self._accumulate_inertia(body, m, com, inertia, g.pos,
+                                         g.quat)
         return len(self.geoms) - 1
 
     def add_contact_points(self, body: int, pts, radius: float = 0.0,

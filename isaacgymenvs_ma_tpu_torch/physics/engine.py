@@ -17,12 +17,15 @@ own route rule; ``PhysicsEngine.contact_route`` names the route taken).
 
 Ported so far: what the Ant, BallBalance, Cartpole, the four
 multi-arm Franka, the Humanoid, Anymal, AnymalTerrain, Ingenuity and
-Quadcopter, the single-arm Franka, Trifinger, AllegroKuka, ShadowHand and
-AllegroHand steps run (per-env domain-randomization scales of mass, shape,
+Quadcopter, the single-arm Franka, Trifinger, AllegroKuka, the hands,
+Dextreme, Factory and IndustReal steps run (per-env domain-randomization
+scales of mass, shape,
 friction, stiffness, damping, armature, effort limit and joint friction;
-dof dry friction; Jacobi mass splitting on the batched-product loop;
+dof dry friction; Jacobi mass splitting, contact warm start and bfloat16
+solver rows on the batched-product loop; per-body rigid damping;
 ground contact rows, on a flat plane or on a
-heightfield terrain, body-pair contact rows against primitive SDFs with
+heightfield terrain, body-pair contact rows against primitive SDFs or
+baked SDF grids (:mod:`.sdf_grid`) with
 tangent frames, rigid-body attractors, conditional grab constraints
 switched per env by ``Control.grab_active``, external body wrenches
 ``Control.f_ext``, joint limits, effort and PD actuation with position
@@ -48,7 +51,7 @@ from ..device import DTYPE, apply_precision_policy, resolve_device
 from ..ops import maths
 from . import contact_kernel as ck
 from . import dyn_kernel as dk
-from . import spd_kernel
+from . import sdf_grid, spd_kernel
 
 
 class SimParams(NamedTuple):
@@ -96,7 +99,10 @@ class Control(NamedTuple):
 class SimState(NamedTuple):
     q: torch.Tensor    # (N, nq)
     qd: torch.Tensor   # (N, nv)
-    lam: Any = None    # warm-start impulses (not ported: always None)
+    # warm-start impulses (SimParams.warm_start > 0, else None): the
+    # previous substep's (lam_rows (N, rows, 3) in the row frames, lam_lo,
+    # lam_hi (N, nv)) at the full candidate rows
+    lam: Any = None
 
 
 class SimOutput(NamedTuple):
@@ -145,11 +151,16 @@ def spd_inverse(H: torch.Tensor) -> torch.Tensor:
 
 def takes_contact_kernel(params: SimParams) -> bool:
     """Whether a scene with contact rows solves them through kernel B4:
-    ``use_contact_kernel`` without ``mass_splitting``, the JAX engine's own
-    route rule (engine.py:1290, ``kernel_on and not pr.mass_splitting``):
-    the split masses' per-row scale exists only on the batched-product
-    loop, which then compacts and reuses rows as on the default route."""
-    return bool(params.use_contact_kernel and not params.mass_splitting)
+    ``use_contact_kernel`` without ``mass_splitting`` and without
+    ``warm_start``, the JAX engine's own route rule (engine.py:1289-1290,
+    ``kernel_on and not (warm ...) and not pr.mass_splitting``): the split
+    masses' per-row scale and the warm-start seeds exist only on the
+    batched-product loop, which then compacts and reuses rows as on the
+    default route.  (JAX reads the warm-start clause per call, from a
+    state that carries impulses; every state of a warm-start engine
+    carries them, :meth:`PhysicsEngine.zero_warm`.)"""
+    return bool(params.use_contact_kernel and not params.mass_splitting
+                and not params.warm_start > 0)
 
 
 def solver_rows_bf16(model, params: SimParams, n_rows: int,
@@ -170,16 +181,17 @@ def solver_rows_bf16(model, params: SimParams, n_rows: int,
     return rows * int(model.nv) >= 1024 and on_loop
 
 
-def _check_supported(model, params: SimParams, n_rows: int):
-    """Reject every engine feature the port does not implement yet."""
-    if params.warm_start > 0:
-        _unsupported("contact warm start (warm_start > 0)")
-    if solver_rows_bf16(model, params, n_rows):
-        _unsupported("bfloat16 solver rows (solver_rows_bf16)")
-    for name in ("body_lin_damping", "body_ang_damping"):
-        v = np.asarray(getattr(model, name, np.zeros(0)))
-        if v.size and v.any():
-            _unsupported(f"model field {name}")
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest, ties to even) and back: with
+    both operands of a float32 product so rounded the product is exact, so
+    a float32 bmm of rounded operands computes the JAX loop's bfloat16
+    products with float32 accumulation (engine.py:1805-1817) up to the
+    order of the sums."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _check_supported(model):
+    """Reject a model the engine cannot step as the JAX engine does."""
     for b in range(model.nb):
         if int(model.jnt_type[b]) in (md.HINGE, md.SLIDE, md.SCREW):
             nrm = float(np.linalg.norm(np.asarray(model.jnt_axis[b])))
@@ -234,6 +246,14 @@ class PhysicsEngine:
             dfr = np.zeros(m.nv)
         self.dof_friction = f32(dfr)
         self.has_dof_friction = bool(np.any(dfr > 0.0))
+        # per-body rigid damping (PhysX linear / angular damping; the
+        # Factory Franka's 1.0 / 5.0, engine.py:347-357)
+        bld = np.asarray(getattr(m, "body_lin_damping", np.zeros(0)))
+        bad = np.asarray(getattr(m, "body_ang_damping", np.zeros(0)))
+        self.body_damp_lin = f32(bld if len(bld) == m.nb else np.zeros(m.nb))
+        self.body_damp_ang = f32(bad if len(bad) == m.nb else np.zeros(m.nb))
+        self.has_body_damping = bool((len(bld) == m.nb and bld.any())
+                                     or (len(bad) == m.nb and bad.any()))
         self.dof_lower = f32(m.dof_lower)
         self.dof_upper = f32(m.dof_upper)
         self.dof_has_limit = torch.as_tensor(
@@ -285,7 +305,12 @@ class PhysicsEngine:
         self._build_contact_set(m, ground, pair_specs or [])
         self._build_attractors(m, attractors or [])
         self._build_grabs(m, grabs or [])
-        _check_supported(m, params, self.n_ground + self.n_pair_rows)
+        _check_supported(m)
+        # the loop's row matrices and the vectors they multiply rounded to
+        # bfloat16 (SimParams.solver_rows_bf16 or its auto rule); the B4
+        # route has no bf16 rows, as the JAX kernel route has none
+        self.rows_bf16 = solver_rows_bf16(
+            m, params, self.n_ground + self.n_pair_rows, on_loop=True)
         self.gravity = f32(params.gravity)
         self.h = params.dt / params.substeps
         self.plan = dk.get_plan(self)
@@ -327,10 +352,6 @@ class PhysicsEngine:
             return "loop"
         if getattr(phys, "restitution", None) is None:
             return "b4"
-        if solver_rows_bf16(self.model, self.params,
-                            self.n_ground + self.n_pair_rows, on_loop=True):
-            _unsupported("bfloat16 solver rows (solver_rows_bf16) on the "
-                         "loop a restitution call takes")
         return "loop"
 
     def _build_contact_set(self, m, ground, pair_specs):
@@ -390,15 +411,20 @@ class PhysicsEngine:
         self.pairs = []
         for ga, gb in pair_specs:
             gA, gB = m.geoms[ga], m.geoms[gb]
-            if gB.gtype == md.GEOM_SDF:
-                _unsupported("SDF-grid pair targets (GEOM_SDF)")
             if gB.gtype not in (md.GEOM_SPHERE, md.GEOM_CAPSULE,
-                                md.GEOM_CYLINDER, md.GEOM_BOX):
+                                md.GEOM_CYLINDER, md.GEOM_BOX, md.GEOM_SDF):
                 raise ValueError(f"no SDF for geom type {gB.gtype}")
             idx = np.asarray(geom_pts[ga], np.int64)
             row_mask = dbm[:, self.pts_body[idx]].T - dbm[:, gB.body][None, :]
+            # a baked mesh target: the narrowphase samples its voxel grid,
+            # whose corner table is built here, once, on the engine's
+            # device (engine.py:495-500)
+            grid = (sdf_grid.to_device(gB.sdf_values, gB.sdf_origin,
+                                       gB.sdf_spacing, dev)
+                    if gB.gtype == md.GEOM_SDF else None)
             self.pairs.append(dict(
                 pt_idx=idx, tgt_body=int(gB.body), tgt_type=int(gB.gtype),
+                grid=grid,
                 # the candidates' bodies as an index on the device: a numpy
                 # index would copy to the card and wait, every narrowphase
                 pt_body=torch.as_tensor(self.pts_body[idx], device=dev),
@@ -703,7 +729,7 @@ class PhysicsEngine:
     # ------------------------------------------------------------------
     # substep
     def substep(self, q, qd, ctrl: Control, terrain=None, phys=None,
-                dyn_cache=None, contact_cache=None):
+                dyn_cache=None, contact_cache=None, warm=None):
         """One physics substep (engine.py:785-987, kernel branch).
 
         ``dyn_cache``: batch-last ``(I_O, Hinv)`` from the first substep of
@@ -725,7 +751,12 @@ class PhysicsEngine:
         contact solve and of :meth:`_limit_solve` (engine.py:1425-1428,
         :1927-1935), and ``restitution`` (N, nb) per body or (N, 1) into
         the contact rows' bounce targets (:meth:`_contact_solve`); a call
-        with restitution takes the loop (:meth:`route_for`)."""
+        with restitution takes the loop (:meth:`route_for`).  ``warm``: the
+        previous substep's impulses (``SimState.lam``) with
+        ``SimParams.warm_start``; the last item of the returned tuple is
+        this substep's, or None.  With per-body rigid damping
+        (``body_lin_damping`` / ``body_ang_damping`` of the model) the
+        damping wrenches join the right-hand side (:meth:`damping_wrench`)."""
         if terrain is not None:
             if self.params.terrain_normal_frames:
                 _unsupported("terrain surface normals (terrain_normal_frames)")
@@ -795,6 +826,11 @@ class PhysicsEngine:
                             -1)                                 # (N, nb, 6)
             rhs = rhs + torch.einsum("nvd,vb,nbd->nv", S,
                                      self.dof_body_mask_f, f_o)
+        if self.has_body_damping:
+            # the damping wrenches onto the dofs, as f_ext's above
+            rhs = rhs + torch.einsum(
+                "nvd,vb,nbd->nv", S, self.dof_body_mask_f,
+                self.damping_wrench(body_x, body_q, S, qd))
         diag = (armature + h * d_damp + h * h * self.dof_spring
                 + imp * (h * kd_drive + h * h * kp_drive))
         if jfric is not None:
@@ -827,10 +863,11 @@ class PhysicsEngine:
         qd_new = qd + h * qdd
 
         if self.has_contact_rows:
-            qd_new, impulse_pts, p_w, imp_dof, ccache_out = \
+            qd_new, impulse_pts, p_w, imp_dof, ccache_out, warm_out = \
                 self._contact_solve(qd_new, body_x, body_q, S, Hinv,
                                     qpos_dof, S_bl, hinv_bl,
                                     ccache=contact_cache, qd_geom=qd,
+                                    warm=warm,
                                     grab_active=ctrl.grab_active,
                                     terrain=terrain, friction_scale=fric_s,
                                     shape_scale=shape_s, lo_lim=lo_lim,
@@ -839,13 +876,29 @@ class PhysicsEngine:
         else:
             qd_new = self._limit_solve(qd_new, Hinv, qpos_dof, lo_lim,
                                        hi_lim)
-            impulse_pts = p_w = ccache_out = None
+            impulse_pts = p_w = ccache_out = warm_out = None
             imp_dof = torch.zeros_like(qd_new)
         qd_new = torch.clamp(qd_new, -self.dof_velocity_limit,
                              self.dof_velocity_limit)
         q_new = self._integrate(q, qd_new)
         return q_new, qd_new, (body_x, body_q, qdd, impulse_pts, p_w,
-                               imp_dof, cache_out, ccache_out)
+                               imp_dof, cache_out, ccache_out, warm_out)
+
+    def damping_wrench(self, body_x, body_q, S, qd):
+        """Each body's rigid damping wrench about the world origin
+        (N, nb, 6) [torque, force] (engine.py:913-929): the force
+        -d_lin m v_com at the centre of mass and the torque -d_ang
+        (R I R^T) w, explicit in the substep's velocity."""
+        V = self.body_velocities(S, qd)
+        w_b, v_o = V[..., 0:3], V[..., 3:6]
+        com_w = body_x + maths.quat_apply(body_q, self.com[None])
+        v_com = v_o + _cross(w_b, com_w)
+        F = -(self.body_damp_lin * self.mass)[None, :, None] * v_com
+        w_loc = maths.quat_apply(maths.quat_conjugate(body_q), w_b)
+        L_w = maths.quat_apply(
+            body_q, torch.einsum("bij,nbj->nbi", self.inertia, w_loc))
+        tau_com = -self.body_damp_ang[None, :, None] * L_w
+        return torch.cat([tau_com + _cross(com_w, F), F], -1)
 
     def _limit_solve(self, qd, Hinv, qpos_dof, lo_lim=None, hi_lim=None):
         """Joint-limit-only solve of a scene without contact rows
@@ -980,7 +1033,18 @@ class PhysicsEngine:
             q_t = maths.quat_mul(body_q[:, tb, None, :],
                                  pr_["tgt_quat"].expand(qb.shape))
             lp = maths.quat_rotate_inverse(q_t, p - x_t)
-            d, n_l = self._sdf_local(pr_["tgt_type"], tgt_size, lp)
+            if pr_["grid"] is not None:
+                # a baked grid; with shape scales the uniform-scale
+                # approximation d_s(p) = s d(p / s) (engine.py:1079-1087)
+                if shape_scale is not None:
+                    st_ = shape_scale[:, tb, None, :]
+                    d, n_l = sdf_grid.sample_with_normal(pr_["grid"],
+                                                         lp / st_)
+                    d = d * torch.mean(st_, -1)
+                else:
+                    d, n_l = sdf_grid.sample_with_normal(pr_["grid"], lp)
+            else:
+                d, n_l = self._sdf_local(pr_["tgt_type"], tgt_size, lp)
             n_w = maths.quat_apply(q_t, n_l)
             ps.append(p - rad[..., None] * n_w)
             phis.append(d - rad)
@@ -1109,11 +1173,11 @@ class PhysicsEngine:
 
     def _contact_solve(self, qd, body_x, body_q, S, Hinv, qpos_dof, S_bl,
                        hinv_bl, ccache=None, qd_geom=None, grab_active=None,
-                       terrain=None, friction_scale=None, shape_scale=None, *,
-                       lo_lim, hi_lim, restitution, route):
+                       terrain=None, friction_scale=None, shape_scale=None,
+                       warm=None, *, lo_lim, hi_lim, restitution, route):
         """Projected-Jacobi impulse solve over grabs, attractors, ground
         rows, body-pair rows and joint limits, in that order in each
-        iteration (engine.py:1248-1925 without warm start or terrain
+        iteration (engine.py:1248-1925 without terrain
         normals).  With ``terrain`` the ground rows' gaps are taken
         from the heightfield (:meth:`_contact_rows`); B4 sees terrain only
         through those gaps, as the JAX kernel route does.  The per-env
@@ -1162,9 +1226,21 @@ class PhysicsEngine:
         cached with the rows, and once J is built the normal target is
         lifted to the bounce (:meth:`_bounce_targets`), on a cached substep
         against the cached J (engine.py:1570-1578, :1632-1639).  Such a call
-        takes the loop: ``route`` is :meth:`route_for`'s.  Returns (qd,
-        world impulses (N, P, 3), contact points (N, P, 3), J^T lambda
-        (N, nv), the row cache or None)."""
+        takes the loop: ``route`` is :meth:`route_for`'s.
+
+        ``warm`` (``SimParams.warm_start`` > 0): the previous substep's
+        (lam_rows (N, P, 3), lam_lo, lam_hi) at the full candidate rows.
+        The loop starts from ``warm_start`` times them on the rows (and
+        limits) still active, gathered through the compaction's selection,
+        with their velocity applied once up front (engine.py:1843-1856; a
+        cached substep with ``contact_continuation`` seeds from the cache
+        instead), and returns its own impulses scattered back to the
+        candidate rows (engine.py:1911-1924).  With ``self.rows_bf16`` J,
+        H^-1 J, H^-1 and the grab and attractor rows, and the vectors each
+        loop product multiplies them with, are rounded to bfloat16
+        (:func:`_bf16_round`, engine.py:1794-1817).  Returns (qd, world
+        impulses (N, P, 3), contact points (N, P, 3), J^T lambda (N, nv),
+        the row cache or None, the warm-start impulses or None)."""
         pr = self.params
         h = self.h
         N, nv = qd.shape[0], self.nv
@@ -1210,7 +1286,7 @@ class PhysicsEngine:
                 self.cplan, S_bl, hinv_bl, qd, p, b_n, mu, active.to(qd.dtype),
                 frames, w_diag, b_lo, b_hi, act_lo.to(qd.dtype),
                 act_hi.to(qd.dtype), **groups)
-            return qd, self._to_world(lam, frames), p, imp_dof, None
+            return qd, self._to_world(lam, frames), p, imp_dof, None, None
 
         reuse_rows = pr.reuse_contact_rows and pr.substeps > 1
         if ccache is None:
@@ -1276,13 +1352,11 @@ class PhysicsEngine:
                 # against the cached J, before the seeds' velocity
                 b_n = self._bounce_targets(b_n, e_r, J_flat, qd, R)
             if pr.contact_continuation:
+                # seeded from the previous substep (their velocity is
+                # applied below, with the loop's operands)
                 lam = torch.where(active[..., None], cc["lam"], 0.0)
                 lam_lo = torch.where(act_lo, cc["lam_lo"], 0.0)
                 lam_hi = torch.where(act_hi, cc["lam_hi"], 0.0)
-                # the seeds' velocity, applied once before the loop
-                qd = (qd
-                      + torch.bmm(lam.reshape(N, 1, 3 * R), HinvJ_flat)[:, 0]
-                      + torch.bmm(Hinv, (lam_lo - lam_hi)[..., None])[..., 0])
             else:
                 lam = torch.zeros((N, R, 3), dtype=qd.dtype, device=qd.device)
                 lam_lo = torch.zeros_like(qd)
@@ -1290,6 +1364,31 @@ class PhysicsEngine:
 
         hinv_diag = torch.clamp(torch.diagonal(Hinv, dim1=-2, dim2=-1),
                                 min=1e-8)
+        # the loop's operands: bfloat16-rounded row matrices, and rb rounds
+        # each vector they multiply (identities on float32 rows)
+        rb = _bf16_round if self.rows_bf16 else (lambda t: t)
+        Jr, HJr, Hinv_r = rb(J_flat), rb(HinvJ_flat), rb(Hinv)
+        if G:
+            gJ, gHJ = rb(gJ), rb(gHJ)
+        if A:
+            aJ, aHJ = rb(aJ), rb(aHJ)
+        ws = float(pr.warm_start)
+        if ccache is not None and pr.contact_continuation:
+            # the continuation seeds' velocity, applied once before the loop
+            qd = (qd + torch.bmm(rb(lam).reshape(N, 1, 3 * R), HJr)[:, 0]
+                  + torch.bmm(Hinv_r, rb(lam_lo - lam_hi)[..., None])[..., 0])
+        elif warm is not None and ws > 0.0:
+            # warm start from the previous substep's impulses on the rows
+            # and limits still active, their velocity applied the same way
+            w_rows, w_lo, w_hi = warm
+            if sel is not None:
+                w_rows = w_rows[torch.arange(N, device=qd.device)[:, None],
+                                sel]
+            lam = torch.where(active[..., None], ws * w_rows, 0.0)
+            lam_lo = torch.where(act_lo, ws * w_lo, 0.0)
+            lam_hi = torch.where(act_hi, ws * w_hi, 0.0)
+            qd = (qd + torch.bmm(rb(lam).reshape(N, 1, 3 * R), HJr)[:, 0]
+                  + torch.bmm(Hinv_r, rb(lam_lo - lam_hi)[..., None])[..., 0])
         relax = pr.relaxation
         # with mass splitting the contact rows step by relax * row_scale;
         # the scale is taken in every solve from that solve's active set,
@@ -1299,16 +1398,16 @@ class PhysicsEngine:
               if pr.mass_splitting and R > 0 else relax)
         for _ in range(pr.num_iterations):
             if G:
-                v_g = torch.bmm(gJ, qd[..., None])[..., 0].reshape(N, G, 3)
+                v_g = torch.bmm(gJ, rb(qd)[..., None])[..., 0].reshape(N, G, 3)
                 dl_g = relax * (g_b - v_g) / g_W * g_act[..., None]
-                qd = qd + torch.bmm(dl_g.reshape(N, 1, 3 * G), gHJ)[:, 0]
+                qd = qd + torch.bmm(rb(dl_g).reshape(N, 1, 3 * G), gHJ)[:, 0]
             if A:
-                v_a = torch.bmm(aJ, qd[..., None])[..., 0].reshape(N, A, 3)
+                v_a = torch.bmm(aJ, rb(qd)[..., None])[..., 0].reshape(N, A, 3)
                 dl_a = relax * (att_b - v_a) / att_W
-                qd = qd + torch.bmm(dl_a.reshape(N, 1, 3 * A), aHJ)[:, 0]
+                qd = qd + torch.bmm(rb(dl_a).reshape(N, 1, 3 * A), aHJ)[:, 0]
             # row-frame velocities; normal rows, then the friction box
             # against the new normal
-            v_c = torch.bmm(J_flat, qd[..., None])[..., 0].reshape(N, R, 3)
+            v_c = torch.bmm(Jr, rb(qd)[..., None])[..., 0].reshape(N, R, 3)
             dv_n = b_n - v_c[..., 2]
             lam_n = torch.clamp(lam[..., 2] + rs * dv_n / w_diag[..., 2],
                                 min=0.0)
@@ -1323,16 +1422,16 @@ class PhysicsEngine:
             lam_new = torch.stack([lam_t1, lam_t2, lam_n], dim=-1)
             lam_new = torch.where(active[..., None], lam_new, 0.0)
             dlam = lam_new - lam
-            qd2 = qd + torch.bmm(dlam.reshape(N, 1, 3 * R), HinvJ_flat)[:, 0]
+            qd2 = qd + torch.bmm(rb(dlam).reshape(N, 1, 3 * R), HJr)[:, 0]
             # joint limits (J = e_i): lower pushes +, upper pushes -
             lam_lo_new = torch.where(act_lo, torch.clamp(
                 lam_lo + relax * (b_lo - qd2) / hinv_diag, min=0.0), 0.0)
             lam_hi_new = torch.where(act_hi, torch.clamp(
                 lam_hi + relax * (b_hi + qd2) / hinv_diag, min=0.0), 0.0)
             dlim = (lam_lo_new - lam_lo) - (lam_hi_new - lam_hi)
-            qd = qd2 + torch.bmm(Hinv, dlim[..., None])[..., 0]
+            qd = qd2 + torch.bmm(Hinv_r, rb(dlim)[..., None])[..., 0]
             lam, lam_lo, lam_hi = lam_new, lam_lo_new, lam_hi_new
-        imp_dof = (torch.bmm(lam.reshape(N, 1, 3 * R), J_flat)[:, 0]
+        imp_dof = (torch.bmm(rb(lam).reshape(N, 1, 3 * R), Jr)[:, 0]
                    + (lam_lo - lam_hi))
         lam_w = self._to_world(lam, frames_r)
         ccache_out = None
@@ -1345,9 +1444,12 @@ class PhysicsEngine:
                               lam_lo=lam_lo, lam_hi=lam_hi)
         if sel is not None:
             # compacted impulses back to their candidate rows
-            lam_w = torch.zeros_like(p).scatter(
-                1, sel[..., None].expand(-1, -1, 3), lam_w)
-        return qd, lam_w, p, imp_dof, ccache_out
+            idx3 = sel[..., None].expand(-1, -1, 3)
+            lam_w = torch.zeros_like(p).scatter(1, idx3, lam_w)
+            lam = torch.zeros_like(p).scatter(1, idx3, lam)
+        warm_out = ((lam, lam_lo, lam_hi) if warm is not None and ws > 0.0
+                    else None)
+        return qd, lam_w, p, imp_dof, ccache_out, warm_out
 
     def mass_split_scale(self, active, sel, frames):
         """Each row's step scale under mass splitting (engine.py:1739-1782):
@@ -1414,13 +1516,19 @@ class PhysicsEngine:
         cache = None
         aux = None
         ccache = None
+        # warm-start impulses carry across substeps and steps
+        # (engine.py:1998-2021)
+        warm = state.lam if self.params.warm_start > 0 else None
         for _ in range(self.params.substeps):
             q, qd, aux = self.substep(q, qd, ctrl, terrain, phys,
-                                      dyn_cache=cache, contact_cache=ccache)
+                                      dyn_cache=cache, contact_cache=ccache,
+                                      warm=warm)
             if self.params.reuse_mass_matrix:
                 cache = aux[6]
             if self.params.reuse_contact_rows:
                 ccache = aux[7]
+            if aux[8] is not None:
+                warm = aux[8]
             if aux[3] is not None:
                 impulse_accum = (aux[3] if impulse_accum is None
                                  else impulse_accum + aux[3])
@@ -1432,7 +1540,8 @@ class PhysicsEngine:
         dof_force = ctrl.tau + imp_dof_accum / self.params.dt
         out = self._outputs(body_x, body_q, V, qdd, impulse_accum, p_w,
                             dof_force)
-        return SimState(q, qd, state.lam), out
+        lam = warm if self.params.warm_start > 0 else state.lam
+        return SimState(q, qd, lam), out
 
     def _outputs(self, body_x, body_q, V, qdd, impulses, p_w, dof_force):
         """Readouts incl. net contact forces (+f on a row's body a, -f on its
@@ -1528,7 +1637,20 @@ class PhysicsEngine:
                              device=self.device)
         q = q0[None].repeat(num_envs, 1)
         qd = torch.zeros((num_envs, self.nv), dtype=DTYPE, device=self.device)
-        return SimState(q, qd)
+        return SimState(q, qd, self.zero_warm(num_envs))
+
+    def zero_warm(self, num_envs: int):
+        """Cold-start warm-start impulses (``SimState.lam``,
+        engine.py:2147-2156): zeros (rows (N, P, 3), lam_lo, lam_hi (N, nv))
+        with ``SimParams.warm_start`` on a scene with contact rows, else
+        None."""
+        n_rows = self.n_ground + self.n_pair_rows
+        if self.params.warm_start <= 0 or n_rows == 0:
+            return None
+        z = lambda *s: torch.zeros(s, dtype=DTYPE,  # noqa: E731
+                                   device=self.device)
+        return (z(num_envs, n_rows, 3), z(num_envs, self.nv),
+                z(num_envs, self.nv))
 
     def dof_pos(self, state: SimState):
         """Scalar-dof positions (N, n_scalar_dofs)."""

@@ -270,6 +270,7 @@ class VecTaskBase:
         if self.reset_in_pre_physics:
             sim, task = self.reset_idx(state.sim, state.task, reset_mask,
                                        reset_draws)
+            sim = self._restore_lam(sim, state.sim.lam, reset_mask)
             state = state._replace(sim=sim, task=task)
         ctrl = self.pre_physics(
             state, actions,
@@ -298,8 +299,12 @@ class VecTaskBase:
         # ---- post physics (base.py:269-283 ordering)
         progress = state.progress + 1
         task = state.task
+        lam_cur = sim.lam
         if not self.reset_in_pre_physics:
             sim, task = self.reset_idx(sim, task, reset_mask, reset_draws)
+            sim = self._restore_lam(sim, lam_cur, reset_mask | unhealthy)
+        else:
+            sim = self._restore_lam(sim, lam_cur, unhealthy)
         progress = torch.where(reset_mask, 0, progress).to(torch.int32)
         out = self.engine.forward(sim, prev_out=out)
 
@@ -350,6 +355,7 @@ class VecTaskBase:
         mask = state.reset_buf > 0
         phys = self.update_phys(state, mask, phys_draws)
         sim, task = self.reset_idx(state.sim, state.task, mask, reset_draws)
+        sim = self._restore_lam(sim, state.sim.lam, mask)
         progress = torch.where(mask, 0, state.progress).to(torch.int32)
         out = self.engine.forward(sim)
         mid = EnvState(sim=sim, progress=progress,
@@ -368,6 +374,21 @@ class VecTaskBase:
             states = torch.nan_to_num(
                 torch.clamp(states, -self.clip_obs, self.clip_obs))
         return mid._replace(task=task), obs, states
+
+    @staticmethod
+    def _restore_lam(sim: SimState, lam_prev, zero_mask) -> SimState:
+        """The warm-start impulses re-attached after a task's ``reset_idx``
+        rebuilt ``SimState(q, qd)`` without them (base.py:343-356), zeroed
+        for the envs in ``zero_mask`` (reset or found unhealthy: a fresh env
+        has no persistent contacts).  Impulses ``reset_idx`` kept are the
+        ones zeroed."""
+        if lam_prev is None:
+            return sim
+        if sim.lam is not None:
+            lam_prev = sim.lam
+        return sim._replace(lam=tuple(
+            torch.where(zero_mask.reshape((-1,) + (1,) * (x.dim() - 1)),
+                        0.0, x) for x in lam_prev))
 
     def get_env_info(self) -> dict:
         """The learner contract (base.py ``get_env_info``, SURVEY.md

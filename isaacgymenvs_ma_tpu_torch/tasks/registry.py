@@ -54,6 +54,26 @@ _TASKS: Dict[str, Tuple[str, str]] = {
     "AllegroHandManualDR": (".allegro_hand_dextreme",
                             "AllegroHandDextremeManualDR"),
     "AllegroHandADR": (".allegro_hand_dextreme", "AllegroHandDextremeADR"),
+    "FactoryTaskNutBoltPick": (".factory", "FactoryTaskNutBoltPick"),
+    "FactoryTaskNutBoltPlace": (".factory", "FactoryTaskNutBoltPlace"),
+    "FactoryTaskNutBoltScrew": (".factory", "FactoryTaskNutBoltScrew"),
+    "FactoryTaskGears": (".factory", "FactoryTaskGears"),
+    "FactoryTaskInsertion": (".factory", "FactoryTaskInsertion"),
+    "IndustRealTaskPegsInsert": (".industreal", "IndustRealTaskPegsInsert"),
+    "IndustRealTaskGearsInsert": (".industreal", "IndustRealTaskGearsInsert"),
+}
+
+# the reference's config-only groups (cfg/task/FactoryBase.yaml etc., the
+# Hydra include bases tasks compose): their default configs resolve, as in
+# the JAX registry (registry.py:113-123), and building one raises KeyError
+_CONFIG_ONLY: Dict[str, Tuple[str, str]] = {
+    "FactoryBase": (".factory", "FactoryTaskNutBoltPick"),
+    "FactoryEnvNutBolt": (".factory", "FactoryTaskNutBoltPick"),
+    "FactoryEnvGears": (".factory", "FactoryTaskGears"),
+    "FactoryEnvInsertion": (".factory", "FactoryTaskInsertion"),
+    "IndustRealBase": (".industreal", "IndustRealTaskPegsInsert"),
+    "IndustRealEnvPegs": (".industreal", "IndustRealTaskPegsInsert"),
+    "IndustRealEnvGears": (".industreal", "IndustRealTaskGearsInsert"),
 }
 
 # config variants: name -> (base task, deltas over its defaults)
@@ -96,12 +116,6 @@ _VARIANTS: Dict[str, Tuple[str, dict]] = {
 
 # the JAX registry's other names -> ROADMAP queue-A item that ports them
 _QUEUE_A = {
-    "9": ("FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
-          "FactoryTaskNutBoltScrew", "FactoryTaskGears",
-          "FactoryTaskInsertion", "IndustRealTaskPegsInsert",
-          "IndustRealTaskGearsInsert", "FactoryBase", "FactoryEnvNutBolt",
-          "FactoryEnvGears", "FactoryEnvInsertion", "IndustRealBase",
-          "IndustRealEnvPegs", "IndustRealEnvGears"),
     "10": ("HumanoidAMP", "HumanoidAMPHands", "AntSAC", "HumanoidSAC"),
 }
 UNPORTED = {name: item for item, names in _QUEUE_A.items() for name in names}
@@ -112,25 +126,39 @@ def _check(name: str) -> None:
         raise NotImplementedError(
             f"task '{name}' is not ported yet: ROADMAP queue A, item "
             f"{UNPORTED[name]}")
-    if name not in _TASKS and name not in _VARIANTS:
+    if name not in _TASKS and name not in _VARIANTS \
+            and name not in _CONFIG_ONLY:
         raise KeyError(f"unknown task '{name}'; ported: {task_names()}")
 
 
-def _module(name: str):
-    _check(name)
-    name = _VARIANTS.get(name, (name,))[0]
-    return importlib.import_module(_TASKS[name][0], __package__)
-
-
 def task_class(name: str):
-    return getattr(_module(name), _TASKS[_VARIANTS.get(name, (name,))[0]][1])
+    _check(name)
+    if name in _CONFIG_ONLY:
+        raise KeyError(
+            f"'{name}' is a config-only group (Hydra include base); "
+            "select one of the concrete tasks instead")
+    mod, cls = _TASKS[_VARIANTS.get(name, (name,))[0]]
+    return getattr(importlib.import_module(mod, __package__), cls)
+
+
+def _module_config(mod_name: str, name: str) -> dict:
+    """A task's default config: a multi-task module's ``TASK_CFGS[name]``,
+    else its ``TASK_CFG`` (JAX registry.py:141-147)."""
+    mod = importlib.import_module(mod_name, __package__)
+    cfgs = getattr(mod, "TASK_CFGS", None)
+    if cfgs and name in cfgs:
+        return cfgs[name]
+    return mod.TASK_CFG
 
 
 def task_default_config(name: str) -> dict:
+    _check(name)
     if name in _VARIANTS:
         base, delta = _VARIANTS[name]
         return deep_merge(task_default_config(base), delta)
-    return _module(name).TASK_CFG
+    if name in _CONFIG_ONLY:
+        return _module_config(*_CONFIG_ONLY[name])
+    return _module_config(_TASKS[name][0], name)
 
 
 def task_names():

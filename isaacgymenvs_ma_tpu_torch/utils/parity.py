@@ -46,11 +46,11 @@ from .config import deep_merge
 
 from ..convert import env_state_from_jax, phys_from_jax
 from ..tasks import (allegro_hand_dextreme, allegro_kuka, anymal, anymal_terrain, ant,
-                     ball_balance, cartpole,
+                     ball_balance, cartpole, factory,
                      franka_cabinet, franka_collect_ma, franka_combine_ma,
                      franka_cube_stack, franka_cube_stack2, franka_ppma,
-                     franka_reach, franka_reach_ma, humanoid, ingenuity,
-                     quadcopter, registry, shadow_hand, trifinger)
+                     franka_reach, franka_reach_ma, humanoid, industreal,
+                     ingenuity, quadcopter, registry, shadow_hand, trifinger)
 
 # name -> (task class, configuration, task-state class or None)
 TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
@@ -107,6 +107,16 @@ DEXTREME = ("AllegroHandDextremeManualDR", "AllegroHandDextremeADR")
 TASKS.update({d: (registry.task_class(d), registry.task_default_config(d),
                   allegro_hand_dextreme.DextremeTaskState)
               for d in DEXTREME})
+# the Factory family and IndustReal, by registry name
+FACTORY = ("FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
+           "FactoryTaskNutBoltScrew", "FactoryTaskGears",
+           "FactoryTaskInsertion")
+INDUSTREAL = ("IndustRealTaskPegsInsert", "IndustRealTaskGearsInsert")
+TASKS.update({f: (registry.task_class(f), registry.task_default_config(f),
+                  factory.FactoryTaskState) for f in FACTORY})
+TASKS.update({f: (registry.task_class(f), registry.task_default_config(f),
+                  industreal.IndustRealTaskState) for f in INDUSTREAL})
+FACTORY_IK_DRAWS = ("ft_pos_u", "ft_rot_u")
 HAND_RESET_DRAWS = ("obj_pos_n", "obj_rot_ang", "dof_u", "goal_rot_ang")
 DEXTREME_RESET_DRAWS = HAND_RESET_DRAWS + (
     "act_bias_n", "pos_bias_n", "dof_bias_n", "act_scale_n", "pos_scale_n",
@@ -141,14 +151,23 @@ RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                "AllegroKukaTwoArms": KUKA_RESET_DRAWS,
                **{h: HAND_RESET_DRAWS for h in HANDS},
                "AllegroHandDextremeManualDR": DEXTREME_RESET_DRAWS,
-               "AllegroHandDextremeADR": ("adr_u",) + DEXTREME_RESET_DRAWS}
+               "AllegroHandDextremeADR": ("adr_u",) + DEXTREME_RESET_DRAWS,
+               "FactoryTaskNutBoltPick": FACTORY_IK_DRAWS + ("nut_xy_u",
+                                                             "nut_yaw"),
+               "FactoryTaskNutBoltPlace": FACTORY_IK_DRAWS,
+               "FactoryTaskNutBoltScrew": (),
+               "FactoryTaskGears": FACTORY_IK_DRAWS + ("obj_xy_u",),
+               "FactoryTaskInsertion": FACTORY_IK_DRAWS + ("obj_xy_u",),
+               **{f: FACTORY_IK_DRAWS + ("plug_xy_u", "disp_u")
+                  for f in INDUSTREAL}}
 # capture keys of the draws post_physics makes, in its order
 STEP_DRAWS = {"AnymalTerrain": ("push_vel", "noise_u"),
               "Ingenuity": ("retarget_xy_u", "retarget_z_u"),
               **{h: ("new_goal_ang",) for h in HANDS},
               **{d: ("new_goal_ang", "unreliable_u", "cam_pos_n",
                      "cam_axis_n", "cam_ang_n", "hold_u", "dof_obs_n")
-                 for d in DEXTREME}}
+                 for d in DEXTREME},
+              **{f: ("goal_noise_n",) for f in INDUSTREAL}}
 # capture keys of the draws pre_physics makes, in its order
 PRE_DRAWS = {"AllegroKuka": ("force_fire_u", "force_n"),
              "AllegroKukaTwoArms": ("force_fire_u", "force_n"),
@@ -291,7 +310,8 @@ TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
               "AllegroKuka": GROUND_RULE_TOL,
               "AllegroKukaTwoArms": GROUND_RULE_TOL,
               **{h: GROUND_RULE_TOL for h in HANDS},
-              **{d: GROUND_RULE_TOL for d in DEXTREME}}
+              **{d: GROUND_RULE_TOL for d in DEXTREME},
+              **{f: GROUND_RULE_TOL for f in FACTORY + INDUSTREAL}}
 # The hands' captures (shadow_hand_golden.npz, allegro_hand_golden.npz,
 # shadow_hand_openai_ff_golden.npz, allegro_hand_lstm_golden.npz; 32
 # envs, 6 steps on the mass-splitting loop) are held one step at a time as
@@ -368,7 +388,16 @@ def live_cabinet_grabs(task, state, actions, envs, iterations=30):
 
 
 # a one-step capture's start_<key> -> env_state_from_jax's key prefix
-_STATE_PREFIX = {"q": "sim.", "qd": "sim.", "progress": "", "reset_buf": ""}
+_STATE_PREFIX = {"q": "sim.", "qd": "sim.", "progress": "", "reset_buf": "",
+                 "lam_0": "sim.", "lam_1": "sim.", "lam_2": "sim."}
+
+
+def _state_key(k: str) -> str:
+    """env_state_from_jax's key of a capture's ``start_<k>`` /
+    ``init_<k>`` state field (``lam_<i>``: the warm-start impulses)."""
+    if k.startswith("lam_"):
+        return "sim.lam." + k[len("lam_"):]
+    return _STATE_PREFIX.get(k, "task.") + k
 
 
 class StepErrors(NamedTuple):
@@ -392,6 +421,9 @@ class StepErrors(NamedTuple):
     # by which each step's bound is widened (the errors above are beyond it)
     traj_raw: dict = None
     traj_widening: dict = None
+    # one-step captures: k -> (T,) the largest over the held envs of each
+    # env's error beyond four times the reference's spread there
+    excess_max: dict = None
 
 
 def _pack_draws(name: str, kind: str, flat: tuple):
@@ -441,10 +473,17 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
     if use_contact_kernel:
         from ..tasks.base import parse_sim_params
         params = parse_sim_params(cfg["sim"])._replace(use_contact_kernel=True)
+    if "rl_max_episode_length" in d:
+        # a capture recorded with a shortened episode (the Factory family:
+        # Pick's epilogue on a recorded step)
+        cfg = deep_merge(cfg, {"rl": {"max_episode_length": int(
+            d["rl_max_episode_length"])}})
     task = cls(cfg, device=device, sim_params=params)
     arrays = {"sim.q": d["init_q"], "sim.qd": d["init_qd"],
               "progress": d["init_progress"],
               "reset_buf": d["init_reset_buf"]}
+    arrays.update({_state_key(k[len("init_"):]): d[k] for k in d.files
+                   if k.startswith("init_lam_")})
     if name in DEXTREME:
         # the nested state's keys (convert.dextreme_state_from_jax) and
         # the RNA's weights
@@ -475,6 +514,7 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
     t_ = lambda x: torch.as_tensor(np.asarray(x), device=device)  # noqa: E731
     errs = {k: np.zeros(T) for k in ("q", "qd", "obs", "rew")}
     raw = {k: np.zeros(T) for k in errs}
+    excess = {k: np.zeros(T) for k in errs}
     wild = np.zeros(T, np.int64)
     mism = np.zeros(T, np.int64)
     grabs = torch.zeros(T, device=device)
@@ -494,8 +534,8 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
                      if k.startswith("start_")}
             # the physics scales carry on (AllegroKuka's cuboid sizes)
             state = env_state_from_jax(
-                {(_STATE_PREFIX.get(k, "task.") + k): v
-                 for k, v in start.items()}, device, state_cls)._replace(
+                {_state_key(k): v for k, v in start.items()}, device,
+                state_cls)._replace(
                     phys=state.phys)
         draws = tuple(t_(d[k][t]) for k in RESET_DRAWS[name])
         step_draws = (_pack_draws(name, "step", tuple(
@@ -525,10 +565,12 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
             finite &= bool(np.isfinite(v[held]).all())
             e = np.abs(v - d[k][t].reshape(N, -1)).max(1)[held]
             raw[k][t] = float(e.max(initial=0.0))
-            errs[k][t] = (float(np.median(np.maximum(
-                e - 4.0 * d[f"spread_{k}"][t][held], 0.0))) if one_step
-                else raw[k][t] if widen is None
-                else max(raw[k][t] - float(widen[k][t]), 0.0))
+            if one_step:
+                beyond = np.maximum(e - 4.0 * d[f"spread_{k}"][t][held], 0.0)
+                excess[k][t] = float(beyond.max(initial=0.0))
+            errs[k][t] = (float(np.median(beyond)) if one_step
+                          else raw[k][t] if widen is None
+                          else max(raw[k][t] - float(widen[k][t]), 0.0))
         mism[t] = int((res.reset.cpu().numpy() != d["reset"][t]).reshape(
             N, -1)[held].sum())
     return StepErrors(q=errs["q"], qd=errs["qd"], obs=errs["obs"],
@@ -537,4 +579,123 @@ def replay(npz_path: str, device, use_contact_kernel: bool = False
                       raw=raw if one_step else None,
                       wild_envs=wild if one_step else None,
                       traj_raw=None if widen is None else raw,
-                      traj_widening=widen)
+                      traj_widening=widen,
+                      excess_max=excess if one_step else None)
+
+
+# ---------------------------------------------------------------------------
+# The engine features of the Factory slice on a small scene of their own
+# (tests/test_torch_factory_engine.py, scripts/record_torch_golden.py
+# --factory-engine): two free blocks, each with a 4 x 4 point cloud on its
+# bottom face and its top face, one resting on a plate whose collision
+# field is a baked SDF grid, one on the ground; and a hinged rod pressed
+# against its joint limit.  Both blocks' clouds give 64 ground rows, block
+# A's 32 pair rows against the plate's grid: 96 rows x nv 13 = 1,248 reach
+# the bfloat16 auto rule.  The blocks damp with 1.0 / 5.0, as the Factory
+# Franka's links.
+FACTORY_ENGINE_ENVS = 4
+FACTORY_ENGINE_STEPS = 4
+# case -> SimParams fields over FACTORY_ENGINE_PARAMS, and the body damping
+FACTORY_ENGINE_CASES = {
+    "warm_start": (dict(warm_start=0.9, solver_rows_bf16=False), False),
+    "damping": (dict(warm_start=0.0, solver_rows_bf16=False), True),
+    "bf16_auto": (dict(warm_start=0.0, solver_rows_bf16=None), False),
+    "bf16_off": (dict(warm_start=0.0, solver_rows_bf16=False), False),
+    # every feature at once, with active-set compaction to 40 rows (the
+    # warm-start seeds gathered and scattered through its selection; the
+    # rows forced to bfloat16: 40 x 13 is below the auto rule)
+    "all_compacted": (dict(warm_start=0.9, solver_rows_bf16=True,
+                           contact_capacity=40), True),
+    # one substep of one iteration, with and without the rounding: over 32
+    # iterations a bf16 rounding that float32 summation order flips grows
+    # to the size of the rounding's own effect, so it is told apart here,
+    # after a single product of each kind
+    "bf16_one_iteration": (dict(warm_start=0.9, solver_rows_bf16=True,
+                                substeps=1, num_iterations=1), False),
+    "f32_one_iteration": (dict(warm_start=0.9, solver_rows_bf16=False,
+                               substeps=1, num_iterations=1), False),
+}
+FACTORY_ENGINE_PARAMS = dict(dt=1.0 / 60.0, contact_margin=0.005,
+                             mass_splitting=True,
+                             max_depenetration_velocity=5.0)
+FACTORY_ENGINE_SOLVE = dict(substeps=2, num_iterations=16)
+
+
+def factory_engine_params(fields: dict) -> dict:
+    """A case's SimParams fields."""
+    return {**FACTORY_ENGINE_PARAMS, **FACTORY_ENGINE_SOLVE, **fields}
+
+
+def factory_engine_scene(md, damping: bool):
+    """The scene (model, pair_specs) built with the model module ``md``
+    (the port's ``models.model`` or the JAX package's, whose builders are
+    the same code) and its own voxelizer."""
+    mesh_mod = __import__(md.__name__.rsplit(".", 1)[0] + ".meshes",
+                          fromlist=["box_mesh"])
+    b = md.ModelBuilder()
+    b.begin_actor()
+    plate = b.add_body("plate", -1, md.FIXED, body_pos=(0.0, 0.0, 0.05))
+    pv, pt = mesh_mod.box_mesh((0.1, 0.1, 0.02))
+    b.add_sdf_geom(plate, pv, pt, friction=0.6, resolution=24,
+                   name="plate_sdf")
+    half = np.array([0.03, 0.03, 0.02])
+    g = np.linspace(-1.0, 1.0, 4)
+    cloud = np.array([[x * half[0], y * half[1], z * half[2]]
+                      for z in (-1.0, 1.0) for x in g for y in g],
+                     np.float32)
+    for name, pos in (("block_a", (0.0, 0.0, 0.09)),
+                      ("block_b", (0.3, 0.0, 0.02))):
+        b.begin_actor()
+        body = b.add_body(name, -1, md.FREE, body_pos=pos)
+        b.add_geom(body, md.GEOM_BOX, half, density=500.0, friction=0.8,
+                   contact=False, name=f"{name}_box")
+        b.add_contact_points(body, cloud, friction=0.8, name=f"{name}_pts")
+    b.begin_actor()
+    base = b.add_body("rod_base", -1, md.FIXED, body_pos=(-0.3, 0.0, 0.3))
+    rod = b.add_body("rod", base, md.HINGE, jnt_axis=(0.0, 1.0, 0.0),
+                     limit_lower=[-0.3], limit_upper=[0.3], damping=0.1)
+    b.add_geom(rod, md.GEOM_CAPSULE, np.array([0.01, 0.05, 0.0]),
+               pos=np.array([0.0, 0.0, -0.05]), density=800.0,
+               contact=False, name="rod_geom")
+    model = b.finalize()
+    if damping:
+        model.body_lin_damping = np.where(
+            np.asarray(model.jnt_type) == md.FREE, 1.0, 0.0)
+        model.body_ang_damping = np.where(
+            np.asarray(model.jnt_type) == md.FREE, 5.0, 0.0)
+    names = [gg.name for gg in model.geoms]
+    pairs = [(names.index("block_a_pts"), names.index("plate_sdf"))]
+    return model, pairs
+
+
+def factory_engine_start(model, n: int, seed: int = 0):
+    """The capture's start: q and qd (n, nq / nv) with each block lifted
+    0-2 mm and turned a little and the rod at its upper limit, and each
+    step's torques (FACTORY_ENGINE_STEPS, n, nv): the blocks pushed
+    sideways and twisted, the rod into its limit."""
+    from ..models.model import default_qpos
+    rng = np.random.default_rng(seed)
+    q0 = np.asarray(default_qpos(model), np.float32)
+    q = np.tile(q0, (n, 1))
+    qd = np.zeros((n, int(model.nv)), np.float32)
+    for b in range(int(model.nb)):
+        if int(model.jnt_type[b]) != 0:    # FREE
+            continue
+        qa = int(model.q_adr[b])
+        q[:, qa: qa + 3] = np.asarray(model.body_pos[b], np.float32)
+        q[:, qa + 2] += rng.uniform(0.0, 0.002, n)
+        ang = rng.uniform(-0.05, 0.05, (n, 3))
+        q[:, qa + 3: qa + 6] = 0.5 * ang
+        q[:, qa + 6] = 1.0
+        nrm = np.linalg.norm(q[:, qa + 3: qa + 7], axis=1, keepdims=True)
+        q[:, qa + 3: qa + 7] /= nrm
+    rod = list(model.body_names).index("rod")
+    q[:, int(model.q_adr[rod])] = 0.31
+    tau = rng.normal(0.0, 1.0, (FACTORY_ENGINE_STEPS, n, int(model.nv)))
+    for va in (0, 6):      # each block: forces ~0.1 N, torques ~2 mN m
+        tau[..., va: va + 3] *= 0.1
+        tau[..., va + 3: va + 6] *= 0.002
+    tau[..., int(model.v_adr[rod])] = 0.5 + np.abs(
+        tau[..., int(model.v_adr[rod])])
+    return q.astype(np.float32), qd, tau.astype(np.float32)
+

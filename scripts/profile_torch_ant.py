@@ -8,7 +8,11 @@ GPU.
                 FrankaCubeStack|FrankaCubeStack2|Trifinger|AllegroKuka|
                 AllegroKukaTwoArms|ShadowHand|AllegroHand|
                 ShadowHandOpenAI_FF|AllegroHandLSTM|
-                AllegroHandDextremeManualDR|AllegroHandDextremeADR]
+                AllegroHandDextremeManualDR|AllegroHandDextremeADR|
+                FactoryTaskNutBoltPick|FactoryTaskNutBoltPlace|
+                FactoryTaskNutBoltScrew|FactoryTaskGears|
+                FactoryTaskInsertion|IndustRealTaskPegsInsert|
+                IndustRealTaskGearsInsert]
         [--contact-kernel]
         [--envs N] [--steps 20] [--train] [--table PATH]
 
@@ -22,9 +26,9 @@ torch.profiler after a warm-up, and prints: host wall time per step, device
 kernel time per step (the sum over CUDA kernels), the device busy share
 (kernel time / wall time), kernel launches per step, the top kernels by
 device time and the port's kernels B1-B5.  B5's launches are also reported
-per matrix size: the Franka tasks' OSC inverts the arm mass
-matrices (n = 7) and then J M^-1 J^T (n = 6) every step, so in time order
-its launches alternate between the two.  ``--table`` writes torch.profiler's full table
+per matrix size: the OSC of the Franka tasks and of FactoryTaskNutBoltScrew
+inverts the arm mass matrices (n = 7) and then J M^-1 J^T (n = 6) every
+step, so in time order its launches alternate between the two.  ``--table`` writes torch.profiler's full table
 to PATH.
 
 ``--train`` profiles one PPO epoch (``learning/ppo.py``) of the task with
@@ -101,7 +105,13 @@ def main():
                              "AllegroKukaTwoArms", "ShadowHand",
                              "AllegroHand", "ShadowHandOpenAI_FF",
                              "AllegroHandLSTM", "AllegroHandDextremeManualDR",
-                             "AllegroHandDextremeADR"))
+                             "AllegroHandDextremeADR",
+                             "FactoryTaskNutBoltPick",
+                             "FactoryTaskNutBoltPlace",
+                             "FactoryTaskNutBoltScrew", "FactoryTaskGears",
+                             "FactoryTaskInsertion",
+                             "IndustRealTaskPegsInsert",
+                             "IndustRealTaskGearsInsert"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
     ap.add_argument("--envs", type=int, default=None,
@@ -169,9 +179,9 @@ def main():
 
     events = report(torch, profile, ProfilerActivity, step, args.steps,
                     f"{head} steps={args.steps}", args.table, "step")
-    if task.num_agents > 1:
-        b5 = sorted((e for e in events if "spd_inverse_kernel" in e.name),
-                    key=lambda e: e.time_range.start)
+    b5 = sorted((e for e in events if "spd_inverse_kernel" in e.name),
+                key=lambda e: e.time_range.start)
+    if b5:
         for i, n in enumerate((7, 6)):
             us = [e.device_time_total for e in b5[i::2]]
             print(f"  port kernel spd_inverse_kernel n={n}: "

@@ -97,8 +97,26 @@ quarter flagged to reset start with their goal set to their cube's
 orientation, so the first step has successes (a bonus, a resampled goal
 and, with ``maxConsecutiveSuccesses``, a restarted episode clock).
 
+``--task FactoryTaskNutBoltPick``, ``FactoryTaskNutBoltPlace``,
+``FactoryTaskNutBoltScrew``, ``FactoryTaskGears``, ``FactoryTaskInsertion``,
+``IndustRealTaskPegsInsert`` and ``IndustRealTaskGearsInsert`` ->
+factory_task_nut_bolt_pick_golden.npz ... indust_real_task_gears_insert_golden.npz
+at 8 envs, with the episode shortened to FACTORY_EPISODE = 23 steps
+(``rl_max_episode_length`` in the capture) so that the envs not flagged to
+reset reach their last step in the third recorded step: Pick runs its
+close-and-lift epilogue there and IndustReal updates its curriculum.  Each
+step is held one step at a time (``ONE_STEP``), its start carrying the
+warm-start impulses (``start_lam_0..2``); the reset draws come from the
+JAX reset key as ``reset_idx`` splits it (``factory_draws``), IndustReal's
+goal noise from ``fold_in(k_step, 29)``.  One Factory step compiles the
+12-iteration IK reset and (Pick) the 50-step epilogue: 2-7 min a task on
+an 8-core CPU, seven side by side.  ``--factory-engine`` records
+factory_engine.npz: the JAX engine's steps on the synthetic scene of
+``isaacgymenvs_ma_tpu_torch.utils.parity.factory_engine_scene`` (warm
+start, body damping, bf16 rows, an SDF-grid target, compaction; ~20 s).
+
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
-        [--kernel-route] [--phys-step]
+        [--kernel-route] [--phys-step] [--factory-engine]
 """
 import argparse
 import os
@@ -408,9 +426,57 @@ def quadcopter_draws(k_reset, task):
 
 
 # post_physics draws of the tasks that draw there: name -> draws(k_step)
+FACTORY = ("FactoryTaskNutBoltPick", "FactoryTaskNutBoltPlace",
+           "FactoryTaskNutBoltScrew", "FactoryTaskGears",
+           "FactoryTaskInsertion", "IndustRealTaskPegsInsert",
+           "IndustRealTaskGearsInsert")
+# the Factory captures' shortened episodes: after the 20 warm-up steps the
+# envs not flagged to reset reach their last step (progress 22) at the
+# third recorded step, where Pick runs its close-and-lift epilogue and
+# IndustReal updates its curriculum
+FACTORY_EPISODE = 23
+
+
+def factory_draws(k_reset, task):
+    """The Factory resets' draws from VecTaskBase.step's reset key, as
+    reset_idx splits it (factory.py:431-454): the fingertip target's
+    position and Euler noise (not at Screw, whose reset draws nothing),
+    then the objects' (Pick :559-577, Gears :982-996, IndustReal
+    industreal.py:322-347; Place none)."""
+    n = task.num_envs
+    name = type(task).__name__
+    if name == "FactoryTaskNutBoltScrew":
+        return {}
+    ks = jax.random.split(k_reset, 4)
+    k1, k2 = jax.random.split(ks[0])
+    u = lambda k, s: jax.random.uniform(k, s, minval=-1.0,  # noqa: E731
+                                        maxval=1.0)
+    d = {"ft_pos_u": u(k1, (n, 3)), "ft_rot_u": u(k2, (n, 3))}
+    if name == "FactoryTaskNutBoltPick":
+        k1, k2 = jax.random.split(ks[1])
+        d["nut_xy_u"] = u(k1, (n, 2))
+        d["nut_yaw"] = jax.random.uniform(k2, (n,), minval=-np.pi,
+                                          maxval=np.pi)
+    elif name in ("FactoryTaskGears", "FactoryTaskInsertion"):
+        d["obj_xy_u"] = u(ks[1], (n, 2))
+    elif name.startswith("IndustReal"):
+        k3 = jax.random.split(ks[1], 3)
+        d["plug_xy_u"] = u(k3[0], (n, 2))
+        d["disp_u"] = jax.random.uniform(k3[1], (n,))
+    return d
+
+
+def industreal_step_draws(k_step, task):
+    """The goal's observation noise of post_physics (industreal.py:422)."""
+    return {"goal_noise_n": jax.random.normal(
+        jax.random.fold_in(k_step, 29), (task.num_envs, 3))}
+
+
 STEP_DRAWS = {"AnymalTerrain": anymal_terrain_step_draws,
               "Ingenuity": ingenuity_step_draws,
-              **{h: hand_step_draws for h in HANDS}}
+              **{h: hand_step_draws for h in HANDS},
+              **{f: industreal_step_draws for f in FACTORY
+                 if f.startswith("IndustReal")}}
 # pre_physics draws of the tasks that draw there: name -> draws(state key)
 PRE_DRAWS = {"AllegroKuka": kuka_pre_draws,
              "AllegroKukaTwoArms": kuka_pre_draws,
@@ -427,14 +493,18 @@ PUSH_AT = 2
 # amplify rounding as much in the envs where their fingers strike (one ulp
 # moves the JAX step's qd by up to ~5e-2 at one arm, ~1 at two): held
 # step by step, each env against its own spread
-ONE_STEP = ("AnymalTerrain", "AllegroKuka", "AllegroKukaTwoArms", *HANDS)
+ONE_STEP = ("AnymalTerrain", "AllegroKuka", "AllegroKukaTwoArms", *HANDS,
+            *FACTORY)
 SPREAD_RUNS = 8
 
 
 def state_arrays(st):
-    """The env state a step starts from, as flat numpy arrays."""
+    """The env state a step starts from, as flat numpy arrays (with the
+    warm-start impulses as lam_0..2 where the engine carries them)."""
     out = {"q": st.sim.q, "qd": st.sim.qd, "progress": st.progress,
            "reset_buf": st.reset_buf}
+    for i, x in enumerate(st.sim.lam if st.sim.lam is not None else ()):
+        out[f"lam_{i}"] = x
     for f in st.task._fields if st.task is not None else ():
         out[f] = getattr(st.task, f)
     return {k: np.asarray(v) for k, v in out.items()}
@@ -597,6 +667,13 @@ TASKS = {  # name -> (class, config, draws, envs, file)
                            "allegro_kuka_two_arms_golden.npz"),
     **{h: (jregistry.task_class(h), jregistry.task_default_config(h),
            hand_draws, 32, f) for h, f in HANDS.items()},
+    # the Factory family and IndustReal at 8 envs, FACTORY_EPISODE steps
+    # an episode
+    **{f: (jregistry.task_class(f), deep_merge(
+        jregistry.task_default_config(f),
+        {"rl": {"max_episode_length": FACTORY_EPISODE}}), factory_draws, 8,
+        "".join("_" + c.lower() if c.isupper() else c for c in f)[1:]
+        + "_golden.npz") for f in FACTORY},
 }
 # the hands' first step has successes in these envs (after the quarter
 # flagged to reset): their goals set to their cubes' orientations
@@ -937,6 +1014,45 @@ def record_dextreme(name):
     print(out, os.path.getsize(out), "bytes")
 
 
+def record_factory_engine():
+    """factory_engine.npz: the JAX engine's steps of the Factory slice's
+    features on the port's synthetic scene (parity.factory_engine_scene),
+    FACTORY_ENGINE_STEPS steps at FACTORY_ENGINE_ENVS envs per case of
+    parity.FACTORY_ENGINE_CASES, from the same start and torques; per case
+    ``<case>_q``, ``_qd``, ``_lam_0..2`` (T, N, ...) after each step."""
+    from isaacgymenvs_ma_tpu.models import model as jmd
+    from isaacgymenvs_ma_tpu.physics import engine as jeng
+    from isaacgymenvs_ma_tpu_torch.utils import parity as tparity
+    n = tparity.FACTORY_ENGINE_ENVS
+    rec = {}
+    for case, (fields, damping) in tparity.FACTORY_ENGINE_CASES.items():
+        model, pairs = tparity.factory_engine_scene(jmd, damping)
+        q0, qd0, tau = tparity.factory_engine_start(model, n)
+        params = jeng.SimParams(**tparity.factory_engine_params(fields))
+        eng = jeng.PhysicsEngine(model, params, ground=True,
+                                 pair_specs=pairs)
+        step = jax.jit(eng.step)
+        st = jeng.SimState(jnp.asarray(q0), jnp.asarray(qd0),
+                           eng.zero_warm(n))
+        out = {k: [] for k in ("q", "qd", "lam_0", "lam_1", "lam_2")}
+        for t in range(len(tau)):
+            st, _ = step(st, jeng.Control(tau=jnp.asarray(tau[t])))
+            out["q"].append(np.asarray(st.q))
+            out["qd"].append(np.asarray(st.qd))
+            for i in range(3):
+                out[f"lam_{i}"].append(
+                    np.asarray(st.lam[i]) if st.lam is not None
+                    else np.zeros((n, 1), np.float32))
+        for k, v in out.items():
+            rec[f"{case}_{k}"] = np.stack(v)
+        print(case, "active rows at the end:",
+              int((np.abs(rec[f"{case}_lam_0"][-1]) > 0).any(-1).sum()),
+              flush=True)
+    out_path = os.path.join(DATA, "factory_engine.npz")
+    np.savez_compressed(out_path, **rec)
+    print(out_path, os.path.getsize(out_path), "bytes")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant", choices=sorted(TASKS))
@@ -949,7 +1065,11 @@ def main():
                          "(ROUTE_STEPS)")
     ap.add_argument("--dextreme", choices=sorted(DEXTREME),
                     help="record a Dextreme capture (DEXTREME)")
+    ap.add_argument("--factory-engine", action="store_true",
+                    help="record factory_engine.npz")
     args = ap.parse_args()
+    if args.factory_engine:
+        return record_factory_engine()
     if args.dextreme:
         return record_dextreme(args.dextreme)
     if args.route_step:
@@ -1008,6 +1128,10 @@ def main():
     }
     for f in st.task._fields if st.task is not None else ():
         rec[f"init_{f}"] = np.asarray(getattr(st.task, f))
+    for i, x in enumerate(st.sim.lam if st.sim.lam is not None else ()):
+        rec[f"init_lam_{i}"] = np.asarray(x)
+    if args.task in FACTORY:
+        rec["rl_max_episode_length"] = np.int32(FACTORY_EPISODE)
     for f, v in (st.phys._asdict().items() if st.phys is not None else ()):
         if v is not None:
             rec[f"init_phys_{f}"] = np.asarray(v)

@@ -14,6 +14,8 @@ import torch
 from isaacgymenvs_ma_tpu.utils import adr as jadr
 from isaacgymenvs_ma_tpu_torch.utils import adr as tadr
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 

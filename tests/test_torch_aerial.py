@@ -36,6 +36,8 @@ from test_torch_humanoid import (
     N, Q_TOL, QD_TOL, assert_engine_scene_matches, compare_engine_step,
     load_pair, port_out, to_torch)
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 
 def random_wrench_step(jm, tm, n, seed, zero=False, root_z=None):
     """One engine step of both packages on a seeded mid-motion state of

@@ -25,6 +25,8 @@ from test_torch_shadow_hand import (SIZES, _pair, check_capture,
 from isaacgymenvs_ma_tpu_torch.tasks import registry as pregistry
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 
 @pytest.mark.parametrize("name", ["AllegroHand", "AllegroHandLSTM"])
 def test_scene_matches_jax(name):
@@ -89,12 +91,13 @@ def test_registry_variants_match_jax(name):
 
 def test_dextreme_names_stay_unported():
     """The four Dextreme names raised until ROADMAP queue A item 7c was
-    ported (tests/test_torch_dextreme.py); what still raises are the
-    names of items 9 (Factory, IndustReal) and 10 (AMP, SAC)."""
-    for name, item in (("FactoryTaskNutBoltPick", "9"),
-                       ("IndustRealTaskPegsInsert", "9"),
-                       ("HumanoidAMP", "10"), ("AntSAC", "10")):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
+    ported (tests/test_torch_dextreme.py), and the Factory and IndustReal
+    names (item 9) until they were (tests/test_torch_factory.py); what
+    still raises are the names of item 10 (AMP, SAC)."""
+    for name in ("FactoryTaskNutBoltPick", "IndustRealTaskPegsInsert"):
+        assert pregistry.task_class(name).__name__ == name
+    for name in ("HumanoidAMP", "AntSAC"):
+        with pytest.raises(NotImplementedError, match="item 10"):
             pregistry.task_class(name)
 
 

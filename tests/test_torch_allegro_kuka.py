@@ -54,6 +54,8 @@ from isaacgymenvs_ma_tpu_torch.utils.parity import (
     TOLERANCES, replay)
 from test_torch_ball_balance import _assert_models_equal
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 GOLDEN = {"AllegroKuka": os.path.join(DATA, "allegro_kuka_golden.npz"),

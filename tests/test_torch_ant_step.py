@@ -34,6 +34,8 @@ from isaacgymenvs_ma_tpu_torch.physics.engine import (
 from isaacgymenvs_ma_tpu_torch.tasks.ant import Ant, TASK_CFG
 from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 ROUTE_STEP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                           "torch_port", "ant_route_step.npz")
 
@@ -287,14 +289,28 @@ _UNPORTED = [
 def test_unported_options_raise(override):
     """Unported options raise when the engine is built, or (terrain
     surface normals) on the first step on a terrain.  ``plane_restitution``
-    raised until restitution was ported (test_plane_restitution_builds)."""
+    raised until restitution was ported (test_plane_restitution_builds);
+    contact warm start and bfloat16 solver rows raised until they were
+    ported: now each builds, takes the loop, and steps on a terrain with
+    finite results (their parity with the JAX engine is
+    tests/test_torch_factory_engine.py's)."""
     from isaacgymenvs_ma_tpu.models.robots import build_ant
     from isaacgymenvs_ma_tpu_torch.physics.terrain import TerrainGrid
     params = SimParams(contact_margin=0.02)._replace(**override)
-    with pytest.raises(NotImplementedError):
-        eng = PhysicsEngine(build_ant(), params, device="cpu")
-        eng.step(eng.default_state(2), Control(tau=torch.zeros(2, 14)),
-                 terrain=TerrainGrid(torch.zeros(4, 4), 1.0, (-2.0, -2.0)))
+    flat = TerrainGrid(torch.zeros(4, 4), 1.0, (-2.0, -2.0))
+    if "terrain_normal_frames" in override:
+        with pytest.raises(NotImplementedError):
+            eng = PhysicsEngine(build_ant(), params, device="cpu")
+            eng.step(eng.default_state(2), Control(tau=torch.zeros(2, 14)),
+                     terrain=flat)
+        return
+    eng = PhysicsEngine(build_ant(), params, device="cpu")
+    assert eng.contact_route == "loop"
+    assert eng.rows_bf16 == ("solver_rows_bf16" in override)
+    st, _ = eng.step(eng.default_state(2), Control(tau=torch.zeros(2, 14)),
+                     terrain=flat)
+    assert torch.isfinite(st.q).all() and torch.isfinite(st.qd).all()
+    assert (st.lam is not None) == ("warm_start" in override)
 
 
 def test_plane_restitution_builds():
@@ -332,30 +348,37 @@ def test_plane_restitution_builds():
                                     {"grabs": [(0, (0, 0, 0), 1, (0, 0, 0))]}],
                          ids=["no_ground", "pairs", "attractors", "grabs"])
 def test_unported_scene_features_raise(kwargs):
-    """Still unported, and raising: SDF-grid pair targets.  A scene with no
-    contact rows at all (no ground, or only attractors, which the JAX
-    engine then ignores) raised until the joint-limit solve was ported, and
-    grab constraints until they were: now each builds (the first two
-    without B4's plan), and one step of the falling Ant with a hip pushed
-    past its upper limit (and, with the grab, the torso's origin pinned to
-    body 1's, live in every env) matches the JAX engine's
-    (q rtol 2e-4 / atol 2e-5, qd 2e-3)."""
+    """A scene with no contact rows at all (no ground, or only attractors,
+    which the JAX engine then ignores) raised until the joint-limit solve
+    was ported, grab constraints until they were, and SDF-grid pair
+    targets until they were: now each builds (without B4's plan), and one
+    step of the falling Ant with a hip pushed past its upper limit (and,
+    with the grab, the torso's origin pinned to body 1's, live in every
+    env; with the pair, geom 0's points against geom 1 made a baked box
+    grid) matches the JAX engine's (q rtol 2e-4 / atol 2e-5, qd 2e-3)."""
     import dataclasses
     from isaacgymenvs_ma_tpu.models.model import GEOM_SDF
     from isaacgymenvs_ma_tpu.models.robots import build_ant
     from isaacgymenvs_ma_tpu.physics.engine import (
         Control as JControl, PhysicsEngine as JEngine,
         SimParams as JSimParams, SimState as JSimState)
+    from isaacgymenvs_ma_tpu_torch.models import meshes
+    from isaacgymenvs_ma_tpu_torch.native import voxelize_mesh
     m = build_ant()
     if kwargs.pop("sdf", False):
-        m.geoms[1] = dataclasses.replace(m.geoms[1], gtype=GEOM_SDF)
-    if "pair_specs" in kwargs:
-        with pytest.raises(NotImplementedError):
-            PhysicsEngine(m, SimParams(), device="cpu", **kwargs)
-        return
+        v, t = meshes.box_mesh((0.1, 0.1, 0.1))
+        lo, h = np.full(3, -0.15, np.float32), 0.02
+        vals = voxelize_mesh(v, t, lo, np.full(3, h, np.float32),
+                             np.array([16, 16, 16], np.int32))
+        m.geoms[1] = dataclasses.replace(
+            m.geoms[1], gtype=GEOM_SDF, sdf_values=vals,
+            sdf_origin=lo.astype(np.float64), sdf_spacing=np.full(3, h))
     te = PhysicsEngine(m, SimParams(), device="cpu", **kwargs)
     grab = "grabs" in kwargs
-    assert te.has_contact_rows == grab and te.cplan is None
+    pairs = "pair_specs" in kwargs
+    assert te.has_contact_rows == (grab or pairs) and te.cplan is None
+    if pairs:
+        assert te.pairs[0]["grid"] is not None
     je = JEngine(m, JSimParams(), **kwargs)
     n = 4
     q = np.array(je.default_state(n).q)

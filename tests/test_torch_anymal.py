@@ -33,6 +33,8 @@ from test_torch_humanoid import (
     N, assert_engine_scene_matches, capture_b4_inputs, compare_b4_twin,
     compare_engine_step, load_pair, port_out, to_torch)
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 
 @pytest.fixture(scope="module")
 def ap():

@@ -37,6 +37,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.ball_balance import (
 from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 ROUTE_STEP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                           "torch_port", "ball_balance_route_step.npz")
 # 128: the smallest batch on which the JAX package runs its kernel route

@@ -50,6 +50,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.cartpole import (
     Cartpole, TASK_CFG, build_cartpole_model)
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 
 def _tasks(n):
     jt = jcp.Cartpole(jdeep_merge(jcp.TASK_CFG, {"env": {"numEnvs": n}}))

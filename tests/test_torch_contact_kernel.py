@@ -22,6 +22,8 @@ from isaacgymenvs_ma_tpu.physics import dyn_kernel as jdk
 from isaacgymenvs_ma_tpu_torch.physics import _build
 from isaacgymenvs_ma_tpu_torch.physics import contact_kernel as ck
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 NV, P, A, G = 7, 5, 2, 2
 PARAMS = SimpleNamespace(relaxation=0.35, num_iterations=8)
 

@@ -55,6 +55,8 @@ from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.utils.parity import (
     GROUND_RULE_TOL, ONE_STEP_RESET_MISMATCHES, TOLERANCES, replay)
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data", "torch_port")
 GOLDEN = {"AllegroHandDextremeManualDR":

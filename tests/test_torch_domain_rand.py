@@ -42,6 +42,8 @@ from isaacgymenvs_ma_tpu_torch.tasks import registry
 from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
 from isaacgymenvs_ma_tpu_torch.utils import domain_rand as tdr
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 PHYS_STEP = os.path.join(DATA, "phys_step_b4.npz")

@@ -20,6 +20,8 @@ from isaacgymenvs_ma_tpu_torch.physics import _build
 from isaacgymenvs_ma_tpu_torch.physics import dyn_kernel as tdk
 from isaacgymenvs_ma_tpu_torch.tasks.ant import Ant, TASK_CFG
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 
 @pytest.fixture(scope="module", params=[8, 128])
 def scene(request):

@@ -39,6 +39,8 @@ from isaacgymenvs_ma_tpu_torch.tasks import franka_collect_ma as fc
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 from test_torch_franka_reach_ma import _assert_models_equal
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 N = 16

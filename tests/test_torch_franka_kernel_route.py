@@ -39,6 +39,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.franka_reach_ma import (
     FrankaReachMA, TASK_CFG)
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 CAPTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                        "torch_port", "franka_reach_ma_b4_golden.npz")
 ROUTE_STEP = os.path.join(os.path.dirname(os.path.dirname(CAPTURE)),

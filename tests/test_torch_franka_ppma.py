@@ -29,6 +29,8 @@ from test_torch_franka_collect_ma import (N, assert_scene_matches,
                                           compare_post_physics,
                                           fabricated_readout, load_pair)
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 CAPTURE = "franka_ppma_golden.npz"
 
 

@@ -48,6 +48,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.franka_reach_ma import (
     FrankaReachMA, TASK_CFG)
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 N = 16
@@ -221,7 +223,8 @@ def test_franka_engine_scene(fr):
 def test_solver_row_rule_counts_compacted_rows(fr):
     """The bf16 auto rule counts the rows left after compaction, as JAX
     (engine.py:1798-1803): 41 rows x nv 30 is 1230 >= 1024 (bf16), but 24
-    compacted rows x 30 is 720 (float32), so the engine builds."""
+    compacted rows x 30 is 720 (float32).  Without the capacity the engine
+    builds with bf16 rows (they raised until the rounding was ported)."""
     m, p = fr["tt"].model, fr["tt"].sim_params
     assert te.solver_rows_bf16(m, p, 41) is False
     assert te.solver_rows_bf16(m, p._replace(contact_capacity=None), 41)
@@ -229,9 +232,9 @@ def test_solver_row_rule_counts_compacted_rows(fr):
         m, p._replace(contact_capacity=None, use_contact_kernel=True), 41)
     assert te.solver_rows_bf16(m, p._replace(solver_rows_bf16=True), 41)
     # geoms: 0 table top, 1-2 hand spheres, 3-4 cubes
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        PhysicsEngine(m, p._replace(contact_capacity=None), device="cpu",
-                      pair_specs=[(3, 0), (4, 0), (1, 2)])
+    assert not fr["tt"].engine.rows_bf16
+    assert PhysicsEngine(m, p._replace(contact_capacity=None), device="cpu",
+                         pair_specs=[(3, 0), (4, 0), (1, 2)]).rows_bf16
 
 
 def test_multi_agent_batch_folding(fr):

@@ -45,6 +45,8 @@ from isaacgymenvs_ma_tpu_torch.utils.parity import (
     RESET_DRAWS, TOLERANCES, replay)
 from test_golden_cartpole import GOLDEN as CARTPOLE_GOLDEN_OBS
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 GOLDEN = os.path.join(DATA, "ant_golden.npz")

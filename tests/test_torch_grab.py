@@ -46,6 +46,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.utils.parity import live_grabs
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 HALF = 0.05
 N = 4
 

@@ -36,6 +36,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
 from isaacgymenvs_ma_tpu_torch.utils import parity
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 SCENES = ("Ant", "BallBalance", "FrankaReachMA", "Cartpole", "Humanoid",

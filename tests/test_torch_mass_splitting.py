@@ -39,6 +39,8 @@ from isaacgymenvs_ma_tpu_torch.tasks import registry
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.utils.domain_rand import PhysScales
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(__file__), "data", "torch_port")
 N, STEPS = 8, 3
 Q_RTOL, Q_ATOL, QD_ATOL = 2e-4, 2e-5, 2e-3

@@ -10,6 +10,8 @@ from isaacgymenvs_ma_tpu.ops import rng as jrng
 from isaacgymenvs_ma_tpu_torch.ops import maths as tm
 from isaacgymenvs_ma_tpu_torch.ops import rng as trng
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 N = 64
 _rng = np.random.default_rng(1234)
 

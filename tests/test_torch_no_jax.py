@@ -19,7 +19,10 @@ contact-kernel request (both take the loop) and ShadowHandOpenAI_FF and
 AllegroHandLSTM (critic states, the random object force),
 AllegroHandDextremeManualDR and AllegroHandADR at 4 envs (the RNA, the ADR
 rows' restitution and limit shifts on the loop) and the dict-observation
-shim over the latter, call
+shim over the latter, FactoryTaskNutBoltPick and IndustRealTaskPegsInsert
+at 4 envs (the voxelizer's grids; warm start, body damping, bf16 rows,
+SDF-grid targets; Pick over an episode's end, so that its close-and-lift
+epilogue runs), call
 ``spd_inverse``,
 run one PPO ``train_epoch`` of Cartpole at 16 envs, one of Cartpole with
 an LSTM network and one of Trifinger with its central-value critic, then
@@ -36,6 +39,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
     import torch
+    torch.set_num_threads(1)    # small CPU ops: one thread
     import isaacgymenvs_ma_tpu_torch as port
     mods = [m.name for m in pkgutil.walk_packages(port.__path__,
                                                   port.__name__ + ".")]
@@ -223,6 +227,23 @@ SCRIPT = textwrap.dedent("""
     assert out["obs"].shape == (4, 23) and "adr_npd" in extras
     out, done = env.reset_done()
     assert out["priv"]["dof_vel"].shape == (4, 16)
+    for name, over in (("FactoryTaskNutBoltPick",
+                        {"rl": {"max_episode_length": 3}}),
+                       ("IndustRealTaskPegsInsert", {})):
+        cfg = deep_merge(registry.task_default_config(name),
+                         {"env": {"numEnvs": 4}, **over})
+        task = registry.create_task(name, cfg, device="cpu")
+        eng = task.engine
+        assert eng.rows_bf16 and eng.has_body_damping
+        assert eng.contact_route == "loop"
+        assert any(p["grid"] is not None for p in eng.pairs)
+        state = task.initial_state()
+        for _ in range(3):
+            state, res = task.step(
+                state, torch.tanh(torch.randn(4, task.num_actions)))
+        assert torch.isfinite(res.obs).all()
+        assert res.obs.shape == (4, task.num_obs)
+        assert state.sim.lam is not None and task.branch_reads == 3
     from isaacgymenvs_ma_tpu_torch.learning import networks
     tcfg = train_default_config("Cartpole")
     tcfg["params"]["config"].update(minibatch_size=128, seq_len=4)
@@ -269,6 +290,7 @@ def test_port_imports_and_steps_without_jax():
     # the terrain and their specs, and the single-arm Franka tasks,
     # Trifinger, its spec and the domain randomizer, the AllegroKuka tasks
     # and their spec, the two hand tasks and their specs, Dextreme, ADR,
-    # the RNA and the rl_games shim too
+    # the RNA and the rl_games shim, the Factory and IndustReal tasks with
+    # the voxelizer, the meshes, the grid sampler and the controllers too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 66, proc.stdout
+    assert n_mods >= 72, proc.stdout

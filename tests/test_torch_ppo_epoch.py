@@ -37,6 +37,8 @@ from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
 
 from test_torch_ppo import jax_action_noise, jax_learner_arrays
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 # Measured on the CPU at Cartpole-64, seed 3: obs 2.9e-5, actions and mu
 # 4.8e-7, neglogp 9.5e-7, values 2.8e-6, rewards 2.6e-7, advantages 2.5e-6,
 # returns 3.1e-6, metrics <= 2.2e-7 apart, parameters 2.4e-7, normalisers

@@ -21,9 +21,12 @@ of lr ~1.5e-3.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from test_torch_ppo_epoch import (check_gae, check_metrics, check_normalisers,
                                   check_params, check_rollout, run_epoch_pair)
+
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
 
 _ULP = float(np.spacing(np.float32(6e4)))
 ANT_TOL = {"obs": 2e-3, "actions": 1e-4, "mu": 1e-4, "neglogp": 1e-4,

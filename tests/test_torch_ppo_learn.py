@@ -6,10 +6,14 @@ mean episode return, read every 10 epochs, must clear 100 (the reward is
 thread the port passes the bar by epoch 20 and runs the 60 epochs in
 ~25 s.
 """
+import torch
+
 from isaacgymenvs_ma_tpu_torch.learning.configs import train_default_config
 from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
 from isaacgymenvs_ma_tpu_torch.tasks.cartpole import Cartpole, TASK_CFG
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
+
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
 
 
 def test_port_ppo_learns_cartpole():

@@ -44,6 +44,8 @@ from test_torch_ppo_epoch import (CARTPOLE_TOL, cartpole_draws, check_gae,
                                   check_params, check_rollout,
                                   jax_reset_draws)
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 LSTM_NET = {"mlp": {"units": [32, 16]},
             "rnn": {"name": "lstm", "units": 16, "layers": 1,
                     "before_mlp": True, "concat_input": True,

@@ -52,6 +52,8 @@ from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
 from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
 from isaacgymenvs_ma_tpu_torch.utils.domain_rand import PhysScales
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 Q_TOL = dict(rtol=2e-4, atol=2e-5)

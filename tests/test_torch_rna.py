@@ -16,6 +16,8 @@ from isaacgymenvs_ma_tpu.utils.rna_util import (
 from isaacgymenvs_ma_tpu_torch.convert import rna_state_dict_from_jax
 from isaacgymenvs_ma_tpu_torch.utils.rna_util import RandomNetworkAdversary
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 
 @pytest.fixture(scope="module")
 def rna_pair():

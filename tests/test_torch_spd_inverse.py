@@ -29,6 +29,8 @@ from isaacgymenvs_ma_tpu_torch.physics import KERNEL_WRAPPERS, _build
 from isaacgymenvs_ma_tpu_torch.physics import spd_kernel
 from isaacgymenvs_ma_tpu_torch.physics.engine import spd_inverse
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 SIZES = [1, 2, 3, 6, 7, 14, 30, 48]
 
 

@@ -33,6 +33,8 @@ from isaacgymenvs_ma_tpu_torch.tasks import anymal_terrain as tat
 from test_torch_humanoid import (
     N, Q_TOL, QD_TOL, capture_b4_inputs, compare_b4_twin, load_pair)
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 
 @pytest.fixture(scope="module")
 def atp():

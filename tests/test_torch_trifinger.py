@@ -40,6 +40,8 @@ from isaacgymenvs_ma_tpu_torch.utils.parity import (
     GROUND_RULE_TOL, RESET_DRAWS, TOLERANCES, replay)
 from test_torch_ball_balance import _assert_models_equal
 
+torch.set_num_threads(1)   # small CPU ops: one thread a test worker
+
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
                     "torch_port")
 GOLDEN = os.path.join(DATA, "trifinger_golden.npz")
