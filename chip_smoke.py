@@ -14,12 +14,14 @@ Phases, each printing its own lines; any failure exits non-zero
      AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF,
      AllegroHandLSTM and Dextreme (AllegroHand's header: built once)
      scenes and the Factory and IndustReal ones (Pick at 128, 512 and 1024
-     envs and Place share one header), B4 for the
+     envs and Place share one header), HumanoidAMP's (HumanoidAMPHands'
+     is the same; AntSAC's and HumanoidSAC's are Ant's and Humanoid's),
+     B4 for the
      Ant, BallBalance, FrankaReachMA, FrankaCollectMA and FrankaPPMA
      contact plans (the last two with their grab group), the Humanoid,
      Anymal and Ingenuity plans, the FrankaReach, FrankaCabinet (grab
      group), FrankaCubeStack (grab group), Trifinger, AllegroKuka and
-     AllegroKukaTwoArms plans and a
+     AllegroKukaTwoArms plans, HumanoidAMP's and a
      synthetic plan with grab rows, B5 for n = 6, 7, 14, 30 and 48,
      all compilers started together (a header shared by two plans is
      compiled once); each kernel's ptxas registers and spills
@@ -61,7 +63,10 @@ Phases, each printing its own lines; any failure exits non-zero
      scales (``[scaled_kernel]``); B1-B3 at FactoryTaskNutBoltPick-128
      and -1024, FactoryTaskNutBoltScrew-128, FactoryTaskGears-128 and
      IndustRealTaskPegsInsert-128 on warmed-up states (qdd and H^-1 held
-     per env), and B5 on Screw's two operational-space stacks ((128, 7, 7)
+     per env); B1-B3 at HumanoidAMP-4096 (31 bodies, one 34-dof block of
+     H) on a state 30 steps in, every env reset once by Reference State
+     Init, and B4 on its route's inputs (42 candidate rows); and B5 on
+     Screw's two operational-space stacks ((128, 7, 7)
      arm mass matrices, (128, 6, 6) J M^-1 J^T + 1e-6 I); B5 on
      the two
      OSC inverses of a warmed-up FrankaReachMA-8192
@@ -102,7 +107,9 @@ Phases, each printing its own lines; any failure exits non-zero
      recorded weights; the five Factory and two IndustReal captures (8
      envs, a 23-step episode: Pick's close-and-lift epilogue in the third
      recorded step) on the loop, one step at a time against the
-     reference's own one-ulp spread
+     reference's own one-ulp spread; HumanoidAMP (8 envs, 3 steps from
+     Reference State Init resets) on both routes and HumanoidAMPHands on
+     the loop, at the ground rule
   restitution: one engine step of AllegroHand-8192 (plane restitution
      0.5, every cube thrown at the palm) with restitution 0.5 on every body
      and seeded limit shifts on the card and on the CPU twins, held at the
@@ -160,7 +167,11 @@ Phases, each printing its own lines; any failure exits non-zero
      take the loop: B4 forbidden, B5 only and twice a step at Screw),
      each followed by a ``[factory]`` line: the host reads of the two
      data-dependent branches a step and, at Pick, the close-and-lift
-     epilogues run in the phase and the last one's lift success share
+     epilogues run in the phase and the last one's lift success share;
+     then HumanoidAMP-4096 on the default loop and on B4 and
+     HumanoidAMPHands-4096 on the loop (50 steps each), after the first a
+     Reference State Init check (every other env flagged: each leaves the
+     step at its motion draw's state bit for bit)
   6. train, each run with the launch counts set to 0 just before it: PPO
      (``learning/ppo.py``) on Ant-4096 with the Ant train config (1
      warm-up epoch, 3 timed) and on FrankaReachMA at 8192 envs x 2 arms
@@ -175,8 +186,16 @@ Phases, each printing its own lines; any failure exits non-zero
      a step) and AllegroHandDextremeADR-8192 with its config (the central
      value on 112 true states; ``adr_npd`` printed),
      FactoryTaskNutBoltPick-512 with its config (an epilogue an episode)
-     and IndustRealTaskPegsInsert-128 with its config, 1 warm-up and 1
-     timed each, each epoch's seconds,
+     and IndustRealTaskPegsInsert-128 with its config, the AMP learner on
+     HumanoidAMP-4096 with its config (an ``[amp]`` line: the main phase's
+     RSI reset share, the discriminator's reward, accuracies and losses,
+     the replay fill), PPO on the HRL wrapper over HumanoidAMP-4096 (a
+     fresh LLC, latent 64, units [1024, 512], 5 inner steps an outer step;
+     the HumanoidAMP config as a2c_continuous; an ``[hrl]`` line), 1
+     warm-up and 1 timed each, and SAC on AntSAC-4096 and HumanoidSAC-4096
+     with their configs (1 warm-up epoch holding the 5 seed steps, 1 timed
+     epoch of updates; a ``[sac]`` line: alpha, the replay fill, the
+     losses), each epoch's seconds,
      rollout and update ms (CUDA events),
      training frames/s and losses; then Cartpole-512 through the ``train``
      entry point until its mean return passes 100, failing if it has not
@@ -189,7 +208,8 @@ FrankaReach, FrankaCabinet, FrankaCubeStack, Trifinger, AllegroKuka,
 AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF,
 AllegroHandLSTM, AllegroHandDextremeADR, the Factory scenes of phase 3
 (Pick-128, Pick-1024, Screw with B5, Gears, PegsInsert),
-AllegroHandDextremeManualDR (ADR's), FrankaCubeStack2 (FrankaCubeStack's) and AnymalTerrain
+AllegroHandDextremeManualDR (ADR's), FrankaCubeStack2 (FrankaCubeStack's),
+HumanoidAMP, HumanoidAMPHands (HumanoidAMP's) and AnymalTerrain
 (Anymal's), launches
 summed over that task's main phases), the last line {"ok": true,
 "device": {...}}.  Needs a CUDA
@@ -267,10 +287,20 @@ PHASES = (  # tag, task, use_contact_kernel, steps, envs
     ("industreal_pegs_insert", "IndustRealTaskPegsInsert", True, 100, 128),
     ("industreal_gears_insert", "IndustRealTaskGearsInsert", True, 100,
      128),
+    # HumanoidAMP (Reference State Init from its motion clips) on the
+    # default loop and on B4, and HumanoidAMPHands (the cartwheel clip) on
+    # the loop
+    ("humanoid_amp", "HumanoidAMP", False, 50, N_ENVS),
+    ("humanoid_amp_b4", "HumanoidAMP", True, 50, N_ENVS),
+    ("humanoid_amp_hands", "HumanoidAMPHands", False, 50, N_ENVS),
 )
 # tasks built for phase 6 only: tag, task, envs (Pick at the width of the
 # repo's solved run, BASELINE.md:90)
 TRAIN_ONLY = (("factory_pick_512", "FactoryTaskNutBoltPick", 512),)
+# the SAC registry names (Ant and Humanoid as they are), built for phase 6
+# on the default loop: tag, task, envs
+SAC_TASKS = (("ant_sac", "AntSAC", N_ENVS), ("humanoid_sac", "HumanoidSAC",
+                                              N_ENVS))
 # the tasks that split masses: their contact solve never runs B4
 MASS_SPLIT = ("ShadowHand", "AllegroHand", "ShadowHandOpenAI_FF",
               "AllegroHandLSTM", "AllegroHandDextremeManualDR",
@@ -307,9 +337,10 @@ DYN = ("fk_motion", "dyn_forward", "dyn_cached")
 # shares Anymal's scene), B4 on each contact plan's route inputs, Anymal's
 # on the terrain rows of an AnymalTerrain step (Quadcopter has no contact
 # rows)
-LOCO_SCENES = ("humanoid", "anymal", "ingenuity", "quadcopter")
+LOCO_SCENES = ("humanoid", "anymal", "ingenuity", "quadcopter",
+               "humanoid_amp")
 LOCO_B4 = {"humanoid": "humanoid_b4", "anymal": "anymal_terrain_b4",
-           "ingenuity": "ingenuity_b4"}
+           "ingenuity": "ingenuity_b4", "humanoid_amp": "humanoid_amp_b4"}
 # the single-arm Franka scenes, Trifinger's and the AllegroKuka scenes:
 # B1-B3 on a warmed-up state (Trifinger's B2 with its drawn mass and shape
 # scales, AllegroKuka's with its cuboid sizes, B3 with the scaled gravity
@@ -355,6 +386,20 @@ TRAIN_RUNS = (("train_ant", "ant", "Ant", 1, 3),
                "FactoryTaskNutBoltPick", 1, 1),
               ("train_industreal_pegs_insert", "industreal_pegs_insert",
                "IndustRealTaskPegsInsert", 1, 1))
+# phase 6's other learners, each 1 warm-up and 1 timed epoch: the AMP
+# learner on HumanoidAMP with its config; SAC on AntSAC and HumanoidSAC
+# with theirs (8 env steps an epoch, the 5 seed steps in the warm-up
+# one); PPO on the HRL wrapper over HumanoidAMP with a fresh LLC
+# (HRL_LLC: latent 64, units [1024, 512], the JAX defaults) and
+# HRL_LLC_STEPS inner steps an outer step, trained with the HumanoidAMP
+# config as an a2c_continuous one (HRL_CONFIG)
+AMP_RUN = ("train_humanoid_amp", "humanoid_amp", "HumanoidAMP")
+SAC_RUNS = (("train_ant_sac", "ant_sac", "AntSAC"),
+            ("train_humanoid_sac", "humanoid_sac", "HumanoidSAC"))
+HRL_RUN = ("train_hrl", "humanoid_amp")
+HRL_LLC = {"latent_dim": 64, "units": [1024, 512]}
+HRL_LLC_STEPS = 5
+HRL_CONFIG = "HumanoidAMP"
 # shared memory of one H100 SM (228 KB) and the 1 KB the runtime reserves
 # a block: a block's layout fits SM_SMEM // (smem + 1024) blocks an SM
 SM_SMEM, BLOCK_RESERVED = 233472, 1024
@@ -1238,6 +1283,137 @@ def train_run(torch, wrappers, agent, warm, epochs, expected, forbidden):
     return rows, launches
 
 
+def report_ppo(tag, task, agent, rows, launches, epochs, **extra):
+    """The ``[train]`` lines of a PPO-family run: one an epoch, then its
+    launches."""
+    for i, r in enumerate(rows):
+        m, sec = r["m"], r["seconds"]
+        rows_per_s = agent.batch * agent.horizon / sec
+        agents = ({} if task.num_agents == 1 else dict(
+            agents=task.num_agents, agent_steps_per_s=f"{rows_per_s:.1f}"))
+        phase("train", run=tag, epoch=i + 1, envs=task.num_envs,
+              network=type(agent.net).__name__,
+              horizon=agent.horizon, minibatches=agent.num_minibatches,
+              mini_epochs=agent.cfg.mini_epochs, seconds=f"{sec:.4f}",
+              rollout_ms=f"{r['rollout_ms']:.3f}",
+              update_ms=f"{r['update_ms']:.3f}",
+              host_syncs=r["host_syncs"],
+              sync_at=json.dumps(dict(r["sync_at"])).replace(" ", ""),
+              env_steps_per_s=f"{task.num_envs * agent.horizon / sec:.1f}",
+              **agents, **{k: f"{m[k]:.6g}" for k in (
+                  "loss", "a_loss", "c_loss", "kl", "lr", "sigma",
+                  "mean_return", "episodes_done")},
+              **{k.split("/")[-1]: f"{v:.6g}" for k, v in m.items()
+                 if "fsm" in k.lower() or k.startswith("disc_")})
+    phase("train", run=tag, epochs=epochs,
+          launches=json.dumps(launches).replace(" ", ""), **extra)
+
+
+def sac_run(torch, wrappers, agent, warm, epochs, expected, forbidden):
+    """One SAC run: ``warm`` epochs (the seed steps among them), every
+    launch count set to 0, then ``epochs`` timed epochs, each by CUDA
+    events and by the host clock to a synchronize, its host waits counted
+    by file and line.  Fails on a non-finite metric or parameter, an epoch
+    without updates or that left the actor or the critic unchanged, a
+    wrong obs shape or a kernel outside its set."""
+    task = agent.task
+    agent.init()
+    for _ in range(warm):
+        agent.train_epoch()
+    for w in wrappers.values():
+        w.launches = 0
+    rows = []
+    for _ in range(epochs):
+        nets = (agent.actor, agent.critic)
+        before = [[p.detach().clone() for p in n.parameters()] for n in nets]
+        step0 = agent.step
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as syncs:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                start.record()
+                m = agent.train_epoch()
+                end.record()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        m = {k: float(v) for k, v in m.items()}
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad or not all(bool(torch.isfinite(p).all()) for n in nets
+                          for p in n.parameters()):
+            raise RuntimeError(f"non-finite SAC values {bad or 'params'}")
+        updates = sum(1 for s in range(step0 + 1, agent.step + 1)
+                      if s > agent.num_seed_steps)
+        if not updates or any(
+                all(torch.equal(a, b) for a, b in zip(bs, n.parameters()))
+                for bs, n in zip(before, nets)):
+            raise RuntimeError(f"a SAC epoch with {updates} updates left "
+                               "the actor or the critic unchanged")
+        rows.append(dict(seconds=seconds, device_ms=start.elapsed_time(end),
+                         m=m, updates=updates, host_syncs=len(syncs),
+                         sync_at=collections.Counter(
+                             "/".join(w.filename.split(os.sep)[-2:])
+                             + f":{w.lineno}" for w in syncs)))
+    shape = tuple(agent.last_obs.shape)
+    if shape != (task.rl_games_batch, task.num_obs):
+        raise RuntimeError(f"obs shape {shape}")
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check_launches(launches, expected, forbidden, "SAC training")
+    return rows, launches
+
+
+def amp_rsi_check(torch, task, dev, steps=10):
+    """Reference State Init on the card: ``steps`` steps of the tanh policy
+    from a fresh state, then one step with every other env flagged to
+    reset and the motion draws given.  Each flagged env must leave the step
+    at the motion library's state for its draw (root pose and velocity,
+    dof positions and velocities), bit for bit; the share of the other
+    envs at it is reported (``stray``, 0 expected)."""
+    act = policy(torch, task, dev)
+    st, obs = run_steps(torch, task, task.initial_state(),
+                        zero_obs(torch, task, dev), act, steps)
+    n, ml = task.num_envs, task.motion_lib
+    flags = torch.arange(n, device=dev) % 2 == 0
+    g = torch.Generator(device=dev).manual_seed(21)
+    ids = ml.sample_motions(n, g)
+    times = ml.sample_time(ids, g)
+    st2, _ = task.step(st._replace(reset_buf=flags.to(torch.int32)),
+                       act(obs), reset_draws=(ids, times))
+    s = ml.get_motion_state(ids, times)
+    want = torch.cat([s["root_pos"], s["root_rot"], s["root_vel"],
+                      s["root_ang_vel"], s["dof_pos"], s["dof_vel"]], -1)
+    sim = st2.sim
+    got = torch.cat([sim.q[:, 0:7], sim.qd[:, 0:6],
+                     task.engine.dof_pos(sim), task.engine.dof_vel(sim)], -1)
+    diff = (got - want).abs().amax(-1)
+    err = float(diff[flags].max())
+    if err != 0.0:
+        raise RuntimeError(f"RSI resets {err} away from the motion state")
+    return {"err": err, "stray": float((diff[~flags] == 0).double().mean())}
+
+
+def hrl_inner_steps(torch, hrl, agent):
+    """The wrapped task's steps in one outer step of the HRL wrapper,
+    counted on the host from the agent's state and latents of zeros."""
+    step, calls = hrl.task.step, []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return step(*a, **k)
+
+    hrl.task.step = counted
+    try:
+        hrl.step(agent.env_state, hrl.zero_actions())
+    finally:
+        del hrl.task.step
+    return len(calls)
+
+
 def build_all(_build, plans):
     """Build every plan's kernels, all nvcc processes started together;
     print the time and each kernel's ptxas registers and spills."""
@@ -1834,6 +2010,7 @@ def main():
     from isaacgymenvs_ma_tpu_torch.physics import controllers as ctl
     from isaacgymenvs_ma_tpu_torch.physics import dyn_kernel as dk
     from isaacgymenvs_ma_tpu_torch.physics import spd_kernel as sk
+    from isaacgymenvs_ma_tpu_torch.tasks import registry
     from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
     from isaacgymenvs_ma_tpu_torch.utils import parity
     from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
@@ -1848,7 +2025,9 @@ def main():
     dev = torch.device("cuda", 0)
 
     def make(name, kernel_route, n_envs):
-        cls, task_cfg, _ = parity.TASKS[name]
+        cls, task_cfg, _ = parity.TASKS.get(name) or (
+            registry.task_class(name), registry.task_default_config(name),
+            None)
         cfg = deep_merge(task_cfg, {"env": {"numEnvs": n_envs}})
         params = parse_sim_params(cfg["sim"])._replace(
             use_contact_kernel=kernel_route)
@@ -1858,17 +2037,18 @@ def main():
     # ---- 2. build: every distinct kernel and header, compilers in parallel
     tasks = {tag: make(name, route, n) for tag, name, route, _, n in PHASES}
     tasks.update({tag: make(name, True, n) for tag, name, n in TRAIN_ONLY})
+    tasks.update({tag: make(name, False, n) for tag, name, n in SAC_TASKS})
     grab = synthetic_grab_call(torch, np, ck, dev)
     dyn_scenes = ("ant", "ball_balance", "franka_reach_ma", "cartpole",
                   "franka_collect_ma", "franka_ppma", "franka_combine_ma",
                   *LOCO_SCENES, "anymal_terrain", *SINGLE_SCENES,
                   "franka_cube_stack2", *HAND_SCENES, *FACTORY_SCENES,
                   "factory_place", "factory_insertion",
-                  "industreal_gears_insert",
-                  *(tag for tag, _, _ in TRAIN_ONLY))
+                  "industreal_gears_insert", "humanoid_amp_hands",
+                  *(tag for tag, _, _ in TRAIN_ONLY + SAC_TASKS))
     b4_scenes = ("ant", "ball_balance", "franka_reach_ma", *GRAB_SCENES,
                  "humanoid", "anymal", "anymal_terrain", "ingenuity",
-                 *SINGLE_SCENES)
+                 *SINGLE_SCENES, "humanoid_amp")
     build_all(_build, [
         *((scene, tasks[scene].engine.plan) for scene in dyn_scenes),
         *((scene, tasks[scene + "_b4"].engine.cplan) for scene in b4_scenes),
@@ -2053,7 +2233,9 @@ def main():
                               "factory_task_gears_golden.npz",
                               "factory_task_insertion_golden.npz",
                               "indust_real_task_pegs_insert_golden.npz",
-                              "indust_real_task_gears_insert_golden.npz"))):
+                              "indust_real_task_gears_insert_golden.npz")),
+                          ("humanoid_amp_golden.npz", (False, True)),
+                          ("humanoid_amp_hands_golden.npz", (False,))):
         path = os.path.join(HERE, "tests", "data", "torch_port", fname)
         name = str(np.load(path)["task"])
         tol = parity.TOLERANCES[name]
@@ -2180,6 +2362,9 @@ def main():
             dextreme_stats(torch, task, dev, tag)
         if name in FACTORY:
             factory_stats(task, lift, reads0, steps + 11)
+        if tag == "humanoid_amp":
+            amp_main = dict(r, steps=steps)
+            amp_rsi = amp_rsi_check(torch, task, dev)
     # the dict-observation shim over Dextreme-ADR
     shim_phase(torch, tasks["allegro_hand_dextreme_adr"], dev)
 
@@ -2187,9 +2372,13 @@ def main():
     # ---- 6. train: PPO epochs on the main phases' tasks, then Cartpole
     # learning through the train entry point
     from isaacgymenvs_ma_tpu_torch import train as train_cli
+    from isaacgymenvs_ma_tpu_torch.learning.amp import AMPAgent
     from isaacgymenvs_ma_tpu_torch.learning.configs import (
         train_default_config)
+    from isaacgymenvs_ma_tpu_torch.learning.hrl import (
+        HRLTaskWrapper, build_llc_from_checkpoint)
     from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
+    from isaacgymenvs_ma_tpu_torch.learning.sac import SACAgent
     for tag, scene, config, warm, epochs in TRAIN_RUNS:
         task = tasks[scene]
         expected = tuple(k for k in DYN if k not in NEVER.get(
@@ -2209,31 +2398,94 @@ def main():
                                "steps, not twice a step")
         for k, c in launches.items():
             total[k] += c
-        for i, r in enumerate(rows):
-            m, sec = r["m"], r["seconds"]
-            rows_per_s = agent.batch * agent.horizon / sec
-            agents = ({} if task.num_agents == 1 else dict(
-                agents=task.num_agents, agent_steps_per_s=f"{rows_per_s:.1f}"))
-            phase("train", run=tag, epoch=i + 1, envs=task.num_envs,
-                  network=type(agent.net).__name__,
-                  horizon=agent.horizon, minibatches=agent.num_minibatches,
-                  mini_epochs=agent.cfg.mini_epochs, seconds=f"{sec:.4f}",
-                  rollout_ms=f"{r['rollout_ms']:.3f}",
-                  update_ms=f"{r['update_ms']:.3f}",
-                  host_syncs=r["host_syncs"],
-                  sync_at=json.dumps(dict(r["sync_at"])).replace(" ", ""),
-                  env_steps_per_s=f"{task.num_envs * agent.horizon / sec:.1f}",
-                  **agents, **{k: f"{m[k]:.6g}" for k in (
-                      "loss", "a_loss", "c_loss", "kl", "lr", "sigma",
-                      "mean_return", "episodes_done")},
-                  **{k.split("/")[-1]: f"{v:.6g}" for k, v in m.items()
-                     if "fsm" in k.lower()})
         extra = {}
         if getattr(task, "use_adr", False):
             extra["adr_npd"] = (
                 f"{float(task.adr.npd(agent.env_state.task.adr)):.6f}")
-        phase("train", run=tag, epochs=epochs,
-              launches=json.dumps(launches).replace(" ", ""), **extra)
+        report_ppo(tag, task, agent, rows, launches, epochs, **extra)
+
+    # the AMP learner on HumanoidAMP
+    tag, scene, config = AMP_RUN
+    task = tasks[scene]
+    loop_only = [k for k in KERNEL_WRAPPERS if k not in DYN]
+    agent = AMPAgent(task, train_default_config(config), seed=42)
+    rows, launches = train_run(torch, KERNEL_WRAPPERS, agent, 1, 1, DYN,
+                               loop_only)
+    for k, c in launches.items():
+        total[k] += c
+    report_ppo(tag, task, agent, rows, launches, 1)
+    m = rows[-1]["m"]
+    disc = {k: m[k] for k in ("disc_loss", "disc_bce", "disc_grad_penalty",
+                              "disc_acc_agent", "disc_acc_demo",
+                              "disc_reward")}
+    if agent.replay_n != 2 * agent.amp_batch:
+        raise RuntimeError(f"AMP replay holds {agent.replay_n} transitions "
+                           f"after two epochs of {agent.amp_batch}")
+    rsi_share = amp_main["resets"] / (amp_main["steps"] * task.num_envs)
+    phase("amp", run=tag, envs=task.num_envs,
+          rsi_reset_share=f"{rsi_share:.6f}",
+          rsi_state_err=f"{amp_rsi['err']:.3g}",
+          rsi_stray_share=f"{amp_rsi['stray']:.6f}",
+          disc_reward_mean=f"{disc['disc_reward']:.6g}",
+          **{k: f"{v:.6g}" for k, v in disc.items() if k != "disc_reward"},
+          replay_n=agent.replay_n,
+          replay_fill=f"{agent.replay_n / agent.replay_size:.6f}",
+          amp_batch=agent.amp_batch)
+
+    # SAC on AntSAC and HumanoidSAC
+    for tag, scene, config in SAC_RUNS:
+        task = tasks[scene]
+        agent = SACAgent(task, train_default_config(config), seed=42)
+        rows, launches = sac_run(torch, KERNEL_WRAPPERS, agent, 1, 1, DYN,
+                                 loop_only)
+        for k, c in launches.items():
+            total[k] += c
+        for i, r in enumerate(rows):
+            m, sec = r["m"], r["seconds"]
+            steps = agent.steps_per_epoch
+            phase("train", run=tag, epoch=i + 1, envs=task.num_envs,
+                  network="TanhGaussianActor+TwinQ", steps=steps,
+                  updates=r["updates"], seconds=f"{sec:.4f}",
+                  device_ms=f"{r['device_ms']:.3f}",
+                  host_syncs=r["host_syncs"],
+                  sync_at=json.dumps(dict(r["sync_at"])).replace(" ", ""),
+                  env_steps_per_s=f"{task.num_envs * steps / sec:.1f}",
+                  **{k: f"{m[k]:.6g}" for k in (
+                      "critic_loss", "actor_loss", "alpha", "mean_return")})
+        m = rows[-1]["m"]
+        fill = min(agent.buf_n, agent.replay_size)
+        phase("sac", run=tag, envs=task.num_envs, env_steps=agent.step,
+              seed_steps=agent.num_seed_steps, alpha=f"{m['alpha']:.6g}",
+              replay_rows=fill,
+              replay_fill=f"{fill / agent.replay_size:.6f}",
+              critic_loss=f"{m['critic_loss']:.6g}",
+              actor_loss=f"{m['actor_loss']:.6g}",
+              launches=json.dumps(launches).replace(" ", ""))
+
+    # PPO on the HRL wrapper over HumanoidAMP, a fresh LLC
+    tag, scene = HRL_RUN
+    task = tasks[scene]
+    llc, latent = build_llc_from_checkpoint(task, HRL_LLC)
+    hrl = HRLTaskWrapper(task, llc, latent, HRL_LLC_STEPS)
+    tcfg = train_default_config(HRL_CONFIG)
+    tcfg["params"]["algo"]["name"] = "a2c_continuous"
+    agent = PPOAgent(hrl, tcfg, seed=42)
+    rows, launches = train_run(torch, KERNEL_WRAPPERS, agent, 1, 1, DYN,
+                               loop_only)
+    for k, c in launches.items():
+        total[k] += c
+    report_ppo(tag, hrl, agent, rows, launches, 1)
+    inner = hrl_inner_steps(torch, hrl, agent)
+    sec = rows[-1]["seconds"]
+    phase("hrl", run=tag, envs=task.num_envs, latent_dim=latent,
+          llc_units=json.dumps(HRL_LLC["units"]).replace(" ", ""),
+          llc_steps=HRL_LLC_STEPS, inner_steps_per_outer_step=inner,
+          train_config=f"{HRL_CONFIG}(a2c_continuous)",
+          outer_steps_per_s=f"{task.num_envs * agent.horizon / sec:.1f}",
+          inner_steps_per_s=(
+              f"{task.num_envs * agent.horizon * inner / sec:.1f}"))
+    if inner != HRL_LLC_STEPS:
+        raise RuntimeError(f"HRL ran {inner} inner steps an outer step")
 
     for w in KERNEL_WRAPPERS.values():
         w.launches = 0
@@ -2276,6 +2528,11 @@ def main():
     rows += [(name, "allegro_hand_dextreme_manual_dr",
               scene_launches["allegro_hand_dextreme_manual_dr"][name])
              for name in DYN]
+    # HumanoidAMPHands runs HumanoidAMP's kernels (the same scene): its
+    # rows carry those checks and its own launches
+    report["humanoid_amp_hands"] = report["humanoid_amp"]
+    rows += [(name, "humanoid_amp_hands",
+              scene_launches["humanoid_amp_hands"][name]) for name in DYN]
     # AnymalTerrain runs Anymal's kernels (the same scene and contact
     # plan): its rows carry Anymal's checks and its own launches
     report["anymal_terrain"] = report["anymal"]

@@ -15,8 +15,8 @@ The ``task.*`` keys name the fields of one task's state class (Ant's
 ``AntTaskState``, BallBalance's ``BBTaskState``, FrankaReachMA's
 ``FrankaMATaskState``, the other MA tasks' ``CollectTaskState``,
 Anymal's, AnymalTerrain's, Ingenuity's, Quadcopter's, Trifinger's,
-AllegroKuka's ``KukaTaskState`` and the hands' ``HandTaskState``, whose
-``consecutive`` is a scalar);
+AllegroKuka's ``KukaTaskState``, the hands' ``HandTaskState``, whose
+``consecutive`` is a scalar, and HumanoidAMP's ``AMPTaskState``);
 the class is picked by its field names, or given (Humanoid's
 ``HumanoidTaskState`` has Ant's fields, the single-arm Franka tasks'
 ``CubeStackTaskState`` and ``CabinetTaskState`` FrankaReachMA's).  The
@@ -42,7 +42,12 @@ fields (ADR only) ``task.adr.<field>``, and the other fields
 keys of the port's ``PPOAgent.state_dict()``, with the asymmetric
 critic's ``states_rms`` and the LSTM's carry where the agent has them;
 ``params_from_jax`` takes the ``ActorCritic``, ``AsymActorCritic``,
-``CentralValueNet`` and ``ActorCriticLSTM`` parameter trees.
+``CentralValueNet`` and ``ActorCriticLSTM`` parameter trees, and those of
+the other learners' networks: AMP's ``Discriminator``, SAC's
+``TanhGaussianActor`` and ``TwinQ`` and HRL's ``LatentConditionedActor``.
+``amp_state_from_jax`` adds the AMP learner's part of a JAX ``AMPState``
+(the discriminator, its Adam state, ``amp_rms`` and the replay) and
+``sac_state_from_jax`` converts a JAX ``SACState``'s learner part.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ from .tasks.anymal import AnymalTaskState
 from .tasks.anymal_terrain import ATTaskState
 from .tasks.ball_balance import BBTaskState
 from .tasks.base import EnvState
+from .tasks.humanoid_amp import AMPTaskState
 from .tasks.factory import FactoryTaskState
 from .tasks.industreal import IndustRealTaskState
 from .tasks.franka_collect_ma import CollectTaskState
@@ -73,7 +79,7 @@ TASK_STATES = (AntTaskState, BBTaskState, FrankaMATaskState,
                CollectTaskState, AnymalTaskState, ATTaskState,
                IngenuityTaskState, QuadTaskState, TrifingerTaskState,
                KukaTaskState, HandTaskState, FactoryTaskState,
-               IndustRealTaskState)
+               IndustRealTaskState, AMPTaskState)
 
 
 def phys_from_jax(arrays: dict, device) -> PhysScales:
@@ -173,10 +179,11 @@ def rna_state_dict_from_jax(params: dict) -> dict:
 
 
 def params_from_jax(tree: dict) -> dict:
-    """Flax actor-critic parameters (or an Adam moment of them, the same
-    tree) as {``nn.Module`` parameter name: tensor}.  Flax ``Dense`` kernels
-    are (in, out) and ``nn.Linear`` weights (out, in); the trunks' layers
-    are ``<trunk>/Dense_<i>`` in order.  The LSTM cell's per-gate kernels
+    """Flax network parameters (or an Adam moment of them, the same tree)
+    as {``nn.Module`` parameter name: tensor}.  Flax ``Dense`` kernels are
+    (in, out) and ``nn.Linear`` weights (out, in); a trunk (an ``MLP``:
+    ``actor_mlp``, ``disc_mlp``, SAC's ``q1`` ...) holds its layers as
+    ``<trunk>/Dense_<i>`` in order.  The LSTM cell's per-gate kernels
     (``lstm/i{i,f,g,o}`` without bias, ``lstm/h{i,f,g,o}`` with) are
     stacked in gate order into ``lstm.ih`` and ``lstm.hh``."""
     tree = tree.get("params", tree)
@@ -188,7 +195,8 @@ def params_from_jax(tree: dict) -> dict:
         out[f"{prefix}.bias"] = torch.tensor(f32(d["bias"]))
 
     for top, sub in tree.items():
-        if top in ("actor_mlp", "critic_mlp", "cv_mlp"):
+        if hasattr(sub, "keys") and len(sub) and all(
+                k.startswith("Dense_") for k in sub):
             for layer, d in sub.items():
                 dense(f"{top}.{int(layer.split('_')[1])}", d)
         elif top == "lstm":
@@ -221,17 +229,11 @@ def ppo_state_from_jax(arrays: dict) -> dict:
     ``last_states``, with the LSTM ``carry`` ((h, c), each (B, units)).
     Returns a dict for ``PPOAgent.load_state_dict`` (CPU tensors)."""
     f32 = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
-    adam = arrays["adam"]
-    mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
-    step = f32(adam["count"])
     out = {
         "net": params_from_jax(arrays["params"]),
-        "optim": {k: {"step": step.clone(), "exp_avg": mu[k],
-                      "exp_avg_sq": nu[k]} for k in mu},
-        "obs_rms": {k: f32(arrays["obs_rms"][k])
-                    for k in ("mean", "var", "count")},
-        "value_rms": {k: f32(arrays["value_rms"][k])
-                      for k in ("mean", "var", "count")},
+        "optim": _adam_from_jax(arrays["adam"]),
+        "obs_rms": _rms(arrays["obs_rms"]),
+        "value_rms": _rms(arrays["value_rms"]),
         "lr": f32(arrays["lr"]),
     }
     for k in ("epoch", "frames"):
@@ -242,8 +244,69 @@ def ppo_state_from_jax(arrays: dict) -> dict:
         if k in arrays:
             out[k] = f32(arrays[k])
     if arrays.get("states_rms"):
-        out["states_rms"] = {k: f32(arrays["states_rms"][k])
-                             for k in ("mean", "var", "count")}
+        out["states_rms"] = _rms(arrays["states_rms"])
     if arrays.get("carry") is not None and len(arrays["carry"]):
         out["carry"] = [f32(c) for c in arrays["carry"]]
+    return out
+
+
+def _adam_from_jax(adam: dict) -> dict:
+    """{parameter name: torch Adam state} of an optax ``ScaleByAdamState``
+    as numpy ({"count", "mu", "nu"})."""
+    mu, nu = params_from_jax(adam["mu"]), params_from_jax(adam["nu"])
+    step = torch.tensor(np.asarray(adam["count"], np.float32))
+    return {k: {"step": step.clone(), "exp_avg": mu[k],
+                "exp_avg_sq": nu[k]} for k in mu}
+
+
+def _rms(d: dict) -> dict:
+    return {k: torch.tensor(np.asarray(d[k], np.float32))
+            for k in ("mean", "var", "count")}
+
+
+def amp_state_from_jax(arrays: dict) -> dict:
+    """The AMP learner's part of a JAX ``AMPState.amp`` as numpy::
+
+        {"disc_params": flax tree, "disc_adam": {"count", "mu", "nu"},
+         "amp_rms": {"mean", "var", "count"}, "replay": (R, amp_dim),
+         "replay_n": n}
+
+    as the keys ``AMPAgent.load_state_dict`` takes besides PPO's."""
+    return {"disc": params_from_jax(arrays["disc_params"]),
+            "disc_optim": _adam_from_jax(arrays["disc_adam"]),
+            "amp_rms": _rms(arrays["amp_rms"]),
+            "replay": torch.tensor(np.asarray(arrays["replay"], np.float32)),
+            "replay_n": int(arrays["replay_n"])}
+
+
+def sac_state_from_jax(arrays: dict) -> dict:
+    """The port's SAC learner state from a JAX ``SACState``'s learner part
+    as numpy::
+
+        {"actor_params", "critic_params", "target_params": flax trees,
+         "log_alpha": x, "actor_adam", "critic_adam", "alpha_adam":
+         {"count", "mu", "nu"}, "obs_rms": {...}, "buffer": {obs, act, rew,
+         next_obs, done}, "buf_n", "step", "mean_return", "ep_return",
+         "last_obs"}
+
+    Returns a dict for ``SACAgent.load_state_dict`` (CPU tensors; the
+    buffer as given, all its rows)."""
+    f32 = lambda x: torch.tensor(np.asarray(x, np.float32))  # noqa: E731
+    al = arrays["alpha_adam"]
+    out = {"actor": params_from_jax(arrays["actor_params"]),
+           "critic": params_from_jax(arrays["critic_params"]),
+           "target": params_from_jax(arrays["target_params"]),
+           "log_alpha": f32(arrays["log_alpha"]),
+           "actor_optim": _adam_from_jax(arrays["actor_adam"]),
+           "critic_optim": _adam_from_jax(arrays["critic_adam"]),
+           "alpha_optim": {"step": f32(al["count"]), "exp_avg": f32(al["mu"]),
+                           "exp_avg_sq": f32(al["nu"])},
+           "obs_rms": _rms(arrays["obs_rms"]),
+           "buffer": {k: f32(v) for k, v in arrays["buffer"].items()}}
+    for k in ("buf_n", "step"):
+        if k in arrays:
+            out[k] = int(arrays[k])
+    for k in ("mean_return", "ep_return", "last_obs"):
+        if k in arrays:
+            out[k] = f32(arrays[k])
     return out

@@ -144,19 +144,22 @@ class Rollout(NamedTuple):
     sigma: torch.Tensor
     states: Optional[torch.Tensor] = None
     carry: Optional[tuple] = None
+    aux: Optional[torch.Tensor] = None     # per-step task extras (AMP obs)
 
 
 class PPOAgent:
     """Trains one task; ``init()`` builds the network, optimiser and env
     state, ``train_epoch()`` runs one epoch and returns its metrics."""
 
+    # the rl_games algos of the configs this class trains
+    algos = PPO_ALGOS
+
     def __init__(self, task, train_cfg: dict, seed: int = 42):
         params = train_cfg["params"]
         algo = params["algo"]["name"]
-        if algo not in PPO_ALGOS:
-            raise NotImplementedError(
-                f"algo {algo!r} is not ported yet: ROADMAP queue A, item 10 "
-                "(AMP, HRL and SAC)")
+        if algo not in self.algos:
+            raise ValueError(
+                f"{type(self).__name__} does not run algo {algo!r}")
         self.task = task
         self.train_cfg = train_cfg
         self.cfg = PPOConfig.from_train_cfg(train_cfg)
@@ -243,6 +246,15 @@ class PPOAgent:
         o = self.obs_rms.normalize(obs) if self.cfg.normalize_input else obs
         return self.net(o, carry)
 
+    def _collect_aux(self, res):
+        """Per-step rollout extras hook (AMP keeps extras['amp_obs'])."""
+        return None
+
+    def _transform_rewards(self, roll: Rollout) -> Rollout:
+        """Reward post-processing hook before GAE (AMP combines the
+        discriminator's reward here)."""
+        return roll
+
     @staticmethod
     def _scalar_extras(extras) -> Dict[str, torch.Tensor]:
         """Numeric task extras -> scalar means for the observer channel
@@ -312,7 +324,7 @@ class PPOAgent:
             ep_len = torch.where(row_done, 0.0, ep_len)
 
             steps.append((obs, actions, neglogp, value, rew, done, mu, sigma,
-                          states, carry))
+                          states, carry, self._collect_aux(res)))
             for k, v in self._scalar_extras(res.extras).items():
                 extra_seq.setdefault(k, []).append(v)
             obs = res.obs
@@ -328,7 +340,8 @@ class PPOAgent:
             *(torch.stack(x) for x in cols[:8]),
             states=torch.stack(cols[8]) if self.use_central_value else None,
             carry=(tuple(torch.stack(x) for x in zip(*cols[9]))
-                   if self.is_rnn else None))
+                   if self.is_rnn else None),
+            aux=None if cols[10][0] is None else torch.stack(cols[10]))
         has = fin_cnt > 0
         self.mean_return = torch.where(
             has, fin_sum / torch.clamp(fin_cnt, min=1.0), self.mean_return)
@@ -539,6 +552,7 @@ class PPOAgent:
         The metrics are device tensors (``frames`` an int); reading them is
         the only wait for the card."""
         roll, last_obs, stats = self._rollout(noise, reset_draws)
+        roll = self._transform_rewards(roll)
         adv, returns = self._gae(roll, last_obs)
         metrics = self._update(roll, adv, returns, perms)
         metrics["episodes_done"] = stats["episodes_done"]
@@ -593,18 +607,6 @@ class PPOAgent:
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs (checkpoint ``ppo_state``)."""
-        st = self.env_state
-        env = {"sim.q": st.sim.q, "sim.qd": st.sim.qd,
-               "progress": st.progress, "reset_buf": st.reset_buf}
-        # the engine's warm-start impulses (the Factory and IndustReal
-        # tasks)
-        for i, x in enumerate(st.sim.lam if st.sim.lam is not None else ()):
-            env[f"sim.lam.{i}"] = x
-        if st.task is not None:
-            env.update(_flatten("task", st.task))
-        if st.phys is not None:
-            env.update({f"phys.{f}": v for f, v in st.phys._asdict().items()
-                        if v is not None})
         return {
             "net": self.net.state_dict(), "optim": self._optim_state(),
             "obs_rms": self.obs_rms.state_dict(),
@@ -614,7 +616,8 @@ class PPOAgent:
             "mean_return": self.mean_return, "mean_length": self.mean_length,
             "generator": self.generator.get_state(),
             "task_generator": self.task.generator.get_state(),
-            "env_state": env, "last_obs": self.last_obs,
+            "env_state": env_state_arrays(self.env_state),
+            "last_obs": self.last_obs,
             "states_rms": (None if self.states_rms is None
                            else self.states_rms.state_dict()),
             "last_states": self.last_states,
@@ -665,21 +668,42 @@ class PPOAgent:
         if "task_generator" in d:
             self.task.generator.set_state(d["task_generator"].cpu())
         if "env_state" in d:
-            env = d["env_state"]
-            task = self.env_state.task
-            if task is not None:
-                task = _unflatten("task", task, env, on)
-            phys = self.env_state.phys
-            if phys is not None:
-                phys = type(phys)(**{f: on(env[f"phys.{f}"])
-                                     for f in phys._fields
-                                     if f"phys.{f}" in env})
-            lam = (tuple(on(env[f"sim.lam.{i}"]) for i in range(3))
-                   if "sim.lam.0" in env else None)
-            self.env_state = EnvState(
-                sim=SimState(on(env["sim.q"]), on(env["sim.qd"]), lam),
-                progress=on(env["progress"]),
-                reset_buf=on(env["reset_buf"]), task=task, phys=phys)
+            self.env_state = env_state_from_arrays(d["env_state"],
+                                                   self.env_state, on)
+
+
+def env_state_arrays(st: EnvState) -> dict:
+    """An env state as {dotted name: tensor}, the checkpoint's
+    ``env_state``: the physics state (with the engine's warm-start
+    impulses of the Factory and IndustReal tasks), the clocks, the task
+    state's leaves and the physics scales."""
+    env = {"sim.q": st.sim.q, "sim.qd": st.sim.qd,
+           "progress": st.progress, "reset_buf": st.reset_buf}
+    for i, x in enumerate(st.sim.lam if st.sim.lam is not None else ()):
+        env[f"sim.lam.{i}"] = x
+    if st.task is not None:
+        env.update(_flatten("task", st.task))
+    if st.phys is not None:
+        env.update({f"phys.{f}": v for f, v in st.phys._asdict().items()
+                    if v is not None})
+    return env
+
+
+def env_state_from_arrays(env: dict, like: EnvState, on) -> EnvState:
+    """The inverse of :func:`env_state_arrays`, shaped as ``like`` (the
+    agent's current env state), each tensor taken through ``on``."""
+    task = like.task
+    if task is not None:
+        task = _unflatten("task", task, env, on)
+    phys = like.phys
+    if phys is not None:
+        phys = type(phys)(**{f: on(env[f"phys.{f}"]) for f in phys._fields
+                             if f"phys.{f}" in env})
+    lam = (tuple(on(env[f"sim.lam.{i}"]) for i in range(3))
+           if "sim.lam.0" in env else None)
+    return EnvState(sim=SimState(on(env["sim.q"]), on(env["sim.qd"]), lam),
+                    progress=on(env["progress"]),
+                    reset_buf=on(env["reset_buf"]), task=task, phys=phys)
 
 
 def _flatten(prefix: str, x) -> dict:

@@ -2,14 +2,14 @@
 isaacgymenvs_ma_tpu/tasks/registry.py, reference tasks/__init__.py:94-127
 ``isaacgym_task_map``).
 
-Only the ported tasks are registered, with the config variants of the
-hands (reference ``cfg/task/<Variant>.yaml``, JAX registry.py:59-98): a
-variant builds its base task from the base's defaults with the variant's
-deltas deep-merged over them.  Every other name of the JAX
-registry (its tasks, config variants and config-only groups) raises
-``NotImplementedError`` naming the ROADMAP queue-A item that ports it; a
-name neither package knows raises ``KeyError``, as in the JAX package.
-Nothing falls back to another task.
+Every name of the JAX registry is registered: its tasks, with the
+config variants (reference ``cfg/task/<Variant>.yaml``, JAX
+registry.py:59-110): a variant builds its base task from the base's
+defaults with the variant's deltas deep-merged over them (HumanoidAMPHands
+over HumanoidAMP, AntSAC and HumanoidSAC over Ant and Humanoid as they
+are), and the config-only groups, whose configs resolve and whose
+classes raise ``KeyError``; a name neither package knows raises
+``KeyError``, as in the JAX package.  Nothing falls back to another task.
 """
 from __future__ import annotations
 
@@ -61,6 +61,7 @@ _TASKS: Dict[str, Tuple[str, str]] = {
     "FactoryTaskInsertion": (".factory", "FactoryTaskInsertion"),
     "IndustRealTaskPegsInsert": (".industreal", "IndustRealTaskPegsInsert"),
     "IndustRealTaskGearsInsert": (".industreal", "IndustRealTaskGearsInsert"),
+    "HumanoidAMP": (".humanoid_amp", "HumanoidAMP"),
 }
 
 # the reference's config-only groups (cfg/task/FactoryBase.yaml etc., the
@@ -112,20 +113,20 @@ _VARIANTS: Dict[str, Tuple[str, dict]] = {
     "AllegroHandLSTM": ("AllegroHand", _ALLEGRO_LSTM_DELTA),
     "AllegroHandFF": ("AllegroHand", _ALLEGRO_LSTM_DELTA),
     "AllegroHandLSTM_Big": ("AllegroHand", _ALLEGRO_LSTM_DELTA),
+    # cfg/task/HumanoidAMPHands.yaml: the hands join the contact bodies,
+    # the cartwheel clip
+    "HumanoidAMPHands": ("HumanoidAMP", {
+        "env": {"contactBodies": ["right_foot", "left_foot",
+                                  "right_hand", "left_hand"],
+                "motion_file": "amp_humanoid_cartwheel.npy"},
+    }),
+    # cfg/task/{Ant,Humanoid}SAC.yaml: the task configs as they are (only
+    # the train config differs)
+    "AntSAC": ("Ant", {}),
+    "HumanoidSAC": ("Humanoid", {}),
 }
-
-# the JAX registry's other names -> ROADMAP queue-A item that ports them
-_QUEUE_A = {
-    "10": ("HumanoidAMP", "HumanoidAMPHands", "AntSAC", "HumanoidSAC"),
-}
-UNPORTED = {name: item for item, names in _QUEUE_A.items() for name in names}
-
 
 def _check(name: str) -> None:
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"task '{name}' is not ported yet: ROADMAP queue A, item "
-            f"{UNPORTED[name]}")
     if name not in _TASKS and name not in _VARIANTS \
             and name not in _CONFIG_ONLY:
         raise KeyError(f"unknown task '{name}'; ported: {task_names()}")

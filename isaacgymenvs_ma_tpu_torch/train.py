@@ -10,7 +10,9 @@ package: global flags (``task=``, ``num_envs=``, ``max_iterations=``,
 ``sim_device=``), ``task.*`` and ``train.*``.  The task and the learner
 run on ``sim_device`` (``cuda:0`` unless the caller asks for the CPU);
 ``rl_device`` is accepted for CLI parity.  ``test=True checkpoint=...``
-runs the player path.
+runs the player path.  The train config's algo picks the learner, as in
+the JAX entry point: ``amp_continuous`` the AMP learner, ``sac`` SAC, the
+PPO algos PPO.
 
 Not ported, each raising ``NotImplementedError`` when its flag is set
 (ROADMAP queue A, item 11): ``multi_gpu``, ``pbt.enabled``,
@@ -61,7 +63,12 @@ _LINE_EXTRAS = (("episode/episode/coverage", "cov"),
 
 
 def epoch_line(ep: int, max_epochs: int, m: dict, fps: float) -> str:
-    """The JAX loop's log line from host metrics ``m``."""
+    """The JAX loop's log line from host metrics ``m``; SAC's (no KL or
+    episode length) with its losses and temperature."""
+    if "critic_loss" in m:
+        return (f"epoch {ep}/{max_epochs} reward {m['mean_return']:.2f} "
+                f"critic {m['critic_loss']:.4f} actor {m['actor_loss']:.4f} "
+                f"alpha {m['alpha']:.4f} fps {fps:,.0f}")
     succ = ""
     for sk in ("episode/consecutive_successes", "episode/successes"):
         if sk in m:
@@ -77,7 +84,9 @@ def epoch_line(ep: int, max_epochs: int, m: dict, fps: float) -> str:
 
 def launch(argv=None):
     from .learning import checkpoint as ckpt
+    from .learning.amp import AMPAgent
     from .learning.ppo import PPOAgent
+    from .learning.sac import SACAgent
     from .ops.rng import make_seed
     from .tasks import registry
     from .utils.config import (GLOBAL_DEFAULTS, apply_overrides,
@@ -111,9 +120,11 @@ def launch(argv=None):
     task = registry.create_task(task_name, task_cfg, seed=seed,
                                 headless=bool(cfg.get("headless", True)),
                                 device=device)
+    algo = train_cfg["params"]["algo"]["name"]
     # a2c_continuous and a2c_continuous_MA share the core; MA episode
     # striding is driven by the env's num_agents (A2CAgent_MA.py:44-47)
-    agent = PPOAgent(task, train_cfg, seed=seed)
+    agent = {"amp_continuous": AMPAgent, "sac": SACAgent}.get(
+        algo, PPOAgent)(task, train_cfg, seed=seed)
 
     exp_name = resolve_default(
         train_cfg["params"]["config"].get("name", task_name),
@@ -131,7 +142,8 @@ def launch(argv=None):
         print(f"restored checkpoint {cfg['checkpoint']} (meta {meta})")
         if cfg.get("sigma") not in ("", None):
             # fixed exploration sigma at restore (reference train.py:212-216)
-            if not agent.net.fixed_sigma:
+            if not getattr(getattr(agent, "net", None), "fixed_sigma",
+                           False):
                 raise ValueError("sigma= needs a fixed-sigma network")
             agent.net.log_sigma.data.fill_(math.log(float(cfg["sigma"])))
             print(f"sigma overridden to {float(cfg['sigma'])}")

@@ -45,8 +45,10 @@ class PhysScales(NamedTuple):
     obs_corr: Optional[torch.Tensor] = None   # (N, num_obs)
     act_corr: Optional[torch.Tensor] = None   # (N, num_actions)
     # dof-property and restitution leaves of the JAX package's ADR tasks:
-    # the engine scales armature, effort limit and joint friction with
-    # the first three and raises on the others (ROADMAP queue A, item 7c)
+    # the engine scales joint friction, armature and effort limit with the
+    # first three, shifts the dof limits by the next two and takes the
+    # bounce restitution from the last (a call with it solves contacts on
+    # the loop, as in JAX)
     joint_friction: Optional[torch.Tensor] = None
     armature: Optional[torch.Tensor] = None
     effort: Optional[torch.Tensor] = None

@@ -49,8 +49,9 @@ from ..tasks import (allegro_hand_dextreme, allegro_kuka, anymal, anymal_terrain
                      ball_balance, cartpole, factory,
                      franka_cabinet, franka_collect_ma, franka_combine_ma,
                      franka_cube_stack, franka_cube_stack2, franka_ppma,
-                     franka_reach, franka_reach_ma, humanoid, industreal,
-                     ingenuity, quadcopter, registry, shadow_hand, trifinger)
+                     franka_reach, franka_reach_ma, humanoid, humanoid_amp,
+                     industreal, ingenuity, quadcopter, registry,
+                     shadow_hand, trifinger)
 
 # name -> (task class, configuration, task-state class or None)
 TASKS = {"Ant": (ant.Ant, ant.TASK_CFG, ant.AntTaskState),
@@ -116,6 +117,10 @@ TASKS.update({f: (registry.task_class(f), registry.task_default_config(f),
                   factory.FactoryTaskState) for f in FACTORY})
 TASKS.update({f: (registry.task_class(f), registry.task_default_config(f),
                   industreal.IndustRealTaskState) for f in INDUSTREAL})
+# HumanoidAMP and its hands variant, by registry name
+AMP = ("HumanoidAMP", "HumanoidAMPHands")
+TASKS.update({a: (registry.task_class(a), registry.task_default_config(a),
+                  humanoid_amp.AMPTaskState) for a in AMP})
 FACTORY_IK_DRAWS = ("ft_pos_u", "ft_rot_u")
 HAND_RESET_DRAWS = ("obj_pos_n", "obj_rot_ang", "dof_u", "goal_rot_ang")
 DEXTREME_RESET_DRAWS = HAND_RESET_DRAWS + (
@@ -159,7 +164,8 @@ RESET_DRAWS = {"Ant": ("reset_pos", "reset_vel"),
                "FactoryTaskGears": FACTORY_IK_DRAWS + ("obj_xy_u",),
                "FactoryTaskInsertion": FACTORY_IK_DRAWS + ("obj_xy_u",),
                **{f: FACTORY_IK_DRAWS + ("plug_xy_u", "disp_u")
-                  for f in INDUSTREAL}}
+                  for f in INDUSTREAL},
+               **{a: ("motion_ids", "motion_times") for a in AMP}}
 # capture keys of the draws post_physics makes, in its order
 STEP_DRAWS = {"AnymalTerrain": ("push_vel", "noise_u"),
               "Ingenuity": ("retarget_xy_u", "retarget_z_u"),
@@ -311,7 +317,8 @@ TOLERANCES = {"Ant": GOLDEN_TOL, "BallBalance": BB_GOLDEN_TOL,
               "AllegroKukaTwoArms": GROUND_RULE_TOL,
               **{h: GROUND_RULE_TOL for h in HANDS},
               **{d: GROUND_RULE_TOL for d in DEXTREME},
-              **{f: GROUND_RULE_TOL for f in FACTORY + INDUSTREAL}}
+              **{f: GROUND_RULE_TOL for f in FACTORY + INDUSTREAL},
+              **{a: GROUND_RULE_TOL for a in AMP}}
 # The hands' captures (shadow_hand_golden.npz, allegro_hand_golden.npz,
 # shadow_hand_openai_ff_golden.npz, allegro_hand_lstm_golden.npz; 32
 # envs, 6 steps on the mass-splitting loop) are held one step at a time as

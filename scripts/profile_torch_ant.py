@@ -12,7 +12,7 @@ GPU.
                 FactoryTaskNutBoltPick|FactoryTaskNutBoltPlace|
                 FactoryTaskNutBoltScrew|FactoryTaskGears|
                 FactoryTaskInsertion|IndustRealTaskPegsInsert|
-                IndustRealTaskGearsInsert]
+                IndustRealTaskGearsInsert|HumanoidAMP|HumanoidAMPHands]
         [--contact-kernel]
         [--envs N] [--steps 20] [--train] [--table PATH]
 
@@ -31,8 +31,10 @@ inverts the arm mass matrices (n = 7) and then J M^-1 J^T (n = 6) every
 step, so in time order its launches alternate between the two.  ``--table`` writes torch.profiler's full table
 to PATH.
 
-``--train`` profiles one PPO epoch (``learning/ppo.py``) of the task with
-its train config instead, after one warm-up epoch, in two windows: the
+``--train`` profiles one PPO epoch (``learning/ppo.py``; the AMP
+learner's, ``learning/amp.py``, at HumanoidAMP, its update window then
+including the discriminator step) of the task with its train config
+instead, after one warm-up epoch, in two windows: the
 rollout (policy forward + ``task.step`` over the horizon, then GAE) and
 the update (normalisers, minibatch forward/backward and Adam); each
 window's lines are per epoch, not per step.
@@ -111,7 +113,8 @@ def main():
                              "FactoryTaskNutBoltScrew", "FactoryTaskGears",
                              "FactoryTaskInsertion",
                              "IndustRealTaskPegsInsert",
-                             "IndustRealTaskGearsInsert"))
+                             "IndustRealTaskGearsInsert", "HumanoidAMP",
+                             "HumanoidAMPHands"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
     ap.add_argument("--envs", type=int, default=None,
@@ -145,8 +148,11 @@ def main():
     if args.train:
         from isaacgymenvs_ma_tpu_torch.learning.configs import (
             train_default_config)
+        from isaacgymenvs_ma_tpu_torch.learning.amp import AMPAgent
         from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
-        agent = PPOAgent(task, train_default_config(args.task), seed=1)
+        tcfg = train_default_config(args.task)
+        amp = tcfg["params"]["algo"]["name"] == "amp_continuous"
+        agent = (AMPAgent if amp else PPOAgent)(task, tcfg, seed=1)
         agent.init()
         agent.train_epoch()                 # warm-up
         head += (f" horizon={agent.horizon} minibatches="
@@ -156,10 +162,15 @@ def main():
 
         def rollout():
             roll, last_obs, _ = agent._rollout()
+            roll = agent._transform_rewards(roll)
             box["gae"] = (roll, *agent._gae(roll, last_obs))
 
-        windows = (("rollout", rollout),
-                   ("update", lambda: agent._update(*box["gae"])))
+        def update():
+            agent._update(*box["gae"])
+            if amp:
+                agent._disc_phase()
+
+        windows = (("rollout", rollout), ("update", update))
         for label, fn in windows:
             report(torch, profile, ProfilerActivity, fn, 1,
                    f"{head} window={label}", args.table, label)

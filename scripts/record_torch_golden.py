@@ -115,8 +115,23 @@ factory_engine.npz: the JAX engine's steps on the synthetic scene of
 ``isaacgymenvs_ma_tpu_torch.utils.parity.factory_engine_scene`` (warm
 start, body damping, bf16 rows, an SDF-grid target, compaction; ~20 s).
 
+``--task HumanoidAMP`` and ``--task HumanoidAMPHands`` ->
+humanoid_amp_golden.npz and humanoid_amp_hands_golden.npz record 3 steps
+at 8 envs (``AMP_STEPS``) after the warm-up, a quarter of the envs reset
+on the first by Reference State Init; each step's reset draws are the
+motion ids and times of the JAX motion library's draws (``amp_draws``).
+``--amp-epoch`` records amp_epoch.npz: one whole epoch of the JAX AMP
+learner (HumanoidAMP at 8 envs, horizon 8, minibatch 64, ``amp_batch_size``
+32, network and discriminator units [64, 32], seed 3), its third, so the
+replay joins the discriminator batch: the state it starts from (env,
+learner, discriminator, the replay's filled rows), every draw of the
+epoch (action noise, reset draws, minibatch permutations, the
+discriminator phase's demo draws and replay and agent indices), the
+rollout with the combined rewards, GAE, the metrics and the state after
+(~2 min: two jits).
+
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
-        [--kernel-route] [--phys-step] [--factory-engine]
+        [--kernel-route] [--phys-step] [--factory-engine] [--amp-epoch]
 """
 import argparse
 import os
@@ -137,8 +152,9 @@ from isaacgymenvs_ma_tpu.tasks import (allegro_kuka, anymal,
                                        franka_cabinet, franka_collect_ma,
                                        franka_cube_stack, franka_cube_stack2,
                                        franka_ppma, franka_reach,
-                                       franka_reach_ma, humanoid, ingenuity,
-                                       quadcopter, trifinger)
+                                       franka_reach_ma, humanoid,
+                                       humanoid_amp, ingenuity, quadcopter,
+                                       trifinger)
 from isaacgymenvs_ma_tpu.utils import domain_rand as jdr
 from isaacgymenvs_ma_tpu.utils.config import deep_merge
 
@@ -346,6 +362,15 @@ def humanoid_draws(k_reset, task):
                                             maxval=0.2),
             "reset_vel": jax.random.uniform(k2, (n, 21), minval=-0.1,
                                             maxval=0.1)}
+
+
+def amp_draws(k_reset, task):
+    """HumanoidAMP.reset_idx's draws (humanoid_amp.py:206-214): motion ids
+    by the clips' weights, then uniform times within them."""
+    k1, k2 = jax.random.split(k_reset)
+    ids = task.motion_lib.sample_motions(k1, task.num_envs)
+    return {"motion_ids": ids,
+            "motion_times": task.motion_lib.sample_time(k2, ids)}
 
 
 def anymal_draws(k_reset, task):
@@ -667,6 +692,11 @@ TASKS = {  # name -> (class, config, draws, envs, file)
                            "allegro_kuka_two_arms_golden.npz"),
     **{h: (jregistry.task_class(h), jregistry.task_default_config(h),
            hand_draws, 32, f) for h, f in HANDS.items()},
+    "HumanoidAMP": (humanoid_amp.HumanoidAMP, humanoid_amp.TASK_CFG,
+                    amp_draws, 8, "humanoid_amp_golden.npz"),
+    "HumanoidAMPHands": (jregistry.task_class("HumanoidAMPHands"),
+                         jregistry.task_default_config("HumanoidAMPHands"),
+                         amp_draws, 8, "humanoid_amp_hands_golden.npz"),
     # the Factory family and IndustReal at 8 envs, FACTORY_EPISODE steps
     # an episode
     **{f: (jregistry.task_class(f), deep_merge(
@@ -692,6 +722,9 @@ GRAB_STEPS = 10
 # (``traj_spread_*``, ROADMAP C9: the cube-stack scene amplifies float32
 # rounding); parity.replay widens their bounds by it
 TRAJ_SPREAD = ("FrankaCubeStack", "FrankaCubeStack2")
+# the AMP tasks record AMP_STEPS steps
+AMP_TASKS = ("HumanoidAMP", "HumanoidAMPHands")
+AMP_STEPS = 3
 
 
 # --phys-step: the scenes whose engine step is recorded with per-env
@@ -1053,6 +1086,125 @@ def record_factory_engine():
     print(out_path, os.path.getsize(out_path), "bytes")
 
 
+# --amp-epoch: the JAX AMP learner's epoch on HumanoidAMP, cut to size
+AMP_EPOCH_ENVS, AMP_EPOCH_SEED, AMP_EPOCH_UNITS = 8, 3, [64, 32]
+AMP_EPOCH_CONFIG = dict(minibatch_size=64, horizon_length=8,
+                        amp_batch_size=32)
+
+
+def amp_epoch_train_config(configs):
+    """The HumanoidAMP train config of amp_epoch.npz, from ``configs`` (the
+    JAX package's or the port's copy)."""
+    tcfg = configs.train_default_config("HumanoidAMP")
+    tcfg["params"]["config"].update(AMP_EPOCH_CONFIG)
+    tcfg["params"]["network"]["mlp"]["units"] = list(AMP_EPOCH_UNITS)
+    return tcfg
+
+
+def tree_arrays(prefix, tree):
+    """A pytree's leaves as {prefix.key.key...: numpy array}."""
+    out = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        # DictKey, GetAttrKey (a NamedTuple's field) or SequenceKey
+        keys = "".join(
+            f".{getattr(k, 'key', getattr(k, 'name', getattr(k, 'idx', k)))}"
+            for k in path)
+        out[prefix + keys] = np.asarray(leaf)
+    return out
+
+
+def amp_learner_arrays(st, prefix):
+    """A JAX AMPState's learner part as amp_epoch.npz keys."""
+    ppo, amp = st.ppo, st.amp
+    rec = {**tree_arrays(f"{prefix}params", ppo.params),
+           **tree_arrays(f"{prefix}adam", ppo.opt_state[1]),
+           **tree_arrays(f"{prefix}obs_rms", ppo.obs_rms._asdict()),
+           **tree_arrays(f"{prefix}value_rms", ppo.value_rms._asdict()),
+           **tree_arrays(f"{prefix}disc_params", amp.disc_params),
+           **tree_arrays(f"{prefix}disc_adam", amp.disc_opt[0]),
+           **tree_arrays(f"{prefix}amp_rms", amp.amp_rms._asdict())}
+    n = int(amp.replay_n)
+    rec[f"{prefix}replay"] = np.asarray(amp.replay[:n])
+    rec[f"{prefix}replay_n"] = np.int32(n)
+    for k in ("lr", "epoch", "frames", "ep_return", "ep_length",
+              "mean_return", "mean_length", "last_obs"):
+        rec[f"{prefix}{k}"] = np.asarray(getattr(ppo, k))
+    es = ppo.env_state
+    for k, v in (("q", es.sim.q), ("qd", es.sim.qd),
+                 ("progress", es.progress), ("reset_buf", es.reset_buf),
+                 ("amp_obs_hist", es.task.amp_obs_hist)):
+        rec[f"{prefix}env_{k}"] = np.asarray(v)
+    return rec
+
+
+def record_amp_epoch():
+    """amp_epoch.npz (module docstring)."""
+    from isaacgymenvs_ma_tpu.learning import configs as jconfigs
+    from isaacgymenvs_ma_tpu.learning.amp import AMPAgent
+    task = humanoid_amp.HumanoidAMP(deep_merge(
+        humanoid_amp.TASK_CFG, {"env": {"numEnvs": AMP_EPOCH_ENVS}}))
+    agent = AMPAgent(task, amp_epoch_train_config(jconfigs),
+                     seed=AMP_EPOCH_SEED)
+    st = agent.init()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        st, _ = agent.train_epoch(st)
+    print(f"two epochs (jit) {time.perf_counter() - t0:.1f} s", flush=True)
+
+    @jax.jit
+    def rollout(state):
+        agent._amp_vars = state.amp
+        ppo, roll, last_obs, _ = agent._rollout(state.ppo)
+        roll = agent._transform_rewards(ppo, roll)
+        adv, ret = agent._gae(ppo, roll, last_obs)
+        return roll, adv, ret
+
+    roll, adv, ret = rollout(st)
+    rec = amp_learner_arrays(st, "init_")
+    # the epoch's draws, from the keys as the JAX epoch splits them
+    T, B, A = agent.horizon, task.rl_games_batch, task.num_actions
+    key, noise = st.ppo.key, []
+    for _ in range(T):
+        key, k_act = jax.random.split(key)
+        noise.append(np.asarray(jax.random.normal(k_act, (B, A))))
+    _, k_perm = jax.random.split(key)
+    rec["perms"] = np.stack([
+        np.asarray(jax.random.permutation(k, T * B))
+        for k in jax.random.split(k_perm, agent.cfg.mini_epochs)])
+    rec["noise"] = np.stack(noise)
+    rng, ids, times = st.ppo.env_state.rng, [], []
+    for _ in range(T):
+        ks = jax.random.split(rng, 6)
+        rng = ks[0]
+        d = amp_draws(ks[1], task)
+        ids.append(np.asarray(d["motion_ids"]))
+        times.append(np.asarray(d["motion_times"]))
+    rec["motion_ids"], rec["motion_times"] = np.stack(ids), np.stack(times)
+    amp = st.amp
+    _, k_demo, k_replay, k_mb = jax.random.split(amp.key, 4)
+    k1, k2 = jax.random.split(k_demo)
+    ml = task.motion_lib
+    demo_ids = ml.sample_motions(k1, agent.amp_batch)
+    rec["demo_ids"] = np.asarray(demo_ids)
+    rec["demo_times"] = np.asarray(ml.sample_time(k2, demo_ids,
+                                                  truncate_t=task.policy_dt))
+    have = min(max(int(amp.replay_n), 1), agent.replay_size)
+    rec["replay_idx"] = np.asarray(jax.random.randint(
+        k_replay, (agent.amp_batch,), 0, have))
+    rec["agent_idx"] = np.asarray(jax.random.randint(
+        k_mb, (agent.amp_batch,), 0, T * B))
+    st2, m = agent.train_epoch(st)
+    for f in ("obs", "actions", "neglogp", "values", "rewards", "dones",
+              "mu", "sigma", "aux"):
+        rec[f"roll_{f}"] = np.asarray(getattr(roll, f))
+    rec["adv"], rec["returns"] = np.asarray(adv), np.asarray(ret)
+    rec.update({f"metric_{k}": np.asarray(v) for k, v in m.items()})
+    rec.update(amp_learner_arrays(st2, "after_"))
+    out = os.path.join(DATA, "amp_epoch.npz")
+    np.savez_compressed(out, **rec)
+    print(out, os.path.getsize(out), "bytes")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant", choices=sorted(TASKS))
@@ -1067,7 +1219,11 @@ def main():
                     help="record a Dextreme capture (DEXTREME)")
     ap.add_argument("--factory-engine", action="store_true",
                     help="record factory_engine.npz")
+    ap.add_argument("--amp-epoch", action="store_true",
+                    help="record amp_epoch.npz")
     args = ap.parse_args()
+    if args.amp_epoch:
+        return record_amp_epoch()
     if args.factory_engine:
         return record_factory_engine()
     if args.dextreme:
@@ -1101,7 +1257,8 @@ def main():
         flags[: n // 4] = 1
         st = st._replace(reset_buf=jnp.asarray(flags, jnp.int32))
         steps = (GRAB_STEPS if args.task in GRAB_TASKS
-                 and not args.kernel_route else T)
+                 and not args.kernel_route
+                 else AMP_STEPS if args.task in AMP_TASKS else T)
         actions = rng.uniform(-1, 1, (steps, B, A)).astype(np.float32)
         if args.task in GRAB_TASKS:
             grab_envs = np.arange(n // 4, n // 4 + n // 2)

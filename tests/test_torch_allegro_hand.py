@@ -91,14 +91,18 @@ def test_registry_variants_match_jax(name):
 
 def test_dextreme_names_stay_unported():
     """The four Dextreme names raised until ROADMAP queue A item 7c was
-    ported (tests/test_torch_dextreme.py), and the Factory and IndustReal
-    names (item 9) until they were (tests/test_torch_factory.py); what
-    still raises are the names of item 10 (AMP, SAC)."""
-    for name in ("FactoryTaskNutBoltPick", "IndustRealTaskPegsInsert"):
+    ported (tests/test_torch_dextreme.py), the Factory and IndustReal
+    names (item 9) until they were (tests/test_torch_factory.py), and the
+    AMP and SAC names (item 10) until they were
+    (tests/test_torch_humanoid_amp.py, tests/test_torch_sac.py): no name
+    raises now, and the SAC names build their PPO tasks as they are."""
+    for name in ("FactoryTaskNutBoltPick", "IndustRealTaskPegsInsert",
+                 "HumanoidAMP"):
         assert pregistry.task_class(name).__name__ == name
-    for name in ("HumanoidAMP", "AntSAC"):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            pregistry.task_class(name)
+    for name, base in (("AntSAC", "Ant"), ("HumanoidSAC", "Humanoid")):
+        assert pregistry.task_class(name).__name__ == base
+        assert pregistry.task_default_config(name) == \
+            pregistry.task_default_config(base)
 
 
 @pytest.mark.parametrize("name", ["AllegroHand", "AllegroHandLSTM"])

@@ -22,10 +22,13 @@ rows' restitution and limit shifts on the loop) and the dict-observation
 shim over the latter, FactoryTaskNutBoltPick and IndustRealTaskPegsInsert
 at 4 envs (the voxelizer's grids; warm start, body damping, bf16 rows,
 SDF-grid targets; Pick over an episode's end, so that its close-and-lift
-epilogue runs), call
+epilogue runs), HumanoidAMP at 4 envs on both routes (its clips and
+motion library), call
 ``spd_inverse``,
 run one PPO ``train_epoch`` of Cartpole at 16 envs, one of Cartpole with
-an LSTM network and one of Trifinger with its central-value critic, then
+an LSTM network and one of Trifinger with its central-value critic, one
+AMP epoch of HumanoidAMP, one SAC epoch of AntSAC across its seed steps
+and one step of the HRL wrapper over HumanoidAMP, then
 check that neither ``jax*`` nor ``isaacgymenvs_ma_tpu`` /
 ``isaacgymenvs_ma_tpu.*`` was loaded.
 """
@@ -264,6 +267,49 @@ SCRIPT = textwrap.dedent("""
     assert isinstance(agent.net, networks.AsymActorCritic)
     m = agent.train_epoch()
     assert all(torch.isfinite(torch.as_tensor(v)).all() for v in m.values())
+    # HumanoidAMP (its clips and motion library) on both routes, one AMP
+    # epoch, one SAC epoch across its seed steps and an HRL step
+    from isaacgymenvs_ma_tpu_torch.learning.amp import AMPAgent
+    from isaacgymenvs_ma_tpu_torch.learning.hrl import (
+        HRLTaskWrapper, build_llc_from_checkpoint)
+    from isaacgymenvs_ma_tpu_torch.learning.sac import SACAgent
+    for kernel_route in (False, True):
+        cfg = deep_merge(registry.task_default_config("HumanoidAMP"),
+                         {"env": {"numEnvs": 4}})
+        params = parse_sim_params(cfg["sim"])._replace(
+            use_contact_kernel=kernel_route)
+        amp_task = registry.task_class("HumanoidAMP")(
+            cfg, device="cpu", sim_params=params)
+        state = amp_task.initial_state()
+        for _ in range(2):
+            state, res = amp_task.step(state, torch.tanh(torch.randn(4, 28)))
+        assert torch.isfinite(res.extras["amp_obs"]).all()
+        assert res.obs.shape == (4, 105)
+    tcfg = train_default_config("HumanoidAMP")
+    tcfg["params"]["config"].update(minibatch_size=16, horizon_length=4,
+                                    amp_batch_size=8)
+    tcfg["params"]["network"]["mlp"]["units"] = [16, 8]
+    agent = AMPAgent(amp_task, tcfg, seed=1)
+    agent.init()
+    m = agent.train_epoch()
+    assert all(torch.isfinite(torch.as_tensor(v)).all() for v in m.values())
+    assert agent.replay_n == 8
+    tcfg = train_default_config("AntSAC")
+    tcfg["params"]["config"].update(batch_size=16, replay_buffer_size=200,
+                                    num_steps_per_episode=7)
+    tcfg["params"]["network"]["mlp"]["units"] = [16, 8]
+    sac = SACAgent(registry.create_task("AntSAC", deep_merge(
+        registry.task_default_config("AntSAC"), {"env": {"numEnvs": 4}}),
+        device="cpu"), tcfg, seed=1)
+    sac.init()
+    m = sac.train_epoch()
+    assert sac.step == 7 and float(m["critic_loss"]) > 0
+    llc, latent = build_llc_from_checkpoint(
+        amp_task, {"latent_dim": 8, "units": [16, 8]})
+    hrl = HRLTaskWrapper(amp_task, llc, latent, llc_steps=2)
+    hst, _ = hrl.reset(hrl.initial_state())
+    hst, res = hrl.step(hst, torch.randn(4, 8))
+    assert torch.isfinite(res.obs).all() and res.obs.shape == (4, 105)
     A = torch.randn(5, 7, 7)
     Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
     assert torch.isfinite(Hinv).all()
@@ -291,6 +337,7 @@ def test_port_imports_and_steps_without_jax():
     # Trifinger, its spec and the domain randomizer, the AllegroKuka tasks
     # and their spec, the two hand tasks and their specs, Dextreme, ADR,
     # the RNA and the rl_games shim, the Factory and IndustReal tasks with
-    # the voxelizer, the meshes, the grid sampler and the controllers too
+    # the voxelizer, the meshes, the grid sampler and the controllers, and
+    # HumanoidAMP with its spec and motion library, AMP, SAC and HRL too
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 72, proc.stdout
+    assert n_mods >= 78, proc.stdout

@@ -234,7 +234,7 @@ def test_registry_ports_four_tasks_and_names_the_rest():
                                       "AllegroHandManualDR", "AllegroKuka", "AllegroKukaLSTM",
                                       "AllegroKukaTwoArms",
                                       "AllegroKukaTwoArmsLSTM", "Ant",
-                                      "Anymal", "AnymalTerrain",
+                                      "AntSAC", "Anymal", "AnymalTerrain",
                                       "BallBalance", "Cartpole",
                                       "FactoryTaskGears",
                                       "FactoryTaskInsertion",
@@ -245,13 +245,16 @@ def test_registry_ports_four_tasks_and_names_the_rest():
                                       "FrankaCombineMA", "FrankaCubeStack",
                                       "FrankaCubeStack2", "FrankaPPMA",
                                       "FrankaReach", "FrankaReachMA",
-                                      "Humanoid",
+                                      "Humanoid", "HumanoidAMP",
+                                      "HumanoidAMPHands", "HumanoidSAC",
                                       "IndustRealTaskGearsInsert",
                                       "IndustRealTaskPegsInsert",
                                       "Ingenuity", "Quadcopter",
                                       "ShadowHand", "ShadowHandOpenAI_FF",
                                       "ShadowHandOpenAI_LSTM",
                                       "ShadowHandTest", "Trifinger"]
+    # all 44 names of the JAX registry
+    assert pregistry.task_names() == jregistry.task_names()
     for name in sorted(jregistry._CONFIG_ONLY):
         # the config-only groups: their configs resolve, as in JAX, and
         # building one raises KeyError in both packages
@@ -603,7 +606,12 @@ def test_launch_trains_saves_and_plays(tmp_path, monkeypatch, capsys):
 def test_unported_flags_and_names_raise(flag, tmp_path, monkeypatch):
     """Unported flags and names raise.  The Factory and IndustReal names
     raised until ROADMAP queue A item 9 was ported: now the entry point
-    trains them (one epoch of 8 steps at 8 envs) and saves a checkpoint."""
+    trains them (one epoch of 8 steps at 8 envs) and saves a checkpoint.
+    The AMP and SAC train configs raised until item 10 was: now the entry
+    point runs the AMP learner on HumanoidAMP (one epoch of 4 steps at 4
+    envs) and SAC on Cartpole (one epoch of 8 steps, 3 of them updates),
+    saves a checkpoint, and refuses the AMP learner on a task without AMP
+    observations."""
     monkeypatch.chdir(tmp_path)
     args = ["task=Cartpole", "num_envs=8", "sim_device=cpu", flag]
     if flag.startswith("task=") and flag[5:] in pregistry.task_names():
@@ -612,6 +620,26 @@ def test_unported_flags_and_names_raise(flag, tmp_path, monkeypatch):
                               "train.params.config.minibatch_size=64"])
         name = flag[5:]
         assert list(tmp_path.glob(f"runs/{name}_*/nn/{name}.pth"))
+        return
+    if flag == "train=HumanoidAMP":
+        with pytest.raises(ValueError, match="AMP observations"):
+            ptrain.launch(args)
+        agent = ptrain.launch([
+            "task=HumanoidAMP", "num_envs=4", "sim_device=cpu", flag,
+            "max_iterations=1", "train.params.config.horizon_length=4",
+            "train.params.config.minibatch_size=16",
+            "train.params.config.amp_batch_size=8",
+            "train.params.network.mlp.units=[16,8]"])
+        assert agent.replay_n == 8
+        assert list(tmp_path.glob("runs/HumanoidAMP_*/nn/HumanoidAMP.pth"))
+        return
+    if flag == "train=AntSAC":
+        agent = ptrain.launch(args + [
+            "max_iterations=1", "train.params.config.batch_size=16",
+            "train.params.config.replay_buffer_size=256",
+            "train.params.network.mlp.units=[16,8]"])
+        assert agent.step == 8
+        assert list(tmp_path.glob("runs/AntSAC_*/nn/AntSAC.pth"))
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         ptrain.launch(args)
