@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (isaacgymenvs_ma_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --glue-only]
 
 Phases, each printing its own lines; any failure exits non-zero
-(``--kernels-only`` stops after phase 3 and prints no result line):
+(``--kernels-only`` stops after phase 3, ``--glue-only`` runs phases 1 and
+7 alone; neither prints the result line):
   1. device: torch/CUDA versions, the card's name and power limit
   2. build: nvcc builds kernels B1-B3 for the Ant, BallBalance,
      FrankaReachMA, Cartpole, FrankaCollectMA, FrankaPPMA,
@@ -200,6 +201,37 @@ Phases, each printing its own lines; any failure exits non-zero
      training frames/s and losses; then Cartpole-512 through the ``train``
      entry point until its mean return passes 100, failing if it has not
      by epoch 100 (the config's max_epochs)
+  7. glue (data parallelism, the entry point's flags, profiling, PBT,
+     terrain normal frames): ``[dist]`` Ant-4096 (global) through the
+     train entry point under ``python -m torch.distributed.run
+     --standalone --nproc_per_node=2`` (both ranks on cuda:0 over gloo:
+     NCCL refuses two ranks on one device), 1 warm-up and 1 timed epoch,
+     each rank's epoch seconds, B1-B3 launches, gradient all-reduce ms an
+     update (CUDA events) and bytes, and parameter + Adam digest (failing
+     unless the digests agree, the losses are finite and each rank
+     launched B1-B3); then one rank on NCCL (world 1) for one epoch in
+     this process; then
+     the 2-rank checkpoint resumed in this process, parameters, Adam state
+     and the full env state bit-equal to what was saved;
+     ``[dryrun]`` ``dryrun_multiproc(2)`` on cuda:0 over gloo (Ant,
+     FrankaReachMA, the asymmetric ShadowHand); ``[summaries]`` the
+     ``[dist]`` run's event file read back with every CRC checked, its tags
+     and steps, and its ``config.yaml``; ``[normal_frames]``
+     AnymalTerrain-4096 with ``terrain_normal_frames`` and the contact
+     kernel requested, 50 steps on the loop (B2 on each substep, B3 and
+     B4 forbidden), then one engine step from a state 30 steps in on the
+     card and, for its first 512 envs, on the CPU twins, held at the
+     ground-rule bounds widened per env by four times the CPU step's own
+     one-ulp spread (eight nudged runs), and the share of terrain rows
+     whose normal tilts more than 10 degrees; ``[video]`` Ant-4096 with
+     ``capture_video`` through the entry point (PNG frames, consecutive
+     frames differ); ``[trace]`` ``profiling.trace`` around 3 Ant-4096
+     steps in a fresh process, the exported trace holding each
+     ``annotate`` name and the B1-B3 kernels; ``[pbt]`` one
+     ``PbtAlgoObserver`` cycle of three Cartpole-512 members on the card
+     (checkpoints and metas written, the replacement decision equal to a
+     CPU observer's on the same workspace, ``restore_fn`` leaving the
+     donor's parameters bit-equal)
 Each phase prints its seconds (``[phase_seconds]``).  The line before the
 last is the kernels JSON (a row per kernel at the scene where it runs
 first, launches summed over every phase, then a row per kernel at
@@ -209,8 +241,8 @@ AllegroKukaTwoArms, ShadowHand, AllegroHand, ShadowHandOpenAI_FF,
 AllegroHandLSTM, AllegroHandDextremeADR, the Factory scenes of phase 3
 (Pick-128, Pick-1024, Screw with B5, Gears, PegsInsert),
 AllegroHandDextremeManualDR (ADR's), FrankaCubeStack2 (FrankaCubeStack's),
-HumanoidAMP, HumanoidAMPHands (HumanoidAMP's) and AnymalTerrain
-(Anymal's), launches
+HumanoidAMP, HumanoidAMPHands (HumanoidAMP's), AnymalTerrain
+(Anymal's) and AnymalTerrain with normal frames (Anymal's), launches
 summed over that task's main phases), the last line {"ok": true,
 "device": {...}}.  Needs a CUDA
 device; never falls back to the CPU and never imports jax.
@@ -1992,8 +2024,495 @@ def factory_stats(task, lift, reads0, steps):
     phase("factory", **fields)
 
 
+# ----------------------------------------------------------------------
+# phase 7: glue
+
+# the [dist] run: Ant at 4096 envs (global) over 2 ranks on cuda:0, gloo
+DIST_ARGS = ("task=Ant", "num_envs=4096", "multi_gpu=True",
+             "sim_device=cuda:0", "log_interval=1", "seed=42")
+DIST_TAGS = ("losses/loss", "losses/a_loss", "losses/c_loss", "info/kl",
+             "info/lr", "info/entropy", "info/sigma", "Episode/mean_return",
+             "Episode/mean_length")
+NORMAL_FRAMES_STEPS = 50
+# the card's step held against the CPU twins on its first 512 envs, the
+# spread from eight nudged runs (as scripts/record_torch_golden.py's
+# ONE_STEP measures AnymalTerrain's)
+NORMAL_FRAMES_CPU_ENVS, NORMAL_FRAMES_NUDGES = 512, 8
+TRACE_STEPS = 3
+PBT_OBJECTIVES = (1.0, 5.0, 9.0)
+
+
+def train_rank(args):
+    """One rank's run of the train entry point with ``args`` (the
+    process group joined from torchrun's variables); returns its report:
+    epoch seconds, launches, the last epoch's all-reduce ms (CUDA events)
+    and bytes, the parameter + Adam digest, the loss, the run dir."""
+    import torch
+    from isaacgymenvs_ma_tpu_torch import train as train_cli
+    from isaacgymenvs_ma_tpu_torch.parallel.mesh import state_digest
+    from isaacgymenvs_ma_tpu_torch.physics import KERNEL_WRAPPERS
+    for w in KERNEL_WRAPPERS.values():
+        w.launches = 0
+    agent = train_cli.launch(list(args))
+    torch.cuda.synchronize()
+    launches = {name: w.launches for name, w in KERNEL_WRAPPERS.items()}
+    dp = agent.dist
+    ms = dp.collect_timings()
+    per_epoch = len(ms) // max(agent.epoch, 1)
+    return dict(
+        rank=dp.rank, world=dp.world, backend=dp.backend,
+        envs=agent.task.num_envs, epoch_seconds=agent.epoch_seconds,
+        launches=launches, allreduce_ms=ms[-per_epoch:] if ms else [],
+        allreduce_bytes=dp.allreduce_bytes, updates_per_epoch=per_epoch,
+        digest=state_digest(agent),
+        loss=float(agent.metrics["loss"]), run_dir=agent.run_dir)
+
+
+def dist_worker(args):
+    """``--dist-worker``: one rank under torch.distributed.run; prints its
+    ``[dist_rank]`` JSON line."""
+    sys.path.insert(0, HERE)
+    print("[dist_rank] " + json.dumps(train_rank(args)), flush=True)
+    return 0
+
+
+def nccl_world_one(epochs, experiment):
+    """One rank over NCCL (world 1) in this process: the train entry point
+    under torchrun's variables, then the process group destroyed."""
+    import torch.distributed as dist
+    from isaacgymenvs_ma_tpu_torch.parallel.dryrun import free_port
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return train_rank([*DIST_ARGS, "dist_backend=nccl",
+                           f"max_iterations={epochs}",
+                           f"experiment={experiment}"])
+    finally:
+        dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_dist(nproc, backend, epochs, experiment):
+    """The [dist_rank] dicts of a torch.distributed.run launch."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={nproc}", os.path.join(HERE, "chip_smoke.py"),
+           "--dist-worker", *DIST_ARGS, f"dist_backend={backend}",
+           f"max_iterations={epochs}", f"experiment={experiment}"]
+    out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    if out.returncode != 0:
+        raise RuntimeError(f"torch.distributed.run ({nproc} x {backend}) "
+                           f"failed:\n{out.stdout[-3000:]}\n"
+                           f"{out.stderr[-6000:]}")
+    ranks = [json.loads(line.split(" ", 1)[1])
+             for line in out.stdout.splitlines()
+             if line.startswith("[dist_rank] ")]
+    if sorted(r["rank"] for r in ranks) != list(range(nproc)):
+        raise RuntimeError(f"ranks reported: {ranks}")
+    return sorted(ranks, key=lambda r: r["rank"])
+
+
+def trace_worker():
+    """``--trace-worker``: ``profiling.trace`` around TRACE_STEPS Ant-4096
+    steps in a fresh process; prints a ``[trace_names]`` JSON line with
+    the annotate names and kernel names the exported trace holds."""
+    import torch
+    sys.path.insert(0, HERE)
+    from isaacgymenvs_ma_tpu_torch.tasks import registry
+    from isaacgymenvs_ma_tpu_torch.utils import profiling
+    from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
+    dev = torch.device("cuda", 0)
+    task = registry.create_task("Ant", deep_merge(
+        registry.task_default_config("Ant"), {"env": {"numEnvs": N_ENVS}}),
+        seed=1, device=dev)
+    act = policy(torch, task, dev)
+    st, obs = run_steps(torch, task, task.initial_state(),
+                        zero_obs(torch, task, dev), act, 2)
+    logdir = os.path.join(HERE, "runs", "trace_ant")
+    with profiling.trace(logdir) as prof:
+        for i in range(TRACE_STEPS):
+            with profiling.annotate(f"ant_step_{i}"):
+                with profiling.annotate("policy"):
+                    a = act(obs)
+                st, res = task.step(st, a)
+                obs = res.obs
+    events = json.load(open(prof.trace_path))["traceEvents"]
+    kernels = collections.Counter(
+        e["name"] for e in events if e.get("cat") == "kernel")
+    names = sorted({e.get("name") for e in events
+                    if str(e.get("name", "")).startswith(("ant_step_",
+                                                          "policy"))})
+    print("[trace_names] " + json.dumps(dict(
+        annotate=names, kernels=dict(kernels), path=prof.trace_path,
+        events=len(events))), flush=True)
+    return 0
+
+
+def normal_frames_phase(torch, np, wrappers, dev):
+    """``[normal_frames]``: AnymalTerrain-4096 with terrain_normal_frames
+    and the contact kernel requested; returns its main-path launches."""
+    from isaacgymenvs_ma_tpu_torch.tasks import registry
+    from isaacgymenvs_ma_tpu_torch.tasks.base import parse_sim_params
+    from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
+    cfg = deep_merge(registry.task_default_config("AnymalTerrain"),
+                     {"env": {"numEnvs": N_ENVS}})
+    params = parse_sim_params(cfg["sim"])._replace(
+        use_contact_kernel=True, terrain_normal_frames=True)
+    cls = registry.task_class("AnymalTerrain")
+    card = cls(cfg, device=dev, seed=1, sim_params=params)
+    eng = card.engine
+    route = eng.route_for(None, terrain=card.terrain)
+    if route != "loop" or eng.route_for(None) != "b4":
+        raise RuntimeError(f"normal frames route {route}")
+    steps = NORMAL_FRAMES_STEPS
+    r = main_phase(torch, wrappers, card, dev, steps,
+                   ("fk_motion", "dyn_forward"),
+                   ("dyn_cached", "contact_solve", "spd_inverse"))
+    n_b2 = r["launches"]["dyn_forward"]
+    if n_b2 < 4 * steps:
+        raise RuntimeError(f"B2 launched {n_b2} times in {steps} steps of "
+                           "4 substeps")
+    # one engine step from a state 30 steps in, card against CPU twins on
+    # the first NORMAL_FRAMES_CPU_ENVS envs (the step is per env)
+    act = policy(torch, card, dev)
+    st, obs = run_steps(torch, card, card.initial_state(),
+                        zero_obs(torch, card, dev), act, 30)
+    ctrl = card.pre_physics(st, act(obs))
+    got, _ = eng.step(st.sim, ctrl, terrain=card.terrain)
+    n = min(NORMAL_FRAMES_CPU_ENVS, card.num_envs)
+    cpu = cls(deep_merge(cfg, {"env": {"numEnvs": n}}), device="cpu",
+              seed=1, sim_params=params)
+    cpu_ctrl = ctrl._replace(**{k: getattr(ctrl, k)[:n].cpu() for k in (
+        "tau", "pos_target", "vel_target", "f_ext")
+        if getattr(ctrl, k) is not None})
+    sim0 = st.sim._replace(q=st.sim.q[:n].cpu(), qd=st.sim.qd[:n].cpu())
+    t0 = time.perf_counter()
+    ref, _ = cpu.engine.step(sim0, cpu_ctrl, terrain=cpu.terrain)
+    cpu_s = time.perf_counter() - t0
+    gn = torch.Generator().manual_seed(17)
+    spread = {"q": torch.zeros(n, dtype=torch.float64),
+              "qd": torch.zeros(n, dtype=torch.float64)}
+    for _ in range(NORMAL_FRAMES_NUDGES):
+        nudge = lambda x: x * (1 + (torch.randint(  # noqa: E731
+            0, 2, x.shape, generator=gn) * 2 - 1) * 2.0 ** -23)
+        alt, _ = cpu.engine.step(sim0._replace(q=nudge(sim0.q),
+                                               qd=nudge(sim0.qd)),
+                                 cpu_ctrl, terrain=cpu.terrain)
+        for k in spread:
+            d = (getattr(alt, k) - getattr(ref, k)).abs().amax(-1).double()
+            spread[k] = torch.maximum(spread[k], d)
+    # held at the ground-rule bounds widened per env by four times the CPU
+    # step's own one-ulp spread, as [restitution] holds its step; the
+    # robots stand 30-180 m from the world origin, where one ulp moves a
+    # few envs' step far more than two nudged runs see (ROADMAP C8), so
+    # the spread comes from eight
+    errs, beyond_envs = {}, {}
+    for k, rtol, atol in (("q", 2e-4, 2e-5), ("qd", 2e-3, 2e-3)):
+        a = getattr(got, k)[:n].cpu().double()
+        b = getattr(ref, k).double()
+        diff = (a - b).abs()
+        tol = atol + rtol * b.abs()
+        excess = torch.clamp(diff - 4.0 * spread[k][:, None] - tol,
+                             min=0.0).amax(-1)
+        errs[k] = float(diff.max())
+        beyond_envs[k] = int((excess > 0).sum())
+        med = float(excess.median())
+        print(f"[check] normal_frames {k} max_abs_err={errs[k]:.3g} "
+              f"median_env_excess={med:.3g} "
+              f"max_env_excess={float(excess.max()):.3g} "
+              f"envs_beyond_own_bound={beyond_envs[k]}/{n} "
+              f"median_env_spread={float(spread[k].median()):.3g}",
+              flush=True)
+        if beyond_envs[k] or not bool(torch.isfinite(a).all()):
+            raise AssertionError(
+                f"normal_frames {k}: {beyond_envs[k]} envs differ beyond "
+                f"their bounds (largest excess {float(excess.max()):.3g})")
+    # the terrain rows' normals at that state
+    body_x, body_q, _, _ = eng.kinematics(st.sim.q)
+    p = eng._contact_points(body_x, body_q)
+    gz, nrm = card.terrain.height_and_normal(p[..., 0], p[..., 1])
+    tilted = nrm[..., 2] < math.cos(math.radians(10.0))
+    active = ((p[..., 2] - gz) * nrm[..., 2] - eng._ground_radii()
+              < eng.params.contact_margin)
+    share = float(tilted.double().mean())
+    act_share = float((tilted & active).double().sum()
+                      / active.double().sum().clamp(min=1.0))
+    phase("normal_frames", envs=card.num_envs, steps=steps, route=route,
+          seconds=f"{r['seconds']:.4f}",
+          env_steps_per_s=f"{card.num_envs * steps / r['seconds']:.1f}",
+          cpu_envs=n, envs_beyond_own_bound=json.dumps(
+              beyond_envs).replace(" ", ""),
+          launches=json.dumps(r["launches"]).replace(" ", ""),
+          q_err=f"{errs['q']:.3g}", qd_err=f"{errs['qd']:.3g}",
+          cpu_seconds=f"{cpu_s:.2f}",
+          tilted_over_10deg_share=f"{share:.6f}",
+          tilted_share_of_active_rows=f"{act_share:.6f}",
+          rows=int(tilted.numel()), active_rows=int(active.sum()))
+    return r["launches"]
+
+
+def pbt_phase(torch, wrappers, dev):
+    """``[pbt]``: three Cartpole-512 members on the card, one observer
+    cycle; returns their launches."""
+    import random
+    import shutil
+    from isaacgymenvs_ma_tpu_torch.learning import checkpoint as ckpt
+    from isaacgymenvs_ma_tpu_torch.learning.configs import (
+        train_default_config)
+    from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
+    from isaacgymenvs_ma_tpu_torch.pbt.pbt import PbtAlgoObserver
+    from isaacgymenvs_ma_tpu_torch.tasks import registry
+    from isaacgymenvs_ma_tpu_torch.utils.config import deep_merge
+    ws = os.path.join(HERE, "runs", "pbt_chip")
+    shutil.rmtree(ws, ignore_errors=True)
+    tcfg = train_default_config("Cartpole")
+    pcfg = {"enabled": True, "num_policies": len(PBT_OBJECTIVES),
+            "workspace": ws, "interval_steps": 1, "start_after": 0,
+            "initial_delay": 0, "replace_fraction_worst": 0.34,
+            "replace_fraction_best": 0.34, "replace_threshold_frac_std": 0.1,
+            "params": {"learning_rate": 3e-4, "gamma": 0.99}}
+    for w in wrappers.values():
+        w.launches = 0
+    members = []
+    for i, obj in enumerate(PBT_OBJECTIVES):
+        task = registry.create_task("Cartpole", deep_merge(
+            registry.task_default_config("Cartpole"),
+            {"env": {"numEnvs": 512}}), seed=i + 1, device=dev)
+        agent = PPOAgent(task, tcfg, seed=i + 1)
+        agent.init()
+        m = agent.train_epoch()
+
+        def save(path, agent=agent, task=task):
+            ckpt.save_agent(path, agent, task)
+
+        def restore(path, agent=agent, task=task):
+            ckpt.load_agent(path, agent, task)
+        obs = PbtAlgoObserver({"pbt": dict(pcfg, policy_idx=i)}, tcfg, save,
+                              restore)
+        decisions = []
+        obs._restart = lambda c, p, d=decisions: d.append((c, p))
+        obs.after_steps(1, agent.frames, {"true_objective": obj,
+                                          "mean_return": float(
+                                              m["mean_return"])})
+        members.append((agent, obs, decisions))
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check_launches(launches, DYN, ("contact_solve", "spd_inverse"), "pbt")
+    written = sorted(f for d in os.listdir(ws) for f in os.listdir(
+        os.path.join(ws, d)))
+    if len(written) != 2 * len(PBT_OBJECTIVES):
+        raise RuntimeError(f"pbt workspace holds {written}")
+    # the worst member's second interval: its decision on the card's
+    # checkpoints, and a CPU observer's on a copy of the same workspace
+    agent0, obs0, dec0 = members[0]
+    frames2 = 2 * agent0.frames
+    copy_ws = ws + "_cpu"
+    shutil.rmtree(copy_ws, ignore_errors=True)
+    shutil.copytree(ws, copy_ws)
+    cpu_obs = PbtAlgoObserver({"pbt": dict(pcfg, policy_idx=0,
+                                           workspace=copy_ws)}, tcfg,
+                              lambda path: open(path, "w").write("x"),
+                              lambda path: None)
+    cpu_dec = []
+    cpu_obs._restart = lambda c, p: cpu_dec.append((c, p))
+    cpu_obs.first_frames, cpu_obs.last_interval = (obs0.first_frames,
+                                                   obs0.last_interval)
+    random.seed(5)
+    cpu_obs.after_steps(2, frames2, {"true_objective": PBT_OBJECTIVES[0]})
+    random.seed(5)
+    obs0.after_steps(2, frames2, {"true_objective": PBT_OBJECTIVES[0]})
+    # (the copied metas name the donors' checkpoints in the workspace)
+    if not dec0 or dec0 != cpu_dec:
+        raise RuntimeError(f"pbt decisions card {dec0} CPU {cpu_dec}")
+    donor_ckpt = dec0[0][0]
+    donor_idx = int(os.path.basename(os.path.dirname(donor_ckpt))[7:])
+    donor = members[donor_idx][0]
+    obs0.restore_fn(donor_ckpt)
+    equal = all(torch.equal(p, q) for p, q in zip(
+        donor.net.parameters(), agent0.net.parameters()))
+    if not equal:
+        raise RuntimeError("restore_fn left parameters unlike the donor's")
+    phase("pbt", members=len(members), envs=512,
+          checkpoints_and_metas=len(written), donor=donor_idx,
+          mutated=json.dumps(dec0[0][1]).replace(" ", ""),
+          decision_equals_cpu=True, restored_bit_equal=equal,
+          launches=json.dumps(launches).replace(" ", ""))
+    return launches
+
+
+def glue_phase(torch, np, wrappers, tasks, dev):
+    """Phase 7; returns the in-process launches by scene and the
+    normal-frames run's."""
+    from isaacgymenvs_ma_tpu_torch import train as train_cli
+    from isaacgymenvs_ma_tpu_torch.learning import checkpoint as ckpt
+    from isaacgymenvs_ma_tpu_torch.learning.configs import (
+        train_default_config)
+    from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
+    from isaacgymenvs_ma_tpu_torch.parallel.dryrun import dryrun_multiproc
+    from isaacgymenvs_ma_tpu_torch.utils.observers import read_events
+    launches = collections.Counter()
+    # [dist]: 2 ranks over gloo on cuda:0, then NCCL at world 1
+    t0 = time.perf_counter()
+    ranks = run_dist(2, "gloo", 2, "dist_ant")
+    dist_s = time.perf_counter() - t0
+    for r in ranks:
+        ms = r["allreduce_ms"]
+        phase("dist", rank=r["rank"], world=r["world"], backend=r["backend"],
+              envs_per_rank=r["envs"],
+              warmup_epoch_seconds=f"{r['epoch_seconds'][0]:.4f}",
+              epoch_seconds=f"{r['epoch_seconds'][-1]:.4f}",
+              launches=json.dumps(r["launches"]).replace(" ", ""),
+              allreduce_ms_per_update=(
+                  f"{statistics.median(ms):.4f}" if ms else "not_measured"),
+              allreduce_updates=len(ms),
+              allreduce_bytes=r["allreduce_bytes"],
+              loss=f"{r['loss']:.6g}", digest=r["digest"][:16],
+              launch_seconds=f"{dist_s:.1f}")
+        check_launches(r["launches"], DYN, ("contact_solve", "spd_inverse"),
+                       f"dist rank {r['rank']}")
+        if not math.isfinite(r["loss"]):
+            raise RuntimeError(f"dist rank {r['rank']} loss {r['loss']}")
+    if len({r["digest"] for r in ranks}) != 1:
+        raise RuntimeError(f"dist digests differ: {[r['digest'] for r in ranks]}")
+    t0 = time.perf_counter()
+    nccl = nccl_world_one(1, "dist_nccl")
+    launches.update(nccl["launches"])
+    nccl_s = time.perf_counter() - t0
+    ms = nccl["allreduce_ms"]
+    phase("dist", rank=0, world=1, backend=nccl["backend"],
+          envs_per_rank=nccl["envs"],
+          epoch_seconds=f"{nccl['epoch_seconds'][-1]:.4f}",
+          launches=json.dumps(nccl["launches"]).replace(" ", ""),
+          allreduce_ms_per_update=(f"{statistics.median(ms):.4f}" if ms
+                                   else "not_measured"),
+          allreduce_updates=len(ms), allreduce_bytes=nccl["allreduce_bytes"],
+          loss=f"{nccl['loss']:.6g}", seconds=f"{nccl_s:.1f}")
+    check_launches(nccl["launches"], DYN, ("contact_solve", "spd_inverse"),
+                   "dist nccl")
+    if nccl["backend"] != "nccl" or not ms:
+        raise RuntimeError("the NCCL rank reduced nothing on the card")
+    # the 2-rank checkpoint resumed in one process
+    run_dir = os.path.join(HERE, ranks[0]["run_dir"])
+    path = os.path.join(run_dir, "nn", "dist_ant.pth")
+    saved, _, meta = ckpt.load_checkpoint(path)
+    task = tasks["ant"]
+    agent = PPOAgent(task, train_default_config("Ant"), seed=42)
+    agent.init()
+    ckpt.load_agent(path, agent, task)
+    sd = agent.state_dict()
+    same = all(torch.equal(sd["net"][k].cpu(), v)
+               for k, v in saved["net"].items())
+    same &= all(torch.equal(sd["env_state"][k].cpu(), v)
+                for k, v in saved["env_state"].items())
+    same &= all(torch.equal(sd["optim"][k][f].cpu(), v[f].cpu())
+                for k, v in saved["optim"].items()
+                for f in ("exp_avg", "exp_avg_sq"))
+    same &= torch.equal(sd["last_obs"].cpu(), saved["last_obs"])
+    if not same or meta["world"] != 2 or \
+            saved["env_state"]["sim.q"].shape[0] != N_ENVS:
+        raise RuntimeError(f"2-rank checkpoint resumed unlike saved ({meta})")
+    phase("dist", resumed_in_one_process=True, checkpoint_world=meta["world"],
+          checkpoint_envs=saved["env_state"]["sim.q"].shape[0],
+          bit_equal=same)
+    # [dryrun]
+    t0 = time.perf_counter()
+    legs = dryrun_multiproc(2, device="cuda:0", backend="gloo")
+    dry_s = time.perf_counter() - t0
+    for r in legs:
+        phase("dryrun", task=r["task"], ranks=r["ranks"], envs=r["envs"],
+              loss=f"{r['loss']:.6g}", kl=f"{r['kl']:.6g}",
+              digest=r["digest"][:16], seconds=f"{dry_s:.1f}")
+    # [summaries] of the [dist] run
+    sdir = os.path.join(run_dir, "summaries")
+    files = [f for f in os.listdir(sdir) if "tfevents" in f]
+    events = [e for f in files for e in read_events(os.path.join(sdir, f))]
+    tags = collections.defaultdict(list)
+    for e in events:
+        for tag, _ in e["scalars"]:
+            tags[tag].append(e["step"])
+    want_steps = [N_ENVS * 16 * e for e in (1, 2)]
+    missing = [t for t in DIST_TAGS if tags.get(t) != want_steps]
+    snap = open(os.path.join(run_dir, "config.yaml")).read()
+    if len(files) != 1 or missing or f"numEnvs: {N_ENVS}" not in snap:
+        raise RuntimeError(f"summaries {files} missing {missing}")
+    phase("summaries", files=len(files), events=len(events),
+          records_crc_checked=len(events), tags=len(tags),
+          steps=json.dumps(want_steps).replace(" ", ""),
+          expected_tags=",".join(DIST_TAGS),
+          config_yaml_bytes=len(snap))
+    # [normal_frames]
+    t0 = time.perf_counter()
+    nf = normal_frames_phase(torch, np, wrappers, dev)
+    phase("normal_frames", seconds_total=f"{time.perf_counter() - t0:.1f}")
+    launches.update(nf)
+    # [video] through the entry point
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    agent = train_cli.launch(["task=Ant", f"num_envs={N_ENVS}",
+                              "max_iterations=1", "capture_video=True",
+                              "capture_video_freq=16",
+                              "capture_video_len=8", "sim_device=cuda:0",
+                              "log_interval=1", "experiment=video_ant"])
+    vl = {name: w.launches for name, w in wrappers.items()}
+    check_launches(vl, DYN, ("contact_solve", "spd_inverse"), "video")
+    launches.update(vl)
+    vdir = os.path.join(HERE, agent.run_dir, "videos")
+    (clip,) = os.listdir(vdir)
+    if not os.path.isdir(os.path.join(vdir, clip)):
+        raise RuntimeError(f"video {clip}: PNG frames expected (imageio "
+                           "is not on the card's machine)")
+    frames = sorted(os.listdir(os.path.join(vdir, clip)))
+    data = [open(os.path.join(vdir, clip, f), "rb").read() for f in frames]
+    differ = all(a != b for a, b in zip(data, data[1:]))
+    if len(frames) != 8 or not differ:
+        raise RuntimeError(f"video frames {frames} (consecutive differ: "
+                           f"{differ})")
+    phase("video", envs=N_ENVS, clip=clip, frames=len(frames),
+          format=os.path.splitext(frames[0])[1][1:],
+          consecutive_differ=differ,
+          launches=json.dumps(vl).replace(" ", ""),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    # [trace] in a fresh process
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                          "--trace-worker"], cwd=HERE, capture_output=True,
+                         text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("[trace_names] ")]
+    if out.returncode != 0 or not lines:
+        raise RuntimeError(f"trace worker failed:\n{out.stdout[-3000:]}\n"
+                           f"{out.stderr[-3000:]}")
+    tr = json.loads(lines[0].split(" ", 1)[1])
+    want = [f"ant_step_{i}" for i in range(TRACE_STEPS)] + ["policy"]
+    found = {k: sum(c for n, c in tr["kernels"].items() if k in n)
+             for k in DYN}
+    if sorted(tr["annotate"]) != sorted(want) or not all(found.values()):
+        raise RuntimeError(f"trace holds {tr['annotate']} and kernels "
+                           f"{tr['kernels']}")
+    phase("trace", steps=TRACE_STEPS, events=tr["events"],
+          annotate=",".join(tr["annotate"]),
+          kernels=json.dumps(found).replace(" ", ""),
+          path=os.path.relpath(tr["path"], HERE),
+          seconds=f"{time.perf_counter() - t0:.1f}")
+    # [pbt]
+    t0 = time.perf_counter()
+    launches.update(pbt_phase(torch, wrappers, dev))
+    phase("pbt", seconds=f"{time.perf_counter() - t0:.1f}")
+    return launches, nf
+
+
 def main():
     import torch
+    if "--dist-worker" in sys.argv[1:2]:
+        return dist_worker(sys.argv[2:])
+    if "--trace-worker" in sys.argv[1:2]:
+        return trace_worker()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device and does not fall back to the CPU",
@@ -2034,6 +2553,18 @@ def main():
         return cls(cfg, device=dev, seed=1, sim_params=params)
 
     clock.lap("device")
+    if "--glue-only" in sys.argv[1:]:
+        # phase 7 alone: the scenes it runs, built in parallel
+        tasks = {"ant": make("Ant", False, N_ENVS)}
+        plans = [("ant", tasks["ant"].engine.plan)]
+        for name, n in (("Cartpole", 512), ("AnymalTerrain", 8),
+                        ("FrankaReachMA", 8), ("ShadowHand", 8)):
+            plans.append((name, make(name, False, n).engine.plan))
+        build_all(_build, plans)
+        clock.lap("build")
+        glue_phase(torch, np, KERNEL_WRAPPERS, tasks, dev)
+        clock.lap("glue")
+        return 0
     # ---- 2. build: every distinct kernel and header, compilers in parallel
     tasks = {tag: make(name, route, n) for tag, name, route, _, n in PHASES}
     tasks.update({tag: make(name, True, n) for tag, name, n in TRAIN_ONLY})
@@ -2509,6 +3040,12 @@ def main():
           launches=json.dumps(launches).replace(" ", ""))
 
     clock.lap("train")
+    # ---- 7. glue: data parallelism, the entry point's flags, profiling,
+    # PBT, terrain normal frames
+    glue, nf_launches = glue_phase(torch, np, KERNEL_WRAPPERS, tasks, dev)
+    for k, c in glue.items():
+        total[k] += c
+    clock.lap("glue")
     kernels = []
     rows = [(name, JSON_SCENE[name], total[name]) for name in KERNELS]
     rows += [(name, scene, scene_launches[scene][name])
@@ -2538,6 +3075,11 @@ def main():
     report["anymal_terrain"] = report["anymal"]
     rows += [(name, "anymal_terrain", scene_launches["anymal_terrain"][name])
              for name in ("fk_motion", "dyn_forward", "contact_solve")]
+    # AnymalTerrain with terrain normal frames (phase 7) runs Anymal's B1
+    # and B2 on the loop: its rows carry those checks and its launches
+    report["anymal_terrain_normal_frames"] = report["anymal"]
+    rows += [(name, "anymal_terrain_normal_frames", nf_launches[name])
+             for name in ("fk_motion", "dyn_forward")]
     for name, scene, launches in rows:
         source, replaces = KERNELS[name]
         e = report[scene][name]

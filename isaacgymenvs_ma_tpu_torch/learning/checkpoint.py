@@ -14,6 +14,12 @@ It is written with ``torch.save`` to ``path + ".tmp"`` and then moved onto
 ``path``, so a reader never sees half a file; it holds only tensors and
 plain containers, so ``load_checkpoint`` reads it with
 ``weights_only=True``.
+
+``save_agent`` / ``load_agent`` are the train entry point's: the meta
+records the global ``num_envs`` and ``batch`` and the ``world`` that wrote
+it.  Under data parallelism (parallel/mesh.py) rank 0 gathers every
+rank's per-env leaves and writes one full-width checkpoint, and a loading
+rank takes its slice, so a checkpoint moves between world sizes.
 """
 from __future__ import annotations
 
@@ -38,3 +44,35 @@ def load_checkpoint(path: str, map_location="cpu"):
     payload = torch.load(path, map_location=map_location, weights_only=True)
     return (payload["ppo_state"], payload.get("env_state_extra"),
             payload.get("meta", {}))
+
+
+def save_agent(path: str, agent, task, dist=None, meta: Optional[dict] = None):
+    """The agent's checkpoint at ``path``, full width: with ``dist`` every
+    rank must call it (a collective) and rank 0 writes.  Returns whether
+    this process wrote."""
+    world = 1 if dist is None else dist.world
+    sd = agent.state_dict()
+    if dist is not None:
+        sd = dist.gather_state(sd, task.num_envs, task.rl_games_batch)
+        if sd is None:
+            return False
+    meta = dict(meta or {}, num_envs=task.num_envs * world,
+                batch=task.rl_games_batch * world, world=world)
+    save_checkpoint(path, sd, env_state_extra=task.get_env_state(
+        agent.env_state), meta=meta)
+    return True
+
+
+def load_agent(path: str, agent, task, dist=None):
+    """Load a checkpoint into an ``init()``-ed agent, this rank's slice of
+    it with ``dist``; returns (env_state_extra, meta).  The task's
+    curriculum state is put back (``task.set_env_state``)."""
+    from ..parallel.mesh import slice_state
+    state, env_extra, meta = load_checkpoint(path)
+    if "num_envs" in meta:
+        rank, world = (0, 1) if dist is None else (dist.rank, dist.world)
+        state = slice_state(state, rank, world, int(meta["num_envs"]),
+                            int(meta["batch"]))
+    agent.load_state_dict(state)
+    agent.env_state = task.set_env_state(agent.env_state, env_extra)
+    return env_extra, meta

@@ -46,6 +46,12 @@ Everything is float32 with TF32 off (``device.apply_precision_policy``);
 the config's ``mixed_precision`` is ignored, as the JAX learner ignores it,
 and no autocast is used.
 
+Data parallelism (``dist``, a :class:`..parallel.mesh.DataParallel`): the
+agent steps its rank's envs and takes ``minibatch_size / W`` of its rows a
+minibatch; the gradients, the normalisers' and advantages' moments, the
+minibatch KL and the epoch's metrics are reduced over the ranks (see
+parallel/mesh.py), and ``frames`` counts the global samples.
+
 Test hooks: ``_rollout`` takes the action noise ``(T, B, A)`` and each
 step's ``reset_draws`` (handed to ``task.step``), ``_update`` the
 permutations ``(mini_epochs, T * B)`` (with the LSTM, ``(mini_epochs, B *
@@ -154,7 +160,7 @@ class PPOAgent:
     # the rl_games algos of the configs this class trains
     algos = PPO_ALGOS
 
-    def __init__(self, task, train_cfg: dict, seed: int = 42):
+    def __init__(self, task, train_cfg: dict, seed: int = 42, dist=None):
         params = train_cfg["params"]
         algo = params["algo"]["name"]
         if algo not in self.algos:
@@ -163,6 +169,15 @@ class PPOAgent:
         self.task = task
         self.train_cfg = train_cfg
         self.cfg = PPOConfig.from_train_cfg(train_cfg)
+        # data parallelism: the minibatch is global, each rank takes 1 / W
+        self.dist = dist
+        self.world = 1 if dist is None else dist.world
+        if self.world > 1:
+            from ..parallel.mesh import check_split
+            check_split(task.num_envs * self.world, self.cfg.minibatch_size,
+                        self.world)
+            self.cfg = self.cfg._replace(
+                minibatch_size=self.cfg.minibatch_size // self.world)
         self.device = task.device
         self.batch = task.rl_games_batch
         self.horizon = self.cfg.horizon_length
@@ -226,6 +241,8 @@ class PPOAgent:
         self.mean_length = torch.zeros((), dtype=DTYPE, device=dev)
         self.epoch = 0
         self.frames = 0
+        if self.dist is not None:
+            self.dist.broadcast_agent(self)
 
     # ------------------------------------------------------------------
     def _policy(self, obs, states=None):
@@ -342,6 +359,10 @@ class PPOAgent:
             carry=(tuple(torch.stack(x) for x in zip(*cols[9]))
                    if self.is_rnn else None),
             aux=None if cols[10][0] is None else torch.stack(cols[10]))
+        if self.dist is not None:
+            # the finished episodes of every rank
+            fin_sum, fin_len, fin_cnt = self.dist.sum(
+                torch.stack([fin_sum, fin_len, fin_cnt.to(DTYPE)]))
         has = fin_cnt > 0
         self.mean_return = torch.where(
             has, fin_sum / torch.clamp(fin_cnt, min=1.0), self.mean_return)
@@ -351,8 +372,14 @@ class PPOAgent:
         self.last_states, self.carry = states, carry
         self.ep_return, self.ep_length = ep_ret, ep_len
         stats = {"episodes_done": fin_cnt}
-        for k, v in extra_seq.items():
-            stats[f"episode/{k}"] = torch.stack(v).mean()
+        keys = list(extra_seq)
+        if keys:
+            means = torch.stack([torch.stack(extra_seq[k]).mean()
+                                 for k in keys])
+            if self.dist is not None:
+                means = self.dist.mean(means)
+            stats.update({f"episode/{k}": means[i]
+                          for i, k in enumerate(keys)})
         return roll, obs, stats
 
     @torch.no_grad()
@@ -456,6 +483,8 @@ class PPOAgent:
         returns the epoch's metrics.  ``perms`` (mini_epochs, T * B)
         replaces the permutations drawn from the agent's generator."""
         cfg = self.cfg
+        # the sum over ranks the moments take, or None in one process
+        red = None if self.dist is None else self.dist.sum
 
         def flat(x):
             return x.reshape((-1,) + x.shape[2:])
@@ -464,25 +493,31 @@ class PPOAgent:
             # normalize the training batch with the SAME stats the rollout
             # policy used (old mu/neglogp consistency), then update
             obs_train = self.obs_rms.normalize(obs_f)
-            self.obs_rms.update(obs_f)
+            self.obs_rms.update(obs_f, red)
         else:
             obs_train = obs_f
         if cfg.normalize_value:
-            self.value_rms.update(flat(returns))
+            self.value_rms.update(flat(returns), red)
             returns_n = self.value_rms.normalize(flat(returns), clip=1e8)
             old_values_n = self.value_rms.normalize(flat(roll.values),
                                                     clip=1e8)
         else:
             returns_n, old_values_n = flat(returns), flat(roll.values)
         adv_f = flat(adv)
-        if cfg.normalize_advantage:
+        if cfg.normalize_advantage and red is not None:
+            # the global batch's mean and population std
+            cnt = adv_f.numel() * self.world
+            a_mean = red(adv_f.sum()) / cnt
+            a_std = torch.sqrt(red(torch.square(adv_f - a_mean).sum()) / cnt)
+            adv_f = (adv_f - a_mean) / (a_std + 1e-8)
+        elif cfg.normalize_advantage:
             adv_f = (adv_f - adv_f.mean()) / (adv_f.std(correction=0) + 1e-8)
 
         if self.use_central_value:
             states_f = flat(roll.states)
             states_train = (self.states_rms.normalize(states_f)
                             if cfg.normalize_input else states_f)
-            self.states_rms.update(states_f)
+            self.states_rms.update(states_f, red)
         if self.is_rnn:
             # (T, B, ...) -> (B * T/L, L, ...) with the stored carry at
             # each sequence start (rl_games seq_len); the obs and values
@@ -522,20 +557,30 @@ class PPOAgent:
                 self.optim.zero_grad(set_to_none=True)
                 loss, (a_l, c_l, ent, kl) = loss_fn(mb)
                 loss.backward()
+                if self.dist is not None:
+                    # the global gradient: the ranks' averaged, before the
+                    # clip
+                    self.dist.allreduce_grads(self.net.parameters())
                 if cfg.truncate_grads:
                     self._clip_grads()
                 self.optim.step()
                 kl = kl.detach()
+                if self.dist is not None:
+                    kl = self.dist.mean(kl)
                 if cfg.lr_schedule == "adaptive":
                     self.lr = self._adaptive_lr(self.lr, kl)
                     self.optim.param_groups[0]["lr"] = self.lr
                 metrics.append(torch.stack(
                     [loss.detach(), a_l.detach(), c_l.detach(),
                      ent.detach(), kl]))
-        loss, a_l, c_l, ent, kl = torch.stack(metrics).mean(dim=0)
+        metrics = torch.stack(metrics).mean(dim=0)
+        if self.dist is not None:
+            metrics = self.dist.mean(metrics)
+        loss, a_l, c_l, ent, kl = metrics
         self.epoch += 1
-        # samples (sequences with the LSTM), as the JAX learner counts
-        self.frames += total
+        # samples (sequences with the LSTM), as the JAX learner counts:
+        # every rank's
+        self.frames += total * self.world
         net = self.net
         return {
             "loss": loss, "a_loss": a_l, "c_loss": c_l, "entropy": ent,
@@ -563,8 +608,10 @@ class PPOAgent:
 
     # ------------------------------------------------------------------
     def train(self, max_epochs: Optional[int] = None, log_every: int = 20,
-              score_to_win: Optional[float] = None):
-        """Host driver loop (the rl_games Runner.run({'train': True}) path)."""
+              observers=(), score_to_win: Optional[float] = None):
+        """Host driver loop (the rl_games Runner.run({'train': True}) path);
+        each of ``observers`` gets ``after_print_stats`` with the host
+        metrics of every logged epoch (JAX ppo.py:585-604)."""
         cfg = self.cfg
         max_epochs = max_epochs or cfg.max_epochs
         score_to_win = score_to_win if score_to_win is not None else cfg.score_to_win
@@ -579,6 +626,8 @@ class PPOAgent:
                 print(f"epoch {ep+1}/{max_epochs} reward {m['mean_return']:.2f} "
                       f"len {m['mean_length']:.0f} kl {m['kl']:.4f} lr {m['lr']:.2e} "
                       f"fps {fps:,.0f}")
+                for obv in observers:
+                    obv.after_print_stats(ep + 1, m)
                 if m["mean_return"] >= score_to_win:
                     print(f"score_to_win {score_to_win} reached")
                     break
@@ -591,7 +640,7 @@ class PPOAgent:
         if self.is_rnn:
             raise NotImplementedError(
                 "playing a recurrent policy: the JAX player threads no LSTM "
-                "carry either (ROADMAP queue A, item 11)")
+                "carry either (its act applies the network with none)")
         mu, log_sigma, _ = self._policy(obs)
         if deterministic:
             return mu

@@ -24,7 +24,8 @@ friction, stiffness, damping, armature, effort limit and joint friction;
 dof dry friction; Jacobi mass splitting, contact warm start and bfloat16
 solver rows on the batched-product loop; per-body rigid damping;
 ground contact rows, on a flat plane or on a
-heightfield terrain, body-pair contact rows against primitive SDFs or
+heightfield terrain (with ``terrain_normal_frames``, gaps along the
+surface normal and tangent frames about it), body-pair contact rows against primitive SDFs or
 baked SDF grids (:mod:`.sdf_grid`) with
 tangent frames, rigid-body attractors, conditional grab constraints
 switched per env by ``Control.grab_active``, external body wrenches
@@ -33,9 +34,8 @@ targets, mass-matrix reuse, active-set compaction and contact-row reuse
 with impulse continuation on the batched-product loop (the B4 route
 ignores both, as the JAX kernel route does), the controller readouts, and
 for a scene without contact rows or grabs the joint-limit solve
-:meth:`PhysicsEngine._limit_solve`).  Every feature the JAX engine has
-beyond that raises ``NotImplementedError`` when a model or config asks for
-it, instead of computing something else.  Entry points run on the card
+:meth:`PhysicsEngine._limit_solve`): every option of the JAX engine's
+SimParams.  Entry points run on the card
 unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
@@ -121,12 +121,6 @@ class SimOutput(NamedTuple):
 def _cross(a, b):
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)
-
-
-def _unsupported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to isaacgymenvs_ma_tpu_torch yet "
-        "(see ROADMAP.md)")
 
 
 def spd_inverse(H: torch.Tensor) -> torch.Tensor:
@@ -337,18 +331,23 @@ class PhysicsEngine:
         # contact rows or grabs
         self.contact_route = self.route_for(None)
 
-    def route_for(self, phys=None) -> str:
-        """The route a step with the physics scales ``phys`` takes:
-        ``"b4"``, ``"loop"`` or ``"limit_solve"``.  A call whose ``phys``
-        carries restitution takes the batched-product loop even on a scene
-        planned for B4, with the loop's own capacity and row reuse, as the
-        JAX engine does (engine.py:1291-1292, ``kernel_on and restitution
-        is None``; :1304 ``reuse_rows``): the bounce target is lifted after
-        J is built, which B4 does not do.  A pure function of the scene and
-        the call, so a captured graph holds no route state."""
+    def route_for(self, phys=None, terrain=None) -> str:
+        """The route a step with the physics scales ``phys`` on
+        ``terrain`` takes: ``"b4"``, ``"loop"`` or ``"limit_solve"``.  A
+        call whose ``phys`` carries restitution takes the batched-product
+        loop even on a scene planned for B4, with the loop's own capacity
+        and row reuse, as the JAX engine does (engine.py:1291-1292,
+        ``kernel_on and restitution is None``; :1304 ``reuse_rows``): the
+        bounce target is lifted after J is built, which B4 does not do.  So
+        does a call on a terrain with ``terrain_normal_frames``
+        (engine.py:1294-1295): B4 does not model the terrain rows' frames.
+        A pure function of the scene and the call, so a captured graph
+        holds no route state."""
         if not self.has_contact_rows:
             return "limit_solve"
         if self.cplan is None:
+            return "loop"
+        if terrain is not None and self.params.terrain_normal_frames:
             return "loop"
         if getattr(phys, "restitution", None) is None:
             return "b4"
@@ -738,8 +737,8 @@ class PhysicsEngine:
         contact-row cache of the first substep (SimParams.
         reuse_contact_rows, see :meth:`_contact_solve`).  ``terrain``: a
         :class:`.terrain.TerrainGrid` the ground rows stand on instead of
-        the plane z = 0 (its surface normals, SimParams.
-        terrain_normal_frames, are not ported).  ``phys``: the per-env
+        the plane z = 0 (with ``SimParams.terrain_normal_frames`` along its
+        surface normals, :meth:`_contact_rows`).  ``phys``: the per-env
         :class:`..utils.domain_rand.PhysScales` of the domain randomization
         (engine.py:807-878): mass and shape into B2 and into B3's gravity
         wrench, stiffness and damping into the drives, the passive damping
@@ -758,8 +757,6 @@ class PhysicsEngine:
         (``body_lin_damping`` / ``body_ang_damping`` of the model) the
         damping wrenches join the right-hand side (:meth:`damping_wrench`)."""
         if terrain is not None:
-            if self.params.terrain_normal_frames:
-                _unsupported("terrain surface normals (terrain_normal_frames)")
             if self.n_ground != len(self.pts_body):
                 raise ValueError(
                     "ground-candidate pruning assumed a flat z=0 plane, but "
@@ -872,7 +869,7 @@ class PhysicsEngine:
                                     terrain=terrain, friction_scale=fric_s,
                                     shape_scale=shape_s, lo_lim=lo_lim,
                                     hi_lim=hi_lim, restitution=restitution,
-                                    route=self.route_for(phys))
+                                    route=self.route_for(phys, terrain))
         else:
             qd_new = self._limit_solve(qd_new, Hinv, qpos_dof, lo_lim,
                                        hi_lim)
@@ -1090,7 +1087,13 @@ class PhysicsEngine:
         friction mu (N, P) and, when pairs exist, row frames (N, P, 3, 3)
         (identity on the ground rows), else None.  Ground rows measure
         their gap from z = 0 or, with ``terrain``, from the heightfield's
-        bilinear height under the point.  A scene with grabs and no
+        bilinear height under the point.  With ``terrain`` and
+        ``SimParams.terrain_normal_frames`` (engine.py:1317-1339,
+        :1382-1390) the gap is measured along the surface normal n,
+        ``(z - h) n_z - r``, and the ground rows get tangent frames about n
+        (frames are then never None); on near-vertical cells n_z -> 0 and
+        the gap reads about -r whatever the separation, as in the JAX
+        engine (its default is off).  A scene with grabs and no
         candidate rows gets an empty row set (engine.py:1392-1398).
         ``friction_scale`` (N, 1) scales every row's mu, (N, nb) a ground
         row's by its body's and a pair row's by the mean of its two
@@ -1103,12 +1106,16 @@ class PhysicsEngine:
         per_body = (friction_scale is not None
                     and friction_scale.shape[-1] == self.nb)
         ps, phis, mus, frames = [], [], [], None
+        n_terr = None
         if self.n_ground:
             p = self._contact_points(body_x, body_q, shape_scale)  # (N, G, 3)
             ps.append(p)
             rad = self._ground_radii(shape_scale)
             if terrain is None:
                 phis.append(p[..., 2] - rad)                     # flat z = 0
+            elif pr.terrain_normal_frames:
+                gz, n_terr = terrain.height_and_normal(p[..., 0], p[..., 1])
+                phis.append((p[..., 2] - gz) * n_terr[..., 2] - rad)
             else:
                 phis.append(p[..., 2] - rad
                             - terrain.height_at(p[..., 0], p[..., 1]))
@@ -1132,8 +1139,14 @@ class PhysicsEngine:
                 else:
                     pmu = pmu * friction_scale
             mus.append(pmu)
-            eye = torch.eye(3, dtype=body_x.dtype, device=body_x.device)
-            frames = torch.cat([eye.expand(N, self.n_ground, 3, 3), frame], 1)
+            if n_terr is None:
+                eye = torch.eye(3, dtype=body_x.dtype, device=body_x.device)
+                g_frames = eye.expand(N, self.n_ground, 3, 3)
+            else:
+                g_frames = self._tangent_frame(n_terr)
+            frames = torch.cat([g_frames, frame], 1)
+        elif n_terr is not None:
+            frames = self._tangent_frame(n_terr)
         return (torch.cat(ps, 1), torch.cat(phis, 1), torch.cat(mus, 1),
                 frames)
 
@@ -1177,8 +1190,7 @@ class PhysicsEngine:
                        warm=None, *, lo_lim, hi_lim, restitution, route):
         """Projected-Jacobi impulse solve over grabs, attractors, ground
         rows, body-pair rows and joint limits, in that order in each
-        iteration (engine.py:1248-1925 without terrain
-        normals).  With ``terrain`` the ground rows' gaps are taken
+        iteration (engine.py:1248-1925).  With ``terrain`` the ground rows' gaps are taken
         from the heightfield (:meth:`_contact_rows`); B4 sees terrain only
         through those gaps, as the JAX kernel route does.  The per-env
         ``friction_scale`` and ``shape_scale`` of the domain randomization
@@ -1341,11 +1353,13 @@ class PhysicsEngine:
             phi_r = cc["phi_rows"] + h * v3[..., 2]
             if terr_r is not None:
                 # terrain rows: advance the points by the world velocity
-                # and read the heightfield there (no normal frames: the
-                # ground rows' frames are the identity)
+                # and read the heightfield there; the vertical gap is
+                # projected onto the row normal, whose z is 1 without
+                # normal frames (engine.py:1607-1625)
                 p_r = p_r + h * self._to_world(v3, frames_r)
                 gz = terrain.height_at(p_r[..., 0], p_r[..., 1])
-                phi_g = p_r[..., 2] - gz - terr_r[..., 0]
+                nz = 1.0 if frames_r is None else frames_r[..., 2, 2]
+                phi_g = (p_r[..., 2] - gz) * nz - terr_r[..., 0]
                 phi_r = torch.where(terr_r[..., 1] > 0.5, phi_g, phi_r)
             active, b_n = self._normal_targets(phi_r)
             if e_r is not None:

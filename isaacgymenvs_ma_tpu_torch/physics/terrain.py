@@ -10,8 +10,9 @@ contact rows read and the reference's min-of-two-cells ``height_min2`` the
 query points.  (The JAX package also has ``LocalTerrain``, per-env windows
 looked up by one-hot matrix products, a TPU workaround for slow batched
 gathers; the port does not carry it, and the tests hold its lookups to
-these gathers.)  Surface normals (``SimParams.terrain_normal_frames``) are
-not ported: ``normal_at`` and ``height_and_normal`` raise.
+these gathers.)  ``normal_at`` gives the surface normal from central
+differences of the same bilinear field (the engine's
+``SimParams.terrain_normal_frames``).
 """
 from __future__ import annotations
 
@@ -210,13 +211,19 @@ class TerrainGrid:
         L = self.heights.shape[1]
         return torch.minimum(self._flat[i], self._flat[i + L + 1])
 
-    def normal_at(self, x, y):
-        raise NotImplementedError(
-            "terrain surface normals (terrain_normal_frames) are not ported "
-            "to isaacgymenvs_ma_tpu_torch yet (see ROADMAP.md)")
+    def normal_at(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """Outward unit surface normal (..., 3) from central differences
+        of the bilinear field half a cell either side (terrain.py:177-192):
+        on steep features (gap walls, stair risers) it tilts toward the
+        horizontal."""
+        e = 0.5 * self.horizontal_scale
+        hx = (self.height_at(x + e, y) - self.height_at(x - e, y)) / (2 * e)
+        hy = (self.height_at(x, y + e) - self.height_at(x, y - e)) / (2 * e)
+        n = torch.stack([-hx, -hy, torch.ones_like(hx)], dim=-1)
+        return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
 
-    def height_and_normal(self, x, y):
-        return self.normal_at(x, y)
+    def height_and_normal(self, x: torch.Tensor, y: torch.Tensor):
+        return self.height_at(x, y), self.normal_at(x, y)
 
 
 class CurriculumTerrain:

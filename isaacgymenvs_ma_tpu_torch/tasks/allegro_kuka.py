@@ -276,7 +276,7 @@ class AllegroKukaBase(VecTaskBase):
                 sticks=bool(e.get("withSticks", True)))
             rng = np.random.default_rng(42)
             rng.shuffle(cat)
-            sel = np.arange(self.num_envs) % len(cat)
+            sel = (np.arange(self.num_envs) + self.env_offset) % len(cat)
             self.object_scales_np = np.asarray(cat, np.float32)[sel]
         else:
             self.object_scales_np = np.ones((self.num_envs, 3), np.float32)

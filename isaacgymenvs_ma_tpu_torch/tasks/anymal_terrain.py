@@ -285,7 +285,7 @@ class AnymalTerrain(VecTaskBase):
             commands=z(4), actions=z(12), last_actions=z(12),
             last_dof_vel=z(12), feet_air_time=z(4),
             terrain_levels=torch.zeros(n, dtype=torch.int32, device=dev),
-            terrain_types=(torch.arange(n, device=dev)
+            terrain_types=((torch.arange(n, device=dev) + self.env_offset)
                            % self.terrain_map.num_types).to(torch.int32),
             common_step=torch.zeros((), dtype=torch.int32, device=dev),
             episode_sums=z(len(EP_TERMS)))

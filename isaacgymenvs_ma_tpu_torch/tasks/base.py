@@ -134,6 +134,11 @@ class VecTaskBase:
                 "PhysX-equivalent rigid-body path exists")
         env_cfg = cfg["env"]
         self.num_envs = int(env_cfg["numEnvs"])
+        # the global id of this process's first env when the envs are split
+        # over ranks (parallel/mesh.py): tasks that lay envs out by their
+        # index (AnymalTerrain's terrain types, AllegroKuka's cuboids) use
+        # the global index, so a rank's envs are the slice of one program's
+        self.env_offset = int(env_cfg.get("envOffset", 0))
         self.num_obs = int(env_cfg["numObservations"])
         self.num_actions = int(env_cfg["numActions"])
         self.num_states = int(env_cfg.get("numStates", 0))
@@ -239,6 +244,19 @@ class VecTaskBase:
         """``state`` with the curriculum state ``env_state`` (what
         ``get_env_state`` returned) put back."""
         return state
+
+    def render(self, state: EnvState, mode: str = "rgb_array",
+               env_index: int = 0, **camera_kwargs):
+        """Headless frame render (base.py:397-409; vec_task.py:459-514
+        ``render`` with ``virtual_screen_capture``): (H, W, 3) uint8 via
+        utils/viewer.py, from the poses of ``engine.forward`` (B1 on the
+        card), of which only env ``env_index``'s are read to the host."""
+        if mode != "rgb_array":
+            raise ValueError("only rgb_array rendering is supported headless")
+        from ..utils.viewer import env_poses, render_rgb
+        bp, bq = env_poses(self.engine, state.sim, env_index)
+        return render_rgb(self.model, bp, bq, ground=self.engine.ground,
+                          **camera_kwargs)
 
     def set_train_info(self, state: EnvState, env_frames: int):
         """The learner-to-env channel for curricula (vec_task.py:188-194);

@@ -169,9 +169,7 @@ def task_names():
 def create_task(name: str, cfg: dict, seed: int = 42, headless: bool = True,
                 device="cuda"):
     """The task ``name`` built from ``cfg`` on ``device``; ``seed`` seeds
-    its reset draws."""
-    if not headless:
-        raise NotImplementedError(
-            "the viewer (headless=False) is not ported yet: ROADMAP queue "
-            "A, item 11")
+    its reset draws.  ``headless`` is accepted for the reference's
+    signature: the viewer is opened by the caller (``train._play`` with
+    ``headless=False``, utils/viewer.py ``InteractiveViewer``)."""
     return task_class(name)(cfg, device=device, seed=seed)

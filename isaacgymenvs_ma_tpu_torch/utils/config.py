@@ -10,11 +10,16 @@ The JAX package parses each override value with ``yaml.safe_load``; the
 port has no PyYAML, so ``_parse_value`` resolves the scalar forms a command
 line takes by PyYAML's own YAML 1.1 rules (bool, null, int, float, plain
 and quoted strings) and flow lists ``[a, b]``.  A user YAML file
-(``user_yaml``) is not supported.
+(``user_yaml``) is not supported.  :func:`dump_yaml` writes the run's
+``config.yaml`` snapshot (the JAX ``train.py`` writes it with
+``yaml.safe_dump``): block mappings, flow sequences, every string
+double-quoted, so that ``yaml.safe_load`` reads it back as it reads the
+JAX snapshot.
 """
 from __future__ import annotations
 
 import copy
+import math
 import re
 from typing import Any, Dict, List, Optional
 
@@ -185,3 +190,106 @@ def print_dict(d: dict, prefix: str = ""):
             print_dict(v, prefix + "  ")
         else:
             print(f"{prefix}{k}: {v}")
+
+
+# ----------------------------------------------------------------------
+# the config.yaml snapshot
+
+def _yaml_str(s: str) -> str:
+    """A double-quoted YAML scalar: ASCII, with escapes YAML 1.1 reads."""
+    out = ['"']
+    for c in s:
+        o = ord(c)
+        if c in '"\\':
+            out.append("\\" + c)
+        elif 0x20 <= o < 0x7F:
+            out.append(c)
+        elif o <= 0xFF:
+            out.append(f"\\x{o:02x}")
+        elif o <= 0xFFFF:
+            out.append(f"\\u{o:04x}")
+        else:
+            out.append(f"\\U{o:08x}")
+    out.append('"')
+    return "".join(out)
+
+
+def _yaml_float(x: float) -> str:
+    """PyYAML's float spelling: its resolver wants a dot and a signed
+    exponent ("1.0e-05", not "1e-05")."""
+    if math.isnan(x):
+        return ".nan"
+    if math.isinf(x):
+        return ".inf" if x > 0 else "-.inf"
+    r = repr(x).lower()
+    if "." not in r and "e" in r:
+        r = r.replace("e", ".0e", 1)
+    elif "." not in r:
+        r += ".0"
+    return r
+
+
+def _yaml_scalar(v: Any) -> str:
+    if hasattr(v, "item") and not isinstance(v, (str, bytes)):
+        v = v.item()                   # numpy / torch scalars
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        return _yaml_float(v)
+    if isinstance(v, str):
+        return _yaml_str(v)
+    raise TypeError(f"cannot write {type(v).__name__} into config.yaml")
+
+
+def _yaml_flow(v: Any) -> str:
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{_yaml_key(k)}: {_yaml_flow(x)}"
+                               for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_flow(x) for x in v) + "]"
+    return _yaml_scalar(v)
+
+
+_PLAIN_KEY = re.compile(r"^[A-Za-z_][A-Za-z0-9_.-]*$")
+
+
+def _yaml_key(k: Any) -> str:
+    """A mapping key: plain where PyYAML reads it back as the same string,
+    else as :func:`_yaml_scalar` writes it."""
+    if (isinstance(k, str) and _PLAIN_KEY.match(k)
+            and not (_BOOL.match(k) or _NULL.match(k) or _FLOAT.match(k))):
+        return k
+    return _yaml_scalar(k)
+
+
+def _yaml_block(d: dict, indent: int, lines: List[str]) -> None:
+    pad = " " * indent
+    for k, v in d.items():
+        key = _yaml_key(k)
+        if isinstance(v, dict) and v:
+            lines.append(f"{pad}{key}:")
+            _yaml_block(v, indent + 2, lines)
+        else:
+            lines.append(f"{pad}{key}: {_yaml_flow(v)}")
+
+
+def dump_yaml(cfg: dict) -> str:
+    """``cfg`` as a YAML document that ``yaml.safe_load`` reads back equal
+    to ``yaml.safe_load(yaml.safe_dump(cfg))``: tuples become lists, as
+    there."""
+    lines: List[str] = []
+    _yaml_block(cfg, 0, lines)
+    return "\n".join(lines) + "\n" if lines else "{}\n"
+
+
+def write_config_snapshot(path: str, cfg: dict) -> str:
+    """Write the run's ``config.yaml`` (JAX train.py:108-114)."""
+    import os
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w", encoding="ascii") as f:
+        f.write(dump_yaml(cfg))
+    return path

@@ -287,22 +287,32 @@ _UNPORTED = [
 @pytest.mark.parametrize("override", _UNPORTED,
                          ids=[next(iter(o)) for o in _UNPORTED])
 def test_unported_options_raise(override):
-    """Unported options raise when the engine is built, or (terrain
-    surface normals) on the first step on a terrain.  ``plane_restitution``
+    """Options that raised until they were ported.  ``plane_restitution``
     raised until restitution was ported (test_plane_restitution_builds);
-    contact warm start and bfloat16 solver rows raised until they were
-    ported: now each builds, takes the loop, and steps on a terrain with
-    finite results (their parity with the JAX engine is
-    tests/test_torch_factory_engine.py's)."""
+    contact warm start and bfloat16 solver rows until they were ported:
+    now each builds, takes the loop, and steps on a terrain with finite
+    results (their parity with the JAX engine is
+    tests/test_torch_factory_engine.py's).  Terrain surface normals
+    raised on the first step on a terrain until they were ported: now
+    the engine steps on a terrain with them, on the loop (their parity is
+    tests/test_torch_terrain.py's), and on a flat grid the normals are
+    straight up, so the step equals the one without them."""
     from isaacgymenvs_ma_tpu.models.robots import build_ant
     from isaacgymenvs_ma_tpu_torch.physics.terrain import TerrainGrid
     params = SimParams(contact_margin=0.02)._replace(**override)
     flat = TerrainGrid(torch.zeros(4, 4), 1.0, (-2.0, -2.0))
     if "terrain_normal_frames" in override:
-        with pytest.raises(NotImplementedError):
-            eng = PhysicsEngine(build_ant(), params, device="cpu")
-            eng.step(eng.default_state(2), Control(tau=torch.zeros(2, 14)),
-                     terrain=flat)
+        eng = PhysicsEngine(build_ant(), params, device="cpu")
+        plain = PhysicsEngine(build_ant(), SimParams(contact_margin=0.02),
+                              device="cpu")
+        assert eng.route_for(None, terrain=flat) == "loop"
+        st, _ = eng.step(eng.default_state(2),
+                         Control(tau=torch.zeros(2, 14)), terrain=flat)
+        ref, _ = plain.step(plain.default_state(2),
+                            Control(tau=torch.zeros(2, 14)), terrain=flat)
+        assert torch.isfinite(st.q).all() and torch.isfinite(st.qd).all()
+        torch.testing.assert_close(st.q, ref.q, rtol=1e-6, atol=1e-6)
+        torch.testing.assert_close(st.qd, ref.qd, rtol=1e-5, atol=1e-5)
         return
     eng = PhysicsEngine(build_ant(), params, device="cpu")
     assert eng.contact_route == "loop"
@@ -409,9 +419,9 @@ def test_unported_scene_features_raise(kwargs):
 
 
 def test_terrain_and_phys_raise():
-    """Still unported, and raising: terrain surface normals
-    (``terrain_normal_frames``).  Terrain heightfields, external wrenches
-    and the mass, shape, friction, stiffness, damping, armature, effort,
+    """Terrain surface normals (``terrain_normal_frames``) raised until
+    they were ported: now the step on a flat grid with them runs.  Terrain
+    heightfields, external wrenches and the mass, shape, friction, stiffness, damping, armature, effort,
     joint-friction and limit-shift scales raised until they were ported:
     now a zero wrench, unit scales and zero limit shifts leave the step
     unchanged (the wrench parity is tests/test_torch_aerial.py's, the
@@ -427,8 +437,8 @@ def test_terrain_and_phys_raise():
     flat = TerrainGrid(torch.zeros(4, 4), 1.0, (-2.0, -2.0))
     normals = PhysicsEngine(t.model, t.sim_params._replace(
         terrain_normal_frames=True), device="cpu")
-    with pytest.raises(NotImplementedError):
-        normals.step(st.sim, ctrl, terrain=flat)
+    got, _ = normals.step(st.sim, ctrl, terrain=flat)
+    assert torch.isfinite(got.q).all() and torch.isfinite(got.qd).all()
     ref, _ = t.engine.step(st.sim, ctrl)
     got, _ = t.engine.step(st.sim, ctrl, phys=PhysScales.ones(4))
     assert torch.equal(got.q, ref.q) and torch.equal(got.qd, ref.qd)

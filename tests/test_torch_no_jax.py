@@ -28,14 +28,20 @@ motion library), call
 run one PPO ``train_epoch`` of Cartpole at 16 envs, one of Cartpole with
 an LSTM network and one of Trifinger with its central-value critic, one
 AMP epoch of HumanoidAMP, one SAC epoch of AntSAC across its seed steps
-and one step of the HRL wrapper over HumanoidAMP, then
-check that neither ``jax*`` nor ``isaacgymenvs_ma_tpu`` /
+and one step of the HRL wrapper over HumanoidAMP, run one rank worker
+(a world-1 gloo group: a data-parallel Cartpole epoch and its full-width
+checkpoint) and the glue modules (the event writer and reader, the YAML
+emitter, a profiler trace, a rendered frame, a PBT save, a mutation, a
+poselib pose), then check that neither ``jax*`` nor ``isaacgymenvs_ma_tpu`` /
 ``isaacgymenvs_ma_tpu.*`` was loaded.
 """
+import copy
 import os
 import subprocess
 import sys
 import textwrap
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -313,6 +319,47 @@ SCRIPT = textwrap.dedent("""
     A = torch.randn(5, 7, 7)
     Hinv = spd_inverse(A @ A.transpose(1, 2) + 3 * torch.eye(7))
     assert torch.isfinite(Hinv).all()
+    # one rank worker (a world-1 gloo group on 127.0.0.1): a data-parallel
+    # PPO epoch and its full-width checkpoint, then the glue modules
+    import tempfile
+    from isaacgymenvs_ma_tpu_torch.learning import checkpoint as ckpt
+    from isaacgymenvs_ma_tpu_torch.parallel import mesh
+    from isaacgymenvs_ma_tpu_torch.parallel.dryrun import free_port
+    dp = mesh.DataParallel.init(device="cpu", backend="gloo", environ={
+        "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())})
+    ctask = Cartpole(deep_merge(CP_CFG, {"env": {"numEnvs": 16}}),
+                     device="cpu")
+    ctcfg = train_default_config("Cartpole")
+    ctcfg["params"]["config"]["minibatch_size"] = 128
+    dagent = PPOAgent(ctask, ctcfg, seed=0, dist=dp)
+    dagent.init()
+    assert torch.isfinite(dagent.train_epoch()["loss"])
+    tmp = tempfile.mkdtemp()
+    assert ckpt.save_agent(tmp + "/dp.pth", dagent, ctask, dp)
+    torch.distributed.destroy_process_group()
+    from isaacgymenvs_ma_tpu_torch.utils import observers, profiling, viewer
+    from isaacgymenvs_ma_tpu_torch.utils.config import dump_yaml
+    from isaacgymenvs_ma_tpu_torch.pbt import PbtAlgoObserver, mutate
+    from isaacgymenvs_ma_tpu_torch.poselib import SkeletonState, SkeletonTree
+    tb = observers.TensorboardObserver(tmp + "/summaries")
+    tb.after_print_stats(1, {"frames": 16, "loss": 0.5})
+    assert observers.read_scalars(tmp + "/summaries")["losses/loss"] == [
+        (16, 0.5)]
+    assert dump_yaml({"a": [1, 2.5, "x"]}).startswith("a: [1, 2.5")
+    with profiling.trace(tmp + "/trace"):
+        with profiling.annotate("step"):
+            ctask.step(ctask.initial_state(), torch.zeros(16, 1))
+    frame = viewer.FrameRecorder(ctask).capture(ctask.initial_state())
+    assert frame.shape == (240, 320, 3)
+    pbt = PbtAlgoObserver({"pbt": {"enabled": True, "workspace": tmp,
+                                   "params": {}}}, ctcfg,
+                          lambda p: ckpt.save_agent(p, dagent, ctask),
+                          lambda p: ckpt.load_agent(p, dagent, ctask))
+    pbt._save(16, 1.0)
+    assert mutate({"gamma": 0.99}, {}, 1.0, 1.1, 1.5)["gamma"] != 0.99
+    tree = SkeletonTree(["r", "a"], [-1, 0], [[0, 0, 0], [1, 0, 0]])
+    assert SkeletonState.zero_pose(tree).global_translation.shape == (2, 3)
     loaded = sorted(m for m in sys.modules
                     if m == "jax" or m.startswith("jax")
                     or m == "isaacgymenvs_ma_tpu"
@@ -338,6 +385,77 @@ def test_port_imports_and_steps_without_jax():
     # and their spec, the two hand tasks and their specs, Dextreme, ADR,
     # the RNA and the rl_games shim, the Factory and IndustReal tasks with
     # the voxelizer, the meshes, the grid sampler and the controllers, and
-    # HumanoidAMP with its spec and motion library, AMP, SAC and HRL too
+    # HumanoidAMP with its spec and motion library, AMP, SAC and HRL too,
+    # and the data parallelism, PBT, poselib, observers, profiling and
+    # viewer modules
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 78, proc.stdout
+    assert n_mods >= 94, proc.stdout
+
+
+# the port's copies of numpy / plain-Python modules of the JAX package, and
+# the functions and methods each changes on purpose (the others' code is
+# the original's, docstrings aside)
+_COPIES = {
+    "pbt.mutation": (), "pbt.pbt": ("initial_pbt_check",
+                                    "PbtAlgoObserver._restart"),
+    "pbt.launcher": ("pbt_population",),
+    "poselib.rotation": (), "poselib.skeleton": (),
+    "utils.viewer": ("FrameRecorder.capture", "InteractiveViewer.render"),
+    "utils.utils": (), "utils.reformat": (), "utils.wandb_utils": (),
+    "utils.observers": ("TensorboardObserver.__init__",),
+    "utils.profiling": ("trace", "annotate"),
+}
+
+
+def _defs(tree):
+    """{name or Class.method: AST dump without docstrings} of a module."""
+    import ast
+
+    def strip(node):
+        node = copy.deepcopy(node)
+        for n in ast.walk(node):
+            body = getattr(n, "body", None)
+            if (isinstance(body, list) and body
+                    and isinstance(body[0], ast.Expr)
+                    and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                n.body = body[1:] or [ast.Pass()]
+        return ast.dump(node)
+    out = {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out[node.name] = strip(node)
+        elif isinstance(node, ast.ClassDef):
+            for m in node.body:
+                if isinstance(m, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                    out[f"{node.name}.{m.name}"] = strip(m)
+    return out
+
+
+@pytest.mark.parametrize("mod", sorted(_COPIES))
+def test_copies_hold_to_their_originals(mod):
+    """Every function and method of the JAX module is in the port's copy,
+    with the same code unless the copy changes it on purpose (the PBT
+    restart into the port's train module, the viewer's poses read from
+    the card, the hand-written event writer, torch.profiler)."""
+    import ast
+    src = {p: open(os.path.join(REPO, p, *mod.split(".")) + ".py").read()
+           for p in ("isaacgymenvs_ma_tpu", "isaacgymenvs_ma_tpu_torch")}
+    j = _defs(ast.parse(src["isaacgymenvs_ma_tpu"]))
+    t = _defs(ast.parse(src["isaacgymenvs_ma_tpu_torch"]))
+    assert set(j) <= set(t), sorted(set(j) - set(t))
+    changed = sorted(k for k in j if j[k] != t[k])
+    assert changed == sorted(_COPIES[mod]), changed
+    assert "jax" not in {a.split(".")[0] for a in _imports(
+        src["isaacgymenvs_ma_tpu_torch"])}
+
+
+def _imports(src):
+    import ast
+    out = []
+    for n in ast.walk(ast.parse(src)):
+        if isinstance(n, ast.Import):
+            out += [a.name for a in n.names]
+        elif isinstance(n, ast.ImportFrom) and n.module and not n.level:
+            out.append(n.module)
+    return out

@@ -604,7 +604,13 @@ def test_launch_trains_saves_and_plays(tmp_path, monkeypatch, capsys):
                                   "train=HumanoidAMP",
                                   "train=AntSAC"])
 def test_unported_flags_and_names_raise(flag, tmp_path, monkeypatch):
-    """Unported flags and names raise.  The Factory and IndustReal names
+    """Flags and names that raised until they were ported.  The flags
+    ``multi_gpu``, ``pbt.enabled``, ``capture_video``, ``wandb_activate``
+    and ``headless=False`` raised until ROADMAP queue A item 11 was
+    ported: now ``multi_gpu`` without torchrun's variables raises naming
+    torchrun, and the others train one epoch at 8 envs (PBT writes a
+    checkpoint with its json meta, the video its frames, the W&B observer
+    warns that wandb is missing).  The Factory and IndustReal names
     raised until ROADMAP queue A item 9 was ported: now the entry point
     trains them (one epoch of 8 steps at 8 envs) and saves a checkpoint.
     The AMP and SAC train configs raised until item 10 was: now the entry
@@ -641,8 +647,26 @@ def test_unported_flags_and_names_raise(flag, tmp_path, monkeypatch):
         assert agent.step == 8
         assert list(tmp_path.glob("runs/AntSAC_*/nn/AntSAC.pth"))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-        ptrain.launch(args)
+    if flag == "multi_gpu=True":
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                  "MASTER_PORT"):
+            monkeypatch.delenv(k, raising=False)
+        with pytest.raises(RuntimeError, match="torchrun"):
+            ptrain.launch(args)
+        return
+    extra = {"pbt.enabled=True": [f"pbt.workspace={tmp_path / 'ws'}",
+                                  "pbt.interval_steps=1"],
+             "capture_video=True": ["capture_video_freq=1",
+                                    "capture_video_len=2"]}.get(flag, [])
+    agent = ptrain.launch(args + extra + [
+        "max_iterations=1", "train.params.config.horizon_length=8",
+        "train.params.config.minibatch_size=64"])
+    assert agent.epoch == 1
+    assert list(tmp_path.glob("runs/Cartpole_*/nn/Cartpole.pth"))
+    if flag == "pbt.enabled=True":
+        assert list((tmp_path / "ws" / "policy_00").glob("*.ckpt.json"))
+    if flag == "capture_video=True":
+        assert list(tmp_path.glob("runs/Cartpole_*/videos/*"))
 
 
 def test_make_and_launch_run_on_the_card_by_default(tmp_path, monkeypatch):

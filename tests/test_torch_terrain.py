@@ -16,6 +16,12 @@ the CPU.
   anymal_terrain_golden.npz, and the JAX engine runs eagerly on them.
 * B4's twin on terrain rows against the JAX ``solve_bl``: rtol = atol =
   1e-4.
+* Terrain normal frames (``SimParams.terrain_normal_frames``, default off
+  in both packages): ``normal_at`` against the JAX global grid's at atol
+  1e-5, and AnymalTerrain engine steps with them on the moved patches
+  (the JAX engine on its global grid, which alone has normals) at the
+  same bounds, on the default loop and with row reuse; the route is the
+  loop even where the contact kernel is asked for, as the JAX rule.
 """
 from types import SimpleNamespace
 
@@ -93,16 +99,20 @@ def test_height_lookups_match_grid_and_local_windows(terrain_pair):
                                    rtol=0, err_msg=name)
         np.testing.assert_allclose(got.numpy()[0, 4:], loc[0, 4:],
                                    atol=1e-5, rtol=0, err_msg=name)
-    with pytest.raises(NotImplementedError):
-        t.grid.height_and_normal(torch.as_tensor(x), torch.as_tensor(y))
+    # the surface normals, central differences of the bilinear field
+    gh, gn = t.grid.height_and_normal(torch.as_tensor(x), torch.as_tensor(y))
+    jh, jn = j.grid.height_and_normal(jnp.asarray(x), jnp.asarray(y))
+    np.testing.assert_allclose(gh.numpy(), np.asarray(jh), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(gn.numpy(), np.asarray(jn), atol=1e-5, rtol=0)
 
 
-def moved_patch(atp, env, n=8, seed=0):
+def moved_patch(atp, env, n=8, seed=0, normals=False):
     """``n`` envs on env ``env``'s terrain patch moved under the world
     origin: the capture's state of that env with its base shifted by its
     patch's origin and each copy nudged (xy +-5 cm, qd N(0, 0.05)); the
     shifted JAX and port grids (``origin_xy`` minus the patch's origin)
-    and the JAX step's LocalTerrain windows on it."""
+    and the JAX step's LocalTerrain windows on it (with ``normals``, the
+    JAX global grid instead: its windows have no surface normals)."""
     d, jt, tt = atp["d"], atp["jt"], atp["tt"]
     lv, ty = int(d["init_terrain_levels"][env]), int(
         d["init_terrain_types"][env])
@@ -121,6 +131,8 @@ def moved_patch(atp, env, n=8, seed=0):
                                  (float(-o[0]), float(-o[1])))
     jwin = jgrid.local_window(jnp.asarray(q[:, 0]), jnp.asarray(q[:, 1]),
                               jt._terrain_win)
+    if normals:
+        return q, qd, jgrid, tgrid
     return q, qd, jwin, tgrid
 
 
@@ -194,15 +206,58 @@ def test_b4_twin_matches_jax_on_terrain_rows(atp):
 
 def test_terrain_normal_frames_raise(atp):
     """Terrain surface normals (SimParams.terrain_normal_frames, default
-    off in both packages) are not ported: a terrain step with them on
-    raises."""
+    off in both packages) raised until they were ported: now a terrain
+    step with them on runs, takes the loop even where the contact kernel
+    is asked for (the JAX kernel rule, engine.py:1294-1295), and differs
+    from the step without them."""
     from isaacgymenvs_ma_tpu_torch.physics.engine import PhysicsEngine
-    tt = atp["tt"]
-    e = PhysicsEngine(tt.model, tt.sim_params._replace(
+    tt, tb4 = atp["tt"], atp["tb4"]
+    e = PhysicsEngine(tb4.model, tb4.sim_params._replace(
         terrain_normal_frames=True), device="cpu")
+    assert e.route_for(None) == "b4"
+    assert e.route_for(None, terrain=tt.terrain) == "loop"
     a = torch.zeros((N, 12))
-    with pytest.raises(NotImplementedError, match="normal"):
-        e.step(atp["tst"].sim, tt.pre_physics(atp["tst"], a),
-               terrain=tt.terrain)
+    ctrl = tt.pre_physics(atp["tst"], a)
+    got, _ = e.step(atp["tst"].sim, ctrl, terrain=tt.terrain)
+    ref, _ = tt.engine.step(atp["tst"].sim, ctrl, terrain=tt.terrain)
+    assert torch.isfinite(got.q).all() and torch.isfinite(got.qd).all()
+    assert not torch.equal(got.qd, ref.qd)
 
 
+@pytest.mark.parametrize("route", ["default_loop", "row_reuse"])
+@pytest.mark.parametrize("patch", sorted(PATCH_ENVS))
+def test_terrain_normal_frames_step_matches_jax(atp, patch, route):
+    """One AnymalTerrain engine step with ``terrain_normal_frames`` on a
+    patch under the world origin: gaps along the surface normal and
+    tangent frames about it on the ground rows (and, with row reuse, the
+    cached rows' gaps projected on the cached normals), against the JAX
+    engine on its global grid with the same options, at the bounds of the
+    step without normals."""
+    from isaacgymenvs_ma_tpu.physics.engine import Control as JControl
+    from isaacgymenvs_ma_tpu.physics.engine import PhysicsEngine as JEngine
+    from isaacgymenvs_ma_tpu_torch.physics.engine import (Control,
+                                                          PhysicsEngine)
+    jt, tt = atp["jt"], atp["tt"]
+    q, qd, jgrid, tgrid = moved_patch(atp, PATCH_ENVS[patch], normals=True)
+    n = q.shape[0]
+    over = dict(terrain_normal_frames=True,
+                reuse_contact_rows=route == "row_reuse")
+    je = JEngine(jt.model, jt.engine.params._replace(**over))
+    te = PhysicsEngine(tt.model, tt.engine.params._replace(**over),
+                       device="cpu")
+    a = np.random.default_rng(3).uniform(-1, 1, (n, 12)).astype(np.float32)
+    tgt = np.zeros((n, 18), np.float32)
+    tgt[:, 6:] = 0.5 * a + np.asarray(jt.default_dof_pos)
+    z = np.zeros((n, 18), np.float32)
+    js, jo = je.step(JSimState(jnp.asarray(q), jnp.asarray(qd)),
+                     JControl(jnp.asarray(z), jnp.asarray(tgt),
+                              jnp.asarray(z)), terrain=jgrid)
+    ts, to = te.step(SimState(torch.as_tensor(q), torch.as_tensor(qd)),
+                     Control(torch.as_tensor(z), torch.as_tensor(tgt),
+                             torch.as_tensor(z)), terrain=tgrid)
+    np.testing.assert_allclose(ts.q.numpy(), np.asarray(js.q), **Q_TOL)
+    np.testing.assert_allclose(ts.qd.numpy(), np.asarray(js.qd), **QD_TOL)
+    cf = np.asarray(jo.contact_force)
+    assert float(np.abs(cf).max()) > 10.0                 # on the terrain
+    np.testing.assert_allclose(to.contact_force.numpy(), cf, rtol=2e-3,
+                               atol=2e-3 * float(np.abs(cf).max()))
