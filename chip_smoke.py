@@ -79,8 +79,7 @@ Phases, each printing its own lines; any failure exits non-zero
      block entries read), the one-thread kernels' recorded time (B1-B4),
      ptxas's registers and spills, and the launch layout (team, envs or
      matrices per block, shared memory, blocks an SM by shared memory);
-     the plain twins timed over 3 x 5 calls, and at Ant and ShadowHand
-     also over the kernels' 5 x 20 (``[twin_timing]``)
+     the plain twins timed over 3 calls after a warm-up one
   4. golden: the committed JAX captures replayed through the kernels: Ant
      and BallBalance, each on the default loop and on B4; FrankaReachMA on
      the default loop (compaction and row reuse) and, from its own
@@ -149,7 +148,8 @@ Phases, each printing its own lines; any failure exits non-zero
      torque|; after Dextreme's an ``[rna]`` line, the share of envs the
      RNA blends a step, and ADR's ``[adr]`` line: npd, queued boundary
      episodes, the mean |limit shift| and restitution reaching the engine),
-     50 steps each (100 until the Factory phases joined), tanh(obs @ W)
+     10 steps each after 3 untimed ones (50 and 10 until the data-parallel
+     learners joined, 100 until the Factory phases did), tanh(obs @ W)
      actions;
      each ``[main]`` line names the contact route the engine took;
      env-steps/s (and agent-steps/s), stream ms per step by CUDA events
@@ -163,14 +163,15 @@ Phases, each printing its own lines; any failure exits non-zero
      then ``[shim]``: ``ComplexObsRLGPUEnv`` over Dextreme-ADR-8192, each
      group's shape and ``reset_done``'s count; then the Factory family
      (Pick, Place, Screw, Gears, Insertion) and IndustReal (PegsInsert,
-     GearsInsert) at their published 128 envs and Pick at 1024, 100 steps
-     each, the contact kernel requested (warm start and mass splitting
-     take the loop: B4 forbidden, B5 only and twice a step at Screw),
+     GearsInsert) at their published 128 envs and Pick at 1024, 10 steps
+     each and Pick 100 (its episode's length), the contact kernel
+     requested (warm start and mass splitting take the loop: B4
+     forbidden, B5 only and twice a step at Screw),
      each followed by a ``[factory]`` line: the host reads of the two
      data-dependent branches a step and, at Pick, the close-and-lift
      epilogues run in the phase and the last one's lift success share;
      then HumanoidAMP-4096 on the default loop and on B4 and
-     HumanoidAMPHands-4096 on the loop (50 steps each), after the first a
+     HumanoidAMPHands-4096 on the loop (10 steps each), after the first a
      Reference State Init check (every other env flagged: each leaves the
      step at its motion draw's state bit for bit)
   6. train, each run with the launch counts set to 0 just before it: PPO
@@ -187,7 +188,8 @@ Phases, each printing its own lines; any failure exits non-zero
      a step) and AllegroHandDextremeADR-8192 with its config (the central
      value on 112 true states; ``adr_npd`` printed),
      FactoryTaskNutBoltPick-512 with its config (an epilogue an episode)
-     and IndustRealTaskPegsInsert-128 with its config, the AMP learner on
+     and IndustRealTaskPegsInsert-128 with its config (one epoch each, no
+     warm-up), the AMP learner on
      HumanoidAMP-4096 with its config (an ``[amp]`` line: the main phase's
      RSI reset share, the discriminator's reward, accuracies and losses,
      the replay fill), PPO on the HRL wrapper over HumanoidAMP-4096 (a
@@ -212,9 +214,20 @@ Phases, each printing its own lines; any failure exits non-zero
      launched B1-B3); then one rank on NCCL (world 1) for one epoch in
      this process; then
      the 2-rank checkpoint resumed in this process, parameters, Adam state
-     and the full env state bit-equal to what was saved;
+     and the full env state bit-equal to what was saved; ``[dist_sac]``
+     and ``[dist_amp]`` AntSAC-4096 and HumanoidAMP-4096 (global) the same
+     way with their configs (SAC's replay ring and AMP's discriminator
+     batch assembled from both ranks' rows), 1 warm-up epoch (AntSAC's
+     holds the 5 seed steps) and 1 timed, each rank's epoch seconds,
+     B1-B3 launches, gradient all-reduce ms an update and combine ms
+     (CUDA events), replay fill, losses and digest (failing unless the
+     digests agree, the losses are finite and each rank launched B1-B3),
+     then the 2-rank SAC checkpoint resumed in this process, bit-equal
+     with its ring;
      ``[dryrun]`` ``dryrun_multiproc(2)`` on cuda:0 over gloo (Ant,
-     FrankaReachMA, the asymmetric ShadowHand); ``[summaries]`` the
+     FrankaReachMA, the asymmetric ShadowHand; a worker process started
+     after phase 3, beside phases 4-4b, which time nothing on the card);
+     ``[summaries]`` the
      ``[dist]`` run's event file read back with every CRC checked, its tags
      and steps, and its ``config.yaml``; ``[normal_frames]``
      AnymalTerrain-4096 with ``terrain_normal_frames`` and the contact
@@ -226,13 +239,15 @@ Phases, each printing its own lines; any failure exits non-zero
      whose normal tilts more than 10 degrees; ``[video]`` Ant-4096 with
      ``capture_video`` through the entry point (PNG frames, consecutive
      frames differ); ``[trace]`` ``profiling.trace`` around 3 Ant-4096
-     steps in a fresh process, the exported trace holding each
-     ``annotate`` name and the B1-B3 kernels; ``[pbt]`` one
+     steps in a fresh process (started with the ``[dryrun]`` worker), the
+     exported trace holding each ``annotate`` name and the B1-B3 kernels;
+     ``[pbt]`` one
      ``PbtAlgoObserver`` cycle of three Cartpole-512 members on the card
      (checkpoints and metas written, the replacement decision equal to a
      CPU observer's on the same workspace, ``restore_fn`` leaving the
      donor's parameters bit-equal)
-Each phase prints its seconds (``[phase_seconds]``).  The line before the
+Each phase prints its seconds (``[phase_seconds]``) and its ``@timed``
+helpers' (``[helper_seconds]``).  The line before the
 last is the kernels JSON (a row per kernel at the scene where it runs
 first, launches summed over every phase, then a row per kernel at
 FrankaCollectMA, FrankaPPMA, Humanoid, Anymal, Ingenuity, Quadcopter,
@@ -247,11 +262,14 @@ summed over that task's main phases), the last line {"ok": true,
 "device": {...}}.  Needs a CUDA
 device; never falls back to the CPU and never imports jax.
 """
+import atexit
 import collections
+import functools
 import json
 import math
 import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -260,71 +278,83 @@ import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N_ENVS = 4096
+# phase 5's depth: steps of each main phase after MAIN_WARMUP untimed ones;
+# the Factory family and IndustReal run FACTORY_STEPS, Pick PICK_STEPS, so
+# that its 100-step episode ends inside the phase (the close-and-lift
+# epilogue)
+MAIN_WARMUP, MAIN_STEPS, FACTORY_STEPS, PICK_STEPS = 3, 10, 10, 100
 PHASES = (  # tag, task, use_contact_kernel, steps, envs
-    ("ant", "Ant", False, 50, N_ENVS),
-    ("ant_b4", "Ant", True, 50, N_ENVS),
-    ("ball_balance", "BallBalance", False, 50, N_ENVS),
-    ("ball_balance_b4", "BallBalance", True, 50, N_ENVS),
-    ("franka_reach_ma", "FrankaReachMA", False, 50, 8192),
-    ("franka_reach_ma_b4", "FrankaReachMA", True, 50, 8192),
-    ("cartpole", "Cartpole", False, 50, 512),
-    ("franka_collect_ma", "FrankaCollectMA", False, 50, 8192),
-    ("franka_collect_ma_b4", "FrankaCollectMA", True, 50, 8192),
-    ("franka_ppma", "FrankaPPMA", False, 50, 8192),
-    ("franka_ppma_b4", "FrankaPPMA", True, 50, 8192),
-    ("franka_combine_ma", "FrankaCombineMA", False, 50, 8192),
-    ("humanoid", "Humanoid", False, 50, N_ENVS),
-    ("humanoid_b4", "Humanoid", True, 50, N_ENVS),
-    ("anymal", "Anymal", False, 50, N_ENVS),
-    ("anymal_b4", "Anymal", True, 50, N_ENVS),
-    ("anymal_terrain", "AnymalTerrain", False, 50, N_ENVS),
-    ("anymal_terrain_b4", "AnymalTerrain", True, 50, N_ENVS),
-    ("ingenuity", "Ingenuity", False, 50, N_ENVS),
-    ("ingenuity_b4", "Ingenuity", True, 50, N_ENVS),
-    ("quadcopter", "Quadcopter", False, 50, N_ENVS),
-    ("franka_reach", "FrankaReach", False, 50, N_ENVS),
-    ("franka_reach_b4", "FrankaReach", True, 50, N_ENVS),
-    ("franka_cabinet", "FrankaCabinet", False, 50, N_ENVS),
-    ("franka_cabinet_b4", "FrankaCabinet", True, 50, N_ENVS),
-    ("franka_cube_stack", "FrankaCubeStack", False, 50, 8192),
-    ("franka_cube_stack_b4", "FrankaCubeStack", True, 50, 8192),
-    ("franka_cube_stack2", "FrankaCubeStack2", False, 50, 8192),
-    ("trifinger", "Trifinger", False, 50, 16384),
-    ("trifinger_b4", "Trifinger", True, 50, 16384),
-    ("allegro_kuka", "AllegroKuka", False, 50, 8192),
-    ("allegro_kuka_b4", "AllegroKuka", True, 50, 8192),
-    ("allegro_kuka_two_arms", "AllegroKukaTwoArms", False, 50, 8192),
-    ("allegro_kuka_two_arms_b4", "AllegroKukaTwoArms", True, 50, 8192),
+    ("ant", "Ant", False, MAIN_STEPS, N_ENVS),
+    ("ant_b4", "Ant", True, MAIN_STEPS, N_ENVS),
+    ("ball_balance", "BallBalance", False, MAIN_STEPS, N_ENVS),
+    ("ball_balance_b4", "BallBalance", True, MAIN_STEPS, N_ENVS),
+    ("franka_reach_ma", "FrankaReachMA", False, MAIN_STEPS, 8192),
+    ("franka_reach_ma_b4", "FrankaReachMA", True, MAIN_STEPS, 8192),
+    ("cartpole", "Cartpole", False, MAIN_STEPS, 512),
+    ("franka_collect_ma", "FrankaCollectMA", False, MAIN_STEPS, 8192),
+    ("franka_collect_ma_b4", "FrankaCollectMA", True, MAIN_STEPS, 8192),
+    ("franka_ppma", "FrankaPPMA", False, MAIN_STEPS, 8192),
+    ("franka_ppma_b4", "FrankaPPMA", True, MAIN_STEPS, 8192),
+    ("franka_combine_ma", "FrankaCombineMA", False, MAIN_STEPS, 8192),
+    ("humanoid", "Humanoid", False, MAIN_STEPS, N_ENVS),
+    ("humanoid_b4", "Humanoid", True, MAIN_STEPS, N_ENVS),
+    ("anymal", "Anymal", False, MAIN_STEPS, N_ENVS),
+    ("anymal_b4", "Anymal", True, MAIN_STEPS, N_ENVS),
+    ("anymal_terrain", "AnymalTerrain", False, MAIN_STEPS, N_ENVS),
+    ("anymal_terrain_b4", "AnymalTerrain", True, MAIN_STEPS, N_ENVS),
+    ("ingenuity", "Ingenuity", False, MAIN_STEPS, N_ENVS),
+    ("ingenuity_b4", "Ingenuity", True, MAIN_STEPS, N_ENVS),
+    ("quadcopter", "Quadcopter", False, MAIN_STEPS, N_ENVS),
+    ("franka_reach", "FrankaReach", False, MAIN_STEPS, N_ENVS),
+    ("franka_reach_b4", "FrankaReach", True, MAIN_STEPS, N_ENVS),
+    ("franka_cabinet", "FrankaCabinet", False, MAIN_STEPS, N_ENVS),
+    ("franka_cabinet_b4", "FrankaCabinet", True, MAIN_STEPS, N_ENVS),
+    ("franka_cube_stack", "FrankaCubeStack", False, MAIN_STEPS, 8192),
+    ("franka_cube_stack_b4", "FrankaCubeStack", True, MAIN_STEPS, 8192),
+    ("franka_cube_stack2", "FrankaCubeStack2", False, MAIN_STEPS, 8192),
+    ("trifinger", "Trifinger", False, MAIN_STEPS, 16384),
+    ("trifinger_b4", "Trifinger", True, MAIN_STEPS, 16384),
+    ("allegro_kuka", "AllegroKuka", False, MAIN_STEPS, 8192),
+    ("allegro_kuka_b4", "AllegroKuka", True, MAIN_STEPS, 8192),
+    ("allegro_kuka_two_arms", "AllegroKukaTwoArms", False, MAIN_STEPS, 8192),
+    ("allegro_kuka_two_arms_b4", "AllegroKukaTwoArms", True, MAIN_STEPS, 8192),
     # the hands split masses: the contact kernel requested, the engine
     # takes its batched loop (the JAX route rule)
-    ("shadow_hand", "ShadowHand", True, 50, 8192),
-    ("allegro_hand", "AllegroHand", True, 50, 8192),
-    ("shadow_hand_openai_ff", "ShadowHandOpenAI_FF", True, 50, 16384),
-    ("allegro_hand_lstm", "AllegroHandLSTM", True, 50, 16384),
+    ("shadow_hand", "ShadowHand", True, MAIN_STEPS, 8192),
+    ("allegro_hand", "AllegroHand", True, MAIN_STEPS, 8192),
+    ("shadow_hand_openai_ff", "ShadowHandOpenAI_FF", True, MAIN_STEPS,
+     16384),
+    ("allegro_hand_lstm", "AllegroHandLSTM", True, MAIN_STEPS, 16384),
     # Dextreme: AllegroHand's scene; ADR's rows bring restitution and limit
     # shifts to the engine, which keep it on the loop too
     ("allegro_hand_dextreme_manual_dr", "AllegroHandDextremeManualDR", True,
-     50, 8192),
-    ("allegro_hand_dextreme_adr", "AllegroHandDextremeADR", True, 50, 8192),
+     MAIN_STEPS, 8192),
+    ("allegro_hand_dextreme_adr", "AllegroHandDextremeADR", True, MAIN_STEPS,
+     8192),
     # the Factory family and IndustReal at their published 128 envs (Pick
     # also at 1024), the contact kernel requested: warm start and mass
     # splitting take the batched loop (the JAX route rule), B5 only at
     # Screw (its operational-space controller), B4 never
-    ("factory_pick", "FactoryTaskNutBoltPick", True, 100, 128),
-    ("factory_pick_1024", "FactoryTaskNutBoltPick", True, 100, 1024),
-    ("factory_place", "FactoryTaskNutBoltPlace", True, 100, 128),
-    ("factory_screw", "FactoryTaskNutBoltScrew", True, 100, 128),
-    ("factory_gears", "FactoryTaskGears", True, 100, 128),
-    ("factory_insertion", "FactoryTaskInsertion", True, 100, 128),
-    ("industreal_pegs_insert", "IndustRealTaskPegsInsert", True, 100, 128),
-    ("industreal_gears_insert", "IndustRealTaskGearsInsert", True, 100,
+    ("factory_pick", "FactoryTaskNutBoltPick", True, PICK_STEPS, 128),
+    ("factory_pick_1024", "FactoryTaskNutBoltPick", True, PICK_STEPS,
+     1024),
+    ("factory_place", "FactoryTaskNutBoltPlace", True, FACTORY_STEPS,
      128),
+    ("factory_screw", "FactoryTaskNutBoltScrew", True, FACTORY_STEPS,
+     128),
+    ("factory_gears", "FactoryTaskGears", True, FACTORY_STEPS, 128),
+    ("factory_insertion", "FactoryTaskInsertion", True, FACTORY_STEPS,
+     128),
+    ("industreal_pegs_insert", "IndustRealTaskPegsInsert", True,
+     FACTORY_STEPS, 128),
+    ("industreal_gears_insert", "IndustRealTaskGearsInsert", True,
+     FACTORY_STEPS, 128),
     # HumanoidAMP (Reference State Init from its motion clips) on the
     # default loop and on B4, and HumanoidAMPHands (the cartwheel clip) on
     # the loop
-    ("humanoid_amp", "HumanoidAMP", False, 50, N_ENVS),
-    ("humanoid_amp_b4", "HumanoidAMP", True, 50, N_ENVS),
-    ("humanoid_amp_hands", "HumanoidAMPHands", False, 50, N_ENVS),
+    ("humanoid_amp", "HumanoidAMP", False, MAIN_STEPS, N_ENVS),
+    ("humanoid_amp_b4", "HumanoidAMP", True, MAIN_STEPS, N_ENVS),
+    ("humanoid_amp_hands", "HumanoidAMPHands", False, MAIN_STEPS, N_ENVS),
 )
 # tasks built for phase 6 only: tag, task, envs (Pick at the width of the
 # repo's solved run, BASELINE.md:90)
@@ -353,9 +383,6 @@ FACTORY_SCENES = ("factory_pick", "factory_pick_1024", "factory_screw",
 # (ManualDR runs the ADR scene's kernels)
 HAND_SCENES = ("shadow_hand", "allegro_hand", "shadow_hand_openai_ff",
                "allegro_hand_lstm", "allegro_hand_dextreme_adr")
-# the scenes whose B1-B3 twins are also timed over the kernels' 5 x 20
-# calls beside twin_ms's 3 x 5 (``[twin_timing]``)
-TWIN_TIMING_SCENES = ("ant", "shadow_hand")
 # the Franka tasks with OSC (kernel B5 twice every step); FrankaCabinet
 # drives its arm with joint torques
 OSC_TASKS = ("FrankaReachMA", "FrankaCollectMA", "FrankaPPMA",
@@ -413,11 +440,12 @@ TRAIN_RUNS = (("train_ant", "ant", "Ant", 1, 3),
               ("train_allegro_hand_dextreme_adr", "allegro_hand_dextreme_adr",
                "AllegroHandDextremeADR", 1, 1),
               # Factory Pick at 512 envs (its close-and-lift epilogue on
-              # an episode's last step) and IndustReal's pegs at 128
+              # an episode's last step) and IndustReal's pegs at 128, one
+              # epoch each without a warm-up (an epoch takes 20-26 s)
               ("train_factory_pick", "factory_pick_512",
-               "FactoryTaskNutBoltPick", 1, 1),
+               "FactoryTaskNutBoltPick", 0, 1),
               ("train_industreal_pegs_insert", "industreal_pegs_insert",
-               "IndustRealTaskPegsInsert", 1, 1))
+               "IndustRealTaskPegsInsert", 0, 1))
 # phase 6's other learners, each 1 warm-up and 1 timed epoch: the AMP
 # learner on HumanoidAMP with its config; SAC on AntSAC and HumanoidSAC
 # with theirs (8 env steps an epoch, the 5 seed steps in the warm-up
@@ -496,8 +524,25 @@ def phase(tag, **fields):
           flush=True)
 
 
+# seconds spent in the helpers marked @timed since the last phase lap,
+# each including the helpers it calls
+HELPER_SECONDS = collections.Counter()
+
+
+def timed(fn):
+    @functools.wraps(fn)
+    def wrapper(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            HELPER_SECONDS[fn.__name__] += time.perf_counter() - t0
+    return wrapper
+
+
 class PhaseClock:
-    """Prints each phase's seconds (``[phase_seconds]`` lines)."""
+    """Prints each phase's seconds (``[phase_seconds]`` lines) and the
+    seconds its @timed helpers took (``[helper_seconds]``)."""
 
     def __init__(self):
         self.t0 = self.t = time.perf_counter()
@@ -506,6 +551,11 @@ class PhaseClock:
         now = time.perf_counter()
         phase("phase_seconds", phase=name, seconds=f"{now - self.t:.2f}",
               total=f"{now - self.t0:.2f}")
+        if HELPER_SECONDS:
+            phase("helper_seconds", phase=name,
+                  **{k: f"{v:.2f}" for k, v in
+                     sorted(HELPER_SECONDS.items(), key=lambda x: -x[1])})
+        HELPER_SECONDS.clear()
         self.t = now
 
 
@@ -518,10 +568,11 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def gpu_ms(torch, fn, batches=5, per_batch=20):
+@timed
+def gpu_ms(torch, fn, batches=5, per_batch=20, warmup=3):
     """Median over batches of the mean device time of ``per_batch`` calls,
-    by CUDA events (warmed up first)."""
-    for _ in range(3):
+    by CUDA events (after ``warmup`` calls)."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -537,14 +588,17 @@ def gpu_ms(torch, fn, batches=5, per_batch=20):
     return statistics.median(times)
 
 
+@timed
 def twin_ms(torch, fn):
     """``gpu_ms`` of a plain twin, over fewer calls: a twin takes 2-190 ms
-    a call (hundreds of small launches), so 3 batches of 5 calls, a sixth
-    of the kernels' 5 batches of 20 (``[twin_timing]`` lines set the two
-    side by side at TWIN_TIMING_SCENES)."""
-    return gpu_ms(torch, fn, batches=3, per_batch=5)
+    a call (hundreds of small launches), so one batch of 3 calls after one
+    warm-up call.  3 x 5 and 5 x 20 calls gave Ant's and ShadowHand's B1-B3
+    twins within 1-37 % of each other (PERF.md §6), well inside the
+    kernels' 100-1000x lead."""
+    return gpu_ms(torch, fn, batches=1, per_batch=3, warmup=1)
 
 
+@timed
 def device_us(torch, fn, kernel, calls=20):
     """Mean device time (us) per launch of the CUDA kernel whose name holds
     ``kernel``, by CUPTI (torch.profiler) over the launches it records of
@@ -655,6 +709,7 @@ def flops_contact(cplan):
     return build + cplan.num_iterations * it + 6 * nnz["c"] + 2 * nv
 
 
+@timed
 def rounding_noise(torch, run, run64, args, kw=None):
     """How far float32 rounding alone moves a twin, per output and env:
     the largest, over the env's entries, of the float32 twin's distance
@@ -768,6 +823,7 @@ def zero_obs(torch, task, dev):
     return torch.zeros((task.rl_games_batch, task.num_obs), device=dev)
 
 
+@timed
 def run_steps(torch, task, state, obs, act, steps):
     for _ in range(steps):
         state, res = task.step(state, act(obs))
@@ -775,6 +831,7 @@ def run_steps(torch, task, state, obs, act, steps):
     return state, obs
 
 
+@timed
 def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
                       scales=None):
     """B1-B3 against their twins on one scene's state; returns per kernel
@@ -798,15 +855,6 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
     close = lambda what, a, b, rtol, atol, noise=None: hold(  # noqa: E731
         f"{scene} {what}", a, b, rtol, atol, noise)
 
-    def plain_ms(name, fn):
-        """``twin_ms`` of a twin; at TWIN_TIMING_SCENES also ``gpu_ms``'s
-        5 batches of 20 calls, in the same run (``[twin_timing]``)."""
-        ms = twin_ms(torch, fn)
-        if scene in TWIN_TIMING_SCENES:
-            phase("twin_timing", scene=scene, name=name,
-                  ms_3x5=f"{ms:.5f}", ms_5x20=f"{gpu_ms(torch, fn):.5f}")
-        return ms
-
     def noise(twin, names, *a):
         """{output name: rounding_noise pair} for the twin's outputs (named
         ``names`` in order) that ``widen`` names."""
@@ -823,8 +871,7 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
               close("fk_motion S", S, rS, 1e-5, 1e-5))
     report["fk_motion"] = dict(
         max_abs_err=err, ms=gpu_ms(torch, lambda: dk.fk_motion(plan, q_bl)),
-        plain_ms=plain_ms("fk_motion",
-                          lambda: dk._fk_motion_bl(plan, q_bl)),
+        plain_ms=twin_ms(torch, lambda: dk._fk_motion_bl(plan, q_bl)),
         device_us=device_us(torch, lambda: dk.fk_motion(plan, q_bl),
                             "fk_motion_kernel"),
         bytes=nbytes(q_bl, bx, bq, S), flops=flops_fk(plan) * N)
@@ -857,8 +904,7 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
                          ((2e-4, 2e-4), (2e-4, 1e-5), (1e-5, 1e-5)))))
     report["dyn_forward"] = dict(
         max_abs_err=err, ms=gpu_ms(torch, lambda: dk.dyn_forward(plan, *args)),
-        plain_ms=plain_ms("dyn_forward",
-                          lambda: dk.dyn_full_bl(plan, consts, *args)),
+        plain_ms=twin_ms(torch, lambda: dk.dyn_full_bl(plan, consts, *args)),
         device_us=device_us(torch, lambda: dk.dyn_forward(plan, *args),
                             "dyn_forward_kernel"),
         bytes=nbytes(*args, qdd, hinv, io), flops=flops_dyn_forward(plan) * N)
@@ -875,8 +921,8 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
     report["dyn_cached"] = dict(
         max_abs_err=err,
         ms=gpu_ms(torch, lambda: dk.dyn_cached(plan, *cargs)),
-        plain_ms=plain_ms("dyn_cached",
-                          lambda: dk.dyn_cached_bl(plan, consts, *cargs)),
+        plain_ms=twin_ms(torch,
+                         lambda: dk.dyn_cached_bl(plan, consts, *cargs)),
         device_us=device_us(torch, lambda: dk.dyn_cached(plan, *cargs),
                             "dyn_cached_kernel"),
         bytes=nbytes(*cargs, qdd_c), flops=flops_dyn_cached(plan) * N,
@@ -884,6 +930,7 @@ def check_dyn_kernels(torch, dk, task, q_bl, qd_bl, dev, scene, widen=(),
     return report
 
 
+@timed
 def check_scaled_dyn(torch, dk, task, q_bl, qd_bl, mass, shape, dev, scene,
                      widen):
     """B2 with per-env ``mass`` (N, nb) and ``shape`` (N, nb, 3) scales
@@ -944,6 +991,7 @@ def check_scaled_dyn(torch, dk, task, q_bl, qd_bl, mass, shape, dev, scene,
     return errs
 
 
+@timed
 def capture_contact_inputs(torch, ck, task, dev, steps, grabs=False,
                            landed_z=None):
     """Run ``steps`` steps of a B4-route task and return the batch-last
@@ -1041,6 +1089,7 @@ def synthetic_grab_call(torch, np, ck, dev, N=N_ENVS, nv=14, P=8, A=2, G=2):
     return plan, (S, Hinv), kw
 
 
+@timed
 def check_contact_kernel(torch, ck, call, scene, widen):
     """B4 against its twin on one call's inputs (rtol = atol = 1e-4: the
     kernel sums over rows and dofs in another order; with ``widen``, per
@@ -1092,6 +1141,7 @@ def seeded_spd(torch, B, n, seed, dev):
     return A @ A.transpose(1, 2) + 3.0 * torch.eye(n, device=dev)
 
 
+@timed
 def check_spd_kernel(torch, sk, dk, H, label, widen):
     """B5 against its twin on a (B, n, n) SPD stack: rtol 1e-4 / atol 1e-6
     per entry (the kernel rounds fused multiply-adds once); with
@@ -1120,16 +1170,18 @@ def check_spd_kernel(torch, sk, dk, H, label, widen):
                 bytes=nbytes(H, out), flops=flops_spd(n) * B, n=n)
 
 
-def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
-    """One main-path phase: warm up, set every launch count to 0, drive
-    ``steps`` steps, read the counts.  Fails on non-finite output, a wrong
+@timed
+def main_phase(torch, wrappers, task, dev, steps, expected, forbidden,
+               warmup=MAIN_WARMUP):
+    """One main-path phase: ``warmup`` steps, every launch count set to 0,
+    ``steps`` steps, the counts read.  Fails on non-finite output, a wrong
     shape, a kernel of ``expected`` never launched or one of ``forbidden``
     launched.  For a task with grab constraints it also sums, on the card,
     the agent rows with a grab live in each step's control."""
     act = policy(torch, task, dev)
     state = task.initial_state()
     obs = zero_obs(torch, task, dev)
-    state, obs = run_steps(torch, task, state, obs, act, 10)   # warm-up
+    state, obs = run_steps(torch, task, state, obs, act, warmup)
     finite = torch.ones((), dtype=torch.bool, device=dev)
     resets = torch.zeros((), dtype=torch.int64, device=dev)
     grab_rows = torch.zeros((), dtype=torch.float32, device=dev)
@@ -1176,6 +1228,7 @@ def main_phase(torch, wrappers, task, dev, steps, expected, forbidden):
                 host_waits=waits)
 
 
+@timed
 def dr_stats(torch, task, dev, steps=20):
     """The domain randomization on a task's main path (Trifinger): ``steps``
     steps of the tanh policy from a fresh state with the noise the step
@@ -1250,6 +1303,7 @@ def check_launches(launches, expected, forbidden, what):
         raise RuntimeError(f"{what} launched kernels {stray} off their path")
 
 
+@timed
 def train_run(torch, wrappers, agent, warm, epochs, expected, forbidden):
     """One training run: ``warm`` epochs, every launch count set to 0, then
     ``epochs`` timed epochs, each by CUDA events split at the start of the
@@ -1341,6 +1395,7 @@ def report_ppo(tag, task, agent, rows, launches, epochs, **extra):
           launches=json.dumps(launches).replace(" ", ""), **extra)
 
 
+@timed
 def sac_run(torch, wrappers, agent, warm, epochs, expected, forbidden):
     """One SAC run: ``warm`` epochs (the seed steps among them), every
     launch count set to 0, then ``epochs`` timed epochs, each by CUDA
@@ -1399,6 +1454,7 @@ def sac_run(torch, wrappers, agent, warm, epochs, expected, forbidden):
     return rows, launches
 
 
+@timed
 def amp_rsi_check(torch, task, dev, steps=10):
     """Reference State Init on the card: ``steps`` steps of the tanh policy
     from a fresh state, then one step with every other env flagged to
@@ -1591,6 +1647,7 @@ def check_hand_kernels(torch, dk, task, dev, scene):
                              ("qdd", "Hinv"))
 
 
+@timed
 def hand_stats(torch, task, dev, tag, steps=10):
     """The hands' engine features live on the main path: ``steps`` steps
     of the tanh policy after 10 with the engine's row scale spied (every
@@ -1759,6 +1816,7 @@ def restitution_phase(torch, np, tasks, dev, steps_in=30):
         raise RuntimeError(f"restitution routes {routes}")
 
 
+@timed
 def dextreme_stats(torch, task, dev, tag, steps=10):
     """Dextreme's randomization on the main path: ``steps`` steps of the
     tanh policy after 10 with ``pre_physics`` spied.  ``[rna]``: the share
@@ -1846,6 +1904,7 @@ def shim_phase(torch, task, dev, steps=5):
                            f"shapes {shapes}")
 
 
+@timed
 def host_waits(torch, task, state, act, obs):
     """Host waits for the card in one ``task.step`` (CUDA sync debug
     mode), by file and line."""
@@ -2033,6 +2092,18 @@ DIST_ARGS = ("task=Ant", "num_envs=4096", "multi_gpu=True",
 DIST_TAGS = ("losses/loss", "losses/a_loss", "losses/c_loss", "info/kl",
              "info/lr", "info/entropy", "info/sigma", "Episode/mean_return",
              "Episode/mean_length")
+# [dist_sac] / [dist_amp]: AntSAC-4096 and HumanoidAMP-4096 (global) over 2
+# ranks on cuda:0 through the train entry point with their configs, 1
+# warm-up epoch (AntSAC's holds its 5 seed steps) and 1 timed
+DIST_LEARNERS = (
+    ("dist_sac", ("task=Ant", "train=AntSAC", f"num_envs={N_ENVS}",
+                  "multi_gpu=True", "sim_device=cuda:0", "log_interval=1",
+                  "seed=42")),
+    ("dist_amp", ("task=HumanoidAMP", f"num_envs={N_ENVS}", "multi_gpu=True",
+                  "sim_device=cuda:0", "log_interval=1", "seed=42")))
+# the gradient all-reduces of one update: PPO's and AMP's one (AMP's
+# discriminator adds one an epoch), SAC's three (critic, actor, temperature)
+ALLREDUCES_PER_UPDATE = {"dist_sac": 3}
 NORMAL_FRAMES_STEPS = 50
 # the card's step held against the CPU twins on its first 512 envs, the
 # spread from eight nudged runs (as scripts/record_torch_golden.py's
@@ -2045,8 +2116,9 @@ PBT_OBJECTIVES = (1.0, 5.0, 9.0)
 def train_rank(args):
     """One rank's run of the train entry point with ``args`` (the
     process group joined from torchrun's variables); returns its report:
-    epoch seconds, launches, the last epoch's all-reduce ms (CUDA events)
-    and bytes, the parameter + Adam digest, the loss, the run dir."""
+    epoch seconds, launches, the last epoch's all-reduce and combine ms
+    (CUDA events) and bytes, the replicated state's digest, the losses,
+    the replay fill, the run dir."""
     import torch
     from isaacgymenvs_ma_tpu_torch import train as train_cli
     from isaacgymenvs_ma_tpu_torch.parallel.mesh import state_digest
@@ -2057,15 +2129,21 @@ def train_rank(args):
     torch.cuda.synchronize()
     launches = {name: w.launches for name, w in KERNEL_WRAPPERS.items()}
     dp = agent.dist
-    ms = dp.collect_timings()
-    per_epoch = len(ms) // max(agent.epoch, 1)
+    losses = {k: float(agent.metrics[k])
+              for k in ("loss", "critic_loss", "actor_loss", "disc_loss")
+              if k in agent.metrics}
+    fill = getattr(agent, "buf_n", getattr(agent, "replay_n", None))
+    # the collectives of the last epoch (DataParallel.mark_epoch)
     return dict(
         rank=dp.rank, world=dp.world, backend=dp.backend,
         envs=agent.task.num_envs, epoch_seconds=agent.epoch_seconds,
-        launches=launches, allreduce_ms=ms[-per_epoch:] if ms else [],
-        allreduce_bytes=dp.allreduce_bytes, updates_per_epoch=per_epoch,
-        digest=state_digest(agent),
-        loss=float(agent.metrics["loss"]), run_dir=agent.run_dir)
+        launches=launches, allreduce_ms=dp.collect_timings("allreduce"),
+        allreduce_bytes=dp.allreduce_bytes,
+        combine_ms=dp.collect_timings("combine"),
+        combine_bytes=dp.combine_bytes,
+        digest=state_digest(agent), losses=losses,
+        loss=losses.get("loss", losses.get("critic_loss")), fill=fill,
+        run_dir=agent.run_dir)
 
 
 def dist_worker(args):
@@ -2098,11 +2176,13 @@ def nccl_world_one(epochs, experiment):
                 os.environ[k] = v
 
 
-def run_dist(nproc, backend, epochs, experiment):
-    """The [dist_rank] dicts of a torch.distributed.run launch."""
+@timed
+def run_dist(nproc, backend, epochs, experiment, args=DIST_ARGS):
+    """The [dist_rank] dicts of a torch.distributed.run launch of the
+    train entry point with ``args``."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc_per_node={nproc}", os.path.join(HERE, "chip_smoke.py"),
-           "--dist-worker", *DIST_ARGS, f"dist_backend={backend}",
+           "--dist-worker", *args, f"dist_backend={backend}",
            f"max_iterations={epochs}", f"experiment={experiment}"]
     out = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
                          timeout=900)
@@ -2118,10 +2198,99 @@ def run_dist(nproc, backend, epochs, experiment):
     return sorted(ranks, key=lambda r: r["rank"])
 
 
+def dist_learner_phase(torch, task):
+    """``[dist_sac]`` and ``[dist_amp]``: each of DIST_LEARNERS over 2
+    gloo ranks on cuda:0, each rank's epoch seconds, B1-B3 launches,
+    all-reduce and combine ms (CUDA events), replay fill, losses and
+    digest, failing unless the digests agree, the losses are finite and
+    each rank launched B1-B3; then the 2-rank SAC checkpoint resumed in
+    this process on ``task`` (Ant-4096), bit-equal with its ring."""
+    from isaacgymenvs_ma_tpu_torch.learning import checkpoint as ckpt
+    from isaacgymenvs_ma_tpu_torch.learning.configs import (
+        train_default_config)
+    from isaacgymenvs_ma_tpu_torch.learning.sac import SACAgent
+    runs = {}
+    for tag, args in DIST_LEARNERS:
+        t0 = time.perf_counter()
+        ranks = run_dist(2, "gloo", 2, tag, args)
+        launch_s = time.perf_counter() - t0
+        calls = ALLREDUCES_PER_UPDATE.get(tag, 1)
+        for r in ranks:
+            ms, cms = r["allreduce_ms"], r["combine_ms"]
+            per_update = [sum(ms[i: i + calls])
+                          for i in range(0, len(ms) - calls + 1, calls)]
+            phase(tag, rank=r["rank"], world=r["world"],
+                  backend=r["backend"], envs_per_rank=r["envs"],
+                  warmup_epoch_seconds=f"{r['epoch_seconds'][0]:.4f}",
+                  epoch_seconds=f"{r['epoch_seconds'][-1]:.4f}",
+                  launches=json.dumps(r["launches"]).replace(" ", ""),
+                  allreduce_ms_per_update=(
+                      f"{statistics.median(per_update):.4f}" if per_update
+                      else "not_measured"),
+                  allreduces=len(ms),
+                  allreduce_bytes_per_epoch=r["allreduce_bytes"],
+                  combine_ms=(f"{statistics.median(cms):.4f}" if cms
+                              else "not_measured"),
+                  combines=len(cms),
+                  combine_bytes_per_epoch=r["combine_bytes"],
+                  fill=r["fill"],
+                  losses=json.dumps({k: float(f"{v:.6g}") for k, v in
+                                     r["losses"].items()}).replace(" ", ""),
+                  digest=r["digest"][:16], launch_seconds=f"{launch_s:.1f}")
+            check_launches(r["launches"], DYN, ("contact_solve",
+                                                "spd_inverse"),
+                           f"{tag} rank {r['rank']}")
+            if not r["losses"] or not all(math.isfinite(v) for v in
+                                          r["losses"].values()):
+                raise RuntimeError(f"{tag} rank {r['rank']} losses "
+                                   f"{r['losses']}")
+            if not ms or not cms:
+                raise RuntimeError(f"{tag} rank {r['rank']} reduced nothing "
+                                   "on the card")
+        if len({r["digest"] for r in ranks}) != 1:
+            raise RuntimeError(f"{tag} digests differ: "
+                               f"{[r['digest'] for r in ranks]}")
+        runs[tag] = ranks
+    # the 2-rank SAC checkpoint resumed in one process
+    run_dir = os.path.join(HERE, runs["dist_sac"][0]["run_dir"])
+    path = os.path.join(run_dir, "nn", "dist_sac.pth")
+    saved, _, meta = ckpt.load_checkpoint(path)
+    agent = SACAgent(task, train_default_config("AntSAC"), seed=42)
+    agent.init()
+    ckpt.load_agent(path, agent, task)
+    sd = agent.state_dict()
+    eq = lambda a, b: torch.equal(a.cpu(), b.cpu())  # noqa: E731
+    same = all(eq(sd[w][k], v) for w in ("actor", "critic", "target")
+               for k, v in saved[w].items())
+    same &= all(eq(sd[w][k][f], v[f]) for w in ("actor_optim",
+                                               "critic_optim")
+                for k, v in saved[w].items() for f in ("exp_avg",
+                                                       "exp_avg_sq"))
+    same &= all(eq(sd["buffer"][k], v) for k, v in saved["buffer"].items())
+    same &= all(eq(sd["env_state"][k], v)
+                for k, v in saved["env_state"].items())
+    same &= eq(sd["log_alpha"], saved["log_alpha"])
+    same &= eq(sd["last_obs"], saved["last_obs"])
+    rows = int(saved["buffer"]["obs"].shape[0])
+    if not same or meta["world"] != 2 or agent.buf_n != saved["buf_n"] or \
+            rows != 16 * N_ENVS or \
+            saved["env_state"]["sim.q"].shape[0] != N_ENVS:
+        raise RuntimeError(f"2-rank SAC checkpoint resumed unlike saved "
+                           f"({meta}, ring rows {rows})")
+    phase("dist_sac", resumed_in_one_process=True,
+          checkpoint_world=meta["world"], ring_rows=rows,
+          buf_n=agent.buf_n, bit_equal=same)
+    del agent, sd
+    torch.cuda.empty_cache()
+    return runs
+
+
 def trace_worker():
     """``--trace-worker``: ``profiling.trace`` around TRACE_STEPS Ant-4096
     steps in a fresh process; prints a ``[trace_names]`` JSON line with
-    the annotate names and kernel names the exported trace holds."""
+    the annotate names and kernel names the exported trace holds and the
+    worker's seconds."""
+    t0 = time.perf_counter()
     import torch
     sys.path.insert(0, HERE)
     from isaacgymenvs_ma_tpu_torch.tasks import registry
@@ -2150,10 +2319,71 @@ def trace_worker():
                                                           "policy"))})
     print("[trace_names] " + json.dumps(dict(
         annotate=names, kernels=dict(kernels), path=prof.trace_path,
-        events=len(events))), flush=True)
+        events=len(events), seconds=time.perf_counter() - t0)), flush=True)
     return 0
 
 
+def dryrun_worker():
+    """``--dryrun-worker``: ``dryrun_multiproc`` over 2 gloo ranks on
+    cuda:0; prints a ``[dryrun_legs]`` JSON line: its legs and seconds."""
+    t0 = time.perf_counter()
+    sys.path.insert(0, HERE)
+    from isaacgymenvs_ma_tpu_torch.parallel.dryrun import dryrun_multiproc
+    legs = dryrun_multiproc(2, device="cuda:0", backend="gloo")
+    print("[dryrun_legs] " + json.dumps(dict(
+        legs=legs, seconds=time.perf_counter() - t0)), flush=True)
+    return 0
+
+
+def start_workers():
+    """Phase 7's ``[dryrun]`` and ``[trace]`` workers, each a fresh process
+    in a session of its own (``stop_workers`` ends it with its children),
+    its output under runs/smoke_workers/.  ``main`` starts them after
+    phase 3, so that they run beside phases 4-4b, which time nothing on
+    the card, and phase 7 reads them."""
+    out_dir = os.path.join(HERE, "runs", "smoke_workers")
+    os.makedirs(out_dir, exist_ok=True)
+    workers = {}
+    for flag in ("--dryrun-worker", "--trace-worker"):
+        out, err = (os.path.join(out_dir, flag.strip("-") + ext)
+                    for ext in (".out", ".err"))
+        with open(out, "w") as fo, open(err, "w") as fe:
+            proc = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"), flag],
+                cwd=HERE, stdout=fo, stderr=fe, start_new_session=True)
+        workers[flag] = (proc, out, err)
+    atexit.register(stop_workers, workers)
+    return workers
+
+
+def stop_workers(workers):
+    for proc, _, _ in workers.values():
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def finish_worker(workers, flag, tag, timeout=600):
+    """Wait for a worker of ``start_workers`` and return its ``[tag]``
+    JSON line, echoing its other lines; fails if it failed or printed no
+    such line."""
+    proc, out_path, err_path = workers[flag]
+    try:
+        proc.wait(timeout=timeout)
+    finally:
+        stop_workers({flag: workers[flag]})
+    out, err = open(out_path).read(), open(err_path).read()
+    lines = [ln for ln in out.splitlines() if ln.startswith(f"[{tag}] ")]
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"{flag} failed ({proc.returncode}):\n"
+                           f"{out[-3000:]}\n{err[-3000:]}")
+    for ln in out.splitlines():
+        if not ln.startswith(f"[{tag}] "):
+            print(ln, flush=True)
+    return json.loads(lines[0].split(" ", 1)[1])
+
+
+@timed
 def normal_frames_phase(torch, np, wrappers, dev):
     """``[normal_frames]``: AnymalTerrain-4096 with terrain_normal_frames
     and the contact kernel requested; returns its main-path launches."""
@@ -2171,9 +2401,12 @@ def normal_frames_phase(torch, np, wrappers, dev):
     if route != "loop" or eng.route_for(None) != "b4":
         raise RuntimeError(f"normal frames route {route}")
     steps = NORMAL_FRAMES_STEPS
+    # 10 warm-up steps, as since the phase began: their reset draws fix
+    # the state the CPU twins hold below (ROADMAP C8: from the state a
+    # 3-step warm-up leaves, one env of 512 exceeds its bound)
     r = main_phase(torch, wrappers, card, dev, steps,
                    ("fk_motion", "dyn_forward"),
-                   ("dyn_cached", "contact_solve", "spd_inverse"))
+                   ("dyn_cached", "contact_solve", "spd_inverse"), warmup=10)
     n_b2 = r["launches"]["dyn_forward"]
     if n_b2 < 4 * steps:
         raise RuntimeError(f"B2 launched {n_b2} times in {steps} steps of "
@@ -2257,6 +2490,7 @@ def normal_frames_phase(torch, np, wrappers, dev):
     return r["launches"]
 
 
+@timed
 def pbt_phase(torch, wrappers, dev):
     """``[pbt]``: three Cartpole-512 members on the card, one observer
     cycle; returns their launches."""
@@ -2345,16 +2579,17 @@ def pbt_phase(torch, wrappers, dev):
     return launches
 
 
-def glue_phase(torch, np, wrappers, tasks, dev):
+def glue_phase(torch, np, wrappers, tasks, dev, workers=None):
     """Phase 7; returns the in-process launches by scene and the
-    normal-frames run's."""
+    normal-frames run's.  ``workers``: those of ``start_workers``, started
+    here if None."""
     from isaacgymenvs_ma_tpu_torch import train as train_cli
     from isaacgymenvs_ma_tpu_torch.learning import checkpoint as ckpt
     from isaacgymenvs_ma_tpu_torch.learning.configs import (
         train_default_config)
     from isaacgymenvs_ma_tpu_torch.learning.ppo import PPOAgent
-    from isaacgymenvs_ma_tpu_torch.parallel.dryrun import dryrun_multiproc
     from isaacgymenvs_ma_tpu_torch.utils.observers import read_events
+    workers = workers or start_workers()
     launches = collections.Counter()
     # [dist]: 2 ranks over gloo on cuda:0, then NCCL at world 1
     t0 = time.perf_counter()
@@ -2370,7 +2605,7 @@ def glue_phase(torch, np, wrappers, tasks, dev):
               allreduce_ms_per_update=(
                   f"{statistics.median(ms):.4f}" if ms else "not_measured"),
               allreduce_updates=len(ms),
-              allreduce_bytes=r["allreduce_bytes"],
+              allreduce_bytes=r["allreduce_bytes"] // max(len(ms), 1),
               loss=f"{r['loss']:.6g}", digest=r["digest"][:16],
               launch_seconds=f"{dist_s:.1f}")
         check_launches(r["launches"], DYN, ("contact_solve", "spd_inverse"),
@@ -2390,7 +2625,8 @@ def glue_phase(torch, np, wrappers, tasks, dev):
           launches=json.dumps(nccl["launches"]).replace(" ", ""),
           allreduce_ms_per_update=(f"{statistics.median(ms):.4f}" if ms
                                    else "not_measured"),
-          allreduce_updates=len(ms), allreduce_bytes=nccl["allreduce_bytes"],
+          allreduce_updates=len(ms), allreduce_bytes=(
+              nccl["allreduce_bytes"] // max(len(ms), 1)),
           loss=f"{nccl['loss']:.6g}", seconds=f"{nccl_s:.1f}")
     check_launches(nccl["launches"], DYN, ("contact_solve", "spd_inverse"),
                    "dist nccl")
@@ -2419,14 +2655,16 @@ def glue_phase(torch, np, wrappers, tasks, dev):
     phase("dist", resumed_in_one_process=True, checkpoint_world=meta["world"],
           checkpoint_envs=saved["env_state"]["sim.q"].shape[0],
           bit_equal=same)
-    # [dryrun]
+    # [dist_sac], [dist_amp]
     t0 = time.perf_counter()
-    legs = dryrun_multiproc(2, device="cuda:0", backend="gloo")
-    dry_s = time.perf_counter() - t0
-    for r in legs:
+    dist_learner_phase(torch, task)
+    phase("dist_learners", seconds=f"{time.perf_counter() - t0:.1f}")
+    # [dryrun], from its worker
+    dry = finish_worker(workers, "--dryrun-worker", "dryrun_legs")
+    for r in dry["legs"]:
         phase("dryrun", task=r["task"], ranks=r["ranks"], envs=r["envs"],
               loss=f"{r['loss']:.6g}", kl=f"{r['kl']:.6g}",
-              digest=r["digest"][:16], seconds=f"{dry_s:.1f}")
+              digest=r["digest"][:16], seconds=f"{dry['seconds']:.1f}")
     # [summaries] of the [dist] run
     sdir = os.path.join(run_dir, "summaries")
     files = [f for f in os.listdir(sdir) if "tfevents" in f]
@@ -2478,17 +2716,8 @@ def glue_phase(torch, np, wrappers, tasks, dev):
           consecutive_differ=differ,
           launches=json.dumps(vl).replace(" ", ""),
           seconds=f"{time.perf_counter() - t0:.1f}")
-    # [trace] in a fresh process
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
-                          "--trace-worker"], cwd=HERE, capture_output=True,
-                         text=True, timeout=600)
-    lines = [ln for ln in out.stdout.splitlines()
-             if ln.startswith("[trace_names] ")]
-    if out.returncode != 0 or not lines:
-        raise RuntimeError(f"trace worker failed:\n{out.stdout[-3000:]}\n"
-                           f"{out.stderr[-3000:]}")
-    tr = json.loads(lines[0].split(" ", 1)[1])
+    # [trace], from its worker (a fresh process)
+    tr = finish_worker(workers, "--trace-worker", "trace_names")
     want = [f"ant_step_{i}" for i in range(TRACE_STEPS)] + ["policy"]
     found = {k: sum(c for n, c in tr["kernels"].items() if k in n)
              for k in DYN}
@@ -2499,7 +2728,7 @@ def glue_phase(torch, np, wrappers, tasks, dev):
           annotate=",".join(tr["annotate"]),
           kernels=json.dumps(found).replace(" ", ""),
           path=os.path.relpath(tr["path"], HERE),
-          seconds=f"{time.perf_counter() - t0:.1f}")
+          seconds=f"{tr['seconds']:.1f}")
     # [pbt]
     t0 = time.perf_counter()
     launches.update(pbt_phase(torch, wrappers, dev))
@@ -2513,6 +2742,8 @@ def main():
         return dist_worker(sys.argv[2:])
     if "--trace-worker" in sys.argv[1:2]:
         return trace_worker()
+    if "--dryrun-worker" in sys.argv[1:2]:
+        return dryrun_worker()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA device and does not fall back to the CPU",
@@ -2558,7 +2789,8 @@ def main():
         tasks = {"ant": make("Ant", False, N_ENVS)}
         plans = [("ant", tasks["ant"].engine.plan)]
         for name, n in (("Cartpole", 512), ("AnymalTerrain", 8),
-                        ("FrankaReachMA", 8), ("ShadowHand", 8)):
+                        ("FrankaReachMA", 8), ("ShadowHand", 8),
+                        ("HumanoidAMP", 8)):
             plans.append((name, make(name, False, n).engine.plan))
         build_all(_build, plans)
         clock.lap("build")
@@ -2723,6 +2955,7 @@ def main():
         return 0
 
     clock.lap("kernels")
+    workers = start_workers()
     # ---- 4. golden JAX captures replayed through the kernels; the B4 route
     # solves all candidate rows uncompacted, so FrankaReachMA has a capture
     # of each route
@@ -2892,7 +3125,7 @@ def main():
         if name in DEXTREME:
             dextreme_stats(torch, task, dev, tag)
         if name in FACTORY:
-            factory_stats(task, lift, reads0, steps + 11)
+            factory_stats(task, lift, reads0, MAIN_WARMUP + steps + 1)
         if tag == "humanoid_amp":
             amp_main = dict(r, steps=steps)
             amp_rsi = amp_rsi_check(torch, task, dev)
@@ -3042,7 +3275,8 @@ def main():
     clock.lap("train")
     # ---- 7. glue: data parallelism, the entry point's flags, profiling,
     # PBT, terrain normal frames
-    glue, nf_launches = glue_phase(torch, np, KERNEL_WRAPPERS, tasks, dev)
+    glue, nf_launches = glue_phase(torch, np, KERNEL_WRAPPERS, tasks, dev,
+                                   workers)
     for k, c in glue.items():
         total[k] += c
     clock.lap("glue")

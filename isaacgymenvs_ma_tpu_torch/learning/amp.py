@@ -26,9 +26,33 @@ the summed demo logits with respect to the demo inputs (each sample's
 logit depends on its own input only), kept in the graph
 (``create_graph``) and differentiated again through the ReLU layers.
 
+The discriminator phase's draws (the demo pairs' motion ids and times,
+the agent and replay indices) come from ``shared_generator`` (seeded by
+``parallel.mesh.shared_seed``).
+
+Data parallelism (``dist``), one program sharded over the envs as in JAX:
+PPO's half of the epoch is reduced as PPO's is, the style reward stays per
+env on each rank, and the discriminator phase is global.  Its draws are
+equal on every rank; the agent indices range over the global ``horizon x
+N`` rows (global row ``t N + e``, as JAX flattens the rollout's AMP obs)
+and ``dist.pick`` assembles the ``(amp_batch_size, 210)`` agent batch on
+every rank, so the replay ring (which stores it) stays replicated and
+``replay_n`` counts global rows; ``amp_rms`` takes every rank's agent obs
+through the global moments.  The discriminator step splits the batch W
+ways: rank ``r`` takes rows ``[r B/W, (r+1) B/W)`` of the demo and agent
+mix (its demo pairs fetched from its slice of the draws) and the gradient
+is averaged over the ranks before the Adam step, as PPO's is.  Means of
+equal shares make the BCE, the R1 penalty (a mean over the demo rows) and
+their gradients the global batch's; the logit regulariser's gradient is
+the same on every rank, so its average is itself.  (Running the whole
+batch on every rank would need no all-reduce, but it fetches and
+differentiates twice through every demo on every rank; splitting keeps
+the work per rank at 1/W, as the rest of the epoch's is.)
+``amp_batch_size`` is global; ``W`` must divide it.
+
 Test hook: ``train_epoch(..., amp_draws={"demo": (motion ids, times),
 "replay_idx": (amp_batch,), "agent_idx": (amp_batch,)})`` replaces the
-discriminator phase's draws.
+discriminator phase's draws (global ones under ``dist``).
 """
 from __future__ import annotations
 
@@ -39,6 +63,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..device import DTYPE
+from ..ops.rng import make_generator
+from ..parallel.mesh import check_batch, module_state, shared_seed
 from .networks import _mlp
 from .ppo import PPOAgent, Rollout
 from .running_norm import RunningMeanStd
@@ -70,12 +96,12 @@ class Discriminator(nn.Module):
 class AMPAgent(PPOAgent):
     algos = ("amp_continuous",)
 
-    def __init__(self, task, train_cfg: dict, seed: int = 42):
+    def __init__(self, task, train_cfg: dict, seed: int = 42, dist=None):
         if not hasattr(task, "fetch_amp_obs_demo"):
             raise ValueError(
                 f"amp_continuous needs a task with AMP observations "
                 f"(HumanoidAMP), not {type(task).__name__}")
-        super().__init__(task, train_cfg, seed)
+        super().__init__(task, train_cfg, seed, dist=dist)
         c = train_cfg["params"]["config"]
         self.task_reward_w = float(c.get("task_reward_w", 0.0))
         self.disc_reward_w = float(c.get("disc_reward_w", 0.5))
@@ -85,6 +111,8 @@ class AMPAgent(PPOAgent):
         self.disc_logit_reg = float(c.get("disc_logit_reg", 0.05))
         self.disc_lr = float(c.get("learning_rate", 5e-5))
         self.amp_batch = int(c.get("amp_batch_size", 512))
+        if self.world > 1:
+            check_batch("amp_batch_size", self.amp_batch, self.world)
         self.amp_dim = task.num_amp_obs
         self.replay_size = int(c.get("amp_replay_buffer_size", 100_000)) \
             // max(self.amp_dim // 64, 1)
@@ -102,6 +130,10 @@ class AMPAgent(PPOAgent):
         self.disc = Discriminator(
             self.amp_dim, self.disc_units,
             generator=torch.Generator().manual_seed(self.seed + 1)).to(dev)
+        if self.dist is not None:
+            self.dist.broadcast_tensors(self.disc.parameters())
+        self.shared_generator = make_generator(
+            shared_seed(self.seed, self.dist), dev)
         self.disc_optim = torch.optim.Adam(
             self.disc.parameters(), lr=self.disc_lr, eps=1e-8,
             capturable=dev.type == "cuda")
@@ -133,6 +165,8 @@ class AMPAgent(PPOAgent):
         :488-496)."""
         disc_r = self._disc_reward(roll.aux)
         self._disc_reward_mean = disc_r.mean()
+        if self.dist is not None:
+            self._disc_reward_mean = self.dist.mean(self._disc_reward_mean)
         return roll._replace(rewards=self.task_reward_w * roll.rewards
                              + self.disc_reward_w * disc_r)
 
@@ -162,38 +196,59 @@ class AMPAgent(PPOAgent):
         fresh demos (train_epoch :171-247), then the ring store."""
         draws = draws or {}
         dev, B, R = self.device, self.amp_batch, self.replay_size
-        agent_obs = self._last_amp_obs.reshape(-1, self.amp_dim)
-        demo_obs = self.task.fetch_amp_obs_demo(B, draws.get("demo"))
+        g = self.shared_generator
+        aux = self._last_amp_obs
+        agent_obs = aux.reshape(-1, self.amp_dim)
+        demo = draws.get("demo")
+        if demo is None:
+            demo = self.task.demo_draws(B, g)
         aidx = draws.get("agent_idx")
         if aidx is None:
-            aidx = torch.randint(0, agent_obs.shape[0], (B,),
-                                 generator=self.generator, device=dev)
-        agent_batch = agent_obs[aidx.long()]
+            aidx = torch.randint(0, agent_obs.shape[0] * self.world, (B,),
+                                 generator=g, device=dev)
+        if self.dist is None:
+            agent_batch = agent_obs[aidx.long()]
+        else:
+            # the global rows, assembled on every rank
+            agent_batch = self.dist.pick(aux, aidx)
         agent_mix = agent_batch
         if self.replay_n > B:
             # half agent, half replay (amp_continuous.py:225-247)
             ridx = draws.get("replay_idx")
             if ridx is None:
                 ridx = torch.randint(0, min(self.replay_n, R), (B,),
-                                     generator=self.generator, device=dev)
+                                     generator=g, device=dev)
             agent_mix = torch.cat([agent_batch[: B // 2],
                                    self.replay[ridx.long()][: B // 2]])
+        if self.dist is not None:
+            # this rank's share of the demo and agent rows
+            n = B // self.world
+            lo = self.dist.rank * n
+            agent_mix = agent_mix[lo: lo + n]
+            demo = tuple(x[lo: lo + n] for x in demo)
+        demo_obs = self.task.fetch_amp_obs_demo(agent_mix.shape[0], demo)
 
-        self.amp_rms.update(agent_obs)
+        red = None if self.dist is None else self.dist.sum
+        self.amp_rms.update(agent_obs, red)
         self.disc_optim.zero_grad(set_to_none=True)
         norm = self.amp_rms.normalize
         loss, (bce, gp, acc_a, acc_d) = self._disc_loss(norm(agent_mix),
                                                         norm(demo_obs))
         loss.backward()
+        if self.dist is not None:
+            self.dist.allreduce_grads(list(self.disc.parameters()))
         self.disc_optim.step()
 
         # replay store (ring)
         idx = (self.replay_n + torch.arange(B, device=dev)) % R
         self.replay[idx] = agent_batch
         self.replay_n += B
-        return {"disc_loss": loss.detach(), "disc_bce": bce.detach(),
-                "disc_grad_penalty": gp.detach(), "disc_acc_agent": acc_a,
-                "disc_acc_demo": acc_d}
+        m = torch.stack([loss.detach(), bce.detach(), gp.detach(), acc_a,
+                         acc_d])
+        if self.dist is not None:
+            m = self.dist.mean(m)
+        return dict(zip(("disc_loss", "disc_bce", "disc_grad_penalty",
+                         "disc_acc_agent", "disc_acc_demo"), m))
 
     def train_epoch(self, noise=None, perms=None, reset_draws=None,
                     amp_draws=None) -> Dict[str, object]:
@@ -206,9 +261,19 @@ class AMPAgent(PPOAgent):
         return metrics
 
     # ------------------------------------------------------------------
+    def replicated_state(self):
+        """PPO's, then the discriminator and its Adam, ``amp_rms`` and the
+        replay's filled rows."""
+        yield from super().replicated_state()
+        yield from module_state("disc.", self.disc, self.disc_optim)
+        for k, v in self.amp_rms.state_dict().items():
+            yield f"amp_rms.{k}", v
+        yield "replay", self.replay[: min(self.replay_n, self.replay_size)]
+
     def state_dict(self) -> dict:
         d = super().state_dict()
         d.update({
+            "shared_generator": self.shared_generator.get_state(),
             "disc": self.disc.state_dict(),
             "disc_optim": {name: dict(self.disc_optim.state[p])
                            for name, p in self.disc.named_parameters()
@@ -245,3 +310,5 @@ class AMPAgent(PPOAgent):
             self.replay[: rows.shape[0]] = rows
         if "replay_n" in d:
             self.replay_n = int(d["replay_n"])
+        if "shared_generator" in d:
+            self.shared_generator.set_state(d["shared_generator"].cpu())

@@ -67,6 +67,7 @@ import torch
 
 from ..device import DTYPE, apply_precision_policy
 from ..ops.rng import make_generator
+from ..parallel.mesh import module_state
 from ..physics.engine import SimState
 from ..tasks.base import EnvState
 from .networks import (build_network, gaussian_entropy, gaussian_kl,
@@ -596,6 +597,8 @@ class PPOAgent:
         """One epoch: rollout, GAE, update (JAX's jitted ``_train_epoch``).
         The metrics are device tensors (``frames`` an int); reading them is
         the only wait for the card."""
+        if self.dist is not None:
+            self.dist.mark_epoch()
         roll, last_obs, stats = self._rollout(noise, reset_draws)
         roll = self._transform_rewards(roll)
         adv, returns = self._gae(roll, last_obs)
@@ -653,6 +656,11 @@ class PPOAgent:
         return {name: dict(self.optim.state[p])
                 for name, p in self.net.named_parameters()
                 if p in self.optim.state}
+
+    def replicated_state(self):
+        """(name, tensor) of what every rank holds alike: the parameters
+        and their Adam state (``mesh.state_digest``)."""
+        return module_state("", self.net, self.optim)
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs (checkpoint ``ppo_state``)."""

@@ -19,11 +19,29 @@ and the ring indices cost no wait for the card.  Networks are float32 and
 initialised as flax's (lecun-normal kernels, zero biases) from a CPU
 generator seeded with ``seed``.
 
+The replay indices and the update's two N(0, 1) draws come from
+``shared_generator`` (seeded by ``parallel.mesh.shared_seed``), the
+per-env draws (seed-step uniforms, action noise) from ``generator``.
+
+Data parallelism (``dist``, a :class:`..parallel.mesh.DataParallel`), one
+program sharded over the envs as in JAX: each env step the ranks' ``(last
+obs, action, reward, next obs, done)`` rows are combined into the global
+rows in rank (= global env) order on every rank (``dist.rows``), so the
+ring, ``obs_rms`` (the global next obs), ``mean_return`` (the finished
+episodes' global sum and count), ``buf_n`` and the step count are
+replicated and equal to one process's.  The update draws the global
+batch's indices and noise alike on every rank, rank ``r`` takes rows
+``[r B/W, (r+1) B/W)`` of it, and the critic's, actor's and temperature's
+gradients are each averaged over the ranks before their Adam step, so
+Polyak runs on equal parameters.  ``batch_size`` is global; ``W`` must
+divide it.
+
 Test hooks: ``train_epoch(draws=[{"act": ..., "reset": ..., "idx": ...,
 "eps_next": ..., "eps_actor": ...}, ...])``, one dict a step: the action
 draw (the uniform (B, A) in [-1, 1) in a seed step, the N(0, 1) action
-noise after), the task's reset draws, and the update's replay indices and
-the two N(0, 1) draws (next actions, actor actions).
+noise after) and the task's reset draws, both this rank's, and the
+update's global replay indices and the two global N(0, 1) draws (next
+actions, actor actions).
 """
 from __future__ import annotations
 
@@ -38,6 +56,7 @@ from torch.nn import functional as F
 
 from ..device import DTYPE, apply_precision_policy
 from ..ops.rng import make_generator, rand_float
+from ..parallel.mesh import check_batch, module_state, shared_seed
 from .networks import _mlp, lecun_dense
 from .ppo import env_state_arrays, env_state_from_arrays
 from .running_norm import RunningMeanStd
@@ -111,7 +130,7 @@ class SACConfig(NamedTuple):
 
 
 class SACAgent:
-    def __init__(self, task, train_cfg: dict, seed: int = 42):
+    def __init__(self, task, train_cfg: dict, seed: int = 42, dist=None):
         params = train_cfg["params"]
         if params["algo"]["name"] != "sac":
             raise ValueError(f"SACAgent does not run algo "
@@ -138,6 +157,13 @@ class SACAgent:
             save_frequency=int(c.get("save_frequency", 1000)),
             score_to_win=float(c.get("score_to_win", 1e18)))
         self.batch = task.rl_games_batch
+        # data parallelism: the update's batch is global, each rank takes
+        # 1 / W of it; the ring holds every rank's rows
+        self.dist = dist
+        self.world = 1 if dist is None else dist.world
+        if self.world > 1:
+            check_batch("batch_size", self.batch_size, self.world)
+        self.local_batch = self.batch_size // self.world
         self.seed = seed
         self.actor = None
 
@@ -163,7 +189,14 @@ class SACAgent:
                                              lr=self.lr, capturable=cap)
         self.alpha_optim = torch.optim.Adam([self.log_alpha], lr=self.lr,
                                             capturable=cap)
+        if self.dist is not None:
+            self.dist.broadcast_tensors(
+                list(self.actor.parameters())
+                + list(self.critic.parameters())
+                + list(self.target.parameters()) + [self.log_alpha])
         self.generator = make_generator(self.seed, dev)
+        self.shared_generator = make_generator(
+            shared_seed(self.seed, self.dist), dev)
         self.obs_rms = RunningMeanStd((no,), dev)
         self.env_state, self.last_obs = task.reset(task.initial_state())
         R, f32 = self.replay_size, dict(dtype=DTYPE, device=dev)
@@ -200,46 +233,67 @@ class SACAgent:
                                         reset_draws=reset_draws)
         done = (res.reset > 0).to(DTYPE)
         ep_ret = self.ep_return + res.rew
+        stored_done = done * (1.0 - res.extras["time_outs"].to(DTYPE))
+        no, na = self.task.num_obs, self.task.num_actions
+        rows = torch.cat([self.last_obs, act, res.rew[:, None], res.obs,
+                          stored_done[:, None], done[:, None],
+                          ep_ret[:, None]], -1)
+        self.ep_return = torch.where(done > 0, 0.0, ep_ret)
+        self.env_state, self.last_obs = env_state, res.obs
+        if self.dist is not None:
+            # every rank's rows, in global env order
+            rows = self.dist.rows(rows)
+        obs, act, rew, next_obs, stored_done, done, ep_ret = torch.split(
+            rows, [no, na, 1, no, 1, 1, 1], -1)
+        rew, stored_done, done, ep_ret = (
+            x.squeeze(-1) for x in (rew, stored_done, done, ep_ret))
         finished = done > 0
         self.mean_return = torch.where(
             finished.any(),
             torch.where(finished, ep_ret, 0.0).sum()
             / torch.clamp(done.sum(), min=1.0),
             self.mean_return)
-        self.ep_return = torch.where(finished, 0.0, ep_ret)
         # ring store
-        idx = (self.buf_n + torch.arange(self.batch, device=self.device)
+        n = rows.shape[0]
+        idx = (self.buf_n + torch.arange(n, device=self.device)
                ) % self.replay_size
         buf = self.buffer
-        buf["obs"][idx] = self.last_obs
+        buf["obs"][idx] = obs
         buf["act"][idx] = act
-        buf["rew"][idx] = res.rew
-        buf["next_obs"][idx] = res.obs
-        buf["done"][idx] = done * (1.0 - res.extras["time_outs"].to(DTYPE))
+        buf["rew"][idx] = rew
+        buf["next_obs"][idx] = next_obs
+        buf["done"][idx] = stored_done
         if self.normalize_input:
-            self.obs_rms.update(res.obs)
-        self.env_state, self.last_obs = env_state, res.obs
-        self.buf_n += self.batch
+            self.obs_rms.update(next_obs)
+        self.buf_n += n
         self.step += 1
 
     def _update(self, idx=None, eps_next=None, eps_actor=None
                 ) -> Dict[str, torch.Tensor]:
-        """One gradient update on a replay batch."""
+        """One gradient update on a replay batch: the global batch's
+        indices and noise (drawn from ``shared_generator`` unless given),
+        this rank's rows of it."""
         dev, B = self.device, self.batch_size
+        g = self.shared_generator
+        shape = (B, self.task.num_actions)
         if idx is None:
             have = min(max(self.buf_n, 1), self.replay_size)
-            idx = torch.randint(0, have, (B,), generator=self.generator,
-                                device=dev)
+            idx = torch.randint(0, have, (B,), generator=g, device=dev)
+        if eps_next is None:
+            eps_next = torch.randn(shape, generator=g, device=dev)
+        if eps_actor is None:
+            eps_actor = torch.randn(shape, generator=g, device=dev)
+        if self.dist is not None:
+            lo = self.dist.rank * self.local_batch
+            idx, eps_next, eps_actor = (
+                x[lo: lo + self.local_batch]
+                for x in (idx, eps_next, eps_actor))
         b = {k: v[idx.long()] for k, v in self.buffer.items()}
         o, no_ = self._norm(b["obs"]), self._norm(b["next_obs"])
         alpha = torch.exp(self.log_alpha.detach())
-        shape = (B, self.task.num_actions)
-        draw = lambda e: (e if e is not None else torch.randn(  # noqa: E731
-            shape, generator=self.generator, device=dev))
 
         with torch.no_grad():
-            next_act, next_logp = _sample_action(*self.actor(no_),
-                                                 draw(eps_next))
+            next_act, next_logp = _sample_action(*self.actor(no_), eps_next)
             tq1, tq2 = self.target(no_, next_act)
             target_v = torch.minimum(tq1, tq2) - alpha * next_logp
             target_q = b["rew"] + self.gamma * (1.0 - b["done"]) * target_v
@@ -249,15 +303,17 @@ class SACAgent:
         closs = (torch.square(q1 - target_q).mean()
                  + torch.square(q2 - target_q).mean())
         closs.backward()
+        self._reduce_grads(self.critic.parameters())
         self.critic_optim.step()
 
         # the actor against the updated critic
         self.critic.requires_grad_(False)
         self.actor_optim.zero_grad(set_to_none=True)
-        act, logp = _sample_action(*self.actor(o), draw(eps_actor))
+        act, logp = _sample_action(*self.actor(o), eps_actor)
         q1, q2 = self.critic(o, act)
         aloss = (alpha * logp - torch.minimum(q1, q2)).mean()
         aloss.backward()
+        self._reduce_grads(self.actor.parameters())
         self.actor_optim.step()
         self.critic.requires_grad_(True)
 
@@ -265,6 +321,7 @@ class SACAgent:
         alloss = (torch.exp(self.log_alpha)
                   * (-logp.detach() - self.target_entropy)).mean()
         alloss.backward()
+        self._reduce_grads([self.log_alpha])
         self.alpha_optim.step()
 
         with torch.no_grad():
@@ -275,9 +332,16 @@ class SACAgent:
         return {"critic_loss": closs.detach(), "actor_loss": aloss.detach(),
                 "alpha": torch.exp(self.log_alpha.detach())}
 
+    def _reduce_grads(self, params) -> None:
+        """The global batch's gradient: the ranks' averaged."""
+        if self.dist is not None:
+            self.dist.allreduce_grads(list(params))
+
     def train_epoch(self, draws=None) -> Dict[str, object]:
         """``num_steps_per_episode`` env steps, each followed by an update
         once ``num_seed_steps`` have passed; the last step's losses."""
+        if self.dist is not None:
+            self.dist.mark_epoch()
         m = None
         for i in range(self.steps_per_epoch):
             d = draws[i] if draws is not None else {}
@@ -289,9 +353,13 @@ class SACAgent:
                 zero = torch.zeros((), dtype=DTYPE, device=self.device)
                 m = {"critic_loss": zero, "actor_loss": zero.clone(),
                      "alpha": torch.exp(self.log_alpha.detach())}
+        if self.dist is not None:
+            # the losses of the global batch: the mean of the ranks' halves
+            m["critic_loss"], m["actor_loss"] = self.dist.mean(
+                torch.stack([m["critic_loss"], m["actor_loss"]]))
         self.epoch += 1
         m["mean_return"] = self.mean_return
-        m["frames"] = self.step * self.batch
+        m["frames"] = self.step * self.batch * self.world
         return m
 
     # ------------------------------------------------------------------
@@ -303,6 +371,23 @@ class SACAgent:
             return torch.tanh(mu)
         return _sample_action(mu, log_std, torch.randn(
             mu.shape, generator=self.generator, device=self.device))[0]
+
+    def replicated_state(self):
+        """(name, tensor) of what every rank holds alike: the networks,
+        the temperature, the three Adams, ``obs_rms`` and the ring's
+        filled rows (``mesh.state_digest``)."""
+        yield from module_state("actor.", self.actor, self.actor_optim)
+        yield from module_state("critic.", self.critic, self.critic_optim)
+        yield from module_state("target.", self.target)
+        yield "log_alpha", self.log_alpha
+        for k, v in sorted(self.alpha_optim.state.get(self.log_alpha,
+                                                      {}).items()):
+            yield f"log_alpha.{k}", v
+        for k, v in self.obs_rms.state_dict().items():
+            yield f"obs_rms.{k}", v
+        fill = min(self.buf_n, self.replay_size)
+        for k, v in self.buffer.items():
+            yield f"buffer.{k}", v[:fill]
 
     def state_dict(self) -> dict:
         """Everything a resumed run needs: networks, optimisers, the
@@ -326,6 +411,7 @@ class SACAgent:
             "buf_n": self.buf_n, "step": self.step, "epoch": self.epoch,
             "mean_return": self.mean_return, "ep_return": self.ep_return,
             "generator": self.generator.get_state(),
+            "shared_generator": self.shared_generator.get_state(),
             "task_generator": self.task.generator.get_state(),
             "env_state": env_state_arrays(self.env_state),
             "last_obs": self.last_obs,
@@ -377,6 +463,8 @@ class SACAgent:
                 setattr(self, k, on(d[k]).to(DTYPE))
         if "generator" in d:
             self.generator.set_state(d["generator"].cpu())
+        if "shared_generator" in d:
+            self.shared_generator.set_state(d["shared_generator"].cpu())
         if "task_generator" in d:
             self.task.generator.set_state(d["task_generator"].cpu())
         if "env_state" in d:

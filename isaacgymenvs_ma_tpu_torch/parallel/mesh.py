@@ -3,37 +3,48 @@ isaacgymenvs_ma_tpu/parallel/mesh.py).
 
 The JAX package shards ONE jitted program over a device mesh with one
 ``env`` axis: the env state and rollout are split over the envs, the
-parameters, optimiser state and normalisers are replicated, and XLA
-inserts the reductions.  The port keeps those semantics with one process a
-rank (started by ``torchrun`` / ``python -m torch.distributed.run``):
+parameters, optimiser state, normalisers and replay buffers are
+replicated, and XLA inserts the reductions.  The port keeps those
+semantics with one process a rank (started by ``torchrun`` / ``python -m
+torch.distributed.run``):
 
-* ``numEnvs`` and ``minibatch_size`` are global.  Rank ``r`` of ``W``
-  steps envs ``[r N/W, (r+1) N/W)`` (:func:`local_task_config`; an MA
-  task's K agent rows of an env stay on its rank) and takes
-  ``minibatch_size / W`` of its rows a minibatch.  ``W`` must divide both.
+* ``numEnvs`` and the learners' batch sizes (PPO's ``minibatch_size``,
+  SAC's ``batch_size``, AMP's ``amp_batch_size``) are global.  Rank ``r``
+  of ``W`` steps envs ``[r N/W, (r+1) N/W)`` (:func:`local_task_config`;
+  an MA task's K agent rows of an env stay on its rank) and takes ``1/W``
+  of each batch.  ``W`` must divide them all (:func:`check_split`,
+  :func:`check_batch`).
 * Rank and world come from torchrun's ``RANK``, ``WORLD_SIZE``,
   ``LOCAL_RANK``, ``MASTER_ADDR`` and ``MASTER_PORT``; without them
   :func:`dist_env` raises.  The backend is ``nccl`` on CUDA and ``gloo``
   on the CPU unless the caller names one.
 * The env draws of rank ``r`` are seeded ``make_seed(seed, rank=r)``; the
   parameters (and any optimiser state) are broadcast from rank 0 at init
-  (:meth:`DataParallel.broadcast_agent`).
+  (:meth:`DataParallel.broadcast_agent`).  Draws that are global in JAX
+  (SAC's replay indices and its update's noise, AMP's demo and replay
+  draws) come from a generator seeded alike on every rank
+  (:func:`shared_seed`).
 * Reduced across ranks (:class:`DataParallel`): the gradients (one
   flattened all-reduce, divided by ``W``, before the global-norm clip),
   the advantage moments and the running normalisers' batch moments (global
   sums and counts, then the same Chan merge), the minibatch KL that drives
   the adaptive learning rate, and the epoch's metrics (finished episodes'
   return and length sums with their counts).
+* Global rows (:meth:`DataParallel.rows`, :meth:`DataParallel.pick`): SAC's
+  transitions of a step and AMP's discriminator batch are assembled on
+  every rank, so the replay rings stay replicated, as the JAX package's
+  are: each rank writes its rows into a zero-filled global tensor and one
+  all-reduce sums them (gloo carries only ``broadcast`` and
+  ``all_reduce`` for CUDA tensors).  Adding zeros is exact, except that
+  ``-0.0`` becomes ``+0.0``.
 * Checkpoints are global, as the JAX package's global arrays are: rank 0
-  gathers every rank's per-env leaves through host copies (gloo carries
-  only ``broadcast`` and ``all_reduce`` for CUDA tensors) and writes one
-  full-width checkpoint; a loading rank takes its slice
-  (:func:`slice_state`), so a checkpoint moves between world sizes.
+  gathers every rank's per-env leaves through host copies and writes one
+  full-width checkpoint (the replicated rings as they stand); a loading
+  rank takes its slice (:func:`slice_state`), so a checkpoint moves
+  between world sizes.
 
-PPO is covered, with its LSTM, central-value and multi-agent paths, and
-the HRL wrapper through PPO.  ``sac`` and ``amp_continuous`` with ``W >
-1`` raise (:func:`check_algo`): their replay buffers are global buffers
-under the JAX sharding (ROADMAP queue A, item 11).
+Every learner runs over ranks: PPO with its LSTM, central-value and
+multi-agent paths, the HRL wrapper through PPO, AMP and SAC.
 """
 from __future__ import annotations
 
@@ -54,8 +65,9 @@ TORCHRUN_VARS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 PER_ENV_KEYS = ("env_state", "last_obs", "last_states", "carry",
                 "ep_return", "ep_length")
 
-# learners whose W > 1 path is still to be ported
-UNSHARDED_ALGOS = ("sac", "amp_continuous")
+# a replicated generator's seed: rank 0's seed plus this offset, past any
+# rank's seed (seed + rank) and the AMP discriminator's (seed + 1)
+SHARED_SEED_OFFSET = 7919
 
 
 class DistEnv(NamedTuple):
@@ -92,12 +104,19 @@ def check_split(num_envs: int, minibatch_size: int, world: int) -> None:
             f"{world} ranks do not divide minibatch_size={minibatch_size}")
 
 
-def check_algo(algo: str, world: int) -> None:
-    if world > 1 and algo in UNSHARDED_ALGOS:
-        raise NotImplementedError(
-            f"{algo} over {world} ranks is not ported yet: its replay "
-            "buffer is a global buffer under the JAX sharding (ROADMAP "
-            "queue A, item 11)")
+def check_batch(name: str, size: int, world: int) -> None:
+    """Raise where ``world`` does not divide a learner's global batch
+    ``size`` (``name`` its config key)."""
+    if size % world:
+        raise ValueError(f"{world} ranks do not divide {name}={size}")
+
+
+def shared_seed(seed: int, dist=None) -> int:
+    """The seed of a generator that draws alike on every rank: rank 0's
+    ``seed`` plus :data:`SHARED_SEED_OFFSET` (broadcast with ``dist``)."""
+    if dist is not None:
+        seed = dist.broadcast_int(seed)
+    return seed + SHARED_SEED_OFFSET
 
 
 def local_task_config(task_cfg: dict, rank: int, world: int) -> dict:
@@ -117,9 +136,12 @@ def default_backend(device) -> str:
 
 
 class DataParallel:
-    """The reductions of one data-parallel PPO run over the default
-    process group.  ``time_allreduce`` records CUDA events around the
-    gradient all-reduce (``allreduce_ms``, ``allreduce_bytes``)."""
+    """The reductions of one data-parallel run over the default process
+    group.  On CUDA, CUDA events time the gradient all-reduces and the
+    global-row combines of the current epoch (:meth:`collect_timings`);
+    ``allreduce_bytes`` and ``combine_bytes`` sum their sizes.  A learner
+    calls :meth:`mark_epoch` as its epoch starts, which drops the last
+    epoch's, so a long run keeps one epoch's events."""
 
     def __init__(self, rank: int, world: int, device, backend: str):
         self.rank, self.world = rank, world
@@ -128,10 +150,10 @@ class DataParallel:
         # host-side collectives (checkpoint gathers) go over gloo
         self.host_group = (dist.new_group(backend="gloo")
                            if backend == "nccl" else None)
-        self.time_allreduce = self.device.type == "cuda"
-        self.allreduce_ms = []
+        self.timed = self.device.type == "cuda"
         self.allreduce_bytes = 0
-        self._events = []
+        self.combine_bytes = 0
+        self._events = {"allreduce": [], "combine": []}
 
     @classmethod
     def init(cls, device=None, backend: Optional[str] = None,
@@ -164,20 +186,32 @@ class DataParallel:
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         return self.sum(x) / self.world
 
+    def mark_epoch(self) -> None:
+        """Start an epoch: forget the last epoch's timings and sizes."""
+        self._events = {"allreduce": [], "combine": []}
+        self.allreduce_bytes = self.combine_bytes = 0
+
+    def _timed_all_reduce(self, x: torch.Tensor, kind: str) -> None:
+        nbytes = x.numel() * x.element_size()
+        if kind == "allreduce":
+            self.allreduce_bytes += nbytes
+        else:
+            self.combine_bytes += nbytes
+        if self.timed:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        dist.all_reduce(x)
+        if self.timed:
+            ev[1].record()
+            self._events[kind].append(ev)
+
     def allreduce_grads(self, params) -> None:
         """Average the gradients over the ranks: one flattened all-reduce
         of every gradient, divided by W, copied back."""
         grads = [p.grad for p in params if p.grad is not None]
         flat = torch.cat([g.reshape(-1) for g in grads])
-        if self.time_allreduce:
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            ev[0].record()
-        dist.all_reduce(flat)
-        if self.time_allreduce:
-            ev[1].record()
-            self._events.append(ev)
-        self.allreduce_bytes = flat.numel() * flat.element_size()
+        self._timed_all_reduce(flat, "allreduce")
         flat.div_(self.world)
         off = 0
         for g in grads:
@@ -185,25 +219,61 @@ class DataParallel:
             g.copy_(flat[off: off + n].view_as(g))
             off += n
 
-    def collect_timings(self) -> list:
-        """The all-reduce ms of the updates since the last call (waits for
-        the card)."""
-        if self._events:
-            torch.cuda.synchronize(self.device)
-            self.allreduce_ms.extend(a.elapsed_time(b)
-                                     for a, b in self._events)
-            self._events = []
-        out, self.allreduce_ms = self.allreduce_ms, []
+    def rows(self, local: torch.Tensor) -> torch.Tensor:
+        """The global ``(W n, ...)`` rows of every rank's ``(n, ...)``
+        ``local``, in rank order, on every rank: each rank writes its rows
+        into a zero-filled global tensor and one all-reduce sums them."""
+        n = local.shape[0]
+        out = local.new_zeros((self.world * n,) + tuple(local.shape[1:]))
+        out[self.rank * n: (self.rank + 1) * n] = local
+        self._timed_all_reduce(out, "combine")
         return out
+
+    def pick(self, local: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` of the global ``(T, W n, ...)`` tensor whose rank
+        ``r`` holds envs ``[r n, (r+1) n)`` as ``local`` ``(T, n, ...)``,
+        flattened as JAX flattens it (global row ``t W n + e``), on every
+        rank: each rank fills the picks it owns and one all-reduce sums
+        them (no host wait)."""
+        T, n = local.shape[:2]
+        flat = local.reshape((T * n,) + tuple(local.shape[2:]))
+        idx = idx.long()
+        t, e = idx // (n * self.world), idx % (n * self.world)
+        mine = (e // n) == self.rank
+        row = torch.clamp(t * n + e - self.rank * n, 0, T * n - 1)
+        got = flat[row]
+        out = torch.where(mine.reshape((-1,) + (1,) * (got.dim() - 1)),
+                          got, torch.zeros_like(got))
+        self._timed_all_reduce(out, "combine")
+        return out
+
+    def collect_timings(self, kind: str = "allreduce") -> list:
+        """The ms of the current epoch's ``kind`` (``allreduce`` or
+        ``combine``) collectives not yet collected (waits for the card)."""
+        if self._events[kind]:
+            torch.cuda.synchronize(self.device)
+        out = [a.elapsed_time(b) for a, b in self._events[kind]]
+        self._events[kind] = []
+        return out
+
+    def broadcast_int(self, value: int) -> int:
+        """Rank 0's ``value`` on every rank."""
+        t = torch.tensor([int(value)], dtype=torch.int64, device=self.device)
+        dist.broadcast(t, src=0)
+        return int(t.item())
+
+    def broadcast_tensors(self, tensors) -> None:
+        """Rank 0's values of ``tensors`` (in place) on every rank."""
+        for t in tensors:
+            dist.broadcast(t.data, src=0)
 
     def broadcast_agent(self, agent) -> None:
         """Rank 0's parameters, buffers and optimiser state on every rank."""
-        for t in list(agent.net.parameters()) + list(agent.net.buffers()):
-            dist.broadcast(t.data, src=0)
+        self.broadcast_tensors(list(agent.net.parameters())
+                               + list(agent.net.buffers()))
         for st in agent.optim.state.values():
-            for v in st.values():
-                if torch.is_tensor(v):
-                    dist.broadcast(v, src=0)
+            self.broadcast_tensors(v for v in st.values()
+                                   if torch.is_tensor(v))
 
     # ------------------------------------------------------------------
     def gather_state(self, sd: dict, num_envs: int, batch: int):
@@ -288,15 +358,26 @@ def slice_state(sd: dict, rank: int, world: int, num_envs: int,
     return out
 
 
-def state_digest(agent) -> str:
-    """sha256 of the agent's parameters and Adam state (host bytes, in
-    parameter order): equal digests mean bit-equal learners."""
-    h = hashlib.sha256()
-    for name, p in agent.net.named_parameters():
-        h.update(name.encode())
-        h.update(p.detach().cpu().contiguous().numpy().tobytes())
-        for k, v in sorted(agent.optim.state.get(p, {}).items()):
+def module_state(prefix: str, module, optim=None):
+    """(name, tensor) of ``module``'s parameters, each followed by its
+    ``optim`` state, in parameter order (the learners' replicated state
+    for :func:`state_digest`)."""
+    for name, p in module.named_parameters():
+        yield prefix + name, p
+        if optim is None:
+            continue
+        for k, v in sorted(optim.state.get(p, {}).items()):
             if torch.is_tensor(v):
-                h.update(k.encode())
-                h.update(v.detach().cpu().contiguous().numpy().tobytes())
+                yield f"{prefix}{name}.{k}", v
+
+
+def state_digest(agent) -> str:
+    """sha256 of the learner's replicated state (``agent.
+    replicated_state()``: parameters and Adam state, and where a learner
+    has them its normalisers and replay ring; host bytes in order): equal
+    digests mean bit-equal learners."""
+    h = hashlib.sha256()
+    for name, t in agent.replicated_state():
+        h.update(name.encode())
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()

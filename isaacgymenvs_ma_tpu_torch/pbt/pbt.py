@@ -11,6 +11,16 @@ itself from a better policy's checkpoint with mutated hyperparameters
 (os.execv, :123-177).  Faulty/dead members are tolerated via outlier-trimmed
 statistics and best-effort filesystem ops (:400-410; utils/utils.py:43-66).
 
+Two options of the port's own, off by default: ``pbt.seed`` seeds the
+``random`` module before each draw of mutations and donor, from the seed,
+the member and the frame count (the reference leaves it unseeded), and
+``pbt.sync_timeout`` makes a member wait, before each replacement check,
+up to that many seconds until every other member has published a
+checkpoint at its frame count or has finished (a ``finished`` file in its
+policy dir).  With both, a population's outcome does not depend on its
+processes' relative speed.  Metas are written whole and then renamed, so
+a member never reads half of one.
+
 Backend-agnostic: the shared-filesystem protocol is the same on any
 cluster; only rank 0 of each policy's process group participates.  The
 port's train entry point hands it save and restore functions over the
@@ -73,10 +83,19 @@ class PbtParams:
         self.change_max: float = float(p.get("change_max", 1.5))
         self.mutation: Dict[str, str] = p.get("mutation", DEFAULT_MUTATIONS)
         self.params: Dict[str, Any] = p.get("params", {})
+        self.seed: Optional[int] = (None if p.get("seed") is None
+                                    else int(p["seed"]))
+        self.sync_timeout: float = float(p.get("sync_timeout", 0.0))
 
     @property
     def policy_dir(self):
         return os.path.join(self.workspace, f"policy_{self.policy_idx:02d}")
+
+    def seed_draws(self, salt) -> None:
+        """With ``seed``, seed the ``random`` module for this member's
+        draws at ``salt``."""
+        if self.seed is not None:
+            random.seed(f"{self.seed}/{self.policy_idx}/{salt}")
 
 
 def initial_pbt_check(cfg: dict, argv: Optional[List[str]] = None):
@@ -92,6 +111,7 @@ def initial_pbt_check(cfg: dict, argv: Optional[List[str]] = None):
     mutable = dict(params.params)
     if not mutable:
         return
+    params.seed_draws("initial")
     mutated = mutate(mutable, params.mutation, 0.8, params.change_min,
                      params.change_max)
     overrides = [f"train.params.config.{k}={v}" for k, v in mutated.items()]
@@ -123,6 +143,16 @@ class PbtAlgoObserver:
         # training)
         self.first_frames: Optional[int] = None
         os.makedirs(self.p.policy_dir, exist_ok=True)
+        if os.path.exists(self._finished(self.p.policy_idx)):
+            os.remove(self._finished(self.p.policy_idx))
+
+    def _finished(self, idx: int) -> str:
+        return os.path.join(self.p.workspace, f"policy_{idx:02d}",
+                            "finished")
+
+    def finish(self):
+        """Mark this member's training as ended (``sync_timeout``)."""
+        _safe(lambda: open(self._finished(self.p.policy_idx), "w").close())
 
     # -- protocol ------------------------------------------------------
     def _save(self, frames: int, objective: float):
@@ -136,7 +166,28 @@ class PbtAlgoObserver:
                        for k in self.p.params},
             "checkpoint": ckpt,
         }
-        _safe(lambda: json.dump(meta, open(ckpt + ".json", "w")))
+        # written whole, then renamed: a reader never sees half a meta
+        def publish():
+            with open(ckpt + ".json.tmp", "w") as f:
+                json.dump(meta, f)
+            os.replace(ckpt + ".json.tmp", ckpt + ".json")
+        _safe(publish)
+
+    def _wait_for_population(self, frames: int):
+        """Up to ``sync_timeout`` s until every other member has published
+        a checkpoint at ``frames`` or beyond, or has finished."""
+        def reached(idx):
+            pdir = os.path.join(self.p.workspace, f"policy_{idx:02d}")
+            if os.path.exists(self._finished(idx)):
+                return True
+            return any(f.endswith(".ckpt.json") and int(f[:12]) >= frames
+                       for f in _safe(os.listdir, pdir, default=[]) or [])
+        deadline = time.monotonic() + self.p.sync_timeout
+        others = [i for i in range(self.p.num_policies)
+                  if i != self.p.policy_idx]
+        while not all(reached(i) for i in others) \
+                and time.monotonic() < deadline:
+            time.sleep(0.2)
 
     def _load_population(self, max_iteration: int) -> List[Optional[dict]]:
         """Newest meta <= our iteration per policy (reference :530-562)."""
@@ -172,6 +223,8 @@ class PbtAlgoObserver:
         if frames - self.first_frames < p.initial_delay:
             return
 
+        if p.sync_timeout > 0:
+            self._wait_for_population(frames)
         pop = self._load_population(frames)
         objectives = [(i, m["true_objective"]) for i, m in enumerate(pop)
                       if m is not None]
@@ -193,6 +246,7 @@ class PbtAlgoObserver:
             return
         best_cut = max(1, int(len(objectives) * p.replace_fraction_best))
         best_pool = objectives[-best_cut:]
+        p.seed_draws(frames)
         target_idx, target_obj = random.choice(best_pool)
         gap = target_obj - objective
         abs_thresh = p.replace_threshold_frac_absolute * max(abs(target_obj), 1e-6)

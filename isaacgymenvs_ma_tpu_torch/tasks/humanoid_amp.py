@@ -256,6 +256,14 @@ class HumanoidAMP(VecTaskBase):
         return obs, None, rew, reset, AMPTaskState(amp_obs_hist=hist), extras
 
     # -- demo fetch (humanoid_amp.py:105-134) ---------------------------
+    def demo_draws(self, num_samples: int, generator: torch.Generator):
+        """(motion ids, times) of ``num_samples`` demo pairs from
+        ``generator``, as ``fetch_amp_obs_demo(..., draws=)`` takes
+        them."""
+        ml = self.motion_lib
+        ids = ml.sample_motions(num_samples, generator)
+        return ids, ml.sample_time(ids, generator, truncate_t=self.policy_dt)
+
     def fetch_amp_obs_demo(self, num_samples: int, draws=None):
         """(num_samples, 210) demo observations, (s1, s0) concatenated;
         ``draws`` (ids, times) as ``MotionLib.sample_state_pairs`` takes

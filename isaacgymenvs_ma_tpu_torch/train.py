@@ -19,9 +19,9 @@ algos PPO.
 * ``multi_gpu=True``: one process a rank under torchrun (``python -m
   torch.distributed.run --nproc_per_node=W -m isaacgymenvs_ma_tpu_torch.
   train ... multi_gpu=True``), the envs split over the ranks as one
-  program sharded over the env axis (parallel/mesh.py); ``sim_device``
-  defaults to ``cuda:{LOCAL_RANK}`` there and ``dist_backend=nccl|gloo``
-  overrides the backend.  Rank 0 alone prints, writes the snapshot, the
+  program sharded over the env axis, for every learner
+  (parallel/mesh.py); ``sim_device`` defaults to ``cuda:{LOCAL_RANK}``
+  there and ``dist_backend=nccl|gloo`` overrides the backend.  Rank 0 alone prints, writes the snapshot, the
   summaries, the videos and the checkpoints.
 * The run directory ``runs/<experiment>_<time>/`` holds ``config.yaml``
   (the global, task and train configs), ``summaries/`` (TensorBoard event
@@ -131,8 +131,9 @@ def launch(argv=None):
     algo = train_cfg["params"]["algo"]["name"]
 
     # multi-process data parallelism (reference README:165-172,
-    # rlgames_utils.py:89-107): rank and world from torchrun; the split and
-    # the learner are checked before the process group is joined
+    # rlgames_utils.py:89-107): rank and world from torchrun; the split of
+    # the envs and the learner's batches is checked before the process
+    # group is joined
     dp, rank, world = None, 0, 1
     named_device = any(a.lstrip("+").split("=", 1)[0] == "sim_device"
                        for a in global_ov)
@@ -140,9 +141,16 @@ def launch(argv=None):
     if cfg.get("multi_gpu"):
         env = mesh.dist_env()
         rank, world = env.rank, env.world
-        mesh.check_algo(algo, world)
-        mesh.check_split(int(task_cfg["env"]["numEnvs"]), int(
-            train_cfg["params"]["config"].get("minibatch_size", 8192)), world)
+        c, n = train_cfg["params"]["config"], int(task_cfg["env"]["numEnvs"])
+        if algo == "sac":
+            mesh.check_batch("numEnvs", n, world)
+            mesh.check_batch("batch_size", int(c.get("batch_size", 4096)),
+                             world)
+        else:
+            mesh.check_split(n, int(c.get("minibatch_size", 8192)), world)
+        if algo == "amp_continuous":
+            mesh.check_batch("amp_batch_size",
+                             int(c.get("amp_batch_size", 512)), world)
         if not named_device:
             device = f"cuda:{env.local_rank}"
         dp = mesh.DataParallel.init(device=device,
@@ -168,11 +176,9 @@ def launch(argv=None):
                                 device=device)
     # a2c_continuous and a2c_continuous_MA share the core; MA episode
     # striding is driven by the env's num_agents (A2CAgent_MA.py:44-47)
-    if algo in ("amp_continuous", "sac"):
-        agent = {"amp_continuous": AMPAgent, "sac": SACAgent}[algo](
-            task, train_cfg, seed=seed)
-    else:
-        agent = PPOAgent(task, train_cfg, seed=seed, dist=dp)
+    learner = {"amp_continuous": AMPAgent, "sac": SACAgent}.get(algo,
+                                                                PPOAgent)
+    agent = learner(task, train_cfg, seed=seed, dist=dp)
 
     exp_name = resolve_default(
         train_cfg["params"]["config"].get("name", task_name),
@@ -276,6 +282,8 @@ def launch(argv=None):
     if ckpt.save_agent(ckpt_path, agent, task, dp,
                        meta={"epoch": max_epochs}):
         print(f"saved {ckpt_path}")
+    if pbt_observer is not None:
+        pbt_observer.finish()
     agent.run_dir = run_dir
     return agent
 

@@ -13,7 +13,7 @@ GPU.
                 FactoryTaskNutBoltScrew|FactoryTaskGears|
                 FactoryTaskInsertion|IndustRealTaskPegsInsert|
                 IndustRealTaskGearsInsert|HumanoidAMP|HumanoidAMPHands]
-        [--contact-kernel]
+        [--contact-kernel] [--normal-frames]
         [--envs N] [--steps 20] [--train] [--table PATH]
 
 Runs the port's step of the task (Ant by default, at its configuration's
@@ -21,7 +21,9 @@ env count unless ``--envs``; ``--contact-kernel`` routes the contact loop
 through kernel B4, except at the hands, whose mass splitting keeps them on
 the batched loop, as does Dextreme-ADR's restitution; the route printed is
 ``engine.route_for`` of the scales the task's first state hands the
-engine) with tanh(obs @ W) actions, as chip_smoke.py does, under
+engine; ``--normal-frames`` turns on the engine's terrain normal frames,
+as chip_smoke.py's ``[normal_frames]`` phase runs AnymalTerrain) with
+tanh(obs @ W) actions, as chip_smoke.py does, under
 torch.profiler after a warm-up, and prints: host wall time per step, device
 kernel time per step (the sum over CUDA kernels), the device busy share
 (kernel time / wall time), kernel launches per step, the top kernels by
@@ -117,6 +119,8 @@ def main():
                              "HumanoidAMPHands"))
     ap.add_argument("--contact-kernel", action="store_true",
                     help="run the contact loop through kernel B4")
+    ap.add_argument("--normal-frames", action="store_true",
+                    help="contact frames from the terrain's normals")
     ap.add_argument("--envs", type=int, default=None,
                     help="envs (default: the task configuration's)")
     ap.add_argument("--steps", type=int, default=20)
@@ -140,9 +144,11 @@ def main():
     cfg = deep_merge(task_cfg, {"env": {"numEnvs": args.envs
                                         or task_cfg["env"]["numEnvs"]}})
     params = parse_sim_params(cfg["sim"])._replace(
-        use_contact_kernel=args.contact_kernel)
+        use_contact_kernel=args.contact_kernel,
+        terrain_normal_frames=args.normal_frames)
     task = cls(cfg, device=dev, seed=1, sim_params=params)
     head = (f"task={args.task} contact_kernel={args.contact_kernel} "
+            f"normal_frames={args.normal_frames} "
             f"route={task.engine.route_for(task.initial_state().phys)} "
             f"envs={task.num_envs} agents={task.num_agents}")
     if args.train:

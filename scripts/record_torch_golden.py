@@ -130,11 +130,22 @@ discriminator phase's demo draws and replay and agent indices), the
 rollout with the combined rewards, GAE, the metrics and the state after
 (~2 min: two jits).
 
+``--factory-lift-eval`` records factory_lift_eval.npz: the JAX Factory
+lift evaluation (scripts/eval_factory_lift.py, its ``main`` as it stands)
+scoring an untrained policy (``random``, seed LIFT_EVAL_SEED) at 8 envs
+with the episode shortened to LIFT_EVAL_EPISODE steps: the policy's
+parameters and normalisers, the env state the episode starts from, each
+step's reset draws and reset flags, per env the final progress,
+coordinates, nut height and epilogue outcome, and the five numbers the
+script prints (~5 min: one Factory step and the epilogue compiled).
+
     JAX_PLATFORMS=cpu python scripts/record_torch_golden.py [--task NAME]
         [--kernel-route] [--phys-step] [--factory-engine] [--amp-epoch]
+        [--factory-lift-eval]
 """
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
@@ -1205,6 +1216,107 @@ def record_amp_epoch():
     print(out, os.path.getsize(out), "bytes")
 
 
+# factory_lift_eval.npz: the untrained policy's seed and the episode
+LIFT_EVAL_SEED, LIFT_EVAL_EPISODE = 5, 12
+
+
+def record_factory_lift_eval():
+    """factory_lift_eval.npz (see the module docstring): the JAX script's
+    main with its task made at 8 envs and a LIFT_EVAL_EPISODE-step
+    episode, and its task's reset, step and epilogue wrapped to record
+    what they take and give."""
+    import contextlib
+    import importlib.util
+    import io
+    import re
+    from isaacgymenvs_ma_tpu.learning.ppo import PPOAgent
+    spec = importlib.util.spec_from_file_location(
+        "eval_factory_lift", os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "eval_factory_lift.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    rec, steps = {}, {"reset": []}
+    create_task = script.registry.create_task
+
+    def make_task(name, cfg, seed=None):
+        task = create_task(name, deep_merge(cfg, {
+            "env": {"numEnvs": 8},
+            "rl": {"max_episode_length": LIFT_EVAL_EPISODE}}), seed=seed)
+        assert task.randomizer is None
+        reset, step, lift = task.reset, task.step, task.evaluate_lift
+
+        def recorded_reset(st):
+            rec.update({f"init_{k}": v for k, v in state_arrays(st).items()})
+            return reset(st)
+
+        def recorded_step(st, actions):
+            draws = factory_draws(jax.random.split(st.rng, 6)[1], task)
+            st, res = step(st, actions)
+            jax.debug.callback(lambda d, r: [
+                steps.setdefault(k, []).append(np.asarray(v))
+                for k, v in {**d, "reset": r}.items()], draws, res.reset,
+                ordered=True)
+            return st, res
+
+        def recorded_lift(st):
+            lifted = lift(st)
+            nut_z = task.engine.forward(st.sim).root_states[:, 2, 2]
+            jax.debug.callback(lambda *a: rec.update(zip(
+                ("progress", "q", "nut_z", "lifted"), map(np.asarray, a))),
+                st.progress, st.sim.q, nut_z, lifted, ordered=True)
+            return lifted
+        task.reset, task.step = recorded_reset, recorded_step
+        task.evaluate_lift = recorded_lift
+        return task
+
+    class RecordedAgent(PPOAgent):
+        def init(self, *args):
+            st = super().init(*args)
+            rec.update({**tree_arrays("params", st.params),
+                        **tree_arrays("adam", st.opt_state[1]),
+                        **tree_arrays("obs_rms", st.obs_rms._asdict()),
+                        **tree_arrays("value_rms", st.value_rms._asdict()),
+                        "lr": np.asarray(st.lr)})
+            return st
+
+    def train_config(name, overrides):
+        # no update runs: one minibatch of the 8 envs' rollout
+        cfg = load_train_config(name, overrides)
+        c = cfg["params"]["config"]
+        c["minibatch_size"] = 8 * int(c["horizon_length"])
+        return cfg
+    load_train_config = script.load_train_config
+    script.registry.create_task = make_task
+    script.PPOAgent = RecordedAgent
+    script.load_train_config = train_config
+    out = io.StringIO()
+    argv = sys.argv
+    sys.argv = ["eval_factory_lift.py", "random", str(LIFT_EVAL_SEED)]
+    try:
+        with contextlib.redirect_stdout(out):
+            script.main()
+    finally:
+        sys.argv = argv
+        script.registry.create_task = create_task
+    text = out.getvalue()
+    print(text)
+
+    def num(label):
+        return re.search(re.escape(label) + r"[^:]*: (\S+)", text).group(1)
+    rec.update({k: np.stack(v) for k, v in steps.items()})
+    rec.update(task=np.asarray("FactoryTaskNutBoltPick"),
+               rl_max_episode_length=np.int32(LIFT_EVAL_EPISODE),
+               seed=np.int32(LIFT_EVAL_SEED),
+               full_episode=np.int32(num("full-episode")),
+               early_resets=np.int32(num("early resets total")),
+               raw=np.asarray(num("raw lift success")),
+               lift=np.asarray(num("close-and-lift epilogue success")),
+               lift_all=np.asarray(num("epilogue success over ALL envs")))
+    path = os.path.join(DATA, "factory_lift_eval.npz")
+    np.savez_compressed(path, **rec)
+    print(path, os.path.getsize(path), "bytes")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="Ant", choices=sorted(TASKS))
@@ -1221,7 +1333,11 @@ def main():
                     help="record factory_engine.npz")
     ap.add_argument("--amp-epoch", action="store_true",
                     help="record amp_epoch.npz")
+    ap.add_argument("--factory-lift-eval", action="store_true",
+                    help="record factory_lift_eval.npz")
     args = ap.parse_args()
+    if args.factory_lift_eval:
+        return record_factory_lift_eval()
     if args.amp_epoch:
         return record_amp_epoch()
     if args.factory_engine:

@@ -351,18 +351,27 @@ def test_checkpoint_two_ranks_to_one_process_and_back(tmp_path):
                                                             8 * r + 8])
 
 
+def _sac_cfg(**config):
+    from isaacgymenvs_ma_tpu_torch.learning.configs import (
+        train_default_config as tdefault)
+    cfg = tdefault("AntSAC")
+    cfg["params"]["config"].update(config)
+    return cfg
+
+
 _TORCHRUN = {"RANK": "0", "WORLD_SIZE": "2", "LOCAL_RANK": "0",
              "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1"}
 
 
 @pytest.mark.parametrize("case", ["envs_not_divisible",
-                                  "minibatch_not_divisible", "sac", "amp",
-                                  "no_torchrun"])
+                                  "minibatch_not_divisible",
+                                  "sac_batch_not_divisible",
+                                  "amp_batch_not_divisible", "no_torchrun"])
 def test_refusals(case, tmp_path, monkeypatch):
     """These raise before any process group is joined: a world that does
-    not divide the envs or the minibatch, ``sac`` and ``amp_continuous``
-    over 2 ranks (ROADMAP queue A, item 11), and ``multi_gpu`` without
-    torchrun's variables (never one process instead)."""
+    not divide the envs, the minibatch, SAC's ``batch_size`` or AMP's
+    ``amp_batch_size`` (all global), and ``multi_gpu`` without torchrun's
+    variables (never one process instead)."""
     monkeypatch.chdir(tmp_path)
     for k, v in _TORCHRUN.items():
         if case == "no_torchrun":
@@ -390,12 +399,19 @@ def test_refusals(case, tmp_path, monkeypatch):
                         device="cpu")
         with pytest.raises(ValueError, match="minibatch_size"):
             PPOAgent(task, tcfg, dist=fake)
-    elif case in ("sac", "amp"):
-        train = "AntSAC" if case == "sac" else "HumanoidAMP"
-        task = "Ant" if case == "sac" else "HumanoidAMP"
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
-            ptrain.launch(args + [f"task={task}", f"train={train}",
-                                  "num_envs=8"])
+    elif case == "sac_batch_not_divisible":
+        with pytest.raises(ValueError, match="batch_size=255"):
+            ptrain.launch(args + ["task=Ant", "train=AntSAC", "num_envs=8",
+                                  "train.params.config.batch_size=255"])
+        from isaacgymenvs_ma_tpu_torch.learning.sac import SACAgent
+        from test_torch_dist_worker import ToyTask
+        with pytest.raises(ValueError, match="batch_size=63"):
+            SACAgent(ToyTask(0, 8), _sac_cfg(batch_size=63),
+                     dist=type("FakeDist", (), {"world": 2})())
+    elif case == "amp_batch_not_divisible":
+        with pytest.raises(ValueError, match="amp_batch_size=33"):
+            ptrain.launch(args + ["task=HumanoidAMP", "num_envs=8",
+                                  "train.params.config.amp_batch_size=33"])
     else:
         with pytest.raises(RuntimeError, match="torchrun"):
             ptrain.launch(args + ["task=Cartpole", "num_envs=64"])

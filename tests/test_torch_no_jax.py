@@ -30,7 +30,9 @@ an LSTM network and one of Trifinger with its central-value critic, one
 AMP epoch of HumanoidAMP, one SAC epoch of AntSAC across its seed steps
 and one step of the HRL wrapper over HumanoidAMP, run one rank worker
 (a world-1 gloo group: a data-parallel Cartpole epoch and its full-width
-checkpoint) and the glue modules (the event writer and reader, the YAML
+checkpoint, a data-parallel AntSAC epoch), the motion ingest tool on a
+shipped clip, the Factory lift evaluation (Pick at 4 envs, a 4-step
+episode) and the glue modules (the event writer and reader, the YAML
 emitter, a profiler trace, a rendered frame, a PBT save, a mutation, a
 poselib pose), then check that neither ``jax*`` nor ``isaacgymenvs_ma_tpu`` /
 ``isaacgymenvs_ma_tpu.*`` was loaded.
@@ -46,7 +48,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = textwrap.dedent("""
-    import importlib, pkgutil, sys
+    import importlib, os, pkgutil, sys
     import torch
     torch.set_num_threads(1)    # small CPU ops: one thread
     import isaacgymenvs_ma_tpu_torch as port
@@ -337,7 +339,29 @@ SCRIPT = textwrap.dedent("""
     assert torch.isfinite(dagent.train_epoch()["loss"])
     tmp = tempfile.mkdtemp()
     assert ckpt.save_agent(tmp + "/dp.pth", dagent, ctask, dp)
+    # the AntSAC learner of above over the same group: the global rows,
+    # the split update
+    dsac = SACAgent(sac.task, tcfg, seed=1, dist=dp)
+    dsac.init()
+    assert float(dsac.train_epoch()["critic_loss"]) > 0
+    assert mesh.state_digest(dsac) and dp.combine_bytes > 0
     torch.distributed.destroy_process_group()
+    # the motion tools and the Factory evaluation
+    import shutil
+    from isaacgymenvs_ma_tpu_torch import eval_factory_lift
+    from isaacgymenvs_ma_tpu_torch.poselib import (ingest_motions,
+                                                   retarget_motion)
+    clips = tmp + "/clips"
+    os.makedirs(clips)
+    shutil.copy(os.path.join(os.path.dirname(port.__file__), "data",
+                             "motions", "amp_humanoid_run.npy"), clips)
+    assert ingest_motions.main(["--src", clips, "--dst",
+                                tmp + "/motions"]) == 0
+    assert callable(retarget_motion.main)
+    r = eval_factory_lift.main(["random", "3", "sim_device=cpu",
+                                "num_envs=4",
+                                "task.rl.max_episode_length=4"])
+    assert r["envs"] == 4 and 0.0 <= r["lift"] <= 1.0
     from isaacgymenvs_ma_tpu_torch.utils import observers, profiling, viewer
     from isaacgymenvs_ma_tpu_torch.utils.config import dump_yaml
     from isaacgymenvs_ma_tpu_torch.pbt import PbtAlgoObserver, mutate
@@ -387,9 +411,9 @@ def test_port_imports_and_steps_without_jax():
     # the voxelizer, the meshes, the grid sampler and the controllers, and
     # HumanoidAMP with its spec and motion library, AMP, SAC and HRL too,
     # and the data parallelism, PBT, poselib, observers, profiling and
-    # viewer modules
+    # viewer modules, the motion tools and the Factory evaluation
     n_mods = int(proc.stdout.split("MODULES")[1].split()[0])
-    assert n_mods >= 94, proc.stdout
+    assert n_mods >= 97, proc.stdout
 
 
 # the port's copies of numpy / plain-Python modules of the JAX package, and
@@ -397,6 +421,10 @@ def test_port_imports_and_steps_without_jax():
 # the original's, docstrings aside)
 _COPIES = {
     "pbt.mutation": (), "pbt.pbt": ("initial_pbt_check",
+                                    "PbtParams.__init__",
+                                    "PbtAlgoObserver.__init__",
+                                    "PbtAlgoObserver._save",
+                                    "PbtAlgoObserver.after_steps",
                                     "PbtAlgoObserver._restart"),
     "pbt.launcher": ("pbt_population",),
     "poselib.rotation": (), "poselib.skeleton": (),
@@ -436,8 +464,9 @@ def _defs(tree):
 def test_copies_hold_to_their_originals(mod):
     """Every function and method of the JAX module is in the port's copy,
     with the same code unless the copy changes it on purpose (the PBT
-    restart into the port's train module, the viewer's poses read from
-    the card, the hand-written event writer, torch.profiler)."""
+    restart into the port's train module, PBT's seeded draws, its wait
+    for the population and its metas written whole, the viewer's poses
+    read from the card, the hand-written event writer, torch.profiler)."""
     import ast
     src = {p: open(os.path.join(REPO, p, *mod.split(".")) + ".py").read()
            for p in ("isaacgymenvs_ma_tpu", "isaacgymenvs_ma_tpu_torch")}

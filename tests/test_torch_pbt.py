@@ -183,7 +183,16 @@ def test_three_process_population_exchange(tmp_path):
     member 0 is replaced only by a donor at least four times as good:
     where any gap replaces the worst, whoever is worst after each restart
     is replaced again (a restart runs ``max_iterations`` epochs anew, as in
-    the JAX entry point), and a member restarted without end here."""
+    the JAX entry point), and a member restarted without end here.
+
+    The run's outcome is fixed, whatever the processes' relative speed
+    under load: ``pbt.seed`` seeds every member's mutations, and member 0
+    waits at each replacement check (``pbt.sync_timeout``) until members
+    1 and 2 have published a checkpoint at its frame count or finished,
+    so each check reads the same donor checkpoints.  Without the wait, the
+    load decided which donor checkpoints member 0 saw (none yet, a few
+    early ones, or all), hence whether, from which checkpoint and how
+    often it was replaced within its 240 s."""
     ws = str(tmp_path / "ws")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("XLA_FLAGS", "JAX_", "PBT_"))}
@@ -206,7 +215,8 @@ def test_three_process_population_exchange(tmp_path):
                 "pbt.initial_delay=5120",
                 "pbt.replace_fraction_worst=0.34",
                 "pbt.replace_fraction_best=0.34",
-                "pbt.replace_threshold_frac_std=0.0",
+                "pbt.replace_threshold_frac_std=0.0", "pbt.seed=7",
+                "pbt.sync_timeout=" + ("150" if idx == 0 else "0"),
                 "pbt.replace_threshold_frac_absolute="
                 + ("0.75" if idx == 0 else "1e9"),
                 "pbt.params.learning_rate=" + ("1e-7" if idx == 0

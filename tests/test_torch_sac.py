@@ -1,7 +1,8 @@
 """The port's SAC learner (isaacgymenvs_ma_tpu_torch/learning/sac.py)
-against the JAX package's, on a toy point-mass task defined here in both
-packages (16 envs, obs 4, act 2, episodes of 3-6 steps, every other env's
-end a time-out), so the learner's paths compile in seconds.
+against the JAX package's, on a toy point-mass task (16 envs, obs 4, act
+2, episodes of 3-6 steps, every other env's end a time-out; the JAX one
+defined here, the port's in tests/test_torch_dist_worker.py), so the
+learner's paths compile in seconds.
 
 * ``_sample_action`` and the two networks on converted parameters;
 * one ``_update`` from a JAX state with a seeded replay, on the JAX key's
@@ -39,14 +40,16 @@ from isaacgymenvs_ma_tpu.tasks.base import StepResult as JStepResult
 from isaacgymenvs_ma_tpu_torch.convert import (params_from_jax,
                                                sac_state_from_jax)
 from isaacgymenvs_ma_tpu_torch.learning import sac as psac
-from isaacgymenvs_ma_tpu_torch.tasks.base import StepResult
+
+from test_torch_dist_worker import ToyTask as PToy
+from test_torch_dist_worker import (TOY_ACT, TOY_ENVS, TOY_EP_LEN, TOY_OBS,
+                                    TOY_TARGETS, TOY_TIMEOUT)
 
 torch.set_num_threads(1)   # small CPU ops: one thread a test worker
 
-B, OBS, ACT = 16, 4, 2
-TARGETS = np.random.default_rng(0).normal(size=(B, 2)).astype(np.float32)
-EP_LEN = 3 + np.arange(B) % 4            # 3-6 steps
-TIMEOUT = np.arange(B) % 2 == 0
+# the toy task's sizes and tables (the port's ToyTask holds the same)
+B, OBS, ACT = TOY_ENVS, TOY_OBS, TOY_ACT
+TARGETS, EP_LEN, TIMEOUT = TOY_TARGETS, TOY_EP_LEN, TOY_TIMEOUT  # 3-6 steps
 
 
 class _Surface:
@@ -79,30 +82,6 @@ class JToy(_Surface):
         return st, JStepResult(obs=obs, states=None, rew=rew,
                                reset=done.astype(jnp.int32),
                                extras={"time_outs": done & TIMEOUT})
-
-
-class PToy(_Surface):
-    device = torch.device("cpu")
-    generator = torch.Generator()
-
-    def initial_state(self):
-        return (torch.zeros((B, 2)), torch.zeros(B, dtype=torch.int32))
-
-    def reset(self, st):
-        return st, torch.zeros((B, OBS))
-
-    def step(self, st, act, reset_draws=None):
-        pos, t = st
-        pos, t = pos + 0.1 * act, t + 1
-        tgt = torch.as_tensor(TARGETS)
-        obs = torch.cat([pos, tgt - pos], -1)
-        rew = -torch.linalg.vector_norm(tgt - pos, dim=-1)
-        done = t >= torch.as_tensor(EP_LEN)
-        st = (torch.where(done[:, None], 0.0, pos), torch.where(done, 0, t))
-        return st, StepResult(obs=obs, states=None, rew=rew,
-                              reset=done.to(torch.int32),
-                              extras={"time_outs": done & torch.as_tensor(
-                                  TIMEOUT)})
 
 
 def _cfg():
